@@ -1,0 +1,55 @@
+"""Config schema: every architecture is a ModelConfig.
+
+A copy of the reference package's schema, cut to the fields the port's
+slice reads (the attention family, tied embeddings, no logit softcap).
+Plain dataclasses: no torch, no JAX.
+"""
+from __future__ import annotations
+
+import dataclasses
+from dataclasses import dataclass
+from typing import Optional
+
+
+@dataclass(frozen=True)
+class MoEConfig:
+    """Mixture-of-Experts layer configuration."""
+
+    num_experts: int
+    top_k: int
+    d_expert: int                     # hidden width of each expert FFN
+    routing: str = "token_choice"     # "token_choice" | "expert_choice"
+    group_size: int = 1               # experts per multiplexed lane (C1)
+    grouping: str = "sorted"          # "uniform" | "sorted" (C2)
+    # "auto" and "pallas" both run the grouped-GEMM decomposition: the
+    # hand-written kernels on a CUDA tensor, their plain versions on a CPU
+    # tensor. "xla" (the masked-einsum realization) is not ported yet.
+    backend: str = "auto"             # "auto" | "xla" | "pallas"
+    go_cache: bool = True             # gate-output cache for EC decode
+
+
+@dataclass(frozen=True)
+class ModelConfig:
+    """A single architecture."""
+
+    name: str
+    family: str
+    num_layers: int
+    d_model: int
+    num_heads: int
+    num_kv_heads: int
+    d_ff: int
+    vocab_size: int
+    head_dim: int = 0                 # 0 -> d_model // num_heads
+    block: str = "attn"
+    moe: Optional[MoEConfig] = None
+    rope_theta: float = 10000.0
+    sliding_window: int = 0           # >0: every layer attends locally
+    dtype: str = "bfloat16"
+    norm_eps: float = 1e-6
+
+    def resolved_head_dim(self) -> int:
+        return self.head_dim or self.d_model // self.num_heads
+
+    def with_overrides(self, **kw) -> "ModelConfig":
+        return dataclasses.replace(self, **kw)

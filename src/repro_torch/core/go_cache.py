@@ -1,0 +1,94 @@
+"""C4 — the gate-output (GO) cache for expert-choice decoding (paper §III.C,
+eq. 4-5). Counterpart of repro/core/go_cache.py.
+
+  scores    [B, E, k]      cached top-k gate affinities per expert
+  token_ids [B, E, k]      which absolute token each slot holds
+  outputs   [B, E, k, d]   cached weighted expert outputs G[t,e] * E_e(x_t)
+
+Each decode step runs one gate row, a TopKUpdate against the cached minima,
+and expert FFNs only for the experts that selected the incoming token.
+Unlike the JAX version, `go_cache_step` writes the updated entries into the
+cache's tensors IN PLACE (they are views of the decode state's per-layer
+buffers), where JAX carries a new cache through its layer scan.
+"""
+from __future__ import annotations
+
+from typing import NamedTuple
+
+import torch
+
+from repro_torch.core.routing import stable_topk, topk_update
+
+
+class GOCache(NamedTuple):
+    scores: torch.Tensor      # [..., B, E, k] fp32
+    token_ids: torch.Tensor   # [..., B, E, k] int32
+    outputs: torch.Tensor     # [..., B, E, k, d] (cfg dtype)
+
+
+def go_cache_init(batch: int, num_experts: int, k: int, d: int, dtype,
+                  device, lead: tuple = ()) -> GOCache:
+    """Empty cache (scores -inf, ids -1, outputs 0); `lead` prepends axes
+    (the decode state's layer axis)."""
+    shp = (*lead, batch, num_experts, k)
+    return GOCache(
+        scores=torch.full(shp, float("-inf"), dtype=torch.float32,
+                          device=device),
+        token_ids=torch.full(shp, -1, dtype=torch.int32, device=device),
+        outputs=torch.zeros((*shp, d), dtype=dtype, device=device),
+    )
+
+
+def go_cache_prefill(scores, token_ids, expert_outputs: torch.Tensor,
+                     chosen_tokens: torch.Tensor, chosen_scores: torch.Tensor,
+                     k: int) -> GOCache:
+    """Build the cache from a prefill pass: per expert, the k best of its C
+    chosen tokens. expert_outputs [B, E, C, d]; chosen_* [B, E, C]. When
+    C < k the spare slots stay empty (-inf / -1 / 0). `scores` and
+    `token_ids` are unused, as in the reference signature."""
+    del scores, token_ids
+    C = chosen_scores.shape[-1]
+    if C < k:
+        pad = k - C
+        chosen_scores = torch.nn.functional.pad(
+            chosen_scores, (0, pad), value=float("-inf"))
+        chosen_tokens = torch.nn.functional.pad(chosen_tokens, (0, pad),
+                                                value=-1)
+        expert_outputs = torch.nn.functional.pad(expert_outputs,
+                                                 (0, 0, 0, pad))
+    top_s, top_slot = stable_topk(chosen_scores, k)               # [B, E, k]
+    tok = torch.gather(chosen_tokens, -1, top_slot)
+    out = torch.gather(
+        expert_outputs, 2,
+        top_slot[..., None].expand(*top_slot.shape, expert_outputs.shape[-1]))
+    return GOCache(top_s.float(), tok.to(torch.int32), out)
+
+
+class GOStepResult(NamedTuple):
+    y: torch.Tensor             # [B, d] MoE output for the incoming token
+    cache: GOCache              # the same tensors, updated in place
+    selected: torch.Tensor      # [B, E] bool — which experts took the token
+
+
+def go_cache_step(cache: GOCache, x_t: torch.Tensor, token_id,
+                  gate_w: torch.Tensor, *, contrib_fn) -> GOStepResult:
+    """One expert-choice decode step through the GO cache (eq. 4).
+
+    x_t [B, d]; token_id an int (static batch) or [B]. `contrib_fn(x, sel,
+    g)` returns the fp32 weighted contributions [B, E, d] of the SELECTED
+    pairs, zero elsewhere (kernels/ops.py:go_selected_ffn). The cache's
+    tensors are updated in place."""
+    s_raw = x_t.float() @ gate_w.float()                           # [B, E]
+    g = torch.softmax(s_raw, dim=-1)
+    upd = topk_update(cache.scores, cache.token_ids, g, token_id)
+    selected = upd.selected                                        # [B, E]
+    contrib = contrib_fn(x_t, selected, g)                         # [B, E, d]
+    y = contrib.sum(dim=1)
+    k = cache.scores.shape[-1]
+    onehot = upd.slot[..., None] == torch.arange(k, device=x_t.device)
+    write = (selected[..., None] & onehot)[..., None]              # [B,E,k,1]
+    cache.outputs.copy_(torch.where(
+        write, contrib[:, :, None, :].to(cache.outputs.dtype), cache.outputs))
+    cache.scores.copy_(upd.new_scores)
+    cache.token_ids.copy_(upd.new_token_ids)
+    return GOStepResult(y.to(x_t.dtype), cache, selected)

@@ -1,0 +1,177 @@
+"""Grouped expert GEMMs (K1 `gmm_swiglu`, K2 `gmm_scaled`): wrappers, plain
+versions and launch counters.
+
+Rows arrive packed by expert in row tiles of `bn` rows; tile t uses expert
+`tile_expert[t]`, and a tile with `tile_valid[t] == 0` contributes zeros.
+
+  gmm_swiglu(x, wg, wi, te, tv)      h[i] = silu(x[i] @ wg[e]) * (x[i] @ wi[e])
+  gmm_scaled(x, w, te, tv, scale)    y[i] = (x[i] @ w[e]) * scale[i]   (fp32)
+
+Each wrapper dispatches on where its tensors lie: on the CPU it runs the plain
+PyTorch version; on a CUDA device it launches the hand-written kernel of
+`csrc/moe_gmm.cu` or raises. There is no fallback from one to the other.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+import torch.nn.functional as F
+
+from repro_torch.kernels import build
+
+KERNEL_BLOCK_ROWS = 64          # the CUDA kernels' row tile (csrc BM)
+
+# Launch counts, one per wrapper: raised by one at each kernel launch and
+# nowhere else (the plain versions do not count).
+LAUNCHES = {"gmm_swiglu": 0, "gmm_scaled": 0}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _row_tiles(N: int, bn: int, tile_expert: torch.Tensor,
+               tile_valid: torch.Tensor | None):
+    """Validate the (tile_expert, tile_valid) map against ceil(N/bn) row
+    tiles. A short map was built with another bn; extending it would zero
+    real rows, so it raises. A longer map is fine (its tail is unused)."""
+    ni = -(-N // bn)
+    if tile_expert.shape[0] < ni:
+        raise ValueError(
+            f"tile_expert covers {tile_expert.shape[0]} tiles but x has "
+            f"{N} rows at bn={bn} ({ni} tiles) — tile map built with a "
+            "different bn, or rows not padded to the tile boundary?")
+    te = tile_expert[:ni].to(torch.int32)
+    tv = (torch.ones_like(te) if tile_valid is None
+          else tile_valid[:ni].to(torch.int32))
+    return ni, te, tv
+
+
+# ------------------------------------------------------------ plain versions
+
+def _tiled(x: torch.Tensor, ni: int, bn: int) -> torch.Tensor:
+    """x [N, K] -> fp32 [ni, bn, K], zero rows past N."""
+    xp = F.pad(x.float(), (0, 0, 0, ni * bn - x.shape[0]))
+    return xp.reshape(ni, bn, x.shape[1])
+
+
+def gmm_swiglu_plain(x, wg, wi, te, tv, bn: int) -> torch.Tensor:
+    """Reference arithmetic of K1 (repro/kernels/ref.py:gmm_swiglu_ref plus
+    the zero rows of invalid tiles): fp32 products, output in x.dtype."""
+    N = x.shape[0]
+    ni = te.shape[0]
+    xt = _tiled(x, ni, bn)
+    g = torch.bmm(xt, wg[te.long()].float())
+    u = torch.bmm(xt, wi[te.long()].float())
+    h = torch.where(tv.bool()[:, None, None], F.silu(g) * u, 0.0)
+    return h.reshape(ni * bn, -1)[:N].to(x.dtype)
+
+
+def gmm_scaled_plain(x, w, te, tv, row_scale, bn: int) -> torch.Tensor:
+    """Reference arithmetic of K2 (ref.py:gmm_scaled_ref plus invalid-tile
+    zeros): the fp32 product times the fp32 row scale."""
+    N = x.shape[0]
+    ni = te.shape[0]
+    y = torch.bmm(_tiled(x, ni, bn), w[te.long()].float())
+    y = y.reshape(ni * bn, -1)[:N] * row_scale.reshape(N, 1).float()
+    valid_rows = tv.bool().repeat_interleave(bn)[:N]
+    return torch.where(valid_rows[:, None], y, 0.0)
+
+
+# ------------------------------------------------------------------ wrappers
+
+_KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def _check_cuda(name: str, bn: int, x: torch.Tensor, *tensors) -> str:
+    """Validate the kernel's operands; return its dtype suffix."""
+    if bn != KERNEL_BLOCK_ROWS:
+        raise ValueError(f"{name}: the CUDA kernel tiles {KERNEL_BLOCK_ROWS} "
+                         f"rows, got bn={bn}")
+    suffix = _KERNEL_DTYPES.get(x.dtype)
+    if suffix is None:
+        raise TypeError(f"{name}: no kernel for dtype {x.dtype}")
+    for t in (x, *tensors):
+        if t.device != x.device:
+            raise ValueError(f"{name}: operands on {t.device} and {x.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    return suffix
+
+
+def _lib():
+    lib = build.load("moe_gmm")
+    if not getattr(lib, "_typed", False):
+        P, I = ctypes.c_void_p, ctypes.c_int
+        for dt in _KERNEL_DTYPES.values():
+            f = getattr(lib, f"gmm_swiglu_{dt}")
+            f.argtypes = [P, P, P, P, P, P, I, I, I, I, P]
+            f.restype = I
+            f = getattr(lib, f"gmm_scaled_{dt}")
+            f.argtypes = [P, P, P, P, P, P, I, I, I, I, P]
+            f.restype = I
+        lib._typed = True
+    return lib
+
+
+def _where(x: torch.Tensor) -> str:
+    if x.device.type == "cpu":
+        return "cpu"
+    if x.device.type == "cuda":
+        return "cuda"
+    raise ValueError(f"no grouped-GEMM path for device {x.device}")
+
+
+def gmm_swiglu(x: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
+               tile_expert: torch.Tensor,
+               tile_valid: torch.Tensor | None = None, *,
+               bn: int) -> torch.Tensor:
+    """K1. x [N, K], wg/wi [E, K, F] -> [N, F] in x.dtype."""
+    N, K = x.shape
+    E, K2, Fd = wg.shape
+    if K2 != K or wi.shape != wg.shape:
+        raise ValueError(f"gmm_swiglu: x {tuple(x.shape)}, wg "
+                         f"{tuple(wg.shape)}, wi {tuple(wi.shape)}")
+    ni, te, tv = _row_tiles(N, bn, tile_expert, tile_valid)
+    if _where(x) == "cpu":
+        return gmm_swiglu_plain(x, wg, wi, te, tv, bn)
+    dt = _check_cuda("gmm_swiglu", bn, x, wg, wi, te, tv)
+    if wg.dtype != x.dtype or wi.dtype != x.dtype:
+        raise TypeError("gmm_swiglu: x, wg and wi must share a dtype")
+    out = torch.empty((N, Fd), dtype=x.dtype, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = getattr(_lib(), f"gmm_swiglu_{dt}")(
+        x.data_ptr(), wg.data_ptr(), wi.data_ptr(), te.data_ptr(),
+        tv.data_ptr(), out.data_ptr(), N, K, Fd, bn, stream)
+    build.check(rc, "gmm_swiglu")
+    LAUNCHES["gmm_swiglu"] += 1
+    return out
+
+
+def gmm_scaled(x: torch.Tensor, w: torch.Tensor, tile_expert: torch.Tensor,
+               tile_valid: torch.Tensor | None, row_scale: torch.Tensor, *,
+               bn: int) -> torch.Tensor:
+    """K2. x [N, K], w [E, K, F], row_scale [N, 1] -> fp32 [N, F]."""
+    N, K = x.shape
+    E, K2, Fd = w.shape
+    if K2 != K or row_scale.numel() != N:
+        raise ValueError(f"gmm_scaled: x {tuple(x.shape)}, w "
+                         f"{tuple(w.shape)}, row_scale "
+                         f"{tuple(row_scale.shape)}")
+    ni, te, tv = _row_tiles(N, bn, tile_expert, tile_valid)
+    if _where(x) == "cpu":
+        return gmm_scaled_plain(x, w, te, tv, row_scale, bn)
+    scale = row_scale.reshape(N).to(torch.float32)
+    dt = _check_cuda("gmm_scaled", bn, x, w, te, tv, scale)
+    if w.dtype != x.dtype:
+        raise TypeError("gmm_scaled: x and w must share a dtype")
+    out = torch.empty((N, Fd), dtype=torch.float32, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = getattr(_lib(), f"gmm_scaled_{dt}")(
+        x.data_ptr(), w.data_ptr(), te.data_ptr(), tv.data_ptr(),
+        scale.data_ptr(), out.data_ptr(), N, K, Fd, bn, stream)
+    build.check(rc, "gmm_scaled")
+    LAUNCHES["gmm_scaled"] += 1
+    return out
