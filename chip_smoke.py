@@ -7,16 +7,26 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
 Phases (none catches an exception; any failure exits non-zero):
   0. the card's name and power limit; build the CUDA kernels from
-     src/repro_torch/kernels/csrc/ (timed).
+     src/repro_torch/kernels/csrc/ (timed, one nvcc per source in parallel).
   1. K1 gmm_swiglu and K2 gmm_scaled against their plain PyTorch versions:
      fp32 at small ragged shapes with invalid tiles, then bf16 at the main
      path's full-width shapes (prefill from a real expert-choice tile plan,
      decode on the [16*bn, 4096] selected-pair layout), with median times
      of kernel, plain version and one library call (`library_ms`).
-  2. the slice end to end at smoke size: the same fp32 weights through
-     generate() on the CPU (plain versions) and on the card (kernels).
-  3. full width: llama_moe_4_16 in bf16, 4 requests x 128 prompt tokens,
-     16 new tokens, with the kernels' launch counts from that run.
+  2. K3 paged_attn_decode and K4 paged_attn_chunk against their plain
+     versions: fp32 at small shapes (GQA 1/2/4, window, softcap, null and
+     reused pages, ragged positions and kv_len), then bf16 at the engine
+     run's full-width shapes with kernel, plain and library times.
+  3. the slice end to end at smoke size, fp32, the same weights on the CPU
+     (plain versions) and on the card (kernels): static generate(), then
+     the continuous-batching engine on a paged pool with chunked prefill.
+  4. full width, llama_moe_4_16 in bf16 (one set of weights):
+     a. static generate(): 4 requests x 128 prompt tokens, 16 new tokens,
+        with its profile;
+     b. the continuous-batching engine on a paged pool (4 slots, pages of
+        16, 97 pages, chunks of 128): 8 staggered requests, 32 new tokens
+        each, with its profile of one decode tick and one chunk tick.
+     Each path runs with the launch counts set to 0 just before it.
 Then one JSON line with every kernel's numbers, the card line again, and
 the final {"ok": true, ...} line.
 """
@@ -32,6 +42,14 @@ ROOT = os.path.dirname(os.path.abspath(__file__))
 # H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 FLOP/s
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
+
+# Paged attention, kernel vs plain version. fp32: an online softmax page by
+# page against a one-shot softmax (the reference's own kernel-vs-gather
+# tolerance). bf16: the plain chunk path rounds q * scale to bf16 before
+# the product (as sdpa_chunked does), the kernel scales the fp32 product;
+# 2e-2 covers a few bf16 ulps at |out| ~ 1.
+PAGED_TOL_F32 = 2e-5
+PAGED_TOL_BF16 = 2e-2
 
 # Smoke logits, card vs CPU, both fp32. A sound run differs by ~4e-7 (sums
 # in other orders, float atomics); a faulty kernel moves them by ~9e-4 (K2's
@@ -210,6 +228,172 @@ def kernel_phase_full(torch, G, OPS):
     return out
 
 
+def _pools(torch, g, B, P, ps, nkv, hd, dtype, live, reuse_from=None):
+    """Random pages and block tables on the card: row b owns the pages
+    covering its first live[b] positions, at shuffled physical ids; the
+    rest of its row is the null page 0. `reuse_from` hands the rows the
+    pages another table used (a freed-then-reused pool: stale contents)."""
+    NP = B * P + 1
+    kp = torch.randn(NP, ps, nkv, hd, device="cuda", generator=g).to(dtype)
+    vp = torch.randn(NP, ps, nkv, hd, device="cuda", generator=g).to(dtype)
+    ids = (reuse_from[reuse_from > 0].flip(0) if reuse_from is not None
+           else torch.randperm(NP - 1, device="cuda", generator=g) + 1)
+    bt = torch.zeros(B, P, dtype=torch.int32, device="cuda")
+    n = 0
+    for b in range(B):
+        k = -(-int(live[b]) // ps)
+        bt[b, :k] = ids[n:n + k]
+        n += k
+    return kp, vp, bt
+
+
+def paged_phase_small(torch, PA):
+    """K3 and K4 in fp32 at small shapes against their plain versions:
+    GQA ratios 4/2/1, window and softcap, ragged positions around page
+    boundaries, null pages behind short rows, a pool whose pages were
+    reused, and poisoned unreachable positions (no output bit may move)."""
+    g = torch.Generator(device="cuda").manual_seed(3)
+    ps, P, hq, hd = 8, 6, 4, 64
+    t = torch.tensor([0, 1, 7, 8, 9, 15, 24, 47], dtype=torch.int32,
+                     device="cuda")
+    worst = {"paged_attn_decode": 0.0, "paged_attn_chunk": 0.0}
+    for nkv in (1, 2, 4):
+        for window, softcap in ((0, 0.0), (5, 0.0), (0, 4.0)):
+            kp, vp, bt = _pools(torch, g, len(t), P, ps, nkv, hd,
+                                torch.float32, (t + 1).tolist())
+            kp2, vp2, bt2 = _pools(torch, g, len(t), P, ps, nkv, hd,
+                                   torch.float32, (t + 1).tolist(),
+                                   reuse_from=bt.flatten())
+            q = torch.randn(len(t), hq, hd, device="cuda", generator=g)
+            qc = torch.randn(len(t), 16, hq, hd, device="cuda", generator=g)
+            for pools in ((kp, vp, bt), (kp2, vp2, bt2)):
+                out = PA.paged_attn_decode(q, *pools, t, window=window,
+                                           softcap=softcap)
+                ref = PA.paged_attn_decode_plain(q, *pools, t, window=window,
+                                                 softcap=softcap)
+                worst["paged_attn_decode"] = max(
+                    worst["paged_attn_decode"],
+                    (out - ref).abs().max().item())
+                for start, kv_len in ((0, 11), (16, 29), (32, 48)):
+                    out = PA.paged_attn_chunk(qc, *pools, start, kv_len,
+                                              window=window, softcap=softcap)
+                    ref = PA.paged_attn_chunk_plain(
+                        qc, *pools, start, kv_len, window=window,
+                        softcap=softcap)
+                    # pad queries (q_pos >= kv_len) are discarded by the
+                    # caller; with a window one may see no key at all, and
+                    # then each version returns its own garbage
+                    n = kv_len - start
+                    worst["paged_attn_chunk"] = max(
+                        worst["paged_attn_chunk"],
+                        (out[:, :n] - ref[:, :n]).abs().max().item())
+    torch.cuda.synchronize()
+    for name, err in worst.items():
+        need(err <= PAGED_TOL_F32, f"{name} fp32 err {err}")
+    # poison: every position no row may read holds +-1e4
+    kp, vp, bt = _pools(torch, g, len(t), P, ps, 2, hd, torch.float32,
+                        (t + 1).tolist())
+    pos = torch.arange(P * ps, device="cuda")
+    readable = torch.zeros(kp.shape[:2], dtype=torch.bool, device="cuda")
+    for b in range(len(t)):
+        p = pos[:int(t[b]) + 1]
+        readable[bt[b, p // ps].long(), p % ps] = True
+    sel = readable[:, :, None, None]
+    q = torch.randn(len(t), hq, hd, device="cuda", generator=g)
+    clean = PA.paged_attn_decode(q, kp * sel, vp * sel, bt, t)
+    dirty = PA.paged_attn_decode(q, torch.where(sel, kp, 1e4),
+                                 torch.where(sel, vp, -1e4), bt, t)
+    need(torch.equal(clean, dirty), "stale page contents leaked into K3")
+    print(f"[paged fp32] GQA 4/2/1 x (window, softcap) in (0,0) (5,0) "
+          f"(0,4), fresh and reused pools: max_abs_err {worst} "
+          f"(tol {PAGED_TOL_F32:g}); poisoned unreachable pages: outputs "
+          "bit-equal", flush=True)
+    return worst
+
+
+def paged_phase_full(torch, PA, cfg, page_size, max_tokens):
+    """K3 and K4 in bf16 at the shapes of the full-width engine run: the
+    four first requests' last decode tick (t = prompt + 31) and the last
+    chunk of the 448-token prompt (queries 320..447). `bound_ms` counts
+    each live page (K and V of every kv head) read once plus q and the fp32
+    output, against the FLOPs of the keys each query attends."""
+    import torch.nn.functional as F
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(4)
+    Hq, Hkv, hd, ps = cfg.num_heads, cfg.num_kv_heads, \
+        cfg.resolved_head_dim(), page_size
+    P = max_tokens // ps
+    page_bytes = PA.page_bytes(cfg, ps)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    out = {}
+
+    t = torch.tensor([64 + 31, 448 + 31, 128 + 31, 320 + 31],
+                     dtype=torch.int32, device="cuda")
+    B = len(t)
+    kp, vp, bt = _pools(torch, g, B, P, ps, Hkv, hd, bf, (t + 1).tolist())
+    q = torch.randn(B, Hq, hd, device="cuda", generator=g).to(bf)
+    S = P * ps
+    mask = torch.arange(S, device="cuda")[None, :] <= t[:, None]
+
+    def lib_decode():
+        k = kp[bt.long()].reshape(B, S, Hkv, hd).transpose(1, 2)
+        v = vp[bt.long()].reshape(B, S, Hkv, hd).transpose(1, 2)
+        return F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                              attn_mask=mask[:, None, None])
+
+    live, _ = PA.decode_tick_pages(t.tolist(), [True] * B, ps, B, P)
+    keys = sum(int(x) + 1 for x in t.tolist())
+    nbytes = live * page_bytes + B * Hq * hd * (2 + 4)
+    flops = 4 * Hq * hd * keys
+    out["paged_attn_decode"] = _paged_entry(
+        torch, flush, lambda: PA.paged_attn_decode(q, kp, vp, bt, t),
+        lambda: PA.paged_attn_decode_plain(q, kp, vp, bt, t), lib_decode,
+        nbytes, flops, f"B={B} t={t.tolist()} Hq=Hkv={Hkv} hd={hd} ps={ps} "
+        f"P={P}, {live} live pages")
+
+    start, kv_len, Cs = 320, 448, 128
+    kp, vp, bt = _pools(torch, g, 1, P, ps, Hkv, hd, bf, [kv_len])
+    qc = torch.randn(1, Cs, Hq, hd, device="cuda", generator=g).to(bf)
+    qpos = torch.arange(start, start + Cs, device="cuda")
+    kpos = torch.arange(S, device="cuda")
+    cmask = (kpos[None, :] < kv_len) & (kpos[None, :] <= qpos[:, None])
+
+    def lib_chunk():
+        k = kp[bt.long()].reshape(1, S, Hkv, hd).transpose(1, 2)
+        v = vp[bt.long()].reshape(1, S, Hkv, hd).transpose(1, 2)
+        return F.scaled_dot_product_attention(qc.transpose(1, 2), k, v,
+                                              attn_mask=cmask[None, None])
+
+    live = -(-kv_len // ps)
+    keys = sum(min(p + 1, kv_len) for p in range(start, start + Cs))
+    nbytes = live * page_bytes + Cs * Hq * hd * (2 + 4)
+    flops = 4 * Hq * hd * keys
+    out["paged_attn_chunk"] = _paged_entry(
+        torch, flush,
+        lambda: PA.paged_attn_chunk(qc, kp, vp, bt, start, kv_len),
+        lambda: PA.paged_attn_chunk_plain(qc, kp, vp, bt, start, kv_len),
+        lib_chunk, nbytes, flops, f"B=1 Cs={Cs} start={start} "
+        f"kv_len={kv_len} Hq=Hkv={Hkv} hd={hd} ps={ps}, {live} live pages")
+    return out
+
+
+def _paged_entry(torch, flush, kern, plain, lib, nbytes, flops, shape):
+    got, ref = kern(), plain()
+    torch.cuda.synchronize()
+    err = (got - ref).abs().max().item()
+    need(torch.allclose(got, ref, rtol=PAGED_TOL_BF16, atol=PAGED_TOL_BF16),
+         f"paged attention bf16 err {err} ({shape})")
+    t_b, t_f = nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+    entry = {"shape": shape, "max_abs_err": err,
+             "ms": time_ms(torch, kern, flush),
+             "plain_ms": time_ms(torch, plain, flush),
+             "library_ms": time_ms(torch, lib, flush),
+             "bound_ms": max(t_b, t_f),
+             "bound_by": "bytes" if t_b >= t_f else "operations"}
+    print(f"[paged bf16] {json.dumps(entry)}", flush=True)
+    return entry
+
+
 def smoke_phase(torch, G, cfg_smoke, TM, TS):
     """Smoke-size slice on the CPU (plain versions) and on the card
     (kernels), same fp32 weights. Greedy tokens equal; logits within
@@ -233,40 +417,69 @@ def smoke_phase(torch, G, cfg_smoke, TM, TS):
           f"(tol {SMOKE_LOGIT_TOL:g}), cuda launches {launches}", flush=True)
 
 
+def engine_smoke_phase(torch, PA, cfg_smoke, TM, TS):
+    """The smoke engine on a paged pool with chunked prefill, the same fp32
+    weights and trace on the CPU (plain versions) and on the card (K1-K4):
+    greedy streams equal; K3/K4 launched once per layer per decode or
+    chunk tick."""
+    import numpy as np
+    params = TM.model_init(cfg_smoke, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg_smoke.vocab_size, size=n, dtype=np.int32)
+               for n in (5, 20, 8, 11, 3)]
+    kw = dict(num_slots=2, max_tokens=32, arrival_steps=[0, 0, 1, 4, 6],
+              paged=True, page_size=4, num_pages=10, prefill_chunk=8)
+    r_cpu = TS.serve_continuous(params, cfg_smoke, prompts, 7, device="cpu",
+                                **kw)
+    PA.reset_launches()
+    r_gpu = TS.serve_continuous(_tree_to(params, "cuda"), cfg_smoke, prompts,
+                                7, device="cuda", **kw)
+    launches = dict(PA.LAUNCHES)
+    s, L = r_gpu["stats"], cfg_smoke.num_layers
+    for rid, toks in r_cpu["tokens"].items():
+        need(np.array_equal(r_gpu["tokens"][rid], toks),
+             f"engine request {rid}: cuda {r_gpu['tokens'][rid].tolist()} "
+             f"!= cpu {toks.tolist()}")
+    need(launches == {"paged_attn_decode": L * s["decode_ticks"],
+                      "paged_attn_chunk": L * s["chunk_ticks"]},
+         f"smoke engine launches {launches}, stats {s}")
+    print(f"[smoke engine] {cfg_smoke.name}: cpu and cuda greedy streams "
+          f"equal for {len(prompts)} requests ({s['decode_ticks']} decode "
+          f"ticks, {s['chunk_ticks']} chunk ticks), cuda launches "
+          f"{launches}", flush=True)
+
+
 def _tree_to(tree, device):
     return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
 
 
-def full_phase(torch, G, cfg, TM, TS):
-    """Full-width llama_moe_4_16, bf16: 4 requests x 128 prompt tokens, 16
-    new tokens. One warm-up generate(), then the counted, timed run and two
-    repeats of it for the spread."""
+def full_phase(torch, G, PA, cfg, params, TM, TS):
+    """Full-width llama_moe_4_16, bf16, static generate(): 4 requests x 128
+    prompt tokens, 16 new tokens. One warm-up generate(), then the counted,
+    timed run and two repeats of it for the spread."""
     Bq, P, GEN = 4, 128, 16
-    g = torch.Generator(device="cuda").manual_seed(0)
-    t0 = time.perf_counter()
-    params = TM.model_init(cfg, g, "cuda")
-    torch.cuda.synchronize()
-    init_s = time.perf_counter() - t0
+    g = torch.Generator(device="cuda").manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (Bq, P), generator=g,
                             device="cuda")
     TS.generate(params, cfg, prompts, 2, device="cuda")          # warm-up
     torch.cuda.reset_peak_memory_stats()
     G.reset_launches()
+    PA.reset_launches()
     res = TS.generate(params, cfg, prompts, GEN, device="cuda")
-    launches = dict(G.LAUNCHES)
+    launches = {**G.LAUNCHES, **PA.LAUNCHES}
     # two more identical runs: the spread of the host-bound times
     reps = [res] + [TS.generate(params, cfg, prompts, GEN, device="cuda")
                     for _ in range(2)]
     expect = cfg.num_layers * (1 + GEN)
     need(bool(torch.isfinite(res["logits"]).all()), "non-finite logits")
     need(res["tokens"].shape == (Bq, GEN), "token shape")
-    need(launches == {"gmm_swiglu": expect, "gmm_scaled": expect},
-         f"launch counts {launches}, expected {expect} each "
-         f"({cfg.num_layers} layers x (1 prefill + {GEN} decode steps))")
-    stats = {"params": sum(t.numel() for t in _leaves(params)),
-             "init_s": init_s,
-             "prefill_ms": res["prefill_s"] * 1e3,
+    need(launches == {"gmm_swiglu": expect, "gmm_scaled": expect,
+                      "paged_attn_decode": 0, "paged_attn_chunk": 0},
+         f"launch counts {launches}, expected {expect} each of K1/K2 "
+         f"({cfg.num_layers} layers x (1 prefill + {GEN} decode steps)) "
+         "and no paged attention on the dense static path")
+    stats = {"prefill_ms": res["prefill_s"] * 1e3,
              "decode_ms_per_token": res["decode_s"] * 1e3 / GEN,
              "tok_per_s": res["tok_per_s"],
              "prefill_ms_runs": [r["prefill_s"] * 1e3 for r in reps],
@@ -277,24 +490,149 @@ def full_phase(torch, G, cfg, TM, TS):
                                         for r in reps),
              "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
              "launches": launches}
-    print(f"[full] {cfg.name} bf16 B={Bq} prompt={P} gen={GEN}: "
+    print(f"[full static] {cfg.name} bf16 B={Bq} prompt={P} gen={GEN}: "
           f"{json.dumps(stats)}", flush=True)
-    print(f"[full] sample tokens {res['tokens'][0].tolist()}", flush=True)
-    profile_phase(torch, cfg, params, prompts, res["state"], TM)
+    print(f"[full static] sample tokens {res['tokens'][0].tolist()}",
+          flush=True)
+    tok = torch.zeros(Bq, dtype=torch.long, device="cuda")
+    state = res["state"]
+    profile_phase(torch, cfg, {
+        "prefill": lambda: TM.prefill(params, prompts, cfg,
+                                      max_len=prompts.shape[1] + 17),
+        "decode_step": lambda: TM.serve_step(params, state, tok, cfg)})
     return launches
 
 
-def profile_phase(torch, cfg, params, prompts, state, TM):
-    """Where the time goes: torch.profiler over one full-width prefill and
-    one decode step. Device busy time is the union of the card's kernel
-    intervals; idle share = 1 - busy / host wall time of the region."""
+# The full-width engine trace: prompt lengths, arrival ticks, new tokens.
+ENGINE_LENS = [64, 448, 128, 320, 96, 384, 192, 256]
+ENGINE_ARRIVALS = [0, 0, 0, 0, 8, 8, 16, 16]
+ENGINE_GEN = 32
+ENGINE_POOL = dict(num_slots=4, max_tokens=512, paged=True, page_size=16,
+                   num_pages=97, prefill_chunk=128)
+
+
+def engine_phase(torch, G, PA, cfg, params, ServingEngine):
+    """Full-width llama_moe_4_16, bf16, through the continuous-batching
+    engine on a paged pool: 8 staggered requests of ENGINE_LENS prompt
+    tokens, 32 new tokens each, greedy. A warm-up engine first (one
+    one-shot and one chunked admission, 4 tokens each), then the counted,
+    timed run, one synchronised step at a time."""
+    import numpy as np
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+               for n in ENGINE_LENS]
+    warm = ServingEngine(params, cfg, device="cuda", **ENGINE_POOL)
+    for p in prompts[:2]:
+        warm.submit(p, 4)
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    eng = ServingEngine(params, cfg, device="cuda", **ENGINE_POOL)
+    rids = [eng.submit(p, ENGINE_GEN, arrival_step=a)
+            for p, a in zip(prompts, ENGINE_ARRIVALS)]
+    G.reset_launches()
+    PA.reset_launches()
+    ticks = []                 # (ms, decoded, chunked, admitted one-shot)
+    decode_ticks = chunk_ticks = peak_pages = 0
+    t_all = time.perf_counter()
+    while eng.has_work():
+        d0, c0 = eng.decode_ticks, eng.chunk_ticks
+        a0 = eng.pool.admitted_total
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        dd, dc = eng.decode_ticks - d0, eng.chunk_ticks - c0
+        decode_ticks += dd
+        chunk_ticks += dc
+        ticks.append((ms, dd, dc, eng.pool.admitted_total - a0))
+        peak_pages = max(peak_pages, eng.pool.alloc.pages_in_use)
+    wall_s = time.perf_counter() - t_all
+    launches = {**G.LAUNCHES, **PA.LAUNCHES}
+
+    L = cfg.num_layers
+    fin = eng.finished
+    for rid in rids:
+        r = fin[rid]
+        need(r.status == "DONE" and len(r.tokens) == ENGINE_GEN and
+             all(0 <= x < cfg.vocab_size for x in r.tokens),
+             f"request {rid}: status {r.status}, {len(r.tokens)} tokens")
+    st = eng.pool.state
+    need(all(bool(torch.isfinite(st[k]).all()) for k in ("k_pages", "v_pages"))
+         and bool(torch.isfinite(st["go"].outputs).all()),
+         "non-finite KV pages or GO rows after the run")
+    eng.pool.alloc.check()
+    need(eng.pool.alloc.pages_in_use == 0, "pages leaked after the drain")
+    need(launches["paged_attn_decode"] == L * decode_ticks and
+         launches["paged_attn_chunk"] == L * chunk_ticks and
+         launches["gmm_swiglu"] > 0 and launches["gmm_scaled"] > 0,
+         f"engine launches {launches}: expected K3 {L} x {decode_ticks} "
+         f"decode ticks, K4 {L} x {chunk_ticks} chunk ticks")
+    pure_decode = sorted(ms for ms, dd, dc, da in ticks
+                         if dd and not dc and not da)
+    chunk_ms = sorted(ms for ms, dd, dc, da in ticks if dc)
+    tokens = sum(len(fin[r].tokens) for r in rids)
+    stats = {"requests": len(rids), "tokens": tokens, "wall_s": wall_s,
+             "tok_per_s": tokens / wall_s, "ticks": len(ticks),
+             "decode_ticks": decode_ticks, "chunk_ticks": chunk_ticks,
+             "pure_decode_ticks": len(pure_decode),
+             "decode_tick_ms_median": statistics.median(pure_decode),
+             "decode_tick_ms_p95": pure_decode[
+                 min(len(pure_decode) - 1, int(0.95 * len(pure_decode)))],
+             "chunk_tick_ms_median": statistics.median(chunk_ms),
+             "chunk_tick_ms_mean": statistics.mean(chunk_ms),
+             "peak_active": eng.peak_active, "peak_pages_in_use": peak_pages,
+             "page_waits": eng.page_waits,
+             "max_memory_allocated_gb":
+                 torch.cuda.max_memory_allocated() / 1e9,
+             "launches": launches,
+             "admit_steps": [fin[r].admit_step for r in rids],
+             "finish_steps": [fin[r].finish_step for r in rids]}
+    print(f"[full engine] {cfg.name} bf16 {ENGINE_POOL}, prompts "
+          f"{ENGINE_LENS}, arrivals {ENGINE_ARRIVALS}, gen {ENGINE_GEN}: "
+          f"{json.dumps(stats)}", flush=True)
+    print(f"[full engine] sample tokens {fin[rids[1]].tokens}", flush=True)
+    engine_profile_phase(torch, cfg, params, prompts, ServingEngine)
+    return launches
+
+
+def engine_profile_phase(torch, cfg, params, prompts, ServingEngine):
+    """One chunk tick (3 slots decoding beside a chunk of 128) and one
+    decode tick with 4 active slots, on a fresh engine of the same pool:
+    three one-shot 64/128/96-token prompts and the 384-token one."""
+    eng = ServingEngine(params, cfg, device="cuda", **ENGINE_POOL)
+    for i in (0, 2, 4, 5):
+        eng.submit(prompts[i], 16)
+    eng.step()                       # 3 one-shot admissions, chunk 1 of 3
+    regions = {"engine_chunk_tick": eng.step}
+    profile_phase(torch, cfg, regions)
+    eng.step()                       # chunk 3 of 3, the 4th slot installs
+    need(eng.pool.num_active() == 4, "profile engine: 4 slots not active")
+    profile_phase(torch, cfg, {"engine_decode_tick_4_active": eng.step})
+    eng.run()
+
+
+def _kind(name):
+    """Profile bucket of a device kernel's name."""
+    if "paged_decode_kernel" in name:
+        return "K3 paged_attn_decode"
+    if "paged_chunk_kernel" in name:
+        return "K4 paged_attn_chunk"
+    if "gmm_kernel" in name:
+        swiglu = "Lb1" in name or "true>" in name      # template arg
+        return "K1 gmm_swiglu" if swiglu else "K2 gmm_scaled"
+    if "gemm" in name.lower() or "xmma" in name or "cutlass" in name:
+        return "cuBLAS gemm"
+    return "other"
+
+
+def profile_phase(torch, cfg, regions):
+    """Where the time goes: torch.profiler over each region. Device busy
+    time is the union of the card's kernel intervals; idle share = 1 -
+    busy / host wall time of the region."""
     from torch.profiler import ProfilerActivity, profile
-    tok = torch.zeros(prompts.shape[0], dtype=torch.long, device="cuda")
-    regions = {
-        "prefill": lambda: TM.prefill(params, prompts, cfg,
-                                      max_len=prompts.shape[1] + 17),
-        "decode_step": lambda: TM.serve_step(params, state, tok, cfg),
-    }
     for name, fn in regions.items():
         torch.cuda.synchronize()
         with profile(activities=[ProfilerActivity.CPU,
@@ -313,14 +651,7 @@ def profile_phase(torch, cfg, params, prompts, state, TM):
                 end = b
         by_kind = {}
         for e in dev:
-            swiglu = "Lb1" in e.name or "true>" in e.name   # template arg
-            kind = ("K1 gmm_swiglu" if "gmm_kernel" in e.name and swiglu
-                    else "K2 gmm_scaled" if "gmm_kernel" in e.name
-                    else "cuBLAS gemm" if ("gemm" in e.name.lower()
-                                           or "xmma" in e.name
-                                           or "cutlass" in e.name)
-                    else "other")
-            t = by_kind.setdefault(kind, [0, 0.0])
+            t = by_kind.setdefault(_kind(e.name), [0, 0.0])
             t[0] += 1
             t[1] += (e.time_range.end - e.time_range.start) / 1e3
         out = {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
@@ -347,8 +678,10 @@ def main():
     from repro_torch.kernels import build
     from repro_torch.kernels import moe_gmm as G
     from repro_torch.kernels import ops as OPS
+    from repro_torch.kernels import paged_attn as PA
     from repro_torch.launch import serve as TS
     from repro_torch.models import model as TM
+    from repro_torch.serving import ServingEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -362,26 +695,59 @@ def main():
             if "registers" in line or "Compiling entry" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
+    cfg = get_config("llama_moe_4_16")
+    cfg_smoke = get_config("llama_moe_4_16", smoke=True)
     kernel_phase_small(torch, G)
     timings = kernel_phase_full(torch, G, OPS)
+    paged_phase_small(torch, PA)
+    timings.update(paged_phase_full(torch, PA, cfg,
+                                    ENGINE_POOL["page_size"],
+                                    ENGINE_POOL["max_tokens"]))
     torch.cuda.empty_cache()
-    smoke_phase(torch, G, get_config("llama_moe_4_16", smoke=True), TM, TS)
-    launches = full_phase(torch, G, get_config("llama_moe_4_16"), TM, TS)
+    smoke_phase(torch, G, cfg_smoke, TM, TS)
+    engine_smoke_phase(torch, PA, cfg_smoke, TM, TS)
 
-    replaces = {"gmm_swiglu": "src/repro/kernels/moe_gmm.py:466",
-                "gmm_scaled": "src/repro/kernels/moe_gmm.py:332"}
+    t0 = time.perf_counter()
+    params = TM.model_init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    torch.cuda.synchronize()
+    print(f"[full] {cfg.name}: {sum(t.numel() for t in _leaves(params))} "
+          f"parameters initialised in {time.perf_counter() - t0:.2f} s",
+          flush=True)
+    by_path = {"static": full_phase(torch, G, PA, cfg, params, TM, TS),
+               "engine": engine_phase(torch, G, PA, cfg, params,
+                                      ServingEngine)}
+
+    # launches: each kernel's count on the path it was ported for (K1/K2
+    # the static generate() of slice 1, K3/K4 the engine of slice 2)
+    meta = {
+        "gmm_swiglu": ("moe_gmm.cu", "src/repro/kernels/moe_gmm.py:466",
+                       "static"),
+        "gmm_scaled": ("moe_gmm.cu", "src/repro/kernels/moe_gmm.py:332",
+                       "static"),
+        "paged_attn_decode": ("paged_attn.cu",
+                              "src/repro/kernels/paged_attn.py:179",
+                              "engine"),
+        "paged_attn_chunk": ("paged_attn.cu",
+                             "src/repro/kernels/paged_attn.py:325",
+                             "engine"),
+    }
     kernels = []
-    for name in ("gmm_swiglu", "gmm_scaled"):
-        pre = timings[name]["prefill"]
-        kernels.append({
+    for name, (src, replaces, path) in meta.items():
+        main_t = timings[name].get("prefill", timings[name])
+        entry = {
             "name": name, "route": "cuda",
-            "source": "src/repro_torch/kernels/csrc/moe_gmm.cu",
-            "replaces": replaces[name], "launches": launches[name],
-            "max_abs_err": pre["max_abs_err"], "ms": pre["ms"],
-            "plain_ms": pre["plain_ms"], "bound_ms": pre["bound_ms"],
-            "bound_by": pre["bound_by"], "library_ms": pre["library_ms"],
-            "shape": "prefill " + pre["shape"],
-            "decode": timings[name]["decode"]})
+            "source": f"src/repro_torch/kernels/csrc/{src}",
+            "replaces": replaces, "launches": by_path[path][name],
+            "max_abs_err": main_t["max_abs_err"], "ms": main_t["ms"],
+            "plain_ms": main_t["plain_ms"], "bound_ms": main_t["bound_ms"],
+            "bound_by": main_t["bound_by"],
+            "library_ms": main_t["library_ms"], "shape": main_t["shape"],
+            "launches_by_path": {p: by_path[p][name] for p in by_path}}
+        if "decode" in timings[name]:
+            entry["shape"] = "prefill " + main_t["shape"]
+            entry["decode"] = timings[name]["decode"]
+        kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)
     print(json.dumps({"ok": True, "device": {

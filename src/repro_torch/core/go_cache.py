@@ -7,9 +7,10 @@ eq. 4-5). Counterpart of repro/core/go_cache.py.
 
 Each decode step runs one gate row, a TopKUpdate against the cached minima,
 and expert FFNs only for the experts that selected the incoming token.
-Unlike the JAX version, `go_cache_step` writes the updated entries into the
-cache's tensors IN PLACE (they are views of the decode state's per-layer
-buffers), where JAX carries a new cache through its layer scan.
+Unlike the JAX version, `go_cache_step` and the slot ops write the updated
+entries into the cache's tensors IN PLACE (they are views of the decode
+state's per-layer buffers), where JAX carries a new cache through its
+layer scan.
 """
 from __future__ import annotations
 
@@ -39,6 +40,24 @@ def go_cache_init(batch: int, num_experts: int, k: int, d: int, dtype,
     )
 
 
+def go_cache_init_slot(cache: GOCache, slot: int) -> None:
+    """Reset batch row `slot` to the empty state (scores -inf, ids -1,
+    outputs 0) IN PLACE; leading (layer) axes before the batch axis are
+    all reset."""
+    cache.scores[..., slot, :, :] = float("-inf")
+    cache.token_ids[..., slot, :, :] = -1
+    cache.outputs[..., slot, :, :, :] = 0
+
+
+def go_cache_write_slot(cache: GOCache, slot: int, src: GOCache) -> None:
+    """Write a batch-1 cache (a single-request prefill) into batch row
+    `slot` of a pooled cache IN PLACE; leading (layer) axes match."""
+    cache.scores[..., slot, :, :] = src.scores[..., 0, :, :]
+    cache.token_ids[..., slot, :, :] = src.token_ids[..., 0, :, :]
+    cache.outputs[..., slot, :, :, :] = src.outputs[..., 0, :, :, :].to(
+        cache.outputs.dtype)
+
+
 def go_cache_prefill(scores, token_ids, expert_outputs: torch.Tensor,
                      chosen_tokens: torch.Tensor, chosen_scores: torch.Tensor,
                      k: int) -> GOCache:
@@ -62,6 +81,24 @@ def go_cache_prefill(scores, token_ids, expert_outputs: torch.Tensor,
         expert_outputs, 2,
         top_slot[..., None].expand(*top_slot.shape, expert_outputs.shape[-1]))
     return GOCache(top_s.float(), tok.to(torch.int32), out)
+
+
+def go_cache_merge(old: GOCache, new: GOCache) -> GOCache:
+    """Merge two caches over the same [B, E] grid: per expert, keep the k
+    best-scoring entries of the union (the chunked-prefill hook: each chunk
+    builds its own cache and folds into the accumulated one). Pass the
+    OLDER cache first: on a tie the earlier operand wins, as with
+    `jax.lax.top_k` in the reference, so the chunked stream is
+    deterministic."""
+    k = old.scores.shape[-1]
+    scores = torch.cat([old.scores, new.scores], dim=-1)         # [B, E, 2k]
+    top_s, idx = stable_topk(scores, k)
+    tok = torch.gather(torch.cat([old.token_ids, new.token_ids], dim=-1),
+                       -1, idx)
+    outs = torch.cat([old.outputs, new.outputs.to(old.outputs.dtype)], dim=-2)
+    out = torch.gather(outs, -2, idx[..., None].expand(*idx.shape,
+                                                       outs.shape[-1]))
+    return GOCache(top_s, tok, out)
 
 
 class GOStepResult(NamedTuple):

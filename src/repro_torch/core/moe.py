@@ -79,17 +79,19 @@ def expert_choice_forward(params: dict, x: torch.Tensor,
 
 
 def expert_choice_forward_batched(params: dict, h: torch.Tensor,
-                                  e: MoEConfig) -> tuple:
+                                  e: MoEConfig, valid_len=None) -> tuple:
     """h [B, S, d] -> (y [B, S, d], aux with a leading batch axis). Routing
     stays per sequence (the GO cache's semantics), but the FFN pairs of the
     whole batch go through ONE tile plan, so the grouped GEMM pays its
-    per-expert tile padding once, not B times."""
+    per-expert tile padding once, not B times. `valid_len` (an int; the
+    last, right-padded prefill chunk) masks positions >= valid_len out of
+    the routing, so a pad never wins an expert slot."""
     check_backend(e)
     reject_shared(params)
     B, S, d = h.shape
     cap = ec_capacity(S, e)
     E = e.num_experts
-    r = R.expert_choice(h, params["gate"], cap)
+    r = R.expert_choice(h, params["gate"], cap, valid_len=valid_len)
     ef = torch.arange(E, dtype=torch.int32,
                       device=h.device).repeat_interleave(cap).repeat(B)
     offs = torch.arange(B, dtype=torch.int32, device=h.device) * S

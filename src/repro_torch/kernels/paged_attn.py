@@ -1,0 +1,234 @@
+"""Paged attention (K3 `paged_attn_decode`, K4 `paged_attn_chunk`): wrappers,
+plain versions, launch counters and the page-traffic arithmetic.
+
+Counterpart of repro/kernels/paged_attn.py. Attention walks a block table
+of fixed-size KV pages instead of a dense [B, max_tokens] cache:
+
+  paged_attn_decode(q, k_pages, v_pages, block_table, t)   -> [B, Hq, hd]
+      one query per row at position t[b]: keys k_pos <= t, and
+      k_pos > t - window when window > 0
+  paged_attn_chunk(q, k_pages, v_pages, block_table, start, kv_len)
+      a chunk of Cs queries at start..start+Cs-1: keys k_pos < kv_len,
+      k_pos <= q_pos, and k_pos > q_pos - window
+
+Pages are [NP, ps, Hkv, hd] (one layer's pool, the new keys already
+scattered in), the block table [B, P] int32 (0 = the null page). Outputs
+are fp32. Each wrapper dispatches on where its tensors lie: on the CPU it
+runs the plain version, the reference's gather realization (the block table
+gathered into the dense [B, P*ps] layout, then the masked single-query SDPA
+or `sdpa_chunked`, models/attention.py), which makes a paged pool on the
+CPU bit-identical to a dense one; on a CUDA device it launches the
+hand-written kernel of `csrc/paged_attn.cu` or raises.
+"""
+from __future__ import annotations
+
+import ctypes
+
+import torch
+
+from repro_torch.kernels import build
+from repro_torch.models import attention as ATT
+
+KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
+KERNEL_MAX_GROUP = 16           # query heads per kv head the kernel holds
+
+# Launch counts, one per wrapper: raised by one at each kernel launch and
+# nowhere else (the plain versions do not count).
+LAUNCHES = {"paged_attn_decode": 0, "paged_attn_chunk": 0}
+
+_KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
+
+
+def reset_launches() -> None:
+    for k in LAUNCHES:
+        LAUNCHES[k] = 0
+
+
+def _gather(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
+    """[NP, ps, Hkv, hd] pages -> the dense [B, P*ps, Hkv, hd] layout."""
+    B, P = block_table.shape
+    _, ps, Hkv, hd = pages.shape
+    return pages[block_table.long()].reshape(B, P * ps, Hkv, hd)
+
+
+# ------------------------------------------------------------ plain versions
+
+def paged_attn_decode_plain(q, k_pages, v_pages, block_table, t, *,
+                            window: int = 0,
+                            softcap: float = 0.0) -> torch.Tensor:
+    """K3's function as the reference's gather path computes it
+    (repro/models/attention.py attn_decode, paged branch). t [B] int."""
+    P, ps = block_table.shape[1], k_pages.shape[1]
+    k_pos = torch.arange(P * ps, dtype=torch.int32, device=q.device)
+    t_vec = t.to(torch.int32).reshape(-1, 1)
+    mask = k_pos[None, :] <= t_vec                           # [B, P*ps]
+    if window > 0:
+        mask = mask & (k_pos[None, :] > t_vec - window)
+    out = ATT._decode_sdpa(q[:, None], _gather(k_pages, block_table),
+                           _gather(v_pages, block_table), mask, softcap)
+    return out[:, 0]
+
+
+def paged_attn_chunk_plain(q, k_pages, v_pages, block_table, start: int,
+                           kv_len: int, *, window: int = 0,
+                           softcap: float = 0.0) -> torch.Tensor:
+    """K4's function as the reference's gather path computes it
+    (repro/models/attention.py attn_chunk, paged branch), before the cast
+    to the activations' dtype."""
+    Cs = q.shape[1]
+    P, ps = block_table.shape[1], k_pages.shape[1]
+    q_pos = start + torch.arange(Cs, dtype=torch.int32, device=q.device)
+    k_pos = torch.arange(P * ps, dtype=torch.int32, device=q.device)
+    return ATT.sdpa_chunked_f32(q, _gather(k_pages, block_table),
+                                _gather(v_pages, block_table), q_pos, k_pos,
+                                window, kv_len, softcap=softcap)
+
+
+# ------------------------------------------------------------------ wrappers
+
+def _check(name: str, q, k_pages, v_pages, block_table, k_scales, v_scales):
+    """Checks shared by both wrappers, on any device."""
+    if k_scales is not None or v_scales is not None:
+        raise NotImplementedError(
+            f"{name}: int8 pages (k_scales/v_scales) are not ported yet: "
+            "ROADMAP.md Queue 1 item 7 (int8 pages)")
+    Hq, hd = q.shape[-2], q.shape[-1]
+    _, _, Hkv, hd_p = k_pages.shape
+    if v_pages.shape != k_pages.shape or hd_p != hd:
+        raise ValueError(f"{name}: q {tuple(q.shape)}, k_pages "
+                         f"{tuple(k_pages.shape)}, v_pages "
+                         f"{tuple(v_pages.shape)}")
+    if Hq % Hkv:
+        raise ValueError(f"{name}: num_heads={Hq} must be a multiple of "
+                         f"num_kv_heads={Hkv}")
+    if not (q.dtype == k_pages.dtype == v_pages.dtype):
+        raise TypeError(f"{name}: q, k_pages and v_pages must share a dtype "
+                        f"(got {q.dtype}, {k_pages.dtype}, {v_pages.dtype})")
+    if block_table.dtype != torch.int32:
+        raise TypeError(f"{name}: block_table must be int32, got "
+                        f"{block_table.dtype}")
+
+
+def _check_cuda(name: str, q, *tensors) -> str:
+    """Validate the kernel's operands; return its dtype suffix."""
+    suffix = _KERNEL_DTYPES.get(q.dtype)
+    if suffix is None:
+        raise TypeError(f"{name}: no kernel for dtype {q.dtype}")
+    hd, Hq, Hkv = q.shape[-1], q.shape[-2], tensors[0].shape[2]
+    if hd not in KERNEL_HEAD_DIMS:
+        raise ValueError(f"{name}: the CUDA kernel takes head_dim in "
+                         f"{KERNEL_HEAD_DIMS}, got {hd}")
+    if Hq // Hkv > KERNEL_MAX_GROUP:
+        raise ValueError(f"{name}: the CUDA kernel holds at most "
+                         f"{KERNEL_MAX_GROUP} query heads per kv head, got "
+                         f"{Hq // Hkv}")
+    for t in (q, *tensors):
+        if t.device != q.device:
+            raise ValueError(f"{name}: operands on {t.device} and {q.device}")
+        if not t.is_contiguous():
+            raise ValueError(f"{name}: operands must be contiguous")
+    if tensors[0].data_ptr() % 16 or tensors[1].data_ptr() % 16:
+        raise ValueError(f"{name}: pages must be 16-byte aligned (the "
+                         "kernel stages them with 16-byte loads)")
+    return suffix
+
+
+def _lib():
+    lib = build.load("paged_attn")
+    if not getattr(lib, "_typed", False):
+        P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
+        for dt in _KERNEL_DTYPES.values():
+            f = getattr(lib, f"paged_attn_decode_{dt}")
+            f.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, F, P]
+            f.restype = I
+            f = getattr(lib, f"paged_attn_chunk_{dt}")
+            f.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, P]
+            f.restype = I
+        lib._typed = True
+    return lib
+
+
+def _where(x: torch.Tensor) -> str:
+    if x.device.type in ("cpu", "cuda"):
+        return x.device.type
+    raise ValueError(f"no paged-attention path for device {x.device}")
+
+
+def paged_attn_decode(q: torch.Tensor, k_pages: torch.Tensor,
+                      v_pages: torch.Tensor, block_table: torch.Tensor, t, *,
+                      window: int = 0, softcap: float = 0.0,
+                      k_scales=None, v_scales=None) -> torch.Tensor:
+    """K3. q [B, Hq, hd] (post-RoPE); pages [NP, ps, Hkv, hd]; block_table
+    [B, P] int32; t an int or [B] int (each row's position). Returns fp32
+    [B, Hq, hd], the attention output before `wo`."""
+    _check("paged_attn_decode", q, k_pages, v_pages, block_table, k_scales,
+           v_scales)
+    B, Hq, hd = q.shape
+    if isinstance(t, int):
+        t = torch.full((B,), t, dtype=torch.int32, device=q.device)
+    t = t.to(torch.int32).reshape(-1).expand(B).contiguous()
+    if _where(q) == "cpu":
+        return paged_attn_decode_plain(q, k_pages, v_pages, block_table, t,
+                                       window=window, softcap=softcap)
+    dt = _check_cuda("paged_attn_decode", q, k_pages, v_pages, block_table,
+                     t)
+    _, ps, Hkv, _ = k_pages.shape
+    out = torch.empty((B, Hq, hd), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = getattr(_lib(), f"paged_attn_decode_{dt}")(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        block_table.data_ptr(), t.data_ptr(), out.data_ptr(), B, Hkv,
+        Hq // Hkv, hd, ps, block_table.shape[1], int(window), float(softcap),
+        stream)
+    build.check(rc, "paged_attn_decode")
+    LAUNCHES["paged_attn_decode"] += 1
+    return out
+
+
+def paged_attn_chunk(q: torch.Tensor, k_pages: torch.Tensor,
+                     v_pages: torch.Tensor, block_table: torch.Tensor,
+                     start: int, kv_len: int, *, window: int = 0,
+                     softcap: float = 0.0, k_scales=None,
+                     v_scales=None) -> torch.Tensor:
+    """K4. q [B, Cs, Hq, hd] (post-RoPE, the chunk's K/V already scattered
+    into the pages); start / kv_len host ints (chunk-absolute start, total
+    valid key count; pad queries at q_pos >= kv_len give finite values the
+    caller discards). Returns fp32 [B, Cs, Hq, hd]."""
+    _check("paged_attn_chunk", q, k_pages, v_pages, block_table, k_scales,
+           v_scales)
+    if _where(q) == "cpu":
+        return paged_attn_chunk_plain(q, k_pages, v_pages, block_table,
+                                      int(start), int(kv_len), window=window,
+                                      softcap=softcap)
+    dt = _check_cuda("paged_attn_chunk", q, k_pages, v_pages, block_table)
+    B, Cs, Hq, hd = q.shape
+    _, ps, Hkv, _ = k_pages.shape
+    out = torch.empty((B, Cs, Hq, hd), dtype=torch.float32, device=q.device)
+    stream = torch.cuda.current_stream(q.device).cuda_stream
+    rc = getattr(_lib(), f"paged_attn_chunk_{dt}")(
+        q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
+        block_table.data_ptr(), out.data_ptr(), B, Cs, Hkv, Hq // Hkv, hd, ps,
+        block_table.shape[1], int(start), int(kv_len), int(window),
+        float(softcap), stream)
+    build.check(rc, "paged_attn_chunk")
+    LAUNCHES["paged_attn_chunk"] += 1
+    return out
+
+
+# ------------------------------------------------------------ traffic model
+
+def page_bytes(cfg, page_size: int) -> int:
+    """Device bytes one physical page costs to stage (K + V), per layer."""
+    item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
+    return 2 * page_size * cfg.num_kv_heads * cfg.resolved_head_dim() * item
+
+
+def decode_tick_pages(t_host, active, page_size: int, num_slots: int,
+                      pages_per_slot: int) -> tuple[int, int]:
+    """Per-tick page-traffic model of one decode tick: (kernel_pages,
+    gather_pages). The kernel stages each active row's live pages,
+    floor(t/ps)+1, while the gather re-materializes every block-table entry
+    of every slot. Pure host arithmetic."""
+    live = sum(int(t_host[i]) // page_size + 1
+               for i in range(num_slots) if active[i])
+    return live, num_slots * pages_per_slot

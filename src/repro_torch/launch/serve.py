@@ -1,30 +1,40 @@
-"""Static-batch serving with KV + GO caches (the paper's generation path).
+"""Serving entry points with KV + GO caches (the paper's generation path).
 
-Counterpart of repro/launch/serve.py. Slice 1 ports the static batch:
+Counterpart of repro/launch/serve.py. Two modes:
 
-  generate()   a fixed batch of requests moves lock-step from prefill to
-               completion: prefill() fills the KV caches and the per-layer GO
-               caches, then one serve_step() per generated token.
+  generate()          static batch: a fixed batch of requests moves
+                      lock-step from prefill to completion (prefill() fills
+                      the KV caches and the per-layer GO caches, then one
+                      serve_step() per generated token).
+  serve_continuous()  continuous batching through serving.ServingEngine:
+                      requests join mid-flight into free slots of a pooled
+                      KV + GO cache (dense rows or a paged pool, optionally
+                      with chunked prefill) and retire on EOS or length.
+                      The CLI's default mode.
 
-The continuous-batching engine is slice 2. Entry points run on the CUDA
-card unless the caller names another device; without a card, asking for
-CUDA raises.
+Entry points run on the CUDA card unless the caller names another device;
+without a card, asking for CUDA raises.
 
+  python -m repro_torch.launch.serve --arch llama_moe_4_16 --requests 8 \
+      --slots 4 --paged --page-size 16 --chunk-prefill 128
   python -m repro_torch.launch.serve --arch llama_moe_4_16 --static \
       --batch 4 --prompt 128 --gen 16
-  python -m repro_torch.launch.serve --arch llama_moe_4_16 --smoke --static \
-      --device cpu
+  python -m repro_torch.launch.serve --arch llama_moe_4_16 --smoke \
+      --paged --page-size 4 --chunk-prefill 8 --device cpu
 """
 from __future__ import annotations
 
 import argparse
+import math
 import time
 
+import numpy as np
 import torch
 
 from repro_torch.configs.registry import get_config
 from repro_torch.models.layers import resolve_device
 from repro_torch.models.model import model_init, prefill, serve_step
+from repro_torch.serving.engine import ServingEngine
 
 
 def _sync(dev: torch.device) -> None:
@@ -69,33 +79,112 @@ def generate(params, cfg, prompts, gen_tokens: int, *, device=None,
     }
 
 
+def serve_continuous(params, cfg, prompts: list, gen_tokens: int, *,
+                     num_slots: int, max_tokens: int = 0,
+                     arrival_steps: list | None = None, paged: bool = False,
+                     page_size: int = 16, num_pages: int | None = None,
+                     prefill_chunk: int = 0, priorities: list | None = None,
+                     device=None) -> dict:
+    """Run a list of prompts through the continuous-batching engine, greedy.
+    `paged` swaps the dense slot rows for the block-table page pool
+    (`page_size`, `num_pages`: None keeps the dense token capacity);
+    `prefill_chunk` admits long prompts one chunk per tick; `priorities`
+    orders admission (lower first, FIFO within a level). `max_tokens` 0
+    derives the pool's capacity from the longest prompt, rounded up to a
+    multiple of the page size and the chunk. Returns the token stream of
+    every request by id, the wall time and the engine's stats."""
+    max_tokens = max_tokens or (
+        max(len(p) for p in prompts) + gen_tokens + 1)
+    grain = math.lcm(page_size if paged else 1,
+                     prefill_chunk if prefill_chunk else 1)
+    max_tokens += -max_tokens % grain
+    eng = ServingEngine(params, cfg, num_slots=num_slots,
+                        max_tokens=max_tokens, paged=paged,
+                        page_size=page_size, num_pages=num_pages,
+                        prefill_chunk=prefill_chunk, device=device)
+    ids = [eng.submit(p, gen_tokens,
+                      arrival_step=arrival_steps[i] if arrival_steps else 0,
+                      priority=priorities[i] if priorities else 0)
+           for i, p in enumerate(prompts)]
+    _sync(eng.device)
+    t0 = time.perf_counter()
+    fin = eng.run()
+    _sync(eng.device)
+    dt = time.perf_counter() - t0
+    toks = {rid: np.asarray(fin[rid].tokens, np.int32) for rid in ids}
+    return {
+        "tokens": toks,
+        "decode_s": dt,
+        "tok_per_s": sum(len(t) for t in toks.values()) / max(dt, 1e-9),
+        "stats": eng.stats(),
+        "engine": eng,
+    }
+
+
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True)
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--static", action="store_true",
-                    help="static-batch generate() (the only ported mode)")
-    ap.add_argument("--batch", type=int, default=4)
+                    help="static-batch generate() instead of the engine")
+    ap.add_argument("--batch", type=int, default=4,
+                    help="batch size for --static")
+    ap.add_argument("--requests", type=int, default=8,
+                    help="request count for the engine")
+    ap.add_argument("--slots", type=int, default=4)
     ap.add_argument("--prompt", type=int, default=32)
     ap.add_argument("--gen", type=int, default=16)
+    ap.add_argument("--paged", action="store_true",
+                    help="paged KV pool: block-table pages instead of dense "
+                         "per-slot rows")
+    ap.add_argument("--page-size", type=int, default=16,
+                    help="tokens per KV page (with --paged)")
+    ap.add_argument("--num-pages", type=int, default=0,
+                    help="page-pool size incl. the null page (0 = the dense "
+                         "pool's token capacity)")
+    ap.add_argument("--chunk-prefill", type=int, default=0,
+                    help="admit prompts longer than this one chunk per tick "
+                         "(0 = one-shot prefill)")
+    ap.add_argument("--priority", type=int, default=0,
+                    help="admission priority of the submitted requests "
+                         "(lower = admitted first; FIFO within a level)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
-    if not args.static:
-        raise NotImplementedError(
-            "continuous batching (ServingEngine on the paged pool) is slice 2 "
-            "of the port (ROADMAP.md Queue 1 item 6); pass --static")
     cfg = get_config(args.arch, smoke=args.smoke)
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = model_init(cfg, gen, dev)
-    prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt),
-                            generator=gen, device=dev)
-    res = generate(params, cfg, prompts, args.gen, device=dev)
-    print(f"{cfg.name} on {dev}: prefill {res['prefill_s'] * 1e3:.1f} ms, "
-          f"generated {tuple(res['tokens'].shape)} in "
-          f"{res['decode_s']:.2f}s ({res['tok_per_s']:.1f} tok/s)")
-    print("sample:", res["tokens"][0, :16].tolist())
+    if args.static:
+        prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt),
+                                generator=gen, device=dev)
+        res = generate(params, cfg, prompts, args.gen, device=dev)
+        print(f"{cfg.name} on {dev}: prefill {res['prefill_s'] * 1e3:.1f} ms, "
+              f"generated {tuple(res['tokens'].shape)} in "
+              f"{res['decode_s']:.2f}s ({res['tok_per_s']:.1f} tok/s)")
+        print("sample:", res["tokens"][0, :16].tolist())
+        return res
+
+    rng = np.random.default_rng(args.seed)
+    prompts = [rng.integers(0, cfg.vocab_size, size=args.prompt,
+                            dtype=np.int32) for _ in range(args.requests)]
+    # staggered arrivals: one new request every other engine tick
+    arrivals = [2 * i for i in range(args.requests)]
+    res = serve_continuous(params, cfg, prompts, args.gen,
+                           num_slots=args.slots, arrival_steps=arrivals,
+                           paged=args.paged, page_size=args.page_size,
+                           num_pages=args.num_pages or None,
+                           prefill_chunk=args.chunk_prefill,
+                           priorities=[args.priority] * len(prompts),
+                           device=dev)
+    s = res["stats"]
+    print(f"{cfg.name} on {dev}: served {s['finished']} requests over "
+          f"{s['steps']} ticks on {args.slots} slots in "
+          f"{res['decode_s']:.2f}s ({res['tok_per_s']:.1f} tok/s)"
+          + (f" [paged ps={s['page_size']} pages={s['num_pages']}]"
+             if s["paged"] else "")
+          + (f" [chunk ticks {s['chunk_ticks']}]" if s["chunk_ticks"] else ""))
+    print("sample:", res["tokens"][min(res["tokens"])][:16].tolist())
     return res
 
 

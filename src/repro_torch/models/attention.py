@@ -1,26 +1,30 @@
-"""Grouped-query attention: the full-sequence pass and single-token decode
-against a dense KV cache.
+"""Grouped-query attention: the full-sequence pass, single-token decode and
+chunked prefill against a dense KV cache or a paged KV pool.
 
 Counterpart of repro/models/attention.py (`attn_forward` with the numerics
-of `sdpa_chunked`/`sdpa_flash`, and the dense branch of `attn_decode`). The
-reference code here is plain jnp, not Pallas, so the port is plain
+of `sdpa_chunked`/`sdpa_flash`, `attn_decode` and `attn_chunk`). The
+reference's dense code is plain jnp, not Pallas, so the port's is plain
 torch.matmul and softmax: scores and the value product take fp32 inputs,
-which is what JAX's preferred_element_type=float32 computes.
+which is what JAX's preferred_element_type=float32 computes. The paged
+branches scatter the new keys into their pages, then attend through
+kernels/paged_attn.py (K3 at decode, K4 at a prefill chunk): the CUDA
+kernels on a card, the reference's gather realization on the CPU.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.kernels import paged_attn as PAGED
 from repro_torch.models.layers import apply_rope, rope_angles
 
 NEG_INF = -1e30
 
 
-def sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                 q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
-                 kv_len: int, *, ck: int = 1024) -> torch.Tensor:
-    """Causal online-softmax attention over KV chunks of ck keys.
-    q [B, Sq, Hq, D]; k/v [B, Sk, Hkv, D]; positions int [Sq] / [Sk]."""
+def sdpa_chunked_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
+                     kv_len: int, *, softcap: float = 0.0,
+                     ck: int = 1024) -> torch.Tensor:
+    """`sdpa_chunked` before its final cast: fp32 [B, Sq, Hq, D]."""
     B, Sq, Hq, D = q.shape
     Sk, Hkv = k.shape[1], k.shape[2]
     G = Hq // Hkv
@@ -41,6 +45,8 @@ def sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         vb = v[:, c0:c0 + ck].permute(0, 2, 1, 3)[:, :, None]  # [B,Hkv,1,ck,D]
         kpb = k_pos[c0:c0 + ck]
         s = qg @ kb                                          # [B,Hkv,G,Sq,ck]
+        if softcap > 0:
+            s = softcap * torch.tanh(s / softcap)
         mask = (kpb[None, :] < kv_len) & (kpb[None, :] <= q_pos[:, None])
         if window > 0:
             mask = mask & (kpb[None, :] > q_pos[:, None] - window)
@@ -52,7 +58,34 @@ def sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
         acc = acc * corr[..., None] + p.to(vb.dtype).float() @ vb.float()
         m = m_new
     out = acc / torch.clamp(l, min=1e-20)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D).to(q.dtype)
+    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
+
+
+def sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                 q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
+                 kv_len: int, *, softcap: float = 0.0,
+                 ck: int = 1024) -> torch.Tensor:
+    """Causal online-softmax attention over KV chunks of ck keys, in q's
+    dtype. q [B, Sq, Hq, D]; k/v [B, Sk, Hkv, D]; positions int [Sq] /
+    [Sk]; keys at k_pos >= kv_len are masked; softcap > 0 applies
+    c * tanh(s / c) to the scores."""
+    return sdpa_chunked_f32(q, k, v, q_pos, k_pos, window, kv_len,
+                            softcap=softcap, ck=ck).to(q.dtype)
+
+
+def _qkv(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg):
+    """Projections and RoPE. x [B, S, d]; positions [S] or [B, S] ->
+    q [B, S, Hq, hd], k/v [B, S, Hkv, hd]."""
+    B, S, _ = x.shape
+    hd = cfg.resolved_head_dim()
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    q = (x @ params["wq"]).reshape(B, S, nq, hd)
+    k = (x @ params["wk"]).reshape(B, S, nkv, hd)
+    v = (x @ params["wv"]).reshape(B, S, nkv, hd)
+    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
+    q = apply_rope(q, cos[..., None, :], sin[..., None, :])
+    k = apply_rope(k, cos[..., None, :], sin[..., None, :])
+    return q, k, v
 
 
 def attn_forward(params: dict, x: torch.Tensor, *, cfg,
@@ -61,29 +94,25 @@ def attn_forward(params: dict, x: torch.Tensor, *, cfg,
     """Full-sequence causal self-attention. x [B, S, d]; positions [S].
     With return_kv also the post-RoPE (k, v) for the KV cache."""
     B, S, _ = x.shape
-    hd = cfg.resolved_head_dim()
-    nq, nkv = cfg.num_heads, cfg.num_kv_heads
-    q = (x @ params["wq"]).reshape(B, S, nq, hd)
-    k = (x @ params["wk"]).reshape(B, S, nkv, hd)
-    v = (x @ params["wv"]).reshape(B, S, nkv, hd)
-    cos, sin = rope_angles(positions, hd, cfg.rope_theta)
-    q = apply_rope(q, cos[:, None, :], sin[:, None, :])
-    k = apply_rope(k, cos[:, None, :], sin[:, None, :])
+    q, k, v = _qkv(params, x, positions, cfg)
     out = sdpa_chunked(q, k, v, positions, positions, window, S + 10**9)
-    out = out.reshape(B, S, nq * hd) @ params["wo"]
+    out = out.reshape(B, S, -1) @ params["wo"]
     if return_kv:
         return out, k, v
     return out
 
 
-def _decode_sdpa(q, k, v, mask):
-    """Single-query SDPA. q [B, 1, Hq, D]; k/v [B, S, Hkv, D]; mask [B, S]."""
+def _decode_sdpa(q, k, v, mask, softcap: float = 0.0):
+    """Single-query SDPA. q [B, 1, Hq, D]; k/v [B, S, Hkv, D]; mask [B, S].
+    Returns fp32 [B, 1, Hq, D]."""
     B, _, Hq, D = q.shape
     Hkv = k.shape[2]
     G = Hq // Hkv
     qg = q.reshape(B, Hkv, G, D).float()                   # [B, Hkv, G, D]
     kt = k.permute(0, 2, 3, 1).float()                     # [B, Hkv, D, S]
     s = (qg @ kt) / (D ** 0.5)                             # [B, Hkv, G, S]
+    if softcap > 0:
+        s = softcap * torch.tanh(s / softcap)
     s = torch.where(mask[:, None, None, :], s, NEG_INF)
     p = torch.softmax(s, dim=-1)
     out = p.to(v.dtype).float() @ v.permute(0, 2, 1, 3).float()  # [B,Hkv,G,D]
@@ -91,28 +120,37 @@ def _decode_sdpa(q, k, v, mask):
 
 
 def attn_decode(params: dict, x_t: torch.Tensor, cache_k: torch.Tensor,
-                cache_v: torch.Tensor, t, *, cfg, window: int = 0):
-    """Single-token decode against a dense KV cache [B, Smax, Hkv, hd].
-    `t` is the position: an int (static batch) or [B]. The new token's K/V
-    are written into the cache IN PLACE (JAX returns updated caches)."""
+                cache_v: torch.Tensor, t, *, cfg, window: int = 0,
+                block_table: torch.Tensor | None = None):
+    """Single-token decode. `t` is the position: an int (static batch) or
+    [B]. The new token's K/V are written IN PLACE (JAX returns updated
+    caches): into a dense cache [B, Smax, Hkv, hd] at row t, or, with
+    `block_table` [B, P] int32, into the shared page pool
+    [NP, ps, Hkv, hd] at page bt[b, t // ps], offset t % ps (0 = the null
+    page: retired rows write there). Attention then runs over the dense
+    rows, or walks the block table through K3 (paged_attn_decode)."""
     B = x_t.shape[0]
     hd = cfg.resolved_head_dim()
-    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    nq = cfg.num_heads
     dev = x_t.device
     if isinstance(t, int):      # a fill on the device, not a host copy
         t_vec = torch.full((B,), t, dtype=torch.int32, device=dev)
     else:
         t_vec = t.to(torch.int32).reshape(-1).expand(B)
-    q = (x_t @ params["wq"]).reshape(B, 1, nq, hd)
-    k = (x_t @ params["wk"]).reshape(B, 1, nkv, hd)
-    v = (x_t @ params["wv"]).reshape(B, 1, nkv, hd)
-    cos, sin = rope_angles(t_vec[:, None], hd, cfg.rope_theta)   # [B,1,hd/2]
-    q = apply_rope(q, cos[:, :, None, :], sin[:, :, None, :])
-    k = apply_rope(k, cos[:, :, None, :], sin[:, :, None, :])
+    q, k, v = _qkv(params, x_t, t_vec[:, None], cfg)
 
     rows = torch.arange(B, device=dev)
-    cache_k[rows, t_vec.long()] = k[:, 0].to(cache_k.dtype)
-    cache_v[rows, t_vec.long()] = v[:, 0].to(cache_v.dtype)
+    tl = t_vec.long()
+    if block_table is not None:
+        ps = cache_k.shape[1]
+        page = block_table[rows, tl // ps].long()                    # [B]
+        cache_k[page, tl % ps] = k[:, 0].to(cache_k.dtype)
+        cache_v[page, tl % ps] = v[:, 0].to(cache_v.dtype)
+        out = PAGED.paged_attn_decode(q[:, 0], cache_k, cache_v, block_table,
+                                      t_vec, window=window, softcap=0.0)
+        return out.to(x_t.dtype).reshape(B, 1, nq * hd) @ params["wo"]
+    cache_k[rows, tl] = k[:, 0].to(cache_k.dtype)
+    cache_v[rows, tl] = v[:, 0].to(cache_v.dtype)
     Smax = cache_k.shape[1]
     k_pos = torch.arange(Smax, dtype=torch.int32, device=dev)
     mask = k_pos[None, :] <= t_vec[:, None]                     # [B, Smax]
@@ -120,3 +158,43 @@ def attn_decode(params: dict, x_t: torch.Tensor, cache_k: torch.Tensor,
         mask = mask & (k_pos[None, :] > t_vec[:, None] - window)
     out = _decode_sdpa(q, cache_k, cache_v, mask)
     return out.to(x_t.dtype).reshape(B, 1, nq * hd) @ params["wo"]
+
+
+def attn_chunk(params: dict, x: torch.Tensor, cache_k: torch.Tensor,
+               cache_v: torch.Tensor, start: int, *, cfg, window: int = 0,
+               kv_len: int | None = None,
+               block_table: torch.Tensor | None = None):
+    """Chunked-prefill attention: append one prompt chunk (x [B, Cs, d] at
+    absolute positions start..start+Cs-1; `start` a host int) to the KV
+    cache IN PLACE and attend its queries over everything cached so far.
+    Keys at positions >= `kv_len` are masked (the last, right-padded chunk
+    rides in with kv_len = start + valid). Dense caches take the chunk at
+    rows start..; with `block_table` the chunk scatters into the pages
+    backing its positions (pad positions past the row's allocation land on
+    the null page 0) and attention walks the block table through K4
+    (paged_attn_chunk)."""
+    B, Cs, _ = x.shape
+    hd = cfg.resolved_head_dim()
+    nq = cfg.num_heads
+    dev = x.device
+    positions = start + torch.arange(Cs, dtype=torch.int32, device=dev)
+    q, k, v = _qkv(params, x, positions, cfg)
+    if block_table is not None:
+        ps = cache_k.shape[1]
+        P = block_table.shape[1]
+        pl = positions.long()
+        pages = block_table[:, pl // ps].long()                      # [B, Cs]
+        offs = (pl % ps)[None, :].expand(B, Cs)
+        cache_k[pages, offs] = k.to(cache_k.dtype)
+        cache_v[pages, offs] = v.to(cache_v.dtype)
+        kvl = P * ps if kv_len is None else kv_len
+        out = PAGED.paged_attn_chunk(q, cache_k, cache_v, block_table, start,
+                                     kvl, window=window, softcap=0.0)
+        return out.to(x.dtype).reshape(B, Cs, nq * hd) @ params["wo"]
+    cache_k[:, start:start + Cs] = k.to(cache_k.dtype)
+    cache_v[:, start:start + Cs] = v.to(cache_v.dtype)
+    Smax = cache_k.shape[1]
+    k_pos = torch.arange(Smax, dtype=torch.int32, device=dev)
+    out = sdpa_chunked(q, cache_k, cache_v, positions, k_pos, window,
+                       Smax if kv_len is None else kv_len)
+    return out.reshape(B, Cs, nq * hd) @ params["wo"]

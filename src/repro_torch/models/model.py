@@ -1,10 +1,14 @@
 """Language-model assembly, attention family.
 
-Counterpart of repro/models/model.py for the static-batch serving path:
+Counterpart of repro/models/model.py for the serving paths:
 
   model_init(cfg, generator, device)            -> params
-  init_decode_state(cfg, batch, max_len, device) -> dense decode state
+  init_decode_state(cfg, batch, max_len, device, per_slot_t=, paged=)
+                                                -> dense or paged state
+  init_decode_slot / write_decode_slot          -> reset / fill one pool row
   prefill(params, tokens, cfg, max_len)         -> (state, last_logits)
+  prefill_chunk(params, state, tokens, cfg, start, valid_len)
+                                                -> (state, chunk logits)
   serve_step(params, state, tokens_t, cfg)      -> (logits, state)
   logits_from_hidden(params, x, cfg)            -> [.., V] fp32
 
@@ -20,7 +24,9 @@ from __future__ import annotations
 import torch
 
 from repro_torch.core import moe as MOE
-from repro_torch.core.go_cache import GOCache, go_cache_init, go_cache_prefill
+from repro_torch.core.go_cache import (GOCache, go_cache_init,
+                                       go_cache_init_slot, go_cache_prefill,
+                                       go_cache_write_slot)
 from repro_torch.models import blocks as B
 from repro_torch.models.layers import (dense_init, dtype_of, embed_init,
                                        rmsnorm)
@@ -106,20 +112,97 @@ def logits_from_hidden(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 
 # --------------------------------------------------------------- decode state
 
-def init_decode_state(cfg, batch: int, max_len: int, device) -> dict:
-    """Zero dense decode state: KV rows [L, B, max_len, Hkv, hd], the
-    per-layer GO caches [L, B, E, k, (d)], and the position `t` (an int:
-    the static batch moves in lock step)."""
+def paged_supported(cfg) -> bool:
+    """Paged KV pools cover the plain attention family: the KV cache is the
+    only sequence-shaped decode state there."""
+    return cfg.block == "attn"
+
+
+def init_decode_state(cfg, batch: int, max_len: int, device, *,
+                      per_slot_t: bool = False,
+                      paged: tuple[int, int] | None = None) -> dict:
+    """Zero decode state: the per-layer GO caches [L, B, E, k, (d)] and the
+    position `t`, an int (the static batch moves in lock step) or, with
+    per_slot_t, an int32 tensor [B] (every pool slot at its own offset).
+
+    The KV is dense rows [L, B, max_len, Hkv, hd], or, with
+    `paged=(num_pages, page_size)`, a shared page pool `k_pages`/`v_pages`
+    [L, num_pages, page_size, Hkv, hd] plus a per-slot `block_table`
+    [B, max_len // page_size] int32 of physical page ids (0 = the reserved
+    null page). GO caches stay slot-resident either way."""
     check_served(cfg)
     dt = dtype_of(cfg)
     L = cfg.num_layers
-    shp = (L, batch, max_len, cfg.num_kv_heads, cfg.resolved_head_dim())
+    hd = cfg.resolved_head_dim()
     e = cfg.moe
-    return {"t": 0,
-            "k": torch.zeros(shp, dtype=dt, device=device),
-            "v": torch.zeros(shp, dtype=dt, device=device),
-            "go": go_cache_init(batch, e.num_experts, e.top_k, cfg.d_model,
-                                dt, device, lead=(L,))}
+    st = {"t": (torch.zeros(batch, dtype=torch.int32, device=device)
+                if per_slot_t else 0)}
+    if paged is not None:
+        num_pages, ps = paged
+        if max_len % ps:
+            raise ValueError(f"max_len={max_len} must be a multiple of "
+                             f"page_size={ps}")
+        st["block_table"] = torch.zeros((batch, max_len // ps),
+                                        dtype=torch.int32, device=device)
+        shp = (L, num_pages, ps, cfg.num_kv_heads, hd)
+        st["k_pages"] = torch.zeros(shp, dtype=dt, device=device)
+        st["v_pages"] = torch.zeros(shp, dtype=dt, device=device)
+    else:
+        shp = (L, batch, max_len, cfg.num_kv_heads, hd)
+        st["k"] = torch.zeros(shp, dtype=dt, device=device)
+        st["v"] = torch.zeros(shp, dtype=dt, device=device)
+    st["go"] = go_cache_init(batch, e.num_experts, e.top_k, cfg.d_model, dt,
+                             device, lead=(L,))
+    return st
+
+
+def init_decode_slot(state: dict, slot: int) -> None:
+    """Reset pool row `slot` to the empty decode state IN PLACE. A paged
+    pool resets only the row's block table (to the null page): its
+    physical pages go back to the host allocator and are rewritten before
+    any later occupant reads them. GO rows reset (scores to -inf)."""
+    state["t"][slot] = 0
+    if "block_table" in state:
+        state["block_table"][slot] = 0
+    for key in ("k", "v"):
+        if key in state:
+            state[key][:, slot] = 0
+    go_cache_init_slot(state["go"], slot)
+
+
+def write_decode_slot(state: dict, slot: int, src: dict,
+                      page_ids: torch.Tensor | None = None) -> None:
+    """Write a batch-1 decode state `src` (a one-request prefill built with
+    the SAME max_len as the pool) into pool row `slot` IN PLACE.
+
+    A paged pool also takes `page_ids` [max_len // page_size] int32, the
+    row's whole block table. The dense prefill KV splits into page-size
+    rows scattered to those pages; null (0) entries, the pages past the
+    request's allocation, dump their rows onto the null page. A src without
+    dense "k"/"v" (a paged chunked prefill, which wrote its KV straight
+    into the pool's pages) splats only its position and GO rows."""
+    state["t"][slot] = int(src["t"])
+    if "block_table" in state:
+        if page_ids is None:
+            raise ValueError("paged pool: pass the slot's page_ids")
+        pid = page_ids.to(device=state["block_table"].device,
+                          dtype=torch.int32)
+        state["block_table"][slot] = pid
+        L, _, ps, h, hd = state["k_pages"].shape
+        P = pid.shape[0]
+        for key, srck in (("k_pages", "k"), ("v_pages", "v")):
+            if srck not in src:
+                continue
+            if src[srck].shape[2] != P * ps:
+                raise ValueError(
+                    f"{srck}: prefill length {src[srck].shape[2]} != pool "
+                    f"max_tokens {P * ps} (prefill with the pool's max_len)")
+            pages = src[srck][:, 0].reshape(L, P, ps, h, hd)
+            state[key][:, pid.long()] = pages.to(state[key].dtype)
+    for key in ("k", "v"):
+        if key in state:
+            state[key][:, slot] = src[key][:, 0].to(state[key].dtype)
+    go_cache_write_slot(state["go"], slot, src["go"])
 
 
 def _layer_go(state: dict, l: int) -> GOCache:
@@ -154,18 +237,56 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, max_len: int = 0):
     return state, logits
 
 
+# -------------------------------------------------------------- chunk prefill
+
+def _kv(state: dict, l: int):
+    """Layer l's KV views and the block table (None for dense rows)."""
+    if "block_table" in state:
+        return (state["k_pages"][l], state["v_pages"][l],
+                state["block_table"])
+    return state["k"][l], state["v"][l], None
+
+
+def prefill_chunk(params: dict, state: dict, tokens: torch.Tensor, cfg,
+                  start: int, valid_len: int | None = None):
+    """Append ONE prompt chunk (tokens [B, Cs] at positions
+    start..start+Cs-1; `start` and `valid_len` host ints) to a decode
+    state mid-prefill, IN PLACE. The last chunk is right-padded to Cs and
+    rides in with valid_len = its real token count: causal attention and
+    the kv_len mask keep real positions off the pads, and expert-choice
+    routing masks pads out of the chunk's top-C, so the merged GO cache
+    holds only real tokens. A paged state (block_table, k_pages, v_pages)
+    prefills straight into the pool's pages. Returns (state, logits
+    [B, V] fp32 at chunk position valid_len - 1); state["t"] lands on
+    start + valid_len."""
+    Cs = tokens.shape[1]
+    vl = Cs if valid_len is None else valid_len
+    x = params["embed"][tokens]
+    for l, w in enumerate(layer_windows(cfg)):
+        ck, cv, bt = _kv(state, l)
+        x, _ = B.attn_block_chunk(
+            layer_params(params["layers"], l), x, ck, cv, start, cfg=cfg,
+            go_cache=_layer_go(state, l), window=w, valid_len=vl,
+            block_table=bt)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = logits_from_hidden(params, x[:, vl - 1, :], cfg)
+    state["t"] = start + vl
+    return state, logits
+
+
 # ----------------------------------------------------------------- serve step
 
 def serve_step(params: dict, state: dict, tokens_t: torch.Tensor, cfg):
     """One decode step. tokens_t [B] -> (logits [B, V] fp32, state); the
-    state's caches are updated in place."""
+    state's caches are updated in place. `state["t"]` is an int or a
+    per-slot [B] tensor; a paged state walks its block table."""
     t = state["t"]
     x = params["embed"][tokens_t][:, None, :]                     # [B, 1, d]
     for l, w in enumerate(layer_windows(cfg)):
+        ck, cv, bt = _kv(state, l)
         x, _ = B.attn_block_decode(
-            layer_params(params["layers"], l), x, state["k"][l],
-            state["v"][l], t, cfg=cfg, go_cache=_layer_go(state, l),
-            window=w)
+            layer_params(params["layers"], l), x, ck, cv, t, cfg=cfg,
+            go_cache=_layer_go(state, l), window=w, block_table=bt)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_from_hidden(params, x[:, 0, :], cfg)
     state["t"] = t + 1

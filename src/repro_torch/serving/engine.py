@@ -1,0 +1,372 @@
+"""Continuous-batching serving engine over the pooled KV + GO cache state.
+
+Counterpart of repro/serving/engine.py (`ServingEngine`), the engine's core:
+
+  admit    a queued request prefills into a free slot: one batch-1
+           prefill at the pool's max_tokens whose KV and per-layer GO rows
+           are written into the slot in place (write_decode_slot), or, for
+           a prompt longer than `prefill_chunk`, a chunked prefill that
+           runs one chunk per engine tick;
+  decode   every tick advances ALL slots one token in one batched
+           serve_step; slots sit at different positions through the
+           per-slot `t` vector. Retired rows still flow through the step
+           with their position pinned to 0 and a null block-table row, as
+           the reference's `_decode_step` does;
+  retire   a slot frees on EOS or length; its caches reset
+           (init_decode_slot) and the row is reusable at once.
+
+Greedy decoding only: the engine reads each tick's tokens back to the host
+once. Greedy streams equal the static `launch.serve.generate()`'s for the
+same cache capacity, and a paged pool's streams equal a dense pool's (on
+the CPU the paged attention runs the reference's gather realization).
+
+PAGED POOL (`paged=True`): the KV rows become a shared page pool with
+per-slot block tables (serving/pool.py, serving/paging.py); admission asks
+the allocator whether the request's worst-case pages are reservable. On a
+card, decode attention walks the block table through K3 and chunked
+prefill through K4 (kernels/paged_attn.py).
+
+CHUNKED PREFILL (`prefill_chunk=N`): prompts longer than N are admitted as
+chunks of N tokens, one per tick, between the decode ticks of the slots in
+flight. Expert-choice MoE routes each chunk at the CHUNK's capacity and
+merges GO caches (go_cache_merge), so its streams are deterministic per
+chunking but may differ from one-shot prefill. At most one chunk run is
+in flight; it holds a claimed slot and reserved pages from its start, and
+on a paged pool it writes its KV straight into the pool's pages.
+
+Not in the port yet (ROADMAP.md Queue 1 item 7): sampling, prompt
+buckets, preemption, chaos and the supervisor, deadlines and cancel,
+prefix sharing and expert-aware admission, int8 pages, the journal and
+the mesh.
+"""
+from __future__ import annotations
+
+import time
+from dataclasses import dataclass
+
+import numpy as np
+import torch
+
+from repro_torch.models.layers import resolve_device
+from repro_torch.models.model import (init_decode_state, paged_supported,
+                                      prefill, prefill_chunk, serve_step)
+from repro_torch.serving.pool import SlotPool
+from repro_torch.serving.scheduler import (FIFOScheduler, QueueFull, Request,
+                                           RequestStatus, RequestTooLarge)
+
+
+@dataclass
+class _ChunkJob:
+    """One in-flight chunked prefill: a claimed slot, reserved pages and a
+    private batch-1 decode state that fills one chunk per tick. A dense
+    pool's job carries private KV rows; a paged pool's job carries its
+    claimed block-table row and lends the pool's page tensors to each
+    chunk, which scatters its KV straight into the job's pages."""
+    req: Request
+    slot: int
+    state: dict
+    prompt: np.ndarray            # right-padded to a chunk multiple
+    pos: int = 0                  # next chunk start
+    logits: torch.Tensor | None = None   # last chunk's logits
+    page_row: np.ndarray | None = None
+
+
+class ServingEngine:
+    """Continuous-batching engine: submit requests any time, run ticks."""
+
+    def __init__(self, params, cfg, *, num_slots: int = 8,
+                 max_tokens: int = 256, max_queue: int = 0,
+                 paged: bool = False, page_size: int = 16,
+                 num_pages: int | None = None, prefill_chunk: int = 0,
+                 device=None):
+        self.device = resolve_device(device)
+        if params["embed"].device.type != self.device.type:
+            raise ValueError(f"params live on {params['embed'].device}, the "
+                             f"engine runs on {self.device}")
+        self.params = params
+        self.cfg = cfg
+        self.pool = SlotPool(cfg, num_slots, max_tokens, self.device,
+                             paged=paged, page_size=page_size,
+                             num_pages=num_pages)
+        self.scheduler = FIFOScheduler(num_slots, max_tokens, max_queue)
+        if prefill_chunk:
+            if not paged_supported(cfg):
+                raise ValueError("chunked prefill is attention-family only")
+            if max_tokens % prefill_chunk:
+                raise ValueError(f"prefill_chunk={prefill_chunk} must divide "
+                                 f"max_tokens={max_tokens}")
+            if paged and prefill_chunk % page_size:
+                raise ValueError(f"prefill_chunk={prefill_chunk} must be "
+                                 f"page-granular (page_size={page_size})")
+        self.prefill_chunk = int(prefill_chunk)
+        self._chunk_job: _ChunkJob | None = None
+        self._next_id = 0
+        self.step_count = 0
+        self.chunk_ticks = 0
+        self.decode_ticks = 0
+        # peak occupancy (occupied slots plus the chunk lane), sampled at
+        # every admission and after the admission loop, before retirements
+        self.peak_active = 0
+        self.finished: dict[int, Request] = {}
+        self.rejected_full = 0
+        self.rejected_oversized = 0
+        self.page_waits = 0        # admission checks refused by the page gate
+
+    # ------------------------------------------------------------- submission
+
+    def submit(self, prompt, max_new_tokens: int, *, eos_id: int | None = None,
+               arrival_step: int = 0, priority: int = 0,
+               request_id: int | None = None,
+               temperature: float = 0.0) -> int:
+        """Queue a request and return its id. `arrival_step` later than the
+        current tick defers its arrival to that tick (trace replay);
+        `priority` orders admission (lower first, FIFO within a level).
+        Raises RequestTooLarge for a request that could never fit the pool
+        and QueueFull at max_queue."""
+        if temperature > 0:
+            raise NotImplementedError(
+                "sampling (temperature > 0) is not ported yet: ROADMAP.md "
+                "Queue 1 item 7; the port's engine decodes greedily")
+        rid = request_id if request_id is not None else self._next_id
+        self._next_id = max(self._next_id, rid + 1)
+        req = Request(request_id=rid,
+                      prompt=np.asarray(prompt, np.int32).reshape(-1),
+                      max_new_tokens=int(max_new_tokens), eos_id=eos_id,
+                      arrival_step=arrival_step, priority=int(priority))
+        if req.max_new_tokens < 1:
+            raise ValueError("max_new_tokens must be >= 1")
+        if self.pool.paged:
+            # a worst case over the whole page pool could never reserve, so
+            # its admission would stall the queue forever
+            need = self.pool.pages_needed(req)
+            usable = self.pool.num_pages - 1          # page 0 is the null page
+            if need > usable:
+                self.rejected_oversized += 1
+                raise RequestTooLarge(
+                    f"request {rid}: prompt({req.prompt_len}) + "
+                    f"max_new_tokens({req.max_new_tokens}) needs {need} "
+                    f"pages of {self.pool.page_size} tokens, but the pool "
+                    f"only has {usable} usable pages")
+        req.arrival_time = req.submit_time = time.monotonic()
+        try:
+            self.scheduler.submit(req, now_step=self.step_count)
+        except QueueFull:
+            self.rejected_full += 1
+            raise
+        except RequestTooLarge:
+            self.rejected_oversized += 1
+            raise
+        return rid
+
+    # ------------------------------------------------------------------ ticks
+
+    def step(self) -> list[Request]:
+        """One engine tick: advance the chunked prefill (if any) by one
+        chunk, admit due and queued requests into free slots, then advance
+        every occupied slot one token. Returns the requests finished on
+        this tick."""
+        done: list[Request] = []
+        for req in self.scheduler.poll(self.step_count):
+            req.arrival_time = time.monotonic()
+
+        if self._chunk_job is not None:
+            self._advance_chunk_job(done)
+
+        while True:
+            free = self.pool.free_slots()
+            if self._chunk_job is not None and self._chunk_job.slot in free:
+                free.remove(self._chunk_job.slot)
+            busy = self.pool.num_active() + \
+                (1 if self._chunk_job is not None else 0)
+            req = self.scheduler.next_admission(busy,
+                                                can_admit=self._can_admit)
+            if req is None:
+                break
+            if self.prefill_chunk and req.prompt_len > self.prefill_chunk:
+                self._start_chunk_job(free[0], req)
+            else:
+                self._admit(free[0], req, done)
+
+        self._note_occupancy()
+
+        if self.pool.any_active():
+            self.pool.grow_active()
+            toks = self._decode_step()
+            self.pool.note_decoded()
+            self.step_count += 1
+            self.decode_ticks += 1
+            for slot, req in enumerate(self.pool.owner):
+                if req is None:
+                    continue
+                tok = int(toks[slot])
+                req.tokens.append(tok)
+                self.pool.pending[slot] = tok
+                self.pool.remaining[slot] -= 1
+                if self.pool.remaining[slot] <= 0 or \
+                        (req.eos_id is not None and tok == req.eos_id):
+                    self._retire_slot(slot, done)
+        elif self._chunk_job is not None:
+            self.step_count += 1              # prefill-only tick
+        else:
+            # idle tick: jump straight to the next trace arrival
+            nxt = self.scheduler.next_arrival_step()
+            self.step_count = max(self.step_count + 1,
+                                  nxt if nxt is not None else 0)
+        return done
+
+    def has_work(self) -> bool:
+        """Anything left to do: queued or deferred requests, occupied
+        slots, or an in-flight chunked prefill."""
+        return self.scheduler.has_pending() or self.pool.any_active() \
+            or self._chunk_job is not None
+
+    def run(self) -> dict[int, Request]:
+        """Tick until the queue, the trace, the chunk run and the pool
+        drain; returns the finished requests by id (token streams in
+        Request.tokens)."""
+        while self.has_work():
+            self.step()
+        return self.finished
+
+    # -------------------------------------------------------------- internals
+
+    def _decode_step(self) -> np.ndarray:
+        """One batched decode tick over every row (the reference's
+        `_decode_step`): retired rows' positions are pinned back to 0.
+        Returns the greedy tokens [num_slots], read back to the host."""
+        dev = self.device
+        st = self.pool.state
+        tokens = torch.from_numpy(self.pool.pending.astype(np.int64)).to(dev)
+        active = torch.from_numpy(self.pool.active_mask()).to(dev)
+        logits, st = serve_step(self.params, st, tokens, self.cfg)
+        st["t"] = torch.where(active, st["t"], 0).to(torch.int32)
+        return torch.argmax(logits, dim=-1).cpu().numpy()
+
+    def _note_occupancy(self) -> None:
+        self.peak_active = max(
+            self.peak_active,
+            self.pool.num_active() + (1 if self._chunk_job is not None else 0))
+
+    def _can_admit(self, req: Request) -> bool:
+        """Admission gate: a to-be-chunked prompt waits for the single
+        chunk lane, and a paged pool must be able to reserve the request's
+        worst-case pages. A blocked head blocks the queue (no overtaking,
+        so no starvation)."""
+        if self.prefill_chunk and req.prompt_len > self.prefill_chunk \
+                and self._chunk_job is not None:
+            return False
+        if self.pool.can_admit(req):
+            return True
+        self.page_waits += 1
+        return False
+
+    def _admit(self, slot: int, req: Request, done: list[Request]) -> None:
+        """One-shot batch-1 prefill at the pool's max_tokens into `slot`;
+        emits the request's first token from the prefill logits."""
+        prompt = torch.from_numpy(req.prompt.copy()).to(self.device)
+        slot_state, logits = prefill(self.params, prompt[None, :], self.cfg,
+                                     max_len=self.pool.max_tokens)
+        self._install(slot, req, slot_state, logits, done)
+
+    def _install(self, slot: int, req: Request, slot_state: dict, logits,
+                 done: list[Request], page_row=None) -> None:
+        """Shared tail of one-shot and chunked admission: emit the first
+        token, splat the prefilled state into the pool row, and retire at
+        once on EOS or a one-token request."""
+        first = int(torch.argmax(logits, dim=-1)[0])
+        req.admit_step = self.step_count
+        req.admit_time = time.monotonic()
+        req.status = RequestStatus.ACTIVE
+        req.tokens.append(first)
+        self.pool.admit(slot, req, slot_state, first, page_row=page_row)
+        self._note_occupancy()       # before a possible instant retirement
+        if self.pool.remaining[slot] <= 0 or \
+                (req.eos_id is not None and first == req.eos_id):
+            self._retire_slot(slot, done)
+
+    # ---------------------------------------------------------- chunk prefill
+
+    def _start_chunk_job(self, slot: int, req: Request) -> None:
+        """Claim `slot` and the request's worst-case pages, then fill the
+        first chunk. A paged pool claims the request's first pages up front
+        and its job state is a batch-1 skeleton (position, GO rows, block
+        table); the page tensors are the pool's own."""
+        Cs = self.prefill_chunk
+        padded = -(-req.prompt_len // Cs) * Cs
+        prompt = np.pad(req.prompt, (0, padded - req.prompt_len))
+        page_row = None
+        if self.pool.paged:
+            page_row = self.pool.claim_chunk_pages(req)
+            state = init_decode_state(self.cfg, 1, self.pool.max_tokens,
+                                      self.device,
+                                      paged=(1, self.pool.page_size))
+            del state["k_pages"], state["v_pages"]
+            state["block_table"] = torch.from_numpy(
+                page_row[None, :].copy()).to(self.device)
+        else:
+            state = init_decode_state(self.cfg, 1, self.pool.max_tokens,
+                                      self.device)
+            self.pool.reserve_pages(req)
+        self._chunk_job = _ChunkJob(req=req, slot=slot, state=state,
+                                    prompt=prompt, page_row=page_row)
+        self._advance_chunk_job_once()
+
+    def _advance_chunk_job(self, done: list[Request]) -> None:
+        self._advance_chunk_job_once()
+        job = self._chunk_job
+        if job is not None and job.pos >= len(job.prompt):
+            self._chunk_job = None
+            self._install(job.slot, job.req, job.state, job.logits, done,
+                          page_row=job.page_row)
+
+    def _advance_chunk_job_once(self) -> None:
+        """Prefill the job's next chunk. A paged job lends the pool's page
+        tensors to the chunk, which writes only the job's claimed pages
+        (disjoint from every active slot's), in place."""
+        job = self._chunk_job
+        Cs = self.prefill_chunk
+        chunk = torch.from_numpy(job.prompt[job.pos:job.pos + Cs].copy())
+        valid = min(Cs, job.req.prompt_len - job.pos)
+        paged = job.page_row is not None
+        if paged:
+            job.state["k_pages"] = self.pool.state["k_pages"]
+            job.state["v_pages"] = self.pool.state["v_pages"]
+        job.state, job.logits = prefill_chunk(
+            self.params, job.state, chunk.to(self.device)[None, :], self.cfg,
+            job.pos, valid)
+        if paged:
+            del job.state["k_pages"], job.state["v_pages"]
+        job.pos += Cs
+        self.chunk_ticks += 1
+
+    def _retire_slot(self, slot: int, done: list[Request]) -> None:
+        self._mark_finished(self.pool.retire(slot), done)
+
+    def _mark_finished(self, req: Request, done: list[Request]) -> None:
+        req.status = RequestStatus.DONE
+        req.finish_step = self.step_count
+        req.finish_time = time.monotonic()
+        self.finished[req.request_id] = req
+        done.append(req)
+
+    def stats(self) -> dict:
+        reqs = self.finished.values()
+        return {
+            "steps": self.step_count,
+            "decode_ticks": self.decode_ticks,
+            "chunk_ticks": self.chunk_ticks,
+            "admitted": self.pool.admitted_total,
+            "finished": len(self.finished),
+            "queued": len(self.scheduler.queue),
+            "active": self.pool.num_active(),
+            "tokens_out": sum(len(r.tokens) for r in reqs),
+            "peak_active": self.peak_active,
+            "paged": self.pool.paged,
+            "page_size": self.pool.page_size if self.pool.paged else None,
+            "num_pages": self.pool.num_pages,
+            "pages_in_use": (self.pool.alloc.pages_in_use
+                             if self.pool.paged else None),
+            "page_waits": self.page_waits,
+            "rejected": {"queue_full": self.rejected_full,
+                         "oversized": self.rejected_oversized},
+        }

@@ -92,3 +92,142 @@ def test_cuda_moe_ffn_matches_cpu(cuda_device):
                                        dev, E, T)
     assert plan.n_pad % 64 == 0
     torch.testing.assert_close(y_gpu.cpu(), y_cpu, rtol=1e-4, atol=1e-4)
+
+
+# --------------------------------------------------------- paged attention
+
+from repro_torch.kernels import paged_attn as PA  # noqa: E402
+
+
+def _paged(seed, nkv, live, device, dtype, ps=8, P=6, hq=4, hd=64,
+           poison=None):
+    """Pages with shuffled physical ids (rows past their live tokens on the
+    null page); `poison` fills every position no row may read."""
+    rng = np.random.default_rng(seed)
+    B = len(live)
+    NP = B * P + 2
+    kp = rng.standard_normal((NP, ps, nkv, hd)).astype(np.float32)
+    vp = rng.standard_normal((NP, ps, nkv, hd)).astype(np.float32)
+    ids = iter(rng.permutation(np.arange(1, NP)))
+    bt = np.zeros((B, P), np.int32)
+    readable = np.zeros((NP, ps), bool)
+    for b in range(B):
+        for j in range(-(-int(live[b]) // ps)):
+            bt[b, j] = next(ids)
+        for pos in range(int(live[b])):
+            readable[bt[b, pos // ps], pos % ps] = True
+    if poison is not None:
+        kp = np.where(readable[:, :, None, None], kp, poison)
+        vp = np.where(readable[:, :, None, None], vp, -poison)
+    t = lambda a, dt=dtype: torch.from_numpy(  # noqa: E731
+        np.ascontiguousarray(a)).to(device=device, dtype=dt)
+    return t(kp), t(vp), t(bt, torch.int32), hq, hd
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("nkv", [1, 2, 4])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (5, 0.0), (0, 4.0)])
+def test_cuda_paged_attn_matches_plain(cuda_device, nkv, window, softcap):
+    """K3 at ragged positions around page boundaries and K4 on a ragged
+    last chunk, fp32, against the plain versions: the online softmax sums
+    in another order than the one-shot one (2e-5, as the reference's
+    kernel-vs-gather tests)."""
+    t = np.array([0, 1, 7, 8, 9, 15, 24, 47], np.int32)
+    kp, vp, bt, hq, hd = _paged(3, nkv, t + 1, cuda_device, torch.float32)
+    g = torch.Generator(device="cuda").manual_seed(4)
+    q = torch.randn(len(t), hq, hd, device="cuda", generator=g)
+    tt = torch.from_numpy(t).to(cuda_device)
+    before = dict(PA.LAUNCHES)
+    out = PA.paged_attn_decode(q, kp, vp, bt, tt, window=window,
+                               softcap=softcap)
+    ref = PA.paged_attn_decode_plain(q, kp, vp, bt, tt, window=window,
+                                     softcap=softcap)
+    torch.testing.assert_close(out, ref, rtol=2e-5, atol=2e-5)
+    qc = torch.randn(len(t), 16, hq, hd, device="cuda", generator=g)
+    for start, kv_len in [(0, 11), (16, 29), (32, 48)]:
+        out = PA.paged_attn_chunk(qc, kp, vp, bt, start, kv_len,
+                                  window=window, softcap=softcap)
+        ref = PA.paged_attn_chunk_plain(qc, kp, vp, bt, start, kv_len,
+                                        window=window, softcap=softcap)
+        # only real queries: the caller discards pads (q_pos >= kv_len),
+        # which under a window may see no key at all
+        n = kv_len - start
+        torch.testing.assert_close(out[:, :n], ref[:, :n], rtol=2e-5,
+                                   atol=2e-5)
+    torch.cuda.synchronize()
+    assert PA.LAUNCHES["paged_attn_decode"] == \
+        before["paged_attn_decode"] + 1
+    assert PA.LAUNCHES["paged_attn_chunk"] == before["paged_attn_chunk"] + 3
+
+
+@pytest.mark.requires_cuda
+def test_cuda_paged_attn_bf16_and_unreachable_pages(cuda_device):
+    """bf16 pages at the main path's head_dim against the plain versions
+    (K4's plain version rounds q * scale to bf16, as sdpa_chunked does:
+    2e-2), and poisoned unreachable positions change no output bit."""
+    t = np.array([3, 16, 40, 95], np.int32)
+    bf, tol = torch.bfloat16, 2e-2
+    kp, vp, bt, hq, _ = _paged(5, 2, t + 1, cuda_device, bf, ps=16, hd=128)
+    q = torch.randn(len(t), hq, 128, device="cuda").to(bf)
+    tt = torch.from_numpy(t).to(cuda_device)
+    torch.testing.assert_close(
+        PA.paged_attn_decode(q, kp, vp, bt, tt),
+        PA.paged_attn_decode_plain(q, kp, vp, bt, tt), rtol=tol, atol=tol)
+    qc = torch.randn(len(t), 32, hq, 128, device="cuda").to(bf)
+    torch.testing.assert_close(
+        PA.paged_attn_chunk(qc, kp, vp, bt, 32, 60),
+        PA.paged_attn_chunk_plain(qc, kp, vp, bt, 32, 60), rtol=tol, atol=tol)
+    clean = _paged(6, 2, t + 1, cuda_device, torch.float32, ps=16,
+                   poison=0.0)
+    dirty = _paged(6, 2, t + 1, cuda_device, torch.float32, ps=16,
+                   poison=1e4)
+    q = torch.randn(len(t), 4, 64, device="cuda")
+    tt = torch.from_numpy(t).to(cuda_device)
+    assert torch.equal(PA.paged_attn_decode(q, *clean[:3], tt),
+                       PA.paged_attn_decode(q, *dirty[:3], tt))
+
+
+@pytest.mark.requires_cuda
+def test_cuda_paged_attn_raises_instead_of_falling_back(cuda_device):
+    kp, vp, bt, hq, _ = _paged(1, 2, [9], cuda_device, torch.float32, hd=24)
+    t = torch.tensor([8], dtype=torch.int32, device=cuda_device)
+    with pytest.raises(ValueError, match="head_dim"):
+        PA.paged_attn_decode(torch.zeros(1, hq, 24, device="cuda"), kp, vp,
+                             bt, t)
+    kp, vp, bt, hq, hd = _paged(1, 2, [9], cuda_device, torch.float16)
+    with pytest.raises(TypeError, match="no kernel for dtype"):
+        PA.paged_attn_decode(torch.zeros(1, hq, hd, device="cuda").half(),
+                             kp, vp, bt, t)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_engine_streams_equal_cpu(cuda_device):
+    """The smoke engine on a paged pool with chunked prefill: the card
+    (K1-K4) streams what the CPU (plain versions) streams."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import serve_continuous
+    from repro_torch.models.model import model_init
+    cfg = get_config("llama_moe_4_16", smoke=True)
+    params = model_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+               for n in (5, 20, 8, 11, 3)]
+    kw = dict(num_slots=2, max_tokens=32, arrival_steps=[0, 0, 1, 4, 6],
+              paged=True, page_size=4, num_pages=10, prefill_chunk=8)
+    cpu = serve_continuous(params, cfg, prompts, 7, device="cpu", **kw)
+    gpu_params = _to(params, cuda_device)
+    before = dict(PA.LAUNCHES)
+    gpu = serve_continuous(gpu_params, cfg, prompts, 7, device="cuda", **kw)
+    for rid, toks in cpu["tokens"].items():
+        np.testing.assert_array_equal(gpu["tokens"][rid], toks)
+    L = cfg.num_layers
+    s = gpu["stats"]
+    assert PA.LAUNCHES["paged_attn_decode"] - before["paged_attn_decode"] \
+        == L * s["decode_ticks"]
+    assert PA.LAUNCHES["paged_attn_chunk"] - before["paged_attn_chunk"] \
+        == L * s["chunk_ticks"]
+
+
+def _to(tree, device):
+    return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
+            for k, v in tree.items()}

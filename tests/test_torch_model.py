@@ -129,9 +129,18 @@ def test_cli_static_smoke_on_cpu(capsys):
     assert "llama-moe-smoke on cpu" in capsys.readouterr().out
 
 
-def test_cli_continuous_batching_is_slice_two():
-    with pytest.raises(NotImplementedError, match="slice 2"):
-        TS.main(["--arch", "llama_moe_4_16", "--smoke", "--device", "cpu"])
+def test_cli_continuous_batching_is_slice_two(capsys):
+    """Continuous batching (slice 2) is the CLI's default mode: a paged
+    pool with chunked prefill serves every request to its length."""
+    res = TS.main(["--arch", "llama_moe_4_16", "--smoke", "--device", "cpu",
+                   "--requests", "3", "--slots", "2", "--prompt", "10",
+                   "--gen", "3", "--paged", "--page-size", "4",
+                   "--chunk-prefill", "8"])
+    s = res["stats"]
+    assert s["finished"] == 3 and s["paged"] and s["chunk_ticks"] == 3 * 2
+    assert all(len(t) == 3 for t in res["tokens"].values())
+    assert s["pages_in_use"] == 0
+    assert "served 3 requests" in capsys.readouterr().out
 
 
 def test_xla_backend_is_not_ported(slice_setup):

@@ -37,6 +37,10 @@ def test_importing_every_module_builds_and_loads_nothing():
     for p in sorted((ROOT / "src" / "repro_torch").rglob("*.py")):
         rel = p.relative_to(ROOT / "src").with_suffix("")
         mods.append(".".join(rel.parts).replace(".__init__", ""))
+    assert {"repro_torch.serving", "repro_torch.serving.engine",
+            "repro_torch.serving.pool", "repro_torch.serving.paging",
+            "repro_torch.serving.scheduler",
+            "repro_torch.kernels.paged_attn"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "from repro_torch.kernels import build\n"
@@ -87,4 +91,5 @@ def test_failed_launch_raises():
 
 def test_kernel_sources_ship_with_the_package():
     assert (build.CSRC / "moe_gmm.cu").is_file()
+    assert (build.CSRC / "paged_attn.cu").is_file()
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
