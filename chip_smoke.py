@@ -10,28 +10,42 @@ Phases (none catches an exception; any failure exits non-zero):
      src/repro_torch/kernels/csrc/ (timed, one nvcc per source in parallel).
   1. K1 gmm_swiglu and K2 gmm_scaled against their plain PyTorch versions:
      fp32 at small ragged shapes with invalid tiles, then bf16 at the main
-     path's full-width shapes (prefill from a real expert-choice tile plan,
-     decode on the [16*bn, 4096] selected-pair layout), with median times
-     of kernel, plain version and one library call (`library_ms`).
-  2. K3 paged_attn_decode and K4 paged_attn_chunk against their plain
-     versions: fp32 at small shapes (GQA 1/2/4, window, softcap, null and
+     paths' full-width shapes (llama's prefill from a real expert-choice
+     tile plan and its decode on the [16*bn, 4096] selected-pair layout;
+     granite's decode on a real token-choice dispatch plan, 4 rows top-8
+     of 40), with median times of kernel, plain version and one library
+     call (`library_ms`).
+  2. K7 gmm_swiglu_fused and K8 gmm_scaled_fused (the fused lane pairs of
+     the C1 group path): fp32 at small ragged shapes with straddle tiles
+     (mid-tile, at a tile's last row, an empty primary lane, invalid tail
+     tiles), then bf16 at the full-width granite prefill plan (4 x 128
+     tokens, top-8 of 40, group-major lanes fused pairwise), with times.
+  3. K3 paged_attn_decode and K4 paged_attn_chunk against their plain
+     versions: fp32 at small shapes (GQA 4/2/1, window, softcap, null and
      reused pages, ragged positions and kv_len), then bf16 at the engine
-     run's full-width shapes with kernel, plain and library times.
-  3. the slice end to end at smoke size, fp32, the same weights on the CPU
-     (plain versions) and on the card (kernels): static generate(), then
-     the continuous-batching engine on a paged pool with chunked prefill.
-  4. full width, llama_moe_4_16 in bf16 (one set of weights):
+     run's full-width shapes of both models (llama 32/32 heads of 128,
+     granite 24/8 heads of 64) with kernel, plain and library times.
+  4. both slices end to end at smoke size, fp32, the same weights on the
+     CPU (plain versions) and on the card (kernels): static generate(),
+     then the continuous-batching engine on a paged pool with chunked
+     prefill; llama_moe_4_16 (expert choice, GO cache) and
+     granite-moe-3b-a800m (token choice, C1 groups: K7/K8 at prefill).
+  5. full width, bf16, one set of random weights per model, first
+     llama_moe_4_16, then granite-moe-3b-a800m:
      a. static generate(): 4 requests x 128 prompt tokens, 16 new tokens,
-        with its profile;
+        with its profile; its two repeats must give the same tokens;
      b. the continuous-batching engine on a paged pool (4 slots, pages of
         16, 97 pages, chunks of 128): 8 staggered requests, 32 new tokens
-        each, with its profile of one decode tick and one chunk tick.
+        each, with its profile of one decode tick and one chunk tick; the
+        trace runs twice and both runs must stream the same tokens and
+        leave the same KV pages and GO rows, bit for bit.
      Each path runs with the launch counts set to 0 just before it.
 Then one JSON line with every kernel's numbers, the card line again, and
 the final {"ok": true, ...} line.
 """
 import json
 import os
+import re
 import statistics
 import subprocess
 import sys
@@ -52,8 +66,8 @@ PAGED_TOL_F32 = 2e-5
 PAGED_TOL_BF16 = 2e-2
 
 # Smoke logits, card vs CPU, both fp32. A sound run differs by ~4e-7 (sums
-# in other orders, float atomics); a faulty kernel moves them by ~9e-4 (K2's
-# row scale rounded to bf16) to ~0.6 (tests/test_torch_model.py's faults).
+# in other orders); a faulty kernel moves them by ~9e-4 (K2's row scale
+# rounded to bf16) to ~0.6 (tests/test_torch_model.py's faults).
 SMOKE_LOGIT_TOL = 1e-5
 
 
@@ -131,8 +145,11 @@ def kernel_phase_small(torch, G):
               "zero", flush=True)
 
 
-def kernel_phase_full(torch, G, OPS):
-    """bf16 at the main path's full-width shapes. Tolerances: K1 rounds its
+def kernel_phase_full(torch, G, OPS, R, cfg_granite):
+    """bf16 at the main paths' full-width shapes: llama's expert-choice
+    prefill plan and its GO decode layout, and granite's token-choice
+    decode plan (4 tokens top-8 of 40 through one dispatch plan: 32 pairs
+    in 2624 rows, nearly every tile invalid). Tolerances: K1 rounds its
     output to bf16, so rtol=atol=1e-2 (over one bf16 ulp, 2^-7 relative);
     K2 writes fp32 sums of bf16 products, rtol=atol=1e-4."""
     bn, E, K, F = G.KERNEL_BLOCK_ROWS, 16, 4096, 688
@@ -140,10 +157,16 @@ def kernel_phase_full(torch, G, OPS):
     cap = S * k // E                                      # 32 per sequence
     bf = torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(2)
-    wg, wi = (torch.randn(E, K, F, device="cuda", generator=g).div_(
-        K ** 0.5).to(bf) for _ in range(2))
-    wo = torch.randn(E, F, K, device="cuda", generator=g).div_(F ** 0.5).to(bf)
-    w_cat = torch.cat([wg, wi], dim=-1)                   # library yardstick
+
+    def bank(E, K, F):
+        wg, wi = (torch.randn(E, K, F, device="cuda", generator=g).div_(
+            K ** 0.5).to(bf) for _ in range(2))
+        wo = torch.randn(E, F, K, device="cuda", generator=g).div_(
+            F ** 0.5).to(bf)
+        return wg, wi, wo, torch.cat([wg, wi], dim=-1)  # last: library's
+
+    llama_w = bank(E, K, F)
+    wg, wi, wo, w_cat = llama_w
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     results = {}
 
@@ -161,7 +184,8 @@ def kernel_phase_full(torch, G, OPS):
     results["prefill"] = dict(te=plan.tile_expert, tv=plan.tile_valid, x=x,
                               sc=sc, rows=rows, experts=experts,
                               n_rows=plan.n_pad, lib_x=x_runs, lib_w=w_cat,
-                              lib_wo=wo, shape=f"N_pad={plan.n_pad}")
+                              lib_wo=wo, w=llama_w, K=K, F=F,
+                              shape=f"N_pad={plan.n_pad}")
 
     # decode: B=4 tokens, each selected by 4 experts -> lanes of Cp=bn rows
     sel = torch.zeros(Bq, E, dtype=torch.bool, device="cuda")
@@ -184,14 +208,46 @@ def kernel_phase_full(torch, G, OPS):
                              lib_x=xt[None].expand(sel_e.numel(), Bq, K)
                              .contiguous(),
                              lib_w=w_cat[sel_e].contiguous(),
-                             lib_wo=wo[sel_e].contiguous(),
+                             lib_wo=wo[sel_e].contiguous(), w=llama_w, K=K,
+                             F=F,
                              shape=f"[{E}*{bn}, {K}], {int(counts.sum())} "
                                    f"selected pairs on {int(sel_e.numel())} "
                                    "experts")
 
+    # granite decode: 4 rows routed top-8 of 40 by a random gate, through
+    # the dispatch plan token_choice_decode builds, operands gathered as
+    # moe_ffn_fused gathers them; the library call multiplies each valid
+    # tile's rows by its expert's weights
+    e = cfg_granite.moe
+    Eg, Kg, Fg, kg = e.num_experts, cfg_granite.d_model, e.d_expert, e.top_k
+    gran_w = bank(Eg, Kg, Fg)
+    gate = torch.randn(Kg, Eg, device="cuda", generator=g) / Kg ** 0.5
+    xt = torch.randn(Bq, Kg, device="cuda", generator=g).to(bf)
+    r = R.token_choice(xt, gate, kg)
+    plan = OPS.plan_tile_dispatch(r.expert_idx.reshape(-1), Eg, bn)
+    tok = torch.arange(Bq, device="cuda").repeat_interleave(kg)
+    rp = plan.row_pair.long()
+    x = torch.cat([xt, xt.new_zeros((1, Kg))])[
+        torch.cat([tok, tok.new_full((1,), Bq)])[rp]]
+    sc = torch.cat([r.weights.reshape(-1), r.weights.new_zeros(1)])[rp][:, None]
+    tv = plan.tile_valid
+    valid = tv.nonzero()[:, 0]
+    te = plan.tile_expert
+    rows = int(plan.row_valid.sum())
+    experts = int(torch.unique(te[tv]).numel())
+    results["granite_decode"] = dict(
+        te=te, tv=tv, x=x, sc=sc, rows=rows, experts=experts,
+        n_rows=plan.n_pad, lib_x=x.view(plan.n_tiles, bn, Kg)[valid],
+        lib_w=gran_w[3][te[valid].long()], lib_wo=gran_w[2][te[valid].long()],
+        w=gran_w, K=Kg, F=Fg,
+        shape=f"N_pad={plan.n_pad} ({plan.n_tiles} tiles, {int(tv.sum())} "
+              f"valid), {rows} pairs on {experts} experts, K={Kg} F={Fg}")
+
     out = {"gmm_swiglu": {}, "gmm_scaled": {}}
     for phase, r in results.items():
         te, tv, x, sc = r["te"], r["tv"], r["x"], r["sc"]
+        wg, wi, wo, _ = r["w"]
+        Kp, Fp = r["K"], r["F"]
         h = G.gmm_swiglu(x, wg, wi, te, tv, bn=bn)
         hp = G.gmm_swiglu_plain(x, wg, wi, te, tv, bn)
         y = G.gmm_scaled(h, wo, te, tv, sc, bn=bn)
@@ -203,17 +259,17 @@ def kernel_phase_full(torch, G, OPS):
              f"K1 bf16 {phase} err {e1}")
         need(torch.allclose(y, yp, rtol=1e-4, atol=1e-4),
              f"K2 bf16 {phase} err {e2}")
-        h_runs = torch.zeros(r["lib_x"].shape[0], r["lib_x"].shape[1], F,
+        h_runs = torch.zeros(r["lib_x"].shape[0], r["lib_x"].shape[1], Fp,
                              dtype=bf, device="cuda")
         for name, kern, plain, lib, err, swiglu, Kd, Fd in [
             ("gmm_swiglu",
              lambda: G.gmm_swiglu(x, wg, wi, te, tv, bn=bn),
              lambda: G.gmm_swiglu_plain(x, wg, wi, te, tv, bn),
-             lambda: torch.bmm(r["lib_x"], r["lib_w"]), e1, True, K, F),
+             lambda: torch.bmm(r["lib_x"], r["lib_w"]), e1, True, Kp, Fp),
             ("gmm_scaled",
              lambda: G.gmm_scaled(h, wo, te, tv, sc, bn=bn),
              lambda: G.gmm_scaled_plain(h, wo, te, tv, sc, bn),
-             lambda: torch.bmm(h_runs, r["lib_wo"]), e2, False, F, K),
+             lambda: torch.bmm(h_runs, r["lib_wo"]), e2, False, Fp, Kp),
         ]:
             b_ms, b_by = bound(r["rows"], r["experts"], Kd, Fd, r["n_rows"],
                                swiglu)
@@ -225,6 +281,158 @@ def kernel_phase_full(torch, G, OPS):
                 "bound_ms": b_ms, "bound_by": b_by}
             print(f"[kernels bf16 {phase}] {name} {r['shape']}: "
                   f"{json.dumps(out[name][phase])}", flush=True)
+    return out
+
+
+# Lane pairs (0,1), (2,3), (4,5) of the small fused cases, and each case's
+# rows per lane: straddles mid-tile and at a tile's last row (61 + 3, 63 + 1
+# of 64), an empty primary lane (0 + 70), ragged runs.
+FUSE6 = (0, 0, 1, 1, 2, 2)
+FUSED_SMALL = [((61, 3, 0, 70, 63, 1), 200, 136), ((5, 80, 64, 0, 17, 40), 72, 44)]
+
+
+def fused_phase_small(torch, G, OPS):
+    """K7 and K8 in fp32 at small ragged shapes on fused plans, against
+    their plain versions (tolerance 1e-4: the order of the sums only); on
+    the tiles that straddle nothing they must equal K1/K2 bit for bit, and
+    invalid tiles write zeros."""
+    bn = G.KERNEL_BLOCK_ROWS
+    g = torch.Generator(device="cuda").manual_seed(5)
+    worst = {"gmm_swiglu_fused": 0.0, "gmm_scaled_fused": 0.0}
+    for per_lane, K, F in FUSED_SMALL:
+        E = len(per_lane)
+        ef = torch.cat([torch.full((n,), e, dtype=torch.int32)
+                        for e, n in enumerate(per_lane)])
+        ef = ef[torch.randperm(len(ef), generator=torch.Generator()
+                               .manual_seed(K))].cuda()
+        plan = OPS.plan_tile_dispatch(ef, E, bn, fuse=FUSE6)
+        te, te2, tv = plan.tile_expert, plan.tile_expert2, plan.tile_valid
+        strad = te2 != te
+        need(bool(strad.any()), f"fused case {per_lane}: no straddle tile")
+        N = plan.n_pad
+        x = torch.randn(N, K, device="cuda", generator=g) * \
+            plan.row_valid[:, None]
+        wg, wi = (torch.randn(E, K, F, device="cuda", generator=g) / K ** 0.5
+                  for _ in range(2))
+        wo = torch.randn(E, F, K, device="cuda", generator=g) / F ** 0.5
+        sc = torch.rand(N, 1, device="cuda", generator=g)
+        kw = dict(tile_expert2=te2, row_sel=plan.row_sel)
+        h = G.gmm_swiglu(x, wg, wi, te, tv, bn=bn, **kw)
+        y = G.gmm_scaled(h, wo, te, tv, sc, bn=bn, **kw)
+        hp = G.gmm_swiglu_fused_plain(x, wg, wi, te, te2, tv, plan.row_sel,
+                                      bn)
+        yp = G.gmm_scaled_fused_plain(h, wo, te, te2, tv, plan.row_sel, sc,
+                                      bn)
+        h1 = G.gmm_swiglu(x, wg, wi, te, tv, bn=bn)
+        y1 = G.gmm_scaled(h, wo, te, tv, sc, bn=bn)
+        torch.cuda.synchronize()
+        worst["gmm_swiglu_fused"] = max(worst["gmm_swiglu_fused"],
+                                        (h - hp).abs().max().item())
+        worst["gmm_scaled_fused"] = max(worst["gmm_scaled_fused"],
+                                        (y - yp).abs().max().item())
+        need(torch.allclose(h, hp, rtol=1e-4, atol=1e-4),
+             f"K7 fp32 {per_lane}")
+        need(torch.allclose(y, yp, rtol=1e-4, atol=1e-4),
+             f"K8 fp32 {per_lane}")
+        plain_rows = (~strad).repeat_interleave(bn)
+        need(torch.equal(h[plain_rows], h1[plain_rows]) and
+             torch.equal(y[plain_rows], y1[plain_rows]),
+             "K7/K8 differ from K1/K2 on tiles that straddle nothing")
+        rows_invalid = (~tv).repeat_interleave(bn)
+        need(bool((h[rows_invalid] == 0).all() and
+                  (y[rows_invalid] == 0).all()), "invalid tiles not zero")
+    print(f"[kernels fp32 fused] lanes per case {[c[0] for c in FUSED_SMALL]}"
+          f", pairs {FUSE6}: max_abs_err {worst} (tol 1e-4); non-straddle "
+          "tiles bit-equal to K1/K2; invalid tiles zero", flush=True)
+    return worst
+
+
+def fused_phase_full(torch, G, OPS, MOE, R, TM, cfg):
+    """K7 and K8 in bf16 at the full-width granite prefill plan: 4 x 128
+    tokens routed top-8 of 40 by a random gate, each pair on its expert's
+    group-major lane, the deployment's lanes fused pairwise (g=2), operands
+    gathered as moe_ffn_fused gathers them. Tolerances: K7 rounds its output
+    to bf16, so 1e-2; K8 writes fp32 sums of bf16 products, 1e-4. The
+    library call is torch.bmm over the same tiles: each valid tile's rows
+    with its expert, and a straddle tile's other rows with its second
+    expert, the weights gathered per tile beforehand."""
+    e = cfg.moe
+    bn, E, K, F, k = G.KERNEL_BLOCK_ROWS, e.num_experts, cfg.d_model, \
+        e.d_expert, e.top_k
+    T = 4 * 128
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(6)
+    wg, wi = (torch.randn(E, K, F, device="cuda", generator=g).div_(
+        K ** 0.5).to(bf) for _ in range(2))
+    wo = torch.randn(E, F, K, device="cuda", generator=g).div_(F ** 0.5).to(bf)
+    gate = torch.randn(K, E, device="cuda", generator=g) / K ** 0.5
+    xt = torch.randn(T, K, device="cuda", generator=g).to(bf)
+    r = R.token_choice(xt, gate, k)
+    members = TM.expert_group_members(cfg, "cuda")
+    lane_of_rank, rank_of_expert, fuse = MOE.group_lane_map(members,
+                                                            e.group_size)
+    ef = r.expert_idx.reshape(-1).long()
+    plan = OPS.plan_tile_dispatch(rank_of_expert[ef], E, bn, fuse=fuse)
+    te = lane_of_rank[plan.tile_expert.long()].int()
+    te2 = lane_of_rank[plan.tile_expert2.long()].int()
+    tv, sel = plan.tile_valid, plan.row_sel
+    tok = torch.arange(T, device="cuda").repeat_interleave(k)
+    rp = plan.row_pair.long()
+    tok_z = torch.cat([tok, tok.new_full((1,), T)])
+    x = torch.cat([xt, xt.new_zeros((1, K))])[tok_z[rp]]
+    sc = torch.cat([r.weights.reshape(-1), r.weights.new_zeros(1)])[rp][:, None]
+    kw = dict(tile_expert2=te2, row_sel=sel)
+    h = G.gmm_swiglu(x, wg, wi, te, tv, bn=bn, **kw)
+    hp = G.gmm_swiglu_fused_plain(x, wg, wi, te, te2, tv, sel, bn)
+    y = G.gmm_scaled(h, wo, te, tv, sc, bn=bn, **kw)
+    yp = G.gmm_scaled_fused_plain(h, wo, te, te2, tv, sel, sc, bn)
+    torch.cuda.synchronize()
+    e1 = (h.float() - hp.float()).abs().max().item()
+    e2 = (y - yp).abs().max().item()
+    need(torch.allclose(h.float(), hp.float(), rtol=1e-2, atol=1e-2),
+         f"K7 bf16 granite err {e1}")
+    need(torch.allclose(y, yp, rtol=1e-4, atol=1e-4),
+         f"K8 bf16 granite err {e2}")
+
+    ni = plan.n_tiles
+    strad = (te2 != te) & tv
+    prim = tv.nonzero()[:, 0]
+    second = strad.nonzero()[:, 0]
+    sel_t = sel.view(ni, bn, 1)
+    keep1 = torch.where(strad[:, None, None], sel_t, 1.0)
+    lib_e = torch.cat([te[prim], te2[second]]).long()
+    lib_x = torch.cat([(x.view(ni, bn, K) * keep1.to(bf))[prim],
+                       (x.view(ni, bn, K) * (1 - sel_t).to(bf))[second]])
+    lib_w = torch.cat([wg, wi], dim=-1)[lib_e]
+    lib_h = torch.cat([(h.view(ni, bn, F) * keep1.to(bf))[prim],
+                       (h.view(ni, bn, F) * (1 - sel_t).to(bf))[second]])
+    lib_wo = wo[lib_e]
+    rows = int(plan.row_valid.sum())
+    experts = int(torch.unique(torch.cat([te[tv], te2[tv]])).numel())
+    shape = (f"N_pad={plan.n_pad} ({ni} tiles, {int(tv.sum())} valid, "
+             f"{int(strad.sum())} straddle), {rows} pairs on {experts} "
+             f"experts, K={K} F={F}")
+    out = {}
+    for name, kern, plain, lib, err, swiglu, Kd, Fd in [
+        ("gmm_swiglu_fused",
+         lambda: G.gmm_swiglu(x, wg, wi, te, tv, bn=bn, **kw),
+         lambda: G.gmm_swiglu_fused_plain(x, wg, wi, te, te2, tv, sel, bn),
+         lambda: torch.bmm(lib_x, lib_w), e1, True, K, F),
+        ("gmm_scaled_fused",
+         lambda: G.gmm_scaled(h, wo, te, tv, sc, bn=bn, **kw),
+         lambda: G.gmm_scaled_fused_plain(h, wo, te, te2, tv, sel, sc, bn),
+         lambda: torch.bmm(lib_h, lib_wo), e2, False, F, K),
+    ]:
+        flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+        b_ms, b_by = bound(rows, experts, Kd, Fd, plan.n_pad, swiglu)
+        out[name] = {"shape": shape, "max_abs_err": err,
+                     "ms": time_ms(torch, kern, flush),
+                     "plain_ms": time_ms(torch, plain, flush),
+                     "library_ms": time_ms(torch, lib, flush),
+                     "bound_ms": b_ms, "bound_by": b_by}
+        del flush
+        print(f"[kernels bf16 granite] {name}: {json.dumps(out[name])}",
+              flush=True)
     return out
 
 
@@ -339,7 +547,8 @@ def paged_phase_full(torch, PA, cfg, page_size, max_tokens):
         k = kp[bt.long()].reshape(B, S, Hkv, hd).transpose(1, 2)
         v = vp[bt.long()].reshape(B, S, Hkv, hd).transpose(1, 2)
         return F.scaled_dot_product_attention(q[:, :, None], k, v,
-                                              attn_mask=mask[:, None, None])
+                                              attn_mask=mask[:, None, None],
+                                              enable_gqa=Hq != Hkv)
 
     live, _ = PA.decode_tick_pages(t.tolist(), [True] * B, ps, B, P)
     keys = sum(int(x) + 1 for x in t.tolist())
@@ -348,7 +557,7 @@ def paged_phase_full(torch, PA, cfg, page_size, max_tokens):
     out["paged_attn_decode"] = _paged_entry(
         torch, flush, lambda: PA.paged_attn_decode(q, kp, vp, bt, t),
         lambda: PA.paged_attn_decode_plain(q, kp, vp, bt, t), lib_decode,
-        nbytes, flops, f"B={B} t={t.tolist()} Hq=Hkv={Hkv} hd={hd} ps={ps} "
+        nbytes, flops, f"B={B} t={t.tolist()} Hq={Hq} Hkv={Hkv} hd={hd} ps={ps} "
         f"P={P}, {live} live pages")
 
     start, kv_len, Cs = 320, 448, 128
@@ -362,7 +571,8 @@ def paged_phase_full(torch, PA, cfg, page_size, max_tokens):
         k = kp[bt.long()].reshape(1, S, Hkv, hd).transpose(1, 2)
         v = vp[bt.long()].reshape(1, S, Hkv, hd).transpose(1, 2)
         return F.scaled_dot_product_attention(qc.transpose(1, 2), k, v,
-                                              attn_mask=cmask[None, None])
+                                              attn_mask=cmask[None, None],
+                                              enable_gqa=Hq != Hkv)
 
     live = -(-kv_len // ps)
     keys = sum(min(p + 1, kv_len) for p in range(start, start + Cs))
@@ -373,7 +583,7 @@ def paged_phase_full(torch, PA, cfg, page_size, max_tokens):
         lambda: PA.paged_attn_chunk(qc, kp, vp, bt, start, kv_len),
         lambda: PA.paged_attn_chunk_plain(qc, kp, vp, bt, start, kv_len),
         lib_chunk, nbytes, flops, f"B=1 Cs={Cs} start={start} "
-        f"kv_len={kv_len} Hq=Hkv={Hkv} hd={hd} ps={ps}, {live} live pages")
+        f"kv_len={kv_len} Hq={Hq} Hkv={Hkv} hd={hd} ps={ps}, {live} live pages")
     return out
 
 
@@ -394,10 +604,24 @@ def _paged_entry(torch, flush, kern, plain, lib, nbytes, flops, shape):
     return entry
 
 
+def gmm_launches(cfg, prefills, decodes):
+    """The grouped-GEMM launches of `prefills` prefill passes (one-shot or
+    chunk) and `decodes` decode steps: one K1 and one K2 per layer and pass,
+    except that token choice with C1 groups prefills through K7/K8."""
+    L = cfg.num_layers
+    grouped = cfg.moe.routing == "token_choice" and cfg.moe.group_size > 1 \
+        and cfg.moe.use_grouped_gemm
+    unfused = L * (decodes + (0 if grouped else prefills))
+    fused = L * prefills if grouped else 0
+    return {"gmm_swiglu": unfused, "gmm_scaled": unfused,
+            "gmm_swiglu_fused": fused, "gmm_scaled_fused": fused}
+
+
 def smoke_phase(torch, G, cfg_smoke, TM, TS):
     """Smoke-size slice on the CPU (plain versions) and on the card
     (kernels), same fp32 weights. Greedy tokens equal; logits within
-    SMOKE_LOGIT_TOL."""
+    SMOKE_LOGIT_TOL; one prefill and 8 decode steps' grouped GEMMs
+    launched."""
     params = TM.model_init(cfg_smoke, torch.Generator().manual_seed(0), "cpu")
     params_cuda = _tree_to(params, "cuda")
     prompts = torch.randint(0, cfg_smoke.vocab_size, (4, 32),
@@ -407,21 +631,24 @@ def smoke_phase(torch, G, cfg_smoke, TM, TS):
     r_gpu = TS.generate(params_cuda, cfg_smoke, prompts, 8, device="cuda")
     launches = dict(G.LAUNCHES)
     err = (r_gpu["logits"].cpu() - r_cpu["logits"]).abs().max().item()
-    need(launches["gmm_swiglu"] > 0 and launches["gmm_scaled"] > 0,
-         f"smoke cuda run launched no kernel: {launches}")
+    need(launches == gmm_launches(cfg_smoke, 1, 8),
+         f"smoke cuda launches {launches}")
     need(torch.equal(r_gpu["tokens"].cpu(), r_cpu["tokens"]),
-         "greedy tokens differ between cpu and cuda")
-    need(err <= SMOKE_LOGIT_TOL, f"smoke logits differ by {err}")
+         f"{cfg_smoke.name}: greedy tokens differ between cpu and cuda")
+    need(err <= SMOKE_LOGIT_TOL, f"{cfg_smoke.name}: smoke logits differ "
+         f"by {err}")
     print(f"[smoke] {cfg_smoke.name}: cpu and cuda greedy tokens equal "
           f"{r_cpu['tokens'][0].tolist()}, logits max_abs_err {err:.3e} "
           f"(tol {SMOKE_LOGIT_TOL:g}), cuda launches {launches}", flush=True)
+    return err
 
 
-def engine_smoke_phase(torch, PA, cfg_smoke, TM, TS):
+def engine_smoke_phase(torch, G, PA, cfg_smoke, TM, TS):
     """The smoke engine on a paged pool with chunked prefill, the same fp32
-    weights and trace on the CPU (plain versions) and on the card (K1-K4):
-    greedy streams equal; K3/K4 launched once per layer per decode or
-    chunk tick."""
+    weights and trace on the CPU (plain versions) and on the card (K1-K4,
+    K7/K8): greedy streams equal; K3/K4 launched once per layer per decode
+    or chunk tick, the grouped GEMMs once per layer per prefill pass and
+    decode tick."""
     import numpy as np
     params = TM.model_init(cfg_smoke, torch.Generator().manual_seed(0), "cpu")
     rng = np.random.default_rng(0)
@@ -432,15 +659,19 @@ def engine_smoke_phase(torch, PA, cfg_smoke, TM, TS):
     r_cpu = TS.serve_continuous(params, cfg_smoke, prompts, 7, device="cpu",
                                 **kw)
     PA.reset_launches()
+    G.reset_launches()
     r_gpu = TS.serve_continuous(_tree_to(params, "cuda"), cfg_smoke, prompts,
                                 7, device="cuda", **kw)
-    launches = dict(PA.LAUNCHES)
+    launches = {**G.LAUNCHES, **PA.LAUNCHES}
     s, L = r_gpu["stats"], cfg_smoke.num_layers
     for rid, toks in r_cpu["tokens"].items():
         need(np.array_equal(r_gpu["tokens"][rid], toks),
-             f"engine request {rid}: cuda {r_gpu['tokens'][rid].tolist()} "
-             f"!= cpu {toks.tolist()}")
-    need(launches == {"paged_attn_decode": L * s["decode_ticks"],
+             f"{cfg_smoke.name} engine request {rid}: cuda "
+             f"{r_gpu['tokens'][rid].tolist()} != cpu {toks.tolist()}")
+    one_shot = sum(len(p) <= kw["prefill_chunk"] for p in prompts)
+    need(launches == {**gmm_launches(cfg_smoke, s["chunk_ticks"] + one_shot,
+                                     s["decode_ticks"]),
+                      "paged_attn_decode": L * s["decode_ticks"],
                       "paged_attn_chunk": L * s["chunk_ticks"]},
          f"smoke engine launches {launches}, stats {s}")
     print(f"[smoke engine] {cfg_smoke.name}: cpu and cuda greedy streams "
@@ -455,9 +686,9 @@ def _tree_to(tree, device):
 
 
 def full_phase(torch, G, PA, cfg, params, TM, TS):
-    """Full-width llama_moe_4_16, bf16, static generate(): 4 requests x 128
-    prompt tokens, 16 new tokens. One warm-up generate(), then the counted,
-    timed run and two repeats of it for the spread."""
+    """Full width, bf16, static generate(): 4 requests x 128 prompt tokens,
+    16 new tokens. One warm-up generate(), then the counted, timed run and
+    two repeats of it for the spread; the repeats must give its tokens."""
     Bq, P, GEN = 4, 128, 16
     g = torch.Generator(device="cuda").manual_seed(1)
     prompts = torch.randint(0, cfg.vocab_size, (Bq, P), generator=g,
@@ -468,32 +699,35 @@ def full_phase(torch, G, PA, cfg, params, TM, TS):
     PA.reset_launches()
     res = TS.generate(params, cfg, prompts, GEN, device="cuda")
     launches = {**G.LAUNCHES, **PA.LAUNCHES}
-    # two more identical runs: the spread of the host-bound times
+    # two more identical runs: the spread of the host-bound times, and the
+    # combine's determinism (the same tokens, bit for bit)
     reps = [res] + [TS.generate(params, cfg, prompts, GEN, device="cuda")
                     for _ in range(2)]
-    expect = cfg.num_layers * (1 + GEN)
+    expect = gmm_launches(cfg, 1, GEN)
     need(bool(torch.isfinite(res["logits"]).all()), "non-finite logits")
     need(res["tokens"].shape == (Bq, GEN), "token shape")
-    need(launches == {"gmm_swiglu": expect, "gmm_scaled": expect,
-                      "paged_attn_decode": 0, "paged_attn_chunk": 0},
-         f"launch counts {launches}, expected {expect} each of K1/K2 "
-         f"({cfg.num_layers} layers x (1 prefill + {GEN} decode steps)) "
-         "and no paged attention on the dense static path")
+    need(launches == {**expect, "paged_attn_decode": 0,
+                      "paged_attn_chunk": 0},
+         f"launch counts {launches}, expected {expect} ({cfg.num_layers} "
+         f"layers x (1 prefill + {GEN} decode steps)) and no paged "
+         "attention on the dense static path")
+    repeat_equal = all(torch.equal(r["tokens"], res["tokens"]) and
+                       torch.equal(r["logits"], res["logits"]) for r in reps)
     stats = {"prefill_ms": res["prefill_s"] * 1e3,
              "decode_ms_per_token": res["decode_s"] * 1e3 / GEN,
              "tok_per_s": res["tok_per_s"],
              "prefill_ms_runs": [r["prefill_s"] * 1e3 for r in reps],
              "decode_ms_per_token_runs": [r["decode_s"] * 1e3 / GEN
                                           for r in reps],
-             # index_add_ sums with float atomics: report, do not require
-             "repeat_tokens_equal": all(torch.equal(r["tokens"], res["tokens"])
-                                        for r in reps),
+             "repeat_tokens_equal": repeat_equal,
              "max_memory_allocated_gb": torch.cuda.max_memory_allocated() / 1e9,
              "launches": launches}
     print(f"[full static] {cfg.name} bf16 B={Bq} prompt={P} gen={GEN}: "
           f"{json.dumps(stats)}", flush=True)
     print(f"[full static] sample tokens {res['tokens'][0].tolist()}",
           flush=True)
+    need(repeat_equal, f"{cfg.name}: three identical static runs gave "
+         "different tokens or logits")
     tok = torch.zeros(Bq, dtype=torch.long, device="cuda")
     state = res["state"]
     profile_phase(torch, cfg, {
@@ -512,11 +746,13 @@ ENGINE_POOL = dict(num_slots=4, max_tokens=512, paged=True, page_size=16,
 
 
 def engine_phase(torch, G, PA, cfg, params, ServingEngine):
-    """Full-width llama_moe_4_16, bf16, through the continuous-batching
-    engine on a paged pool: 8 staggered requests of ENGINE_LENS prompt
-    tokens, 32 new tokens each, greedy. A warm-up engine first (one
-    one-shot and one chunked admission, 4 tokens each), then the counted,
-    timed run, one synchronised step at a time."""
+    """Full width, bf16, through the continuous-batching engine on a paged
+    pool: 8 staggered requests of ENGINE_LENS prompt tokens, 32 new tokens
+    each, greedy. A warm-up engine first (one one-shot and one chunked
+    admission, 4 tokens each), then the counted, timed run, one
+    synchronised step at a time, then the same trace once more on a fresh
+    engine, which must stream the same tokens and leave the same pool
+    state."""
     import numpy as np
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
@@ -561,15 +797,34 @@ def engine_phase(torch, G, PA, cfg, params, ServingEngine):
              f"request {rid}: status {r.status}, {len(r.tokens)} tokens")
     st = eng.pool.state
     need(all(bool(torch.isfinite(st[k]).all()) for k in ("k_pages", "v_pages"))
-         and bool(torch.isfinite(st["go"].outputs).all()),
+         and ("go" not in st or bool(torch.isfinite(st["go"].outputs).all())),
          "non-finite KV pages or GO rows after the run")
     eng.pool.alloc.check()
     need(eng.pool.alloc.pages_in_use == 0, "pages leaked after the drain")
-    need(launches["paged_attn_decode"] == L * decode_ticks and
-         launches["paged_attn_chunk"] == L * chunk_ticks and
-         launches["gmm_swiglu"] > 0 and launches["gmm_scaled"] > 0,
-         f"engine launches {launches}: expected K3 {L} x {decode_ticks} "
-         f"decode ticks, K4 {L} x {chunk_ticks} chunk ticks")
+    one_shot = sum(n <= ENGINE_POOL["prefill_chunk"] for n in ENGINE_LENS)
+    expect = {**gmm_launches(cfg, chunk_ticks + one_shot, decode_ticks),
+              "paged_attn_decode": L * decode_ticks,
+              "paged_attn_chunk": L * chunk_ticks}
+    need(launches == expect, f"engine launches {launches}, expected "
+         f"{expect} ({decode_ticks} decode ticks, {chunk_ticks} chunk ticks, "
+         f"{one_shot} one-shot prefills)")
+    again = ServingEngine(params, cfg, device="cuda", **ENGINE_POOL)
+    rids2 = [again.submit(p, ENGINE_GEN, arrival_step=a)
+             for p, a in zip(prompts, ENGINE_ARRIVALS)]
+    fin2 = again.run()
+    # the streams' argmaxes can hide a changed sum; the drained pools'
+    # pages (every layer's K/V of every token, which the MoE outputs of the
+    # layers below feed) and GO rows must repeat bit for bit as well. Page
+    # 0 is the null page: free rows write there, several to one position
+    # in a tick in no fixed order, and nothing reads it.
+    def live(state):
+        return _tensors({k: v[:, 1:] if k in ("k_pages", "v_pages") else v
+                         for k, v in state.items()})
+    a, b = live(st), live(again.pool.state)
+    repeat_state_equal = len(a) == len(b) and all(
+        torch.equal(u, v) for u, v in zip(a, b))
+    repeat_equal = all(fin2[r2].tokens == fin[r].tokens
+                       for r, r2 in zip(rids, rids2))
     pure_decode = sorted(ms for ms, dd, dc, da in ticks
                          if dd and not dc and not da)
     chunk_ms = sorted(ms for ms, dd, dc, da in ticks if dc)
@@ -588,12 +843,18 @@ def engine_phase(torch, G, PA, cfg, params, ServingEngine):
              "max_memory_allocated_gb":
                  torch.cuda.max_memory_allocated() / 1e9,
              "launches": launches,
+             "repeat_streams_equal": repeat_equal,
+             "repeat_pool_state_equal": repeat_state_equal,
              "admit_steps": [fin[r].admit_step for r in rids],
              "finish_steps": [fin[r].finish_step for r in rids]}
     print(f"[full engine] {cfg.name} bf16 {ENGINE_POOL}, prompts "
           f"{ENGINE_LENS}, arrivals {ENGINE_ARRIVALS}, gen {ENGINE_GEN}: "
           f"{json.dumps(stats)}", flush=True)
     print(f"[full engine] sample tokens {fin[rids[1]].tokens}", flush=True)
+    need(repeat_equal, f"{cfg.name}: the engine trace streamed other tokens "
+         "when run again")
+    need(repeat_state_equal, f"{cfg.name}: the engine trace left other KV "
+         "pages or GO rows when run again")
     engine_profile_phase(torch, cfg, params, prompts, ServingEngine)
     return launches
 
@@ -621,8 +882,13 @@ def _kind(name):
     if "paged_chunk_kernel" in name:
         return "K4 paged_attn_chunk"
     if "gmm_kernel" in name:
-        swiglu = "Lb1" in name or "true>" in name      # template arg
-        return "K1 gmm_swiglu" if swiglu else "K2 gmm_scaled"
+        # template arguments <T, SWIGLU, FUSED>, demangled or mangled
+        m = re.search(r"gmm_kernel<[^,]+, (true|false), (true|false)>", name) \
+            or re.search(r"Lb([01])ELb([01])E", name)
+        swiglu, fused = (m.group(i) in ("true", "1") for i in (1, 2))
+        return {(True, False): "K1 gmm_swiglu", (False, False): "K2 gmm_scaled",
+                (True, True): "K7 gmm_swiglu_fused",
+                (False, True): "K8 gmm_scaled_fused"}[(swiglu, fused)]
     if "gemm" in name.lower() or "xmma" in name or "cutlass" in name:
         return "cuBLAS gemm"
     return "other"
@@ -662,6 +928,16 @@ def profile_phase(torch, cfg, regions):
         print(f"[profile] {cfg.name} {name}: {json.dumps(out)}", flush=True)
 
 
+def _tensors(tree):
+    """Every tensor of a decode state (dicts and named tuples), in order."""
+    import torch
+    if isinstance(tree, torch.Tensor):
+        return [tree]
+    vals = tree.values() if isinstance(tree, dict) else \
+        tree if isinstance(tree, tuple) else ()
+    return [t for v in vals for t in _tensors(v)]
+
+
 def _leaves(tree):
     for v in tree.values():
         yield from (_leaves(v) if isinstance(v, dict) else [v])
@@ -675,6 +951,8 @@ def main():
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs.registry import get_config
+    from repro_torch.core import moe as MOE
+    from repro_torch.core import routing as R
     from repro_torch.kernels import build
     from repro_torch.kernels import moe_gmm as G
     from repro_torch.kernels import ops as OPS
@@ -695,45 +973,64 @@ def main():
             if "registers" in line or "Compiling entry" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
-    cfg = get_config("llama_moe_4_16")
-    cfg_smoke = get_config("llama_moe_4_16", smoke=True)
+    llama, granite = "llama_moe_4_16", "granite-moe-3b-a800m"
+    cfgs = {m: get_config(m) for m in (llama, granite)}
     kernel_phase_small(torch, G)
-    timings = kernel_phase_full(torch, G, OPS)
+    timings = kernel_phase_full(torch, G, OPS, R, cfgs[granite])
+    fused_phase_small(torch, G, OPS)
+    timings.update(fused_phase_full(torch, G, OPS, MOE, R, TM,
+                                    cfgs[granite]))
     paged_phase_small(torch, PA)
-    timings.update(paged_phase_full(torch, PA, cfg,
-                                    ENGINE_POOL["page_size"],
-                                    ENGINE_POOL["max_tokens"]))
+    paged = {m: paged_phase_full(torch, PA, cfgs[m], ENGINE_POOL["page_size"],
+                                 ENGINE_POOL["max_tokens"]) for m in cfgs}
+    for name, entry in paged[llama].items():
+        timings[name] = {**entry, "granite": paged[granite][name]}
     torch.cuda.empty_cache()
-    smoke_phase(torch, G, cfg_smoke, TM, TS)
-    engine_smoke_phase(torch, PA, cfg_smoke, TM, TS)
+    for m in cfgs:
+        smoke_phase(torch, G, get_config(m, smoke=True), TM, TS)
+        engine_smoke_phase(torch, G, PA, get_config(m, smoke=True), TM, TS)
 
-    t0 = time.perf_counter()
-    params = TM.model_init(cfg, torch.Generator(device="cuda").manual_seed(0),
-                           "cuda")
-    torch.cuda.synchronize()
-    print(f"[full] {cfg.name}: {sum(t.numel() for t in _leaves(params))} "
-          f"parameters initialised in {time.perf_counter() - t0:.2f} s",
-          flush=True)
-    by_path = {"static": full_phase(torch, G, PA, cfg, params, TM, TS),
-               "engine": engine_phase(torch, G, PA, cfg, params,
-                                      ServingEngine)}
+    by_path = {}
+    for m, short in ((llama, "llama"), (granite, "granite")):
+        cfg = cfgs[m]
+        t0 = time.perf_counter()
+        params = TM.model_init(
+            cfg, torch.Generator(device="cuda").manual_seed(0), "cuda")
+        torch.cuda.synchronize()
+        print(f"[full] {cfg.name}: {sum(t.numel() for t in _leaves(params))} "
+              f"parameters initialised in {time.perf_counter() - t0:.2f} s",
+              flush=True)
+        by_path[f"{short}_static"] = full_phase(torch, G, PA, cfg, params, TM,
+                                                TS)
+        by_path[f"{short}_engine"] = engine_phase(torch, G, PA, cfg, params,
+                                                  ServingEngine)
+        del params
+        torch.cuda.empty_cache()
 
     # launches: each kernel's count on the path it was ported for (K1/K2
-    # the static generate() of slice 1, K3/K4 the engine of slice 2)
+    # llama's static generate() of slice 1, K3/K4 llama's engine of slice 2,
+    # K7/K8 granite's engine of slice 3); every path's count beside it
     meta = {
         "gmm_swiglu": ("moe_gmm.cu", "src/repro/kernels/moe_gmm.py:466",
-                       "static"),
+                       "llama_static"),
         "gmm_scaled": ("moe_gmm.cu", "src/repro/kernels/moe_gmm.py:332",
-                       "static"),
+                       "llama_static"),
         "paged_attn_decode": ("paged_attn.cu",
                               "src/repro/kernels/paged_attn.py:179",
-                              "engine"),
+                              "llama_engine"),
         "paged_attn_chunk": ("paged_attn.cu",
                              "src/repro/kernels/paged_attn.py:325",
-                             "engine"),
+                             "llama_engine"),
+        "gmm_swiglu_fused": ("moe_gmm.cu", "src/repro/kernels/moe_gmm.py:423",
+                             "granite_engine"),
+        "gmm_scaled_fused": ("moe_gmm.cu", "src/repro/kernels/moe_gmm.py:384",
+                             "granite_engine"),
     }
     kernels = []
     for name, (src, replaces, path) in meta.items():
+        need(by_path[path][name] > 0 and
+             (not name.endswith("_fused") or by_path["granite_static"][name]),
+             f"{name} was not launched on its path: {by_path}")
         main_t = timings[name].get("prefill", timings[name])
         entry = {
             "name": name, "route": "cuda",
@@ -747,6 +1044,9 @@ def main():
         if "decode" in timings[name]:
             entry["shape"] = "prefill " + main_t["shape"]
             entry["decode"] = timings[name]["decode"]
+            entry["granite_decode"] = timings[name]["granite_decode"]
+        if "granite" in timings[name]:
+            entry["granite"] = timings[name]["granite"]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

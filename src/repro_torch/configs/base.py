@@ -1,7 +1,7 @@
 """Config schema: every architecture is a ModelConfig.
 
 A copy of the reference package's schema, cut to the fields the port's
-slice reads (the attention family, tied embeddings, no logit softcap).
+slices read (the attention family, tied embeddings, no logit softcap).
 Plain dataclasses: no torch, no JAX.
 """
 from __future__ import annotations
@@ -18,13 +18,17 @@ class MoEConfig:
     num_experts: int
     top_k: int
     d_expert: int                     # hidden width of each expert FFN
+    num_shared_experts: int = 0       # deepseek-style always-on experts
     routing: str = "token_choice"     # "token_choice" | "expert_choice"
     group_size: int = 1               # experts per multiplexed lane (C1)
     grouping: str = "sorted"          # "uniform" | "sorted" (C2)
+    capacity_factor: float = 1.25     # token-choice expert capacity
+    use_grouped_gemm: bool = True     # group-multiplexed execution path (C1)
     # "auto" and "pallas" both run the grouped-GEMM decomposition: the
     # hand-written kernels on a CUDA tensor, their plain versions on a CPU
     # tensor. "xla" (the masked-einsum realization) is not ported yet.
     backend: str = "auto"             # "auto" | "xla" | "pallas"
+    gmm_block_rows: int = 0           # row-tile height (0 = per device)
     go_cache: bool = True             # gate-output cache for EC decode
 
 

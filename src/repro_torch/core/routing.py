@@ -1,4 +1,5 @@
-"""Expert-choice routing and the paper's incremental TopKUpdate (eq. 4-5).
+"""MoE routing: token choice (eq. 1-3), expert choice, and the paper's
+incremental TopKUpdate (eq. 4-5).
 
 Counterpart of repro/core/routing.py. `jax.lax.top_k` breaks ties toward
 the lower index and the GO cache relies on it, while `torch.topk` promises
@@ -18,6 +19,12 @@ def stable_topk(x: torch.Tensor, k: int):
     return vals[..., :k], idx[..., :k]
 
 
+class TokenChoiceRouting(NamedTuple):
+    expert_idx: torch.Tensor  # [T, k] int32 chosen experts per token
+    weights: torch.Tensor     # [T, k] fp32 combine weights (softmax over k)
+    scores: torch.Tensor      # [T, E] fp32 raw gate scores (pre-softmax)
+
+
 class ExpertChoiceRouting(NamedTuple):
     token_idx: torch.Tensor   # [E, C] int32 tokens chosen by each expert
     weights: torch.Tensor     # [E, C] fp32 combine weights G[t, e]
@@ -27,6 +34,28 @@ class ExpertChoiceRouting(NamedTuple):
 def gate_scores(x: torch.Tensor, w_gate: torch.Tensor) -> torch.Tensor:
     """x [T, d] -> raw scores [T, E] in fp32."""
     return x.float() @ w_gate.float()
+
+
+def token_choice(x: torch.Tensor, w_gate: torch.Tensor,
+                 k: int) -> TokenChoiceRouting:
+    """Eq. (1)-(2): softmax(KeepTopK(x W_G, k)), the softmax over the k
+    kept scores."""
+    s = gate_scores(x, w_gate)                             # [T, E]
+    top_s, top_i = stable_topk(s, k)                       # [T, k]
+    return TokenChoiceRouting(top_i.to(torch.int32),
+                              torch.softmax(top_s, dim=-1), s)
+
+
+def load_balance_loss(scores: torch.Tensor, expert_idx: torch.Tensor,
+                      num_experts: int) -> torch.Tensor:
+    """Shazeer-style auxiliary loss (importance * load) for token choice;
+    a scalar fp32 tensor."""
+    g = torch.softmax(scores, dim=-1)                      # [T, E]
+    importance = g.mean(dim=0)
+    k = expert_idx.shape[-1]
+    onehot = torch.nn.functional.one_hot(expert_idx.long(), num_experts)
+    load = onehot.sum(dim=1).float().mean(dim=0) / max(1, k)
+    return num_experts * torch.sum(importance * load) * k
 
 
 def expert_choice(x: torch.Tensor, w_gate: torch.Tensor, capacity: int,

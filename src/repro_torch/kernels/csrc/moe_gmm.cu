@@ -1,18 +1,36 @@
 // Grouped expert GEMMs of the MoE FFN for Hopper (sm_90a).
 //
-// Replaces two TPU kernels of the reference package:
+// Replaces four TPU kernels of the reference package:
 //   K1  repro/kernels/moe_gmm.py:_gmm_swiglu (body _gmm_swiglu_kernel)
 //       h[i] = silu(x[i] @ wg[te[t]]) * (x[i] @ wi[te[t]]),  t = i / bn
 //   K2  repro/kernels/moe_gmm.py:_gmm_scaled (body _gmm_scaled_kernel)
 //       y[i] = (x[i] @ w[te[t]]) * row_scale[i]   (fp32 out)
+//   K7  repro/kernels/moe_gmm.py:_gmm_swiglu_fused (body
+//       _gmm_swiglu_fused_kernel): K1 on a fused lane pair's tiles
+//   K8  repro/kernels/moe_gmm.py:_gmm_scaled_fused (body
+//       _gmm_scaled_fused_kernel): K2 on a fused lane pair's tiles
 // Rows come packed by expert in row tiles of bn rows; tile t uses expert
 // te[t]. A tile with tv[t] == 0 does no multiply-adds and writes zeros.
+//
+// K7/K8 (FUSED): a fused pair's two lane runs share tiles, so one
+// "straddle" tile may hold rows of two experts. There te2[t] != te[t], and
+// row i uses te[t] where sel[i] > 0.5 and te2[t] otherwise. The block runs
+// its K loop twice, once per expert, and zeroes the other expert's x rows
+// while staging them: a zero row adds exactly 0 to the fp32 accumulator, so
+// every row's sum is the one the unfused kernel computes with its own
+// expert (the reference multiplies x by sel and by 1 - sel, the same
+// thing). Non-straddle tiles (te2 == te) run once and read one weight
+// stream, exactly as K1/K2 do.
 //
 // What bounds them on an H100: the expert weights. At the main path's
 // prefill shape (K=4096, F=688, 16 experts, 2048 real rows) K1 does 23 GFLOP
 // over 180 MB of weights, K2 11.5 GFLOP over 90 MB of weights plus 50 MB of
 // fp32 output: both below the ~295 FLOP/byte ridge, so bytes bound them. At
-// decode only the experts of valid tiles are read.
+// decode only the experts of valid tiles are read. K7/K8 at granite's
+// prefill plan (K=1536, F=512, 40 experts, 4096 pairs in 5376 packed rows)
+// read 126 MB (K7) and 63 MB (K8) of weights for 13 and 6.4 GFLOP: bytes
+// bound them too, and a
+// straddle tile reads its second expert's stripe once more.
 //
 // Design: one block per (row tile, 64-column stripe); a loop over K inside
 // the block replaces the TPU's sequential k grid axis, and the fp32
@@ -60,22 +78,33 @@ __device__ __forceinline__ T from_float(float v) {
 
 __device__ __forceinline__ float silu(float g) { return g / (1.0f + __expf(-g)); }
 
+// Row masks of the fused kernels' x staging: every row, or only the rows
+// of the tile's primary (sel > 0.5) or secondary expert.
+enum RowMask { ALL_ROWS = 0, PRIMARY_ROWS = 1, SECONDARY_ROWS = 2 };
+
 // Stage a ROWS x COLS tile of a row-major [nrows, ld] matrix, starting at
 // (r0, c0), into shared memory with row stride LDS. Elements outside
-// [nrows, ncols) read as zero. Each thread moves chunks of 8 elements; a
-// chunk that lies wholly inside and is 16-byte aligned moves as vectors.
+// [nrows, ncols) read as zero, and so do the rows that `mask` leaves out
+// (by sel[row]). Each thread moves chunks of 8 elements; a chunk that lies
+// wholly inside and is 16-byte aligned moves as vectors.
 template <typename T, int ROWS, int COLS, int LDS>
 __device__ __forceinline__ void load_tile(T* __restrict__ s,
                                           const T* __restrict__ g, int r0,
                                           int c0, int nrows, int ncols,
-                                          int ld, bool vec_ok) {
+                                          int ld, bool vec_ok,
+                                          const float* __restrict__ sel = nullptr,
+                                          int mask = ALL_ROWS) {
   constexpr int CPR = COLS / 8;  // chunks per row
   for (int c = threadIdx.x; c < ROWS * CPR; c += THREADS) {
     const int r = c / CPR;
     const int cc = (c % CPR) * 8;
-    const int gr = r0 + r;
+    int gr = r0 + r;
     const int gc = c0 + cc;
     T* dst = s + r * LDS + cc;
+    if (mask != ALL_ROWS && gr < nrows &&
+        (sel[gr] > 0.5f) != (mask == PRIMARY_ROWS)) {
+      gr = nrows;  // the other expert's row: stage zeros
+    }
     if (vec_ok && gr < nrows && gc + 8 <= ncols) {
       const T* src = g + (size_t)gr * ld + gc;
       if constexpr (sizeof(T) == 2) {
@@ -94,13 +123,15 @@ __device__ __forceinline__ void load_tile(T* __restrict__ s,
   }
 }
 
-// x [N, K]; w0 (and w1 with SWIGLU) [E, K, F]; te/tv [>= ceil(N/BM)];
-// out [N, F]: T with SWIGLU, fp32 with the row scale otherwise.
-template <typename T, bool SWIGLU>
+// x [N, K]; w0 (and w1 with SWIGLU) [E, K, F]; te/tv (and te2 with FUSED)
+// [>= ceil(N/BM)]; sel [N] with FUSED; out [N, F]: T with SWIGLU, fp32
+// with the row scale otherwise.
+template <typename T, bool SWIGLU, bool FUSED>
 __global__ void __launch_bounds__(THREADS)
 gmm_kernel(const T* __restrict__ x, const T* __restrict__ w0,
            const T* __restrict__ w1, const int* __restrict__ te,
-           const int* __restrict__ tv, const float* __restrict__ scale,
+           const int* __restrict__ te2, const int* __restrict__ tv,
+           const float* __restrict__ sel, const float* __restrict__ scale,
            void* __restrict__ out, int N, int K, int F, bool vec_x,
            bool vec_w) {
   constexpr int NW = SWIGLU ? 2 : 1;          // weight streams
@@ -133,37 +164,43 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w0,
     return;
   }
 
-  const size_t woff = (size_t)te[tile] * K * F;
-  const T* wsrc[2] = {w0 + woff, SWIGLU ? w1 + woff : w0 + woff};
+  // one pass per expert of the tile: two on a fused pair's straddle tile
+  const int e_pass[2] = {te[tile], FUSED ? te2[tile] : te[tile]};
+  const int passes = e_pass[1] != e_pass[0] ? 2 : 1;
 
   if constexpr (std::is_same<T, float>::value) {
     // fp32: CUDA-core FMAs, a 4x4 output tile per thread and stream.
     const int ty = threadIdx.x / 16, tx = threadIdx.x % 16;
     float acc[NW][4][4] = {};
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      load_tile<T, BM, BK, LDX>(xs, x, r0, k0, N, K, K, vec_x);
+    for (int p = 0; p < passes; ++p) {
+      const size_t woff = (size_t)e_pass[p] * K * F;
+      const T* wsrc[2] = {w0 + woff, SWIGLU ? w1 + woff : w0 + woff};
+      const int mask = passes == 1 ? ALL_ROWS : (p == 0 ? PRIMARY_ROWS : SECONDARY_ROWS);
+      for (int k0 = 0; k0 < K; k0 += BK) {
+        load_tile<T, BM, BK, LDX>(xs, x, r0, k0, N, K, K, vec_x, sel, mask);
 #pragma unroll
-      for (int s = 0; s < NW; ++s)
-        load_tile<T, BK, BN, LDW>(ws + s * BK * LDW, wsrc[s], k0, c0, K, F, F,
-                                  vec_w);
-      __syncthreads();
+        for (int s = 0; s < NW; ++s)
+          load_tile<T, BK, BN, LDW>(ws + s * BK * LDW, wsrc[s], k0, c0, K, F, F,
+                                    vec_w);
+        __syncthreads();
 #pragma unroll 4
-      for (int kk = 0; kk < BK; ++kk) {
-        float a[4];
+        for (int kk = 0; kk < BK; ++kk) {
+          float a[4];
 #pragma unroll
-        for (int i = 0; i < 4; ++i) a[i] = xs[(ty * 4 + i) * LDX + kk];
+          for (int i = 0; i < 4; ++i) a[i] = xs[(ty * 4 + i) * LDX + kk];
 #pragma unroll
-        for (int s = 0; s < NW; ++s) {
-          float b[4];
+          for (int s = 0; s < NW; ++s) {
+            float b[4];
 #pragma unroll
-          for (int j = 0; j < 4; ++j) b[j] = ws[s * BK * LDW + kk * LDW + tx * 4 + j];
+            for (int j = 0; j < 4; ++j) b[j] = ws[s * BK * LDW + kk * LDW + tx * 4 + j];
 #pragma unroll
-          for (int i = 0; i < 4; ++i)
+            for (int i = 0; i < 4; ++i)
 #pragma unroll
-            for (int j = 0; j < 4; ++j) acc[s][i][j] = fmaf(a[i], b[j], acc[s][i][j]);
+              for (int j = 0; j < 4; ++j) acc[s][i][j] = fmaf(a[i], b[j], acc[s][i][j]);
+          }
         }
+        __syncthreads();
       }
-      __syncthreads();
     }
 #pragma unroll
     for (int i = 0; i < 4; ++i) {
@@ -192,28 +229,33 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w0,
     for (int s = 0; s < NW; ++s)
 #pragma unroll
       for (int j = 0; j < 2; ++j) wmma::fill_fragment(acc[s][j], 0.0f);
-    for (int k0 = 0; k0 < K; k0 += BK) {
-      load_tile<T, BM, BK, LDX>(xs, x, r0, k0, N, K, K, vec_x);
+    for (int p = 0; p < passes; ++p) {
+      const size_t woff = (size_t)e_pass[p] * K * F;
+      const T* wsrc[2] = {w0 + woff, SWIGLU ? w1 + woff : w0 + woff};
+      const int mask = passes == 1 ? ALL_ROWS : (p == 0 ? PRIMARY_ROWS : SECONDARY_ROWS);
+      for (int k0 = 0; k0 < K; k0 += BK) {
+        load_tile<T, BM, BK, LDX>(xs, x, r0, k0, N, K, K, vec_x, sel, mask);
 #pragma unroll
-      for (int s = 0; s < NW; ++s)
-        load_tile<T, BK, BN, LDW>(ws + s * BK * LDW, wsrc[s], k0, c0, K, F, F,
-                                  vec_w);
-      __syncthreads();
+        for (int s = 0; s < NW; ++s)
+          load_tile<T, BK, BN, LDW>(ws + s * BK * LDW, wsrc[s], k0, c0, K, F, F,
+                                    vec_w);
+        __syncthreads();
 #pragma unroll
-      for (int kk = 0; kk < BK; kk += 16) {
-        wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
-        wmma::load_matrix_sync(a, xs + wr * LDX + kk, LDX);
+        for (int kk = 0; kk < BK; kk += 16) {
+          wmma::fragment<wmma::matrix_a, 16, 16, 16, __nv_bfloat16, wmma::row_major> a;
+          wmma::load_matrix_sync(a, xs + wr * LDX + kk, LDX);
 #pragma unroll
-        for (int s = 0; s < NW; ++s) {
+          for (int s = 0; s < NW; ++s) {
 #pragma unroll
-          for (int j = 0; j < 2; ++j) {
-            wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
-            wmma::load_matrix_sync(b, ws + s * BK * LDW + kk * LDW + wc + j * 16, LDW);
-            wmma::mma_sync(acc[s][j], a, b, acc[s][j]);
+            for (int j = 0; j < 2; ++j) {
+              wmma::fragment<wmma::matrix_b, 16, 16, 16, __nv_bfloat16, wmma::row_major> b;
+              wmma::load_matrix_sync(b, ws + s * BK * LDW + kk * LDW + wc + j * 16, LDW);
+              wmma::mma_sync(acc[s][j], a, b, acc[s][j]);
+            }
           }
         }
+        __syncthreads();
       }
-      __syncthreads();
     }
     // Accumulators of one shape map their elements alike, so the SwiGLU
     // combine runs element-wise on the fragments before staging.
@@ -246,10 +288,11 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w0,
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <typename T, bool SWIGLU>
+template <typename T, bool SWIGLU, bool FUSED>
 int launch(const void* x, const void* w0, const void* w1, const void* te,
-           const void* tv, const void* scale, void* out, int N, int K, int F,
-           int bn, void* stream) {
+           const void* te2, const void* tv, const void* sel,
+           const void* scale, void* out, int N, int K, int F, int bn,
+           void* stream) {
   if (bn != BM || N < 0 || K <= 0 || F <= 0) return (int)cudaErrorInvalidValue;
   const int ni = (N + BM - 1) / BM;
   if (ni > 65535) return (int)cudaErrorInvalidValue;
@@ -257,11 +300,12 @@ int launch(const void* x, const void* w0, const void* w1, const void* te,
   const bool vec_x = (K % 8 == 0) && aligned16(x);
   const bool vec_w = (F % 8 == 0) && aligned16(w0) && (!SWIGLU || aligned16(w1));
   const dim3 grid((F + BN - 1) / BN, ni);
-  gmm_kernel<T, SWIGLU><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  gmm_kernel<T, SWIGLU, FUSED><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(w0),
       static_cast<const T*>(w1), static_cast<const int*>(te),
-      static_cast<const int*>(tv), static_cast<const float*>(scale), out, N, K,
-      F, vec_x, vec_w);
+      static_cast<const int*>(te2), static_cast<const int*>(tv),
+      static_cast<const float*>(sel), static_cast<const float*>(scale), out, N,
+      K, F, vec_x, vec_w);
   return (int)cudaGetLastError();
 }
 
@@ -273,28 +317,67 @@ extern "C" {
 int gmm_swiglu_f32(const void* x, const void* wg, const void* wi,
                    const void* te, const void* tv, void* out, int N, int K,
                    int F, int bn, void* stream) {
-  return launch<float, true>(x, wg, wi, te, tv, nullptr, out, N, K, F, bn, stream);
+  return launch<float, true, false>(x, wg, wi, te, nullptr, tv, nullptr,
+                                    nullptr, out, N, K, F, bn, stream);
 }
 
 int gmm_swiglu_bf16(const void* x, const void* wg, const void* wi,
                     const void* te, const void* tv, void* out, int N, int K,
                     int F, int bn, void* stream) {
-  return launch<__nv_bfloat16, true>(x, wg, wi, te, tv, nullptr, out, N, K, F,
-                                     bn, stream);
+  return launch<__nv_bfloat16, true, false>(x, wg, wi, te, nullptr, tv,
+                                            nullptr, nullptr, out, N, K, F,
+                                            bn, stream);
 }
 
 // K2: x [N, K], w [E, K, F], te/tv int32 [tiles], scale f32 [N] -> out f32 [N, F]
 int gmm_scaled_f32(const void* x, const void* w, const void* te,
                    const void* tv, const void* scale, void* out, int N, int K,
                    int F, int bn, void* stream) {
-  return launch<float, false>(x, w, nullptr, te, tv, scale, out, N, K, F, bn, stream);
+  return launch<float, false, false>(x, w, nullptr, te, nullptr, tv, nullptr,
+                                     scale, out, N, K, F, bn, stream);
 }
 
 int gmm_scaled_bf16(const void* x, const void* w, const void* te,
                     const void* tv, const void* scale, void* out, int N, int K,
                     int F, int bn, void* stream) {
-  return launch<__nv_bfloat16, false>(x, w, nullptr, te, tv, scale, out, N, K,
-                                      F, bn, stream);
+  return launch<__nv_bfloat16, false, false>(x, w, nullptr, te, nullptr, tv,
+                                             nullptr, scale, out, N, K, F, bn,
+                                             stream);
+}
+
+// K7: K1 plus te2 int32 [tiles] and sel f32 [N] (1.0 = the te row of a
+// straddle tile)
+int gmm_swiglu_fused_f32(const void* x, const void* wg, const void* wi,
+                         const void* te, const void* te2, const void* tv,
+                         const void* sel, void* out, int N, int K, int F,
+                         int bn, void* stream) {
+  return launch<float, true, true>(x, wg, wi, te, te2, tv, sel, nullptr, out,
+                                   N, K, F, bn, stream);
+}
+
+int gmm_swiglu_fused_bf16(const void* x, const void* wg, const void* wi,
+                          const void* te, const void* te2, const void* tv,
+                          const void* sel, void* out, int N, int K, int F,
+                          int bn, void* stream) {
+  return launch<__nv_bfloat16, true, true>(x, wg, wi, te, te2, tv, sel,
+                                           nullptr, out, N, K, F, bn, stream);
+}
+
+// K8: K2 plus te2 int32 [tiles] and sel f32 [N]
+int gmm_scaled_fused_f32(const void* x, const void* w, const void* te,
+                         const void* te2, const void* tv, const void* sel,
+                         const void* scale, void* out, int N, int K, int F,
+                         int bn, void* stream) {
+  return launch<float, false, true>(x, w, nullptr, te, te2, tv, sel, scale,
+                                    out, N, K, F, bn, stream);
+}
+
+int gmm_scaled_fused_bf16(const void* x, const void* w, const void* te,
+                          const void* te2, const void* tv, const void* sel,
+                          const void* scale, void* out, int N, int K, int F,
+                          int bn, void* stream) {
+  return launch<__nv_bfloat16, false, true>(x, w, nullptr, te, te2, tv, sel,
+                                            scale, out, N, K, F, bn, stream);
 }
 
 }  // extern "C"

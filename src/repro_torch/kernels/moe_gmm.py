@@ -1,11 +1,16 @@
-"""Grouped expert GEMMs (K1 `gmm_swiglu`, K2 `gmm_scaled`): wrappers, plain
-versions and launch counters.
+"""Grouped expert GEMMs (K1 `gmm_swiglu`, K2 `gmm_scaled`, and their fused
+forms K7 and K8): wrappers, plain versions and launch counters.
 
 Rows arrive packed by expert in row tiles of `bn` rows; tile t uses expert
 `tile_expert[t]`, and a tile with `tile_valid[t] == 0` contributes zeros.
 
   gmm_swiglu(x, wg, wi, te, tv)      h[i] = silu(x[i] @ wg[e]) * (x[i] @ wi[e])
   gmm_scaled(x, w, te, tv, scale)    y[i] = (x[i] @ w[e]) * scale[i]   (fp32)
+
+With `tile_expert2=` and `row_sel=` (a fused lane pair's plan) the same
+wrappers run K7 and K8: on a straddle tile (te2[t] != te[t]) row i uses
+expert te[t] where row_sel[i] > 0.5 and te2[t] otherwise; on every other
+tile all rows use te[t], as in K1/K2.
 
 Each wrapper dispatches on where its tensors lie: on the CPU it runs the plain
 PyTorch version; on a CUDA device it launches the hand-written kernel of
@@ -24,7 +29,8 @@ KERNEL_BLOCK_ROWS = 64          # the CUDA kernels' row tile (csrc BM)
 
 # Launch counts, one per wrapper: raised by one at each kernel launch and
 # nowhere else (the plain versions do not count).
-LAUNCHES = {"gmm_swiglu": 0, "gmm_scaled": 0}
+LAUNCHES = {"gmm_swiglu": 0, "gmm_scaled": 0, "gmm_swiglu_fused": 0,
+            "gmm_scaled_fused": 0}
 
 
 def reset_launches() -> None:
@@ -80,6 +86,41 @@ def gmm_scaled_plain(x, w, te, tv, row_scale, bn: int) -> torch.Tensor:
     return torch.where(valid_rows[:, None], y, 0.0)
 
 
+def _fused_bmm(x, w, te, te2, row_sel, bn: int) -> torch.Tensor:
+    """fp32 [ni, bn, F]: every tile's rows times its expert te[t]'s weights,
+    except a straddle tile's (te2[t] != te[t]) rows with row_sel <= 0.5,
+    which take te2[t]'s: the reference's two masked products, x*sel and
+    x*(1-sel), as a per-row choice."""
+    N = x.shape[0]
+    ni = te.shape[0]
+    xt = _tiled(x, ni, bn)
+    sel = F.pad(row_sel.reshape(N).float(), (0, ni * bn - N)).reshape(ni, bn)
+    second = ((te2 != te)[:, None] & (sel <= 0.5))[..., None]
+    return torch.where(second, torch.bmm(xt, w[te2.long()].float()),
+                       torch.bmm(xt, w[te.long()].float()))
+
+
+def gmm_swiglu_fused_plain(x, wg, wi, te, te2, tv, row_sel,
+                           bn: int) -> torch.Tensor:
+    """Reference arithmetic of K7: K1's with a per-row expert on straddle
+    tiles; output in x.dtype."""
+    N = x.shape[0]
+    g = _fused_bmm(x, wg, te, te2, row_sel, bn)
+    u = _fused_bmm(x, wi, te, te2, row_sel, bn)
+    h = torch.where(tv.bool()[:, None, None], F.silu(g) * u, 0.0)
+    return h.reshape(-1, h.shape[-1])[:N].to(x.dtype)
+
+
+def gmm_scaled_fused_plain(x, w, te, te2, tv, row_sel, row_scale,
+                           bn: int) -> torch.Tensor:
+    """Reference arithmetic of K8: K2's with K7's per-row expert choice."""
+    N = x.shape[0]
+    y = _fused_bmm(x, w, te, te2, row_sel, bn)
+    y = y.reshape(-1, y.shape[-1])[:N] * row_scale.reshape(N, 1).float()
+    valid_rows = tv.bool().repeat_interleave(bn)[:N]
+    return torch.where(valid_rows[:, None], y, 0.0)
+
+
 # ------------------------------------------------------------------ wrappers
 
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
@@ -112,6 +153,12 @@ def _lib():
             f = getattr(lib, f"gmm_scaled_{dt}")
             f.argtypes = [P, P, P, P, P, P, I, I, I, I, P]
             f.restype = I
+            f = getattr(lib, f"gmm_swiglu_fused_{dt}")
+            f.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, P]
+            f.restype = I
+            f = getattr(lib, f"gmm_scaled_fused_{dt}")
+            f.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, P]
+            f.restype = I
         lib._typed = True
     return lib
 
@@ -124,36 +171,68 @@ def _where(x: torch.Tensor) -> str:
     raise ValueError(f"no grouped-GEMM path for device {x.device}")
 
 
+def _fused_operands(N: int, ni: int, tile_expert2, row_sel):
+    """The fused plan's te2 [ni] int32 and row_sel [N] fp32, or None for
+    the unfused kernels."""
+    if (tile_expert2 is None) != (row_sel is None):
+        raise ValueError("tile_expert2 and row_sel come together")
+    if tile_expert2 is None:
+        return None, None
+    if tile_expert2.shape[0] < ni or row_sel.numel() != N:
+        raise ValueError(f"tile_expert2 {tuple(tile_expert2.shape)} / "
+                         f"row_sel {tuple(row_sel.shape)} do not cover "
+                         f"{ni} tiles of {N} rows")
+    return (tile_expert2[:ni].to(torch.int32),
+            row_sel.reshape(N).to(torch.float32).contiguous())
+
+
 def gmm_swiglu(x: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
                tile_expert: torch.Tensor,
                tile_valid: torch.Tensor | None = None, *,
+               tile_expert2: torch.Tensor | None = None,
+               row_sel: torch.Tensor | None = None,
                bn: int) -> torch.Tensor:
-    """K1. x [N, K], wg/wi [E, K, F] -> [N, F] in x.dtype."""
+    """K1, or K7 with `tile_expert2`/`row_sel`. x [N, K], wg/wi [E, K, F]
+    -> [N, F] in x.dtype."""
     N, K = x.shape
     E, K2, Fd = wg.shape
     if K2 != K or wi.shape != wg.shape:
         raise ValueError(f"gmm_swiglu: x {tuple(x.shape)}, wg "
                          f"{tuple(wg.shape)}, wi {tuple(wi.shape)}")
     ni, te, tv = _row_tiles(N, bn, tile_expert, tile_valid)
+    te2, sel = _fused_operands(N, ni, tile_expert2, row_sel)
+    fused = te2 is not None
     if _where(x) == "cpu":
+        if fused:
+            return gmm_swiglu_fused_plain(x, wg, wi, te, te2, tv, sel, bn)
         return gmm_swiglu_plain(x, wg, wi, te, tv, bn)
-    dt = _check_cuda("gmm_swiglu", bn, x, wg, wi, te, tv)
+    name = "gmm_swiglu_fused" if fused else "gmm_swiglu"
+    dt = _check_cuda(name, bn, x, wg, wi, te, tv,
+                     *((te2, sel) if fused else ()))
     if wg.dtype != x.dtype or wi.dtype != x.dtype:
-        raise TypeError("gmm_swiglu: x, wg and wi must share a dtype")
+        raise TypeError(f"{name}: x, wg and wi must share a dtype")
     out = torch.empty((N, Fd), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = getattr(_lib(), f"gmm_swiglu_{dt}")(
-        x.data_ptr(), wg.data_ptr(), wi.data_ptr(), te.data_ptr(),
-        tv.data_ptr(), out.data_ptr(), N, K, Fd, bn, stream)
-    build.check(rc, "gmm_swiglu")
-    LAUNCHES["gmm_swiglu"] += 1
+    fn = getattr(_lib(), f"{name}_{dt}")
+    if fused:
+        rc = fn(x.data_ptr(), wg.data_ptr(), wi.data_ptr(), te.data_ptr(),
+                te2.data_ptr(), tv.data_ptr(), sel.data_ptr(),
+                out.data_ptr(), N, K, Fd, bn, stream)
+    else:
+        rc = fn(x.data_ptr(), wg.data_ptr(), wi.data_ptr(), te.data_ptr(),
+                tv.data_ptr(), out.data_ptr(), N, K, Fd, bn, stream)
+    build.check(rc, name)
+    LAUNCHES[name] += 1
     return out
 
 
 def gmm_scaled(x: torch.Tensor, w: torch.Tensor, tile_expert: torch.Tensor,
                tile_valid: torch.Tensor | None, row_scale: torch.Tensor, *,
+               tile_expert2: torch.Tensor | None = None,
+               row_sel: torch.Tensor | None = None,
                bn: int) -> torch.Tensor:
-    """K2. x [N, K], w [E, K, F], row_scale [N, 1] -> fp32 [N, F]."""
+    """K2, or K8 with `tile_expert2`/`row_sel`. x [N, K], w [E, K, F],
+    row_scale [N, 1] -> fp32 [N, F]."""
     N, K = x.shape
     E, K2, Fd = w.shape
     if K2 != K or row_scale.numel() != N:
@@ -161,17 +240,29 @@ def gmm_scaled(x: torch.Tensor, w: torch.Tensor, tile_expert: torch.Tensor,
                          f"{tuple(w.shape)}, row_scale "
                          f"{tuple(row_scale.shape)}")
     ni, te, tv = _row_tiles(N, bn, tile_expert, tile_valid)
+    te2, sel = _fused_operands(N, ni, tile_expert2, row_sel)
+    fused = te2 is not None
     if _where(x) == "cpu":
+        if fused:
+            return gmm_scaled_fused_plain(x, w, te, te2, tv, sel, row_scale,
+                                          bn)
         return gmm_scaled_plain(x, w, te, tv, row_scale, bn)
-    scale = row_scale.reshape(N).to(torch.float32)
-    dt = _check_cuda("gmm_scaled", bn, x, w, te, tv, scale)
+    name = "gmm_scaled_fused" if fused else "gmm_scaled"
+    scale = row_scale.reshape(N).to(torch.float32).contiguous()
+    dt = _check_cuda(name, bn, x, w, te, tv, scale,
+                     *((te2, sel) if fused else ()))
     if w.dtype != x.dtype:
-        raise TypeError("gmm_scaled: x and w must share a dtype")
+        raise TypeError(f"{name}: x and w must share a dtype")
     out = torch.empty((N, Fd), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
-    rc = getattr(_lib(), f"gmm_scaled_{dt}")(
-        x.data_ptr(), w.data_ptr(), te.data_ptr(), tv.data_ptr(),
-        scale.data_ptr(), out.data_ptr(), N, K, Fd, bn, stream)
-    build.check(rc, "gmm_scaled")
-    LAUNCHES["gmm_scaled"] += 1
+    fn = getattr(_lib(), f"{name}_{dt}")
+    if fused:
+        rc = fn(x.data_ptr(), w.data_ptr(), te.data_ptr(), te2.data_ptr(),
+                tv.data_ptr(), sel.data_ptr(), scale.data_ptr(),
+                out.data_ptr(), N, K, Fd, bn, stream)
+    else:
+        rc = fn(x.data_ptr(), w.data_ptr(), te.data_ptr(), tv.data_ptr(),
+                scale.data_ptr(), out.data_ptr(), N, K, Fd, bn, stream)
+    build.check(rc, name)
+    LAUNCHES[name] += 1
     return out

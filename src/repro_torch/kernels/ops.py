@@ -1,22 +1,30 @@
 """The tile-dispatch planner and the MoE executors over the grouped GEMMs.
 
-Counterpart of repro/kernels/ops.py, in its unfused form: no lane fusion
-(`fuse=None`) and no local-expert window (`num_local=0`); the host-side
-`PlanCache` is not ported yet.
+Counterpart of repro/kernels/ops.py without the local-expert window
+(`num_local=0`); the host-side `PlanCache` is not ported yet.
 
-`plan_tile_dispatch` sorts (token, expert) pairs into expert runs padded to
+`plan_tile_dispatch` sorts (token, expert) pairs into lane runs padded to
 row tiles of `bn` rows, so each tile of the grouped GEMM reads one expert's
-weights. Every shape is static; no step reads a value back to the host.
+weights. With `fuse` (C2 lane fusion) the two lanes of a fusion pair
+concatenate unpadded and round to the tile boundary together: at most one
+tile per pair straddles both lanes, and the kernels resolve it per row
+(`row_sel`) with a second weight stream (`tile_expert2`). Every shape is
+static; no step reads a value back to the host.
 
   moe_ffn_fused     (token, expert) pairs -> combined [T, d] output, the
-                    combine weights applied in the K2 epilogue and rows
-                    scatter-added into the token buffer.
+                    combine weights applied in the K2/K8 epilogue; each
+                    token's pair rows are then summed in pair order
+                    (`combine_pairs`: a reshape for token-major pairs, else
+                    a sort and a gather, then one reduction; no float
+                    atomics, so repeated runs on a card agree bit for bit).
   go_selected_ffn   C4 decode: only the pairs the TopKUpdate selected.
 """
 from __future__ import annotations
 
+import functools
 from typing import NamedTuple
 
+import numpy as np
 import torch
 
 from repro_torch.kernels.moe_gmm import (KERNEL_BLOCK_ROWS, gmm_scaled,
@@ -35,9 +43,11 @@ def default_block_rows(device: torch.device | str) -> int:
 class TilePlan(NamedTuple):
     dest: torch.Tensor          # [N] packed row per pair
     row_pair: torch.Tensor      # [n_pad] source pair per packed row (N = pad)
-    row_sel: torch.Tensor       # [n_pad, 1] fp32 1.0 primary-lane row
-    tile_expert: torch.Tensor   # [n_tiles] lane per row tile
-    tile_expert2: torch.Tensor  # [n_tiles] == tile_expert (no fusion)
+    row_sel: torch.Tensor       # [n_pad, 1] fp32 1.0 primary-lane row, 0.0
+                                # secondary-lane row of a fused pair
+    tile_expert: torch.Tensor   # [n_tiles] primary lane per row tile
+    tile_expert2: torch.Tensor  # [n_tiles] secondary lane (== tile_expert
+                                # except on a fused pair's straddle tile)
     tile_valid: torch.Tensor    # [n_tiles] bool — tile carries a real row
     row_valid: torch.Tensor     # [n_pad] bool — real row vs tile padding
     counts: torch.Tensor        # [lanes] pairs per lane
@@ -47,10 +57,61 @@ class TilePlan(NamedTuple):
     n_tiles: int                # static grid size (n_pad // bn)
 
 
-def padded_rows(num_pairs: int, num_lanes: int, bn: int) -> int:
+def padded_rows(num_pairs: int, num_lanes: int, bn: int,
+                num_pairs_fused: int = 0) -> int:
     """Static packed row bound: whole-N tiles plus one boundary tile per
-    lane."""
-    return -(-num_pairs // bn) * bn + num_lanes * bn
+    lane pair (every lane its own pair without fusion)."""
+    P = num_pairs_fused or num_lanes
+    return -(-num_pairs // bn) * bn + P * bn
+
+
+class _FusionLayout(NamedTuple):
+    prim: np.ndarray          # [P] primary lane of each pair
+    sec: np.ndarray           # [P] secondary lane (== prim for singletons)
+    pair_of: np.ndarray       # [L] pair id per lane
+    is_sec: np.ndarray        # [L] lane is its pair's secondary member
+    P: int
+
+
+@functools.lru_cache(maxsize=None)
+def _fusion_layout(L: int, fuse: tuple | None) -> _FusionLayout:
+    """Host-side structure of a plan, once per (lane count, pairing):
+    `fuse` maps each lane to a fusion-pair id owning one or two lanes."""
+    if fuse is None:
+        ar = np.arange(L)
+        return _FusionLayout(ar, ar.copy(), ar.copy(), np.zeros(L, bool), L)
+    fuse = np.asarray(fuse, np.int64)
+    assert fuse.shape == (L,), f"fuse covers {fuse.shape} of {L} lanes"
+    ids = np.unique(fuse)
+    prim = np.empty(len(ids), np.int64)
+    sec = np.empty(len(ids), np.int64)
+    pair_of = np.empty(L, np.int64)
+    is_sec = np.zeros(L, bool)
+    for j, fid in enumerate(ids):
+        members = np.where(fuse == fid)[0]
+        assert 1 <= len(members) <= 2, \
+            f"fusion pair {fid} has {len(members)} lanes (max 2)"
+        prim[j], sec[j] = members[0], members[-1]
+        pair_of[members] = j
+        if len(members) == 2:
+            is_sec[members[1]] = True
+    return _FusionLayout(prim, sec, pair_of, is_sec, len(ids))
+
+
+@functools.lru_cache(maxsize=None)
+def _layout_on(L: int, fuse: tuple | None, device: str):
+    """The layout's index arrays (prim, sec, pair_of, is_sec) on `device`,
+    copied there once per shape: a copy from host memory would wait for
+    the card's queue to drain on every plan."""
+    lay = _fusion_layout(L, fuse)
+    return tuple(torch.as_tensor(a, device=device)
+                 for a in (lay.prim, lay.sec, lay.pair_of, lay.is_sec))
+
+
+def _fuse_key(fuse):
+    if fuse is None:
+        return None
+    return tuple(int(v) for v in np.asarray(fuse).reshape(-1))
 
 
 def _lane_rank(lane: torch.Tensor, L: int):
@@ -77,44 +138,69 @@ def _lane_rank(lane: torch.Tensor, L: int):
 
 
 def plan_tile_dispatch(expert_flat: torch.Tensor, num_experts: int,
-                       bn: int) -> TilePlan:
-    """expert_flat [N] int (one entry per (token, expert) pair) -> packed
-    tile layout: each expert's pairs in stable order, its run padded to a
-    multiple of bn rows."""
+                       bn: int, *, fuse=None) -> TilePlan:
+    """expert_flat [N] int (one lane per (token, expert) pair) -> packed
+    tile layout: each lane's pairs in stable order; a lane's run (or a
+    fusion pair's two runs, primary first) padded to a multiple of bn rows.
+    `fuse` (static, [lanes] pair ids with at most 2 lanes per id) turns on
+    lane fusion: the grid drops from N/bn + L to N/bn + P tiles."""
     lane = expert_flat.to(_I32)
     dev = lane.device
     L = num_experts
     N = lane.shape[0]
-    n_pad = padded_rows(N, L, bn)
+    fuse_t = _fuse_key(fuse)
+    lay = _fusion_layout(L, fuse_t)
+    n_pad = padded_rows(N, L, bn, lay.P)
     n_tiles = n_pad // bn
 
     pos, counts = _lane_rank(lane, L)
-    run_pad = ((counts + bn - 1) // bn) * bn
-    ends = torch.cumsum(run_pad, dim=0).to(_I32)
-    run_off = (ends - run_pad).to(_I32)
-    dest = torch.where(lane < L, run_off[lane.clamp(max=L - 1).long()] + pos,
-                       n_pad).to(_I32)
+    # without fusion every lane is its own pair and the layout is the
+    # identity: its gathers are skipped (each is a launch on a card)
+    unfused = fuse_t is None
+    if unfused:
+        cA = pair_rows = counts
+    else:
+        prim, sec, pair_of, is_sec = _layout_on(L, fuse_t, str(dev))
+        cA = counts[prim]
+        cB = torch.where(prim != sec, counts[sec], 0)
+        pair_rows = (cA + cB).to(_I32)
+    pair_pad = ((pair_rows + bn - 1) // bn) * bn
+    ends = torch.cumsum(pair_pad, dim=0).to(_I32)
+    pair_off = (ends - pair_pad).to(_I32)
+    lane_start = pair_off if unfused else pair_off[pair_of] + torch.where(
+        is_sec, cA[pair_of], 0).to(_I32)
+    dest = torch.where(lane < L, lane_start[lane.clamp(max=L - 1).long()]
+                       + pos, n_pad).to(_I32)
     # scatter with a sink row n_pad (the reference's mode="drop"), then cut
     row_pair = torch.full((n_pad + 1,), N, dtype=_I32, device=dev)
     row_pair[dest.long()] = torch.arange(N, dtype=_I32, device=dev)
     row_pair = row_pair[:n_pad]
 
-    # tile t covers packed rows [t*bn, (t+1)*bn); trailing tiles clamp to
-    # the last lane and are marked invalid
+    # tile t covers packed rows [t*bn, (t+1)*bn); within a pair primary rows
+    # precede secondary rows, so at most one boundary (the straddle) falls
+    # inside a tile. Trailing tiles clamp to the last pair and are invalid.
     ts = torch.arange(n_tiles, dtype=_I32, device=dev) * bn
     tp_raw = torch.searchsorted(ends, ts, right=True).to(_I32)
-    tp = tp_raw.clamp(max=L - 1)
-    real_end = run_off[tp.long()] + counts[tp.long()]
-    te = tp.to(_I32)
-    tile_valid = (tp_raw < L) & (ts < real_end)
+    tp = tp_raw.clamp(max=lay.P - 1).long()
+    real_end = pair_off[tp] + pair_rows[tp]
+    if unfused:
+        te = tp.to(_I32)
+        te2 = te.clone()
+    else:
+        bound = pair_off[tp] + cA[tp]
+        te = torch.where(ts < bound, prim[tp], sec[tp]).to(_I32)
+        te2 = torch.where(
+            (bound > ts) & (bound < torch.minimum(ts + bn, real_end)),
+            sec[tp], te).to(_I32)
+    tile_valid = (tp_raw < lay.P) & (ts < real_end)
 
     ri = torch.arange(n_pad, dtype=_I32, device=dev)
-    rp = torch.searchsorted(ends, ri, right=True).clamp(max=L - 1)
-    row_end = (run_off + counts)[rp]
-    row_sel = (ri < row_end).to(torch.float32)[:, None]
-    row_valid = ri < row_end
-    return TilePlan(dest, row_pair, row_sel, te, te.clone(), tile_valid,
-                    row_valid, counts, pos, tile_valid.sum(), n_pad, n_tiles)
+    rp = torch.searchsorted(ends, ri, right=True).clamp(max=lay.P - 1)
+    row_valid = ri < (pair_off + pair_rows)[rp]
+    row_sel = (row_valid if unfused else ri < (pair_off + cA)[rp]).to(
+        torch.float32)[:, None]
+    return TilePlan(dest, row_pair, row_sel, te, te2, tile_valid, row_valid,
+                    counts, pos, tile_valid.sum(), n_pad, n_tiles)
 
 
 def scatter_rows(x_pairs: torch.Tensor, plan: TilePlan) -> torch.Tensor:
@@ -129,36 +215,90 @@ def gather_rows(y_rows: torch.Tensor, plan: TilePlan) -> torch.Tensor:
     return yz[plan.dest.long()]
 
 
+def combine_pairs(y_pairs: torch.Tensor, tok: torch.Tensor, num_tokens: int,
+                  max_per_token: int, *, token_major: bool = False
+                  ) -> torch.Tensor:
+    """y_pairs [N, d] in pair order -> [num_tokens, d]: every token's rows
+    summed in ascending pair order, the same code on every device.
+
+    One stable sort groups the pairs by token; token t's j-th pair lands in
+    slot [t, j] of a [num_tokens, R] index table (an unused slot points at
+    an appended zero row), and one gather and one reduction over R do the
+    sum. No float atomics: the reference's `.at[row_token].add` is
+    deterministic, and so is this on a card, where a float `index_add_`
+    would sum in another order on every run.
+
+    `max_per_token` (R) is an exact bound on one token's pairs: top_k for
+    token choice (k distinct experts per token), the expert count for
+    expert choice (an expert picks a token at most once). `token_major`
+    says the pairs already come R per token in token order (token choice:
+    tok = repeat_interleave(arange(T), R)); the table is then the pairs
+    themselves, so a reshape and the same reduction give the same bits
+    with no sort or gather. On the CPU a bound too small raises."""
+    N, d = y_pairs.shape
+    if token_major:
+        return y_pairs.view(num_tokens, max_per_token, d).sum(dim=1)
+    dev = y_pairs.device
+    R = max_per_token
+    st, order = torch.sort(tok.long(), stable=True)
+    rank = torch.arange(N, device=dev) - torch.searchsorted(st, st)
+    if dev.type == "cpu" and N and int(rank.max()) >= R:
+        raise ValueError(f"a token owns {int(rank.max()) + 1} pairs, more "
+                         f"than max_per_token={R}")
+    slot = torch.full(((num_tokens + 1) * R,), N, dtype=torch.long,
+                      device=dev)
+    slot[st * R + rank] = order
+    yz = torch.cat([y_pairs, y_pairs.new_zeros((1, d))])
+    return yz[slot.view(num_tokens + 1, R)[:num_tokens]].sum(dim=1)
+
+
 def moe_ffn_fused(x_src: torch.Tensor, tok: torch.Tensor, ef: torch.Tensor,
                   wf: torch.Tensor, bank: dict, num_experts: int,
-                  num_tokens: int, *, bn: int = 0):
+                  num_tokens: int, *, expert_of_lane: torch.Tensor | None = None,
+                  max_per_token: int, token_major: bool = False,
+                  bn: int = 0, capacity: int = 0, fuse=None):
     """Grouped-GEMM MoE FFN over (token, expert) pairs with fused combine.
 
-    x_src [T_src, d] source rows; tok [N] source row per pair; ef [N] expert
-    per pair; wf [N] combine weights. Returns (y [num_tokens, d] fp32
-    combined output, y_rows [n_pad, d] fp32 weighted per-row outputs,
-    plan)."""
+    x_src [T_src, d] source rows; tok [N] source row per pair; ef [N] lane
+    per pair (an expert id, or a group-major lane rank when
+    `expert_of_lane` maps lanes back to weight indices); wf [N] combine
+    weights (a zero weight drops the pair's contribution).
+
+    `capacity > 0` zeroes the weight of pairs past that rank in their
+    lane's stable run (`plan.pos`). `fuse` (static pair ids per lane) packs
+    paired lanes into shared tiles, resolved per row in the fused kernels
+    K7/K8, so fusion is exact. `max_per_token` and `token_major` describe
+    the pairs' layout to `combine_pairs`.
+
+    Returns (y [num_tokens, d] fp32 combined output, y_rows [n_pad, d] fp32
+    weighted per-row outputs, plan)."""
     bn = bn or default_block_rows(x_src.device)
-    plan = plan_tile_dispatch(ef, num_experts, bn)
-    te = plan.tile_expert
+    plan = plan_tile_dispatch(ef, num_experts, bn, fuse=fuse)
+    if capacity:
+        wf = torch.where(plan.pos < capacity, wf, 0.0)
+    te, te2 = plan.tile_expert, plan.tile_expert2
+    if expert_of_lane is not None:
+        te = expert_of_lane[te.long()].to(_I32)
+        te2 = expert_of_lane[te2.long()].to(_I32)
+    fused = dict(tile_expert2=te2, row_sel=plan.row_sel) if fuse is not None \
+        else {}
     d = x_src.shape[-1]
     rp = plan.row_pair.long()
     # one gather per operand through row_pair; sentinel N reads the
-    # appended zero / sink entry
+    # appended zero entry
     tok_z = torch.cat([tok.to(_I32), tok.new_full((1,), num_tokens,
                                                   dtype=_I32)])
-    row_token = tok_z[rp]
     x_z = torch.cat([x_src, x_src.new_zeros((1, d))])
-    x_rows = x_z[row_token.long()]
+    x_rows = x_z[tok_z[rp].long()]
     wf_z = torch.cat([wf.float(), wf.new_zeros((1,), dtype=torch.float32)])
     scale = wf_z[rp][:, None]
     h = gmm_swiglu(x_rows, bank["wg"], bank["wi"], te, plan.tile_valid,
-                   bn=bn)
-    y_rows = gmm_scaled(h, bank["wo"], te, plan.tile_valid, scale, bn=bn)
-    y = torch.zeros((num_tokens + 1, d), dtype=torch.float32,
-                    device=x_src.device)
-    y.index_add_(0, row_token.long(), y_rows)
-    return y[:num_tokens], y_rows, plan
+                   bn=bn, **fused)
+    y_rows = gmm_scaled(h, bank["wo"], te, plan.tile_valid, scale, bn=bn,
+                        **fused)
+    y = combine_pairs(gather_rows(y_rows, plan), tok, num_tokens,
+                      max_per_token, token_major=token_major)
+    return y, y_rows, plan
 
 
 # ------------------------------------------------------------ GO decode

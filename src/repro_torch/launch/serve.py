@@ -1,16 +1,19 @@
-"""Serving entry points with KV + GO caches (the paper's generation path).
+"""Serving entry points with KV (+ GO) caches (the paper's generation path).
 
 Counterpart of repro/launch/serve.py. Two modes:
 
   generate()          static batch: a fixed batch of requests moves
                       lock-step from prefill to completion (prefill() fills
-                      the KV caches and the per-layer GO caches, then one
-                      serve_step() per generated token).
+                      the KV caches and, for expert choice, the per-layer
+                      GO caches, then one serve_step() per generated token).
   serve_continuous()  continuous batching through serving.ServingEngine:
                       requests join mid-flight into free slots of a pooled
-                      KV + GO cache (dense rows or a paged pool, optionally
+                      KV (+ GO) cache (dense rows or a paged pool, optionally
                       with chunked prefill) and retire on EOS or length.
                       The CLI's default mode.
+
+`--arch` takes llama_moe_4_16 (expert choice, GO cache) and
+granite-moe-3b-a800m (token choice on the C1 group path).
 
 Entry points run on the CUDA card unless the caller names another device;
 without a card, asking for CUDA raises.
@@ -20,6 +23,8 @@ without a card, asking for CUDA raises.
   python -m repro_torch.launch.serve --arch llama_moe_4_16 --static \
       --batch 4 --prompt 128 --gen 16
   python -m repro_torch.launch.serve --arch llama_moe_4_16 --smoke \
+      --paged --page-size 4 --chunk-prefill 8 --device cpu
+  python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --smoke \
       --paged --page-size 4 --chunk-prefill 8 --device cpu
 """
 from __future__ import annotations

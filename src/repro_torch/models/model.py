@@ -17,13 +17,19 @@ Parameters keep the reference's nesting and its stacked layer axis
 so `bridge.params_from_numpy` carries JAX weights across unchanged. Where
 JAX scans over layers and carries the KV and GO caches through the scan,
 the port loops over layers in Python and writes each layer's slice of the
-caches in place.
+caches in place. The decode state holds GO rows only for expert choice
+with the GO cache; token choice keeps none, as in the reference.
 """
 from __future__ import annotations
 
+import functools
+
+import numpy as np
 import torch
 
 from repro_torch.core import moe as MOE
+from repro_torch.core.grouping import (default_groups,
+                                       group_of_expert_from_groups)
 from repro_torch.core.go_cache import (GOCache, go_cache_init,
                                        go_cache_init_slot, go_cache_prefill,
                                        go_cache_write_slot)
@@ -39,15 +45,57 @@ def layer_windows(cfg) -> list[int]:
 
 def check_served(cfg) -> None:
     """Raise on a configuration the port does not serve yet: it serves the
-    attention family with expert-choice MoE and the GO cache."""
+    attention family with an MoE sublayer, either expert choice with the
+    GO cache or token choice, and no shared experts."""
     e = cfg.moe
-    if cfg.block != "attn" or e is None or e.routing != "expert_choice" \
-            or not e.go_cache:
+    if cfg.block != "attn" or e is None or e.routing not in (
+            "expert_choice", "token_choice") or (
+            e.routing == "expert_choice" and not e.go_cache):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves attention blocks with expert-choice "
-            "MoE and the GO cache so far; dense MLPs, token choice and the "
-            "other families are ROADMAP.md Queue 1 items 4, 5 and 9")
+            f"{cfg.name}: the port serves attention blocks with MoE "
+            "(expert choice with the GO cache, or token choice) so far; "
+            "dense MLPs and the other families are ROADMAP.md Queue 1 "
+            "items 4, 5 and 9")
+    if e.num_shared_experts:
+        raise NotImplementedError(
+            f"{cfg.name}: shared experts are not ported yet (ROADMAP.md "
+            "Queue 1 item 4)")
     MOE.check_backend(e)
+
+
+@functools.lru_cache(maxsize=None)
+def _moe_deployment(moe_cfg) -> tuple[np.ndarray, np.ndarray]:
+    """Deployment-time C2 artifacts, once per MoE config (host numpy): the
+    [E] group-id map and the [G, g] member matrix of `default_groups`."""
+    groups = default_groups(moe_cfg)
+    return (group_of_expert_from_groups(groups).astype(np.int32),
+            np.asarray(groups, np.int32))
+
+
+@functools.lru_cache(maxsize=None)
+def _deployment_on(moe_cfg, device: str) -> tuple[torch.Tensor, ...]:
+    """The deployment's tensors on `device`, copied there once."""
+    return tuple(torch.from_numpy(a).to(device)
+                 for a in _moe_deployment(moe_cfg))
+
+
+def expert_groups(cfg, device) -> torch.Tensor:
+    """C2 grouping -> [E] group id per expert, on `device`."""
+    return _deployment_on(cfg.moe, str(torch.device(device)))[0]
+
+
+def expert_group_members(cfg, device) -> torch.Tensor:
+    """C2 grouping -> [G, g] expert ids per group, on `device`."""
+    return _deployment_on(cfg.moe, str(torch.device(device)))[1]
+
+
+def _groups(cfg, device) -> dict:
+    """The group map and members a block's token-choice MoE reads (none for
+    expert choice)."""
+    if cfg.moe.routing == "expert_choice":
+        return {}
+    return {"group_of_expert": expert_groups(cfg, device),
+            "group_members": expert_group_members(cfg, device)}
 
 
 # ----------------------------------------------------------------------- init
@@ -121,8 +169,8 @@ def paged_supported(cfg) -> bool:
 def init_decode_state(cfg, batch: int, max_len: int, device, *,
                       per_slot_t: bool = False,
                       paged: tuple[int, int] | None = None) -> dict:
-    """Zero decode state: the per-layer GO caches [L, B, E, k, (d)] and the
-    position `t`, an int (the static batch moves in lock step) or, with
+    """Zero decode state: the per-layer GO caches [L, B, E, k, (d)] (expert
+    choice with the GO cache only) and the position `t`, an int (the static batch moves in lock step) or, with
     per_slot_t, an int32 tensor [B] (every pool slot at its own offset).
 
     The KV is dense rows [L, B, max_len, Hkv, hd], or, with
@@ -151,8 +199,9 @@ def init_decode_state(cfg, batch: int, max_len: int, device, *,
         shp = (L, batch, max_len, cfg.num_kv_heads, hd)
         st["k"] = torch.zeros(shp, dtype=dt, device=device)
         st["v"] = torch.zeros(shp, dtype=dt, device=device)
-    st["go"] = go_cache_init(batch, e.num_experts, e.top_k, cfg.d_model, dt,
-                             device, lead=(L,))
+    if e.routing == "expert_choice" and e.go_cache:
+        st["go"] = go_cache_init(batch, e.num_experts, e.top_k, cfg.d_model,
+                                 dt, device, lead=(L,))
     return st
 
 
@@ -167,7 +216,8 @@ def init_decode_slot(state: dict, slot: int) -> None:
     for key in ("k", "v"):
         if key in state:
             state[key][:, slot] = 0
-    go_cache_init_slot(state["go"], slot)
+    if "go" in state:
+        go_cache_init_slot(state["go"], slot)
 
 
 def write_decode_slot(state: dict, slot: int, src: dict,
@@ -202,35 +252,41 @@ def write_decode_slot(state: dict, slot: int, src: dict,
     for key in ("k", "v"):
         if key in state:
             state[key][:, slot] = src[key][:, 0].to(state[key].dtype)
-    go_cache_write_slot(state["go"], slot, src["go"])
+    if "go" in state:
+        go_cache_write_slot(state["go"], slot, src["go"])
 
 
-def _layer_go(state: dict, l: int) -> GOCache:
+def _layer_go(state: dict, l: int) -> GOCache | None:
+    if "go" not in state:
+        return None
     return GOCache(*(a[l] for a in state["go"]))
 
 
 # -------------------------------------------------------------------- prefill
 
 def prefill(params: dict, tokens: torch.Tensor, cfg, max_len: int = 0):
-    """Full-sequence forward that fills the decode state: KV caches and, per
-    layer, the GO cache from the expert-choice routing. tokens [B, S] ->
-    (state, last-position logits [B, V] fp32)."""
+    """Full-sequence forward that fills the decode state: KV caches and,
+    for expert choice, each layer's GO cache from its routing. tokens
+    [B, S] -> (state, last-position logits [B, V] fp32)."""
     Bsz, S = tokens.shape
     dev = tokens.device
     state = init_decode_state(cfg, Bsz, max_len or 2 * S, dev)
     positions = torch.arange(S, dtype=torch.int32, device=dev)
+    groups = _groups(cfg, dev)
     x = params["embed"][tokens]
     for l, w in enumerate(layer_windows(cfg)):
         x, aux, k, v = B.attn_block(layer_params(params["layers"], l), x,
                                     cfg=cfg, positions=positions, window=w,
-                                    return_kv=True)
+                                    return_kv=True, **groups)
         state["k"][l, :, :S] = k
         state["v"][l, :, :S] = v
-        go = go_cache_prefill(None, None, aux["weighted_outputs"],
-                              aux["chosen_tokens"], aux["chosen_scores"],
-                              cfg.moe.top_k)
-        for dst, src in zip(_layer_go(state, l), go):
-            dst.copy_(src)
+        go_l = _layer_go(state, l)
+        if go_l is not None:
+            go = go_cache_prefill(None, None, aux["weighted_outputs"],
+                                  aux["chosen_tokens"], aux["chosen_scores"],
+                                  cfg.moe.top_k)
+            for dst, src in zip(go_l, go):
+                dst.copy_(src)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_from_hidden(params, x[:, -1, :], cfg)
     state["t"] = S
@@ -255,19 +311,21 @@ def prefill_chunk(params: dict, state: dict, tokens: torch.Tensor, cfg,
     rides in with valid_len = its real token count: causal attention and
     the kv_len mask keep real positions off the pads, and expert-choice
     routing masks pads out of the chunk's top-C, so the merged GO cache
-    holds only real tokens. A paged state (block_table, k_pages, v_pages)
+    holds only real tokens (token choice routes the pads too; their
+    outputs land on pad rows only). A paged state (block_table, k_pages, v_pages)
     prefills straight into the pool's pages. Returns (state, logits
     [B, V] fp32 at chunk position valid_len - 1); state["t"] lands on
     start + valid_len."""
     Cs = tokens.shape[1]
     vl = Cs if valid_len is None else valid_len
+    groups = _groups(cfg, tokens.device)
     x = params["embed"][tokens]
     for l, w in enumerate(layer_windows(cfg)):
         ck, cv, bt = _kv(state, l)
         x, _ = B.attn_block_chunk(
             layer_params(params["layers"], l), x, ck, cv, start, cfg=cfg,
             go_cache=_layer_go(state, l), window=w, valid_len=vl,
-            block_table=bt)
+            block_table=bt, **groups)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_from_hidden(params, x[:, vl - 1, :], cfg)
     state["t"] = start + vl

@@ -1,10 +1,10 @@
-"""Continuous-batching serving engine over the pooled KV + GO cache state.
+"""Continuous-batching serving engine over the pooled KV (+ GO) cache state.
 
 Counterpart of repro/serving/engine.py (`ServingEngine`), the engine's core:
 
   admit    a queued request prefills into a free slot: one batch-1
-           prefill at the pool's max_tokens whose KV and per-layer GO rows
-           are written into the slot in place (write_decode_slot), or, for
+           prefill at the pool's max_tokens whose KV (and, for expert
+           choice, per-layer GO rows) are written into the slot in place (write_decode_slot), or, for
            a prompt longer than `prefill_chunk`, a chunked prefill that
            runs one chunk per engine tick;
   decode   every tick advances ALL slots one token in one batched
@@ -29,8 +29,9 @@ prefill through K4 (kernels/paged_attn.py).
 CHUNKED PREFILL (`prefill_chunk=N`): prompts longer than N are admitted as
 chunks of N tokens, one per tick, between the decode ticks of the slots in
 flight. Expert-choice MoE routes each chunk at the CHUNK's capacity and
-merges GO caches (go_cache_merge), so its streams are deterministic per
-chunking but may differ from one-shot prefill. At most one chunk run is
+merges GO caches (go_cache_merge); token choice with C1 groups pools its
+group capacity over the chunk's rows. Either way the streams are
+deterministic per chunking but may differ from one-shot prefill. At most one chunk run is
 in flight; it holds a claimed slot and reserved pages from its start, and
 on a paged pool it writes its KV straight into the pool's pages.
 

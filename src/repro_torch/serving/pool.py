@@ -1,4 +1,4 @@
-"""Slot pool: owns the pooled per-request KV + GO decode state.
+"""Slot pool: owns the pooled per-request KV (+ GO) decode state.
 
 Counterpart of repro/serving/pool.py (`SlotPool`), cut to the engine core:
 dense and paged pools, admission, lazy page growth and retirement (no
@@ -17,8 +17,8 @@ and a per-slot block table of physical page ids (0 = the null page). The
 host `PageAllocator` reserves each request's worst-case page count at
 admission and hands pages out lazily: `grow_active()` assigns one page as
 a slot's sequence crosses a page boundary, right before the decode tick
-that writes it. GO rows stay slot-resident ([E, k]-shaped, not
-sequence-shaped).
+that writes it. GO rows (expert choice only) stay slot-resident
+([E, k]-shaped, not sequence-shaped).
 
 Unlike the JAX pool, which threads a new state through jitted functions,
 this one writes the device tensors IN PLACE. The one exception is the
@@ -134,7 +134,7 @@ class SlotPool:
 
     def admit(self, slot: int, req: Request, slot_state: dict,
               first_token: int, *, page_row=None) -> None:
-        """Install a prefilled request into a free row: write its KV and GO
+        """Install a prefilled request into a free row: write its KV (and GO)
         entries and its position in place, and arm its first decode input.
         A paged pool allocates the pages covering the prompt and the first
         decode write here (later pages come through grow_active); a chunked
@@ -191,7 +191,7 @@ class SlotPool:
 
     def retire(self, slot: int) -> Request:
         """Free a row: reset its caches (block table to the null page, GO
-        scores to -inf) and return the finished request. The row is
+        scores, if any, to -inf) and return the finished request. The row is
         reusable at once. The page CONTENTS stay: stale positions are
         masked, and masked finite values add exactly 0 to attention."""
         req = self.owner[slot]

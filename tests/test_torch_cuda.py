@@ -71,12 +71,21 @@ def test_cuda_wrappers_raise_instead_of_falling_back(cuda_device):
     with pytest.raises(ValueError, match="contiguous"):
         G.gmm_swiglu(x64, wg.transpose(1, 2).contiguous().transpose(1, 2),
                      wi, te64, None, bn=64)
+    # the fused kernels (K7/K8) check the same way
+    sel = torch.ones(64, 1, device=cuda_device)
+    with pytest.raises(ValueError, match="tiles 64 rows"):
+        G.gmm_swiglu(x, wg, wi, te, tv, tile_expert2=te, row_sel=sel[:64],
+                     bn=8)
+    with pytest.raises(TypeError, match="no kernel for dtype"):
+        G.gmm_scaled(torch.zeros(64, 8, device=cuda_device).half(),
+                     wo.half(), te64, None, scale[:64], tile_expert2=te64,
+                     row_sel=sel, bn=64)
 
 
 @pytest.mark.requires_cuda
 def test_cuda_moe_ffn_matches_cpu(cuda_device):
     """The executor end to end on the card (bn=64) against the CPU (bn=8):
-    same plan semantics, fp32, summation order and atomics -> 1e-4."""
+    same plan semantics, fp32, summation order -> 1e-4."""
     rng = np.random.default_rng(2)
     T, d, de, E = 40, 48, 24, 4
     ef = torch.from_numpy(rng.integers(0, E, 60).astype(np.int32))
@@ -85,13 +94,84 @@ def test_cuda_moe_ffn_matches_cpu(cuda_device):
     x = torch.from_numpy(rng.standard_normal((T, d)).astype(np.float32))
     bank = {"wg": torch.randn(E, d, de), "wi": torch.randn(E, d, de),
             "wo": torch.randn(E, de, d)}
-    y_cpu, _, _ = OPS.moe_ffn_fused(x, tok, ef, wf, bank, E, T)
+    R_ = int(torch.bincount(tok).max())
+    y_cpu, _, _ = OPS.moe_ffn_fused(x, tok, ef, wf, bank, E, T,
+                                    max_per_token=R_)
     dev = {k: v.to(cuda_device) for k, v in bank.items()}
     y_gpu, _, plan = OPS.moe_ffn_fused(x.to(cuda_device), tok.to(cuda_device),
                                        ef.to(cuda_device), wf.to(cuda_device),
-                                       dev, E, T)
+                                       dev, E, T, max_per_token=R_)
     assert plan.n_pad % 64 == 0
     torch.testing.assert_close(y_gpu.cpu(), y_cpu, rtol=1e-4, atol=1e-4)
+
+
+def _fused_plan(seed, device, E=6, per_lane=(61, 3, 0, 70, 63, 1)):
+    """A fused plan at the card's 64-row tile: lanes paired (0,1), (2,3),
+    (4,5), with straddles mid-tile and at a tile's last row, an empty
+    primary lane and invalid tail tiles."""
+    rng = np.random.default_rng(seed)
+    ef = np.concatenate([np.full(n, e, np.int32)
+                         for e, n in enumerate(per_lane)])
+    rng.shuffle(ef)
+    return OPS.plan_tile_dispatch(torch.from_numpy(ef).to(device), E,
+                                  G.KERNEL_BLOCK_ROWS, fuse=(0, 0, 1, 1, 2, 2))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 1e-4),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_fused_kernels_match_plain_versions(cuda_device, dtype, tol):
+    """K7 and K8 on straddle tiles against their plain versions. fp32:
+    summation order only (1e-4). bf16: K7 rounds its output to bf16 (2e-2);
+    K8's fp32 output stays at 1e-4."""
+    plan = _fused_plan(8, cuda_device)
+    assert bool((plan.tile_expert2 != plan.tile_expert).any())
+    N, K, F, E, bn = plan.n_pad, 200, 136, 6, G.KERNEL_BLOCK_ROWS
+    x, wg, wi, wo, _, _, scale = _inputs(9, N, K, F, E, bn, cuda_device)
+    x = x * plan.row_valid[:, None]
+    x, wg, wi, wo = (a.to(dtype) for a in (x, wg, wi, wo))
+    kw = dict(tile_expert2=plan.tile_expert2, row_sel=plan.row_sel)
+    te, tv = plan.tile_expert, plan.tile_valid
+    before = dict(G.LAUNCHES)
+    h = G.gmm_swiglu(x, wg, wi, te, tv, bn=bn, **kw)
+    y = G.gmm_scaled(h, wo, te, tv, scale, bn=bn, **kw)
+    torch.cuda.synchronize()
+    assert G.LAUNCHES["gmm_swiglu_fused"] == before["gmm_swiglu_fused"] + 1
+    assert G.LAUNCHES["gmm_scaled_fused"] == before["gmm_scaled_fused"] + 1
+    assert G.LAUNCHES["gmm_swiglu"] == before["gmm_swiglu"]
+    hp = G.gmm_swiglu_fused_plain(x, wg, wi, te, plan.tile_expert2, tv,
+                                  plan.row_sel, bn)
+    yp = G.gmm_scaled_fused_plain(h, wo, te, plan.tile_expert2, tv,
+                                  plan.row_sel, scale, bn)
+    torch.testing.assert_close(h.float(), hp.float(), rtol=tol, atol=tol)
+    torch.testing.assert_close(y, yp, rtol=1e-4, atol=1e-4)
+    rows_invalid = (~tv).repeat_interleave(bn)[:N]
+    assert bool((h[rows_invalid] == 0).all() and (y[rows_invalid] == 0).all())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("token_major", [False, True])
+def test_cuda_moe_combine_is_deterministic(cuda_device, token_major):
+    """Two calls of the fused executor on identical inputs, many pairs per
+    token (token-major top-8), are bit-equal: the combine sums each
+    token's pairs in one order, with no float atomics, through the sort
+    and through the reshape alike."""
+    rng = np.random.default_rng(10)
+    T, d, de, E, k = 512, 256, 64, 40, 8
+    ef = np.stack([rng.permutation(E)[:k] for _ in range(T)]).reshape(-1)
+    t = lambda a: torch.from_numpy(a).to(cuda_device)      # noqa: E731
+    ef = t(ef.astype(np.int32))
+    tok = torch.arange(T, device=cuda_device).repeat_interleave(k)
+    wf = t(rng.random(T * k).astype(np.float32))
+    x = t(rng.standard_normal((T, d)).astype(np.float32)).bfloat16()
+    bank = {n: t(rng.standard_normal(s).astype(np.float32)).bfloat16()
+            for n, s in (("wg", (E, d, de)), ("wi", (E, d, de)),
+                         ("wo", (E, de, d)))}
+    fuse = tuple(i // 2 for i in range(E))
+    ys = [OPS.moe_ffn_fused(x, tok, ef, wf, bank, E, T, fuse=fuse,
+                            max_per_token=k, token_major=token_major)[0]
+          for _ in range(2)]
+    assert torch.equal(ys[0], ys[1])
 
 
 # --------------------------------------------------------- paged attention
@@ -188,6 +268,30 @@ def test_cuda_paged_attn_bf16_and_unreachable_pages(cuda_device):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 4e-2)])
+def test_cuda_paged_attn_gqa3_head_dim_64(cuda_device, dtype, tol):
+    """K3/K4 at granite's grouping: 3 query heads per kv head, head_dim 64
+    (fp32 6/2 heads, 2e-5 as above; bf16 at the full width's 24/8, where
+    the plain chunk rounds q * scale to bf16 and the kernel does not: 4e-2,
+    over 10x the ~3e-3 seen on an H100)."""
+    t = np.array([0, 7, 16, 33, 95], np.int32)
+    hq, nkv = (6, 2) if dtype == torch.float32 else (24, 8)
+    kp, vp, bt, _, hd = _paged(11, nkv, t + 1, cuda_device, dtype, ps=16,
+                               hq=hq, hd=64)
+    g = torch.Generator(device="cuda").manual_seed(12)
+    q = torch.randn(len(t), hq, hd, device="cuda", generator=g).to(dtype)
+    tt = torch.from_numpy(t).to(cuda_device)
+    torch.testing.assert_close(
+        PA.paged_attn_decode(q, kp, vp, bt, tt),
+        PA.paged_attn_decode_plain(q, kp, vp, bt, tt), rtol=tol, atol=tol)
+    qc = torch.randn(len(t), 32, hq, hd, device="cuda", generator=g).to(dtype)
+    out = PA.paged_attn_chunk(qc, kp, vp, bt, 64, 90)
+    ref = PA.paged_attn_chunk_plain(qc, kp, vp, bt, 64, 90)
+    torch.testing.assert_close(out[:, :26], ref[:, :26], rtol=tol, atol=tol)
+
+
+@pytest.mark.requires_cuda
 def test_cuda_paged_attn_raises_instead_of_falling_back(cuda_device):
     kp, vp, bt, hq, _ = _paged(1, 2, [9], cuda_device, torch.float32, hd=24)
     t = torch.tensor([8], dtype=torch.int32, device=cuda_device)
@@ -201,13 +305,15 @@ def test_cuda_paged_attn_raises_instead_of_falling_back(cuda_device):
 
 
 @pytest.mark.requires_cuda
-def test_cuda_engine_streams_equal_cpu(cuda_device):
+@pytest.mark.parametrize("arch", ["llama_moe_4_16", "granite-moe-3b-a800m"])
+def test_cuda_engine_streams_equal_cpu(cuda_device, arch):
     """The smoke engine on a paged pool with chunked prefill: the card
-    (K1-K4) streams what the CPU (plain versions) streams."""
+    (K1-K4, and K7/K8 for granite's grouped prefill) streams what the CPU
+    (plain versions) streams."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import serve_continuous
     from repro_torch.models.model import model_init
-    cfg = get_config("llama_moe_4_16", smoke=True)
+    cfg = get_config(arch, smoke=True)
     params = model_init(cfg, torch.Generator().manual_seed(0), "cpu")
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)

@@ -49,7 +49,8 @@ def test_moe_ffn_fused_matches_reference(layout):
     yt, yrt, plan = OPS.moe_ffn_fused(torch.from_numpy(x),
                                       torch.from_numpy(tok),
                                       torch.from_numpy(ef),
-                                      torch.from_numpy(wf), tb, E, T)
+                                      torch.from_numpy(wf), tb, E, T,
+                                      max_per_token=int(np.bincount(tok).max()))
     assert plan.n_pad == yrt.shape[0]
     np.testing.assert_allclose(yt.numpy(), np.asarray(yj), **TOL)
     np.testing.assert_allclose(yrt.numpy(), np.asarray(yrj), **TOL)
