@@ -25,11 +25,17 @@ Phases (none catches an exception; any failure exits non-zero):
      reused pages, ragged positions and kv_len), then bf16 at the engine
      run's full-width shapes of both models (llama 32/32 heads of 128,
      granite 24/8 heads of 64) with kernel, plain and library times.
-  4. both slices end to end at smoke size, fp32, the same weights on the
+     K9 slstm_seq against its plain version: fp32 at the JAX test's three
+     shapes, then xlstm-1.3b's full-width sLSTM (B 4, S 128, H 4, hd 512,
+     fp32 u, bf16 r) with a planted fault beside it, with times.
+  4. the slices end to end at smoke size, fp32, the same weights on the
      CPU (plain versions) and on the card (kernels): static generate(),
      then the continuous-batching engine on a paged pool with chunked
      prefill; llama_moe_4_16 (expert choice, GO cache) and
-     granite-moe-3b-a800m (token choice, C1 groups: K7/K8 at prefill).
+     granite-moe-3b-a800m (token choice, C1 groups: K7/K8 at prefill);
+     then xlstm-1.3b: model_forward (K9 once per sLSTM block) and
+     generate(), and on the card the forward's last logits against a
+     stepwise prefill plus one serve_step.
   5. full width, bf16, one set of random weights per model, first
      llama_moe_4_16, then granite-moe-3b-a800m:
      a. static generate(): 4 requests x 128 prompt tokens, 16 new tokens,
@@ -39,6 +45,13 @@ Phases (none catches an exception; any failure exits non-zero):
         each, with its profile of one decode tick and one chunk tick; the
         trace runs twice and both runs must stream the same tokens and
         leave the same KV pages and GO rows, bit for bit.
+     Then xlstm-1.3b (48 layers: 6 segments of 7 mLSTM + 1 sLSTM):
+     c. `xlstm_forward`: model_forward on 4 x 128 tokens, three runs, K9
+        launched 6 times per call, hidden states equal bit for bit;
+     d. `xlstm_static`: generate() with 4 x 128 prompt tokens stepped
+        through serve_step and 16 new tokens, three runs, tokens and
+        logits equal bit for bit; profiles of the forward, 8 steps of
+        the stepwise prefill and one decode step.
      Each path runs with the launch counts set to 0 just before it.
 Then one JSON line with every kernel's numbers, the card line again, and
 the final {"ok": true, ...} line.
@@ -67,8 +80,24 @@ PAGED_TOL_BF16 = 2e-2
 
 # Smoke logits, card vs CPU, both fp32. A sound run differs by ~4e-7 (sums
 # in other orders); a faulty kernel moves them by ~9e-4 (K2's row scale
-# rounded to bf16) to ~0.6 (tests/test_torch_model.py's faults).
+# rounded to bf16) to ~0.6 (tests/test_torch_model.py's faults). The xlstm
+# smoke holds its logits to the same bound.
 SMOKE_LOGIT_TOL = 1e-5
+
+# xlstm smoke hidden states, card vs CPU, both fp32. The random smoke model
+# amplifies rounding (its mLSTM divides by max(|q.n|, exp(-m))): the CPU's
+# own fp32 forward lies 2.2e-5 from its fp64 forward, and the card's lay
+# 2.9e-5 from the CPU's; K9 dropping the last column of r moves them by 1.1.
+XLSTM_SMOKE_HIDDEN_TOL = 1e-4
+
+# K9 slstm_seq, kernel vs plain version, both fp32 arithmetic (bf16 r
+# widens exactly): the JAX test's shapes at its own 1e-5. At full width the
+# tolerance sits between a sound run and a planted fault (the last column
+# of r dropped); the phase requires err <= tol < fault error.
+SLSTM_SMALL = [(1, 16, 2, 8), (2, 24, 4, 16), (3, 33, 4, 32)]
+SLSTM_TOL_F32 = 1e-5
+SLSTM_FULL = (4, 128, 4, 512)
+SLSTM_TOL_FULL = 1e-4
 
 
 def need(cond, what):
@@ -604,6 +633,62 @@ def _paged_entry(torch, flush, kern, plain, lib, nbytes, flops, shape):
     return entry
 
 
+def slstm_phase(torch, SC):
+    """K9 against its plain version: fp32 at the JAX test's shapes, then
+    the full-width sLSTM of xlstm-1.3b (fp32 u, bf16 r, as model_forward
+    passes them) beside a planted fault, repeated launches bit-equal, with
+    times. The bound: u and r read once, h written once, over 3.35 TB/s,
+    against 2·B·S·4·H·hd² FLOPs over 989 TFLOP/s; neither sees the S
+    serial steps. No single PyTorch call computes the recurrence, so the
+    library column is null."""
+    g = torch.Generator(device="cuda").manual_seed(7)
+    worst = 0.0
+    for B, S, H, hd in SLSTM_SMALL:
+        u = torch.randn(B, S, 4 * H * hd, device="cuda", generator=g) * 0.5
+        r = torch.randn(4, H, hd, hd, device="cuda", generator=g) / hd ** 0.5
+        h, hp = SC.slstm_seq(u, r), SC.slstm_seq_plain(u, r)
+        torch.cuda.synchronize()
+        err = (h - hp).abs().max().item()
+        need(torch.allclose(h, hp, rtol=SLSTM_TOL_F32, atol=SLSTM_TOL_F32),
+             f"K9 fp32 {(B, S, H, hd)} err {err}")
+        worst = max(worst, err)
+    print(f"[slstm fp32] (B, S, H, hd) in {SLSTM_SMALL}: max_abs_err "
+          f"{worst:.3e} (tol {SLSTM_TOL_F32:g})", flush=True)
+
+    B, S, H, hd = SLSTM_FULL
+    u = torch.randn(B, S, 4 * H * hd, device="cuda", generator=g)
+    r = (torch.randn(4, H, hd, hd, device="cuda", generator=g)
+         / hd ** 0.5).to(torch.bfloat16)
+    r_fault = r.clone()
+    r_fault[..., -1] = 0
+    h, h2 = SC.slstm_seq(u, r), SC.slstm_seq(u, r)
+    hf, hp = SC.slstm_seq(u, r_fault), SC.slstm_seq_plain(u, r)
+    torch.cuda.synchronize()
+    err = (h - hp).abs().max().item()
+    fault = (hf - hp).abs().max().item()
+    need(err <= SLSTM_TOL_FULL < fault, f"K9 full width: err {err}, planted "
+         f"fault {fault}, tol {SLSTM_TOL_FULL}")
+    need(torch.equal(h, h2), "K9 gave other bits when launched again")
+    nbytes = u.numel() * 4 + r.numel() * 2 + h.numel() * 4
+    flops = 2 * B * S * 4 * H * hd * hd
+    t_b, t_f = nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    entry = {"shape": f"B={B} S={S} H={H} hd={hd}, u fp32, r bf16",
+             "max_abs_err": err, "planted_fault_err": fault,
+             "tol": SLSTM_TOL_FULL,
+             "ms": time_ms(torch, lambda: SC.slstm_seq(u, r), flush),
+             "plain_ms": time_ms(torch, lambda: SC.slstm_seq_plain(u, r),
+                                 flush),
+             "bound_ms": max(t_b, t_f),
+             "bound_by": "bytes" if t_b >= t_f else "operations",
+             "bound_bytes_ms": t_b, "bound_operations_ms": t_f,
+             "bound_note": f"{S} serial steps, which neither bound sees",
+             "library_ms": None}
+    del flush
+    print(f"[slstm bf16 r] {json.dumps(entry)}", flush=True)
+    return entry
+
+
 def gmm_launches(cfg, prefills, decodes):
     """The grouped-GEMM launches of `prefills` prefill passes (one-shot or
     chunk) and `decodes` decode steps: one K1 and one K2 per layer and pass,
@@ -680,12 +765,156 @@ def engine_smoke_phase(torch, G, PA, cfg_smoke, TM, TS):
           f"{launches}", flush=True)
 
 
+def xlstm_smoke_phase(torch, SC, cfg, TM, TS):
+    """xlstm SMOKE on the CPU (plain K9) and on the card (K9), same fp32
+    weights: model_forward hidden states within XLSTM_SMOKE_HIDDEN_TOL,
+    generate()'s logits within SMOKE_LOGIT_TOL, greedy tokens equal, K9 launched once per sLSTM block
+    of the forward; on the card, the forward's last logits against a
+    stepwise prefill plus one serve_step at the reference's
+    decode-consistency tolerance (rtol 1e-2, atol 5e-3)."""
+    params = TM.model_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    pc = _tree_to(params, "cuda")
+    tokens = torch.randint(0, cfg.vocab_size, (4, 32),
+                           generator=torch.Generator().manual_seed(1))
+    tc = tokens.cuda()
+    x_cpu, _ = TM.model_forward(params, tokens, cfg)
+    SC.reset_launches()
+    x_gpu, _ = TM.model_forward(pc, tc, cfg)
+    launches = SC.LAUNCHES["slstm_seq"]
+    n_seg = cfg.num_layers // cfg.slstm_every
+    err_x = (x_gpu.cpu() - x_cpu).abs().max().item()
+    need(launches == n_seg, f"xlstm smoke: K9 launched {launches} times, "
+         f"expected {n_seg}")
+    need(err_x <= XLSTM_SMOKE_HIDDEN_TOL, f"xlstm smoke hidden states "
+         f"differ by {err_x}")
+    r_cpu = TS.generate(params, cfg, tokens, 8, device="cpu")
+    r_gpu = TS.generate(pc, cfg, tc, 8, device="cuda")
+    err_l = (r_gpu["logits"].cpu() - r_cpu["logits"]).abs().max().item()
+    need(torch.equal(r_gpu["tokens"].cpu(), r_cpu["tokens"]),
+         "xlstm smoke: greedy tokens differ between cpu and cuda")
+    need(err_l <= SMOKE_LOGIT_TOL, f"xlstm smoke logits differ by {err_l}")
+    ref = TM.logits_from_hidden(pc, x_gpu[:, -1, :], cfg)
+    st, _ = TM.prefill(pc, tc[:, :-1], cfg)
+    lg, _ = TM.serve_step(pc, st, tc[:, -1], cfg)
+    err_c = (lg - ref).abs().max().item()
+    need(torch.allclose(lg, ref, rtol=1e-2, atol=5e-3),
+         f"xlstm smoke: prefill + serve_step vs model_forward err {err_c}")
+    print(f"[smoke xlstm] {cfg.name}: model_forward cpu vs cuda max_abs_err "
+          f"{err_x:.3e} (tol {XLSTM_SMOKE_HIDDEN_TOL:g}), K9 launches "
+          f"{launches}; generate() tokens equal "
+          f"{r_cpu['tokens'][0].tolist()}, logits max_abs_err {err_l:.3e} "
+          f"(tol {SMOKE_LOGIT_TOL:g}); cuda prefill + serve_step vs "
+          f"forward max_abs_err {err_c:.3e} (rtol 1e-2, atol 5e-3)",
+          flush=True)
+
+
+def xlstm_full_phase(torch, counts, reset_counts, cfg, TM, TS):
+    """Full-width xlstm-1.3b, bf16, random weights from a seeded generator
+    on the card. `xlstm_forward`: model_forward on 4 x 128 tokens, a
+    warm-up, then three runs (the first counted): K9 launched once per
+    sLSTM block and no other kernel of the port, hidden states bit-equal.
+    `xlstm_static`: generate() with the same 4 x 128 prompts stepped
+    through serve_step and 16 new tokens, a warm-up, then three runs
+    (the first counted): no kernel of the port launched, tokens and the
+    logits that chose them bit-equal. Then the profiles (the prefill's over
+    its first 8 steps)."""
+    t0 = time.perf_counter()
+    params = TM.model_init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[full] {cfg.name}: {n_params} parameters initialised in "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated",
+          flush=True)
+    Bq, P, GEN = 4, 128, 16
+    n_seg = cfg.num_layers // cfg.slstm_every
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (Bq, P), generator=g,
+                           device="cuda")
+    zero = {k: 0 for k in counts()}
+
+    TM.model_forward(params, tokens, cfg)                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs, xs = [], []
+    for i in range(3):
+        if i == 0:
+            reset_counts()
+        t0 = time.perf_counter()
+        x, aux = TM.model_forward(params, tokens, cfg)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+        xs.append(x)
+        if i == 0:
+            fwd_launches = counts()
+    need(fwd_launches == {**zero, "slstm_seq": n_seg},
+         f"xlstm_forward launches {fwd_launches}, expected K9 x {n_seg}")
+    need(xs[0].shape == (Bq, P, cfg.d_model) and
+         bool(torch.isfinite(xs[0]).all()) and float(aux) == 0.0,
+         "xlstm_forward: hidden states not finite or of another shape")
+    fwd_equal = all(torch.equal(x, xs[0]) for x in xs)
+    stats = {"forward_ms_runs": runs, "repeat_hidden_equal": fwd_equal,
+             "max_memory_allocated_gb":
+                 torch.cuda.max_memory_allocated() / 1e9,
+             "launches": fwd_launches}
+    print(f"[full xlstm_forward] {cfg.name} bf16 B={Bq} S={P}: "
+          f"{json.dumps(stats)}", flush=True)
+    need(fwd_equal, "xlstm_forward: three runs gave other hidden states")
+    del xs, x
+
+    # warm-up on 8 prompt tokens: every stepwise prefill step does the
+    # same work whatever its position
+    TS.generate(params, cfg, tokens[:, :8], 2, device="cuda")
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = TS.generate(params, cfg, tokens, GEN, device="cuda")
+    static_launches = counts()
+    reps = [res] + [TS.generate(params, cfg, tokens, GEN, device="cuda")
+                    for _ in range(2)]
+    need(static_launches == zero, f"xlstm_static launches {static_launches}"
+         ": the stepwise path runs no kernel of the port")
+    need(res["tokens"].shape == (Bq, GEN) and
+         bool(torch.isfinite(res["logits"]).all()),
+         "xlstm_static: tokens of another shape or non-finite logits")
+    repeat_equal = all(torch.equal(r["tokens"], res["tokens"]) and
+                       torch.equal(r["logits"], res["logits"]) for r in reps)
+    stats = {"prefill_ms_runs": [r["prefill_s"] * 1e3 for r in reps],
+             "prefill_ms_per_step_runs": [r["prefill_s"] * 1e3 / P
+                                          for r in reps],
+             "decode_ms_per_token_runs": [r["decode_s"] * 1e3 / GEN
+                                          for r in reps],
+             "tok_per_s_runs": [r["tok_per_s"] for r in reps],
+             "repeat_tokens_equal": repeat_equal,
+             "max_memory_allocated_gb":
+                 torch.cuda.max_memory_allocated() / 1e9,
+             "launches": static_launches}
+    print(f"[full xlstm_static] {cfg.name} bf16 B={Bq} prompt={P} "
+          f"gen={GEN}: {json.dumps(stats)}", flush=True)
+    print(f"[full xlstm_static] sample tokens {res['tokens'][0].tolist()}",
+          flush=True)
+    need(repeat_equal, "xlstm_static: three runs gave other tokens or "
+         "logits")
+    state = res["state"]
+    tok = torch.zeros(Bq, dtype=torch.long, device="cuda")
+    del reps, res
+    # the prefill's profile covers its first 8 of 128 steps: each step is
+    # one serve_step of the same work, and a trace of all 128 (~400k device
+    # events) takes minutes to read back
+    profile_phase(torch, cfg, {
+        "forward": lambda: TM.model_forward(params, tokens, cfg),
+        "stepwise_prefill_8_of_128_steps":
+            lambda: TM.prefill(params, tokens[:, :8], cfg),
+        "decode_step": lambda: TM.serve_step(params, state, tok, cfg)})
+    return {"xlstm_forward": fwd_launches, "xlstm_static": static_launches}
+
+
 def _tree_to(tree, device):
     return {k: _tree_to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
 
 
-def full_phase(torch, G, PA, cfg, params, TM, TS):
+def full_phase(torch, G, PA, SC, cfg, params, TM, TS):
     """Full width, bf16, static generate(): 4 requests x 128 prompt tokens,
     16 new tokens. One warm-up generate(), then the counted, timed run and
     two repeats of it for the spread; the repeats must give its tokens."""
@@ -697,8 +926,9 @@ def full_phase(torch, G, PA, cfg, params, TM, TS):
     torch.cuda.reset_peak_memory_stats()
     G.reset_launches()
     PA.reset_launches()
+    SC.reset_launches()
     res = TS.generate(params, cfg, prompts, GEN, device="cuda")
-    launches = {**G.LAUNCHES, **PA.LAUNCHES}
+    launches = {**G.LAUNCHES, **PA.LAUNCHES, **SC.LAUNCHES}
     # two more identical runs: the spread of the host-bound times, and the
     # combine's determinism (the same tokens, bit for bit)
     reps = [res] + [TS.generate(params, cfg, prompts, GEN, device="cuda")
@@ -707,7 +937,7 @@ def full_phase(torch, G, PA, cfg, params, TM, TS):
     need(bool(torch.isfinite(res["logits"]).all()), "non-finite logits")
     need(res["tokens"].shape == (Bq, GEN), "token shape")
     need(launches == {**expect, "paged_attn_decode": 0,
-                      "paged_attn_chunk": 0},
+                      "paged_attn_chunk": 0, "slstm_seq": 0},
          f"launch counts {launches}, expected {expect} ({cfg.num_layers} "
          f"layers x (1 prefill + {GEN} decode steps)) and no paged "
          "attention on the dense static path")
@@ -745,7 +975,7 @@ ENGINE_POOL = dict(num_slots=4, max_tokens=512, paged=True, page_size=16,
                    num_pages=97, prefill_chunk=128)
 
 
-def engine_phase(torch, G, PA, cfg, params, ServingEngine):
+def engine_phase(torch, G, PA, SC, cfg, params, ServingEngine):
     """Full width, bf16, through the continuous-batching engine on a paged
     pool: 8 staggered requests of ENGINE_LENS prompt tokens, 32 new tokens
     each, greedy. A warm-up engine first (one one-shot and one chunked
@@ -770,6 +1000,7 @@ def engine_phase(torch, G, PA, cfg, params, ServingEngine):
             for p, a in zip(prompts, ENGINE_ARRIVALS)]
     G.reset_launches()
     PA.reset_launches()
+    SC.reset_launches()
     ticks = []                 # (ms, decoded, chunked, admitted one-shot)
     decode_ticks = chunk_ticks = peak_pages = 0
     t_all = time.perf_counter()
@@ -786,7 +1017,7 @@ def engine_phase(torch, G, PA, cfg, params, ServingEngine):
         ticks.append((ms, dd, dc, eng.pool.admitted_total - a0))
         peak_pages = max(peak_pages, eng.pool.alloc.pages_in_use)
     wall_s = time.perf_counter() - t_all
-    launches = {**G.LAUNCHES, **PA.LAUNCHES}
+    launches = {**G.LAUNCHES, **PA.LAUNCHES, **SC.LAUNCHES}
 
     L = cfg.num_layers
     fin = eng.finished
@@ -804,7 +1035,7 @@ def engine_phase(torch, G, PA, cfg, params, ServingEngine):
     one_shot = sum(n <= ENGINE_POOL["prefill_chunk"] for n in ENGINE_LENS)
     expect = {**gmm_launches(cfg, chunk_ticks + one_shot, decode_ticks),
               "paged_attn_decode": L * decode_ticks,
-              "paged_attn_chunk": L * chunk_ticks}
+              "paged_attn_chunk": L * chunk_ticks, "slstm_seq": 0}
     need(launches == expect, f"engine launches {launches}, expected "
          f"{expect} ({decode_ticks} decode ticks, {chunk_ticks} chunk ticks, "
          f"{one_shot} one-shot prefills)")
@@ -889,6 +1120,8 @@ def _kind(name):
         return {(True, False): "K1 gmm_swiglu", (False, False): "K2 gmm_scaled",
                 (True, True): "K7 gmm_swiglu_fused",
                 (False, True): "K8 gmm_scaled_fused"}[(swiglu, fused)]
+    if "slstm_seq_kernel" in name:
+        return "K9 slstm_seq"
     if "gemm" in name.lower() or "xmma" in name or "cutlass" in name:
         return "cuBLAS gemm"
     return "other"
@@ -957,6 +1190,7 @@ def main():
     from repro_torch.kernels import moe_gmm as G
     from repro_torch.kernels import ops as OPS
     from repro_torch.kernels import paged_attn as PA
+    from repro_torch.kernels import slstm_cell as SC
     from repro_torch.launch import serve as TS
     from repro_torch.models import model as TM
     from repro_torch.serving import ServingEngine
@@ -985,10 +1219,13 @@ def main():
                                  ENGINE_POOL["max_tokens"]) for m in cfgs}
     for name, entry in paged[llama].items():
         timings[name] = {**entry, "granite": paged[granite][name]}
+    timings["slstm_seq"] = slstm_phase(torch, SC)
     torch.cuda.empty_cache()
     for m in cfgs:
         smoke_phase(torch, G, get_config(m, smoke=True), TM, TS)
         engine_smoke_phase(torch, G, PA, get_config(m, smoke=True), TM, TS)
+    xlstm = "xlstm-1.3b"
+    xlstm_smoke_phase(torch, SC, get_config(xlstm, smoke=True), TM, TS)
 
     by_path = {}
     for m, short in ((llama, "llama"), (granite, "granite")):
@@ -1000,16 +1237,27 @@ def main():
         print(f"[full] {cfg.name}: {sum(t.numel() for t in _leaves(params))} "
               f"parameters initialised in {time.perf_counter() - t0:.2f} s",
               flush=True)
-        by_path[f"{short}_static"] = full_phase(torch, G, PA, cfg, params, TM,
-                                                TS)
-        by_path[f"{short}_engine"] = engine_phase(torch, G, PA, cfg, params,
-                                                  ServingEngine)
+        by_path[f"{short}_static"] = full_phase(torch, G, PA, SC, cfg, params,
+                                                TM, TS)
+        by_path[f"{short}_engine"] = engine_phase(torch, G, PA, SC, cfg,
+                                                  params, ServingEngine)
         del params
         torch.cuda.empty_cache()
 
+    def counts():
+        return {**G.LAUNCHES, **PA.LAUNCHES, **SC.LAUNCHES}
+
+    def reset_counts():
+        for mod in (G, PA, SC):
+            mod.reset_launches()
+
+    by_path.update(xlstm_full_phase(torch, counts, reset_counts,
+                                    get_config(xlstm), TM, TS))
+
     # launches: each kernel's count on the path it was ported for (K1/K2
     # llama's static generate() of slice 1, K3/K4 llama's engine of slice 2,
-    # K7/K8 granite's engine of slice 3); every path's count beside it
+    # K7/K8 granite's engine of slice 3, K9 xlstm's model_forward of slice
+    # 4); every path's count beside it
     meta = {
         "gmm_swiglu": ("moe_gmm.cu", "src/repro/kernels/moe_gmm.py:466",
                        "llama_static"),
@@ -1025,6 +1273,8 @@ def main():
                              "granite_engine"),
         "gmm_scaled_fused": ("moe_gmm.cu", "src/repro/kernels/moe_gmm.py:384",
                              "granite_engine"),
+        "slstm_seq": ("slstm_cell.cu", "src/repro/kernels/slstm_cell.py:62",
+                      "xlstm_forward"),
     }
     kernels = []
     for name, (src, replaces, path) in meta.items():
@@ -1041,6 +1291,9 @@ def main():
             "bound_by": main_t["bound_by"],
             "library_ms": main_t["library_ms"], "shape": main_t["shape"],
             "launches_by_path": {p: by_path[p][name] for p in by_path}}
+        entry.update({k: main_t[k] for k in (
+            "planted_fault_err", "tol", "bound_bytes_ms",
+            "bound_operations_ms", "bound_note") if k in main_t})
         if "decode" in timings[name]:
             entry["shape"] = "prefill " + main_t["shape"]
             entry["decode"] = timings[name]["decode"]

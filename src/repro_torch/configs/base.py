@@ -1,7 +1,8 @@
 """Config schema: every architecture is a ModelConfig.
 
 A copy of the reference package's schema, cut to the fields the port's
-slices read (the attention family, tied embeddings, no logit softcap).
+slices read (the attention family and the xlstm family, tied embeddings,
+no logit softcap).
 Plain dataclasses: no torch, no JAX.
 """
 from __future__ import annotations
@@ -49,6 +50,8 @@ class ModelConfig:
     moe: Optional[MoEConfig] = None
     rope_theta: float = 10000.0
     sliding_window: int = 0           # >0: every layer attends locally
+    slstm_every: int = 0              # xlstm: one sLSTM block every N layers
+    conv_width: int = 4               # xlstm: mLSTM short causal conv
     dtype: str = "bfloat16"
     norm_eps: float = 1e-6
 

@@ -11,6 +11,7 @@ from repro_torch.configs.base import ModelConfig
 _MODULES = {
     "llama_moe_4_16": "llama_moe_4_16",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
+    "xlstm-1.3b": "xlstm_1_3b",
 }
 
 

@@ -12,8 +12,10 @@ Counterpart of repro/launch/serve.py. Two modes:
                       with chunked prefill) and retire on EOS or length.
                       The CLI's default mode.
 
-`--arch` takes llama_moe_4_16 (expert choice, GO cache) and
-granite-moe-3b-a800m (token choice on the C1 group path).
+`--arch` takes llama_moe_4_16 (expert choice, GO cache),
+granite-moe-3b-a800m (token choice on the C1 group path) and, with
+--static only, xlstm-1.3b (mLSTM/sLSTM; prefill steps serve_step over the
+prompt; the engine raises NotImplementedError for a recurrent family).
 
 Entry points run on the CUDA card unless the caller names another device;
 without a card, asking for CUDA raises.
@@ -26,6 +28,8 @@ without a card, asking for CUDA raises.
       --paged --page-size 4 --chunk-prefill 8 --device cpu
   python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --smoke \
       --paged --page-size 4 --chunk-prefill 8 --device cpu
+  python -m repro_torch.launch.serve --arch xlstm-1.3b --smoke --static \
+      --device cpu
 """
 from __future__ import annotations
 

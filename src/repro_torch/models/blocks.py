@@ -1,8 +1,9 @@
-"""Residual attention blocks with an MoE sublayer. Counterpart of
-repro/models/blocks.py (`_ffn_apply`, `attn_block`, `attn_block_decode`,
-`attn_block_chunk`) for the attention family with MoE: expert choice with
-the GO cache, and token choice (dispatch, or C1 group multiplexing) without
-one. models/model.py:check_served rejects the rest.
+"""Residual blocks. Counterpart of repro/models/blocks.py (`_ffn_apply`,
+`attn_block`, `attn_block_decode`, `attn_block_chunk`) for the attention
+family with MoE: expert choice with the GO cache, and token choice
+(dispatch, or C1 group multiplexing) without one; the xlstm family's
+blocks are re-exported from models/xlstm.py, as the reference does.
+models/model.py:check_served rejects the rest.
 """
 from __future__ import annotations
 
@@ -14,6 +15,8 @@ from repro_torch.core.go_cache import (GOCache, go_cache_merge,
 from repro_torch.kernels import ops as OPS
 from repro_torch.models import attention as ATT
 from repro_torch.models.layers import rmsnorm
+from repro_torch.models.xlstm import (mlstm_block, mlstm_block_init,  # noqa: F401
+                                      slstm_block, slstm_block_init)
 
 
 def _ffn_apply(params: dict, x: torch.Tensor, cfg, group_of_expert=None,

@@ -1,8 +1,9 @@
-"""Language-model assembly, attention family.
+"""Language-model assembly: the attention family with MoE, and xlstm.
 
 Counterpart of repro/models/model.py for the serving paths:
 
   model_init(cfg, generator, device)            -> params
+  model_forward(params, tokens, cfg)            -> (x_final, aux_loss), xlstm
   init_decode_state(cfg, batch, max_len, device, per_slot_t=, paged=)
                                                 -> dense or paged state
   init_decode_slot / write_decode_slot          -> reset / fill one pool row
@@ -12,13 +13,16 @@ Counterpart of repro/models/model.py for the serving paths:
   serve_step(params, state, tokens_t, cfg)      -> (logits, state)
   logits_from_hidden(params, x, cfg)            -> [.., V] fp32
 
-Parameters keep the reference's nesting and its stacked layer axis
-(`layers.{attn.{wq,wk,wv,wo}, ln1, ln2, moe.{gate, experts.{wg,wi,wo}}}`),
-so `bridge.params_from_numpy` carries JAX weights across unchanged. Where
-JAX scans over layers and carries the KV and GO caches through the scan,
-the port loops over layers in Python and writes each layer's slice of the
-caches in place. The decode state holds GO rows only for expert choice
-with the GO cache; token choice keeps none, as in the reference.
+Parameters keep the reference's nesting and its stacked layer axes
+(`layers.{attn.{wq,wk,wv,wo}, ln1, ln2, moe.{gate, experts.{wg,wi,wo}}}`;
+xlstm: `mlayers` [n_seg, n_m, ...] and `slayers` [n_seg, ...]), so
+`bridge.params_from_numpy` carries JAX weights across unchanged. Where
+JAX scans over layers and carries the KV and GO caches (or the recurrent
+states) through the scan, the port loops over layers in Python and writes
+each layer's slice of the decode state in place. The decode state holds GO
+rows only for expert choice with the GO cache; token choice keeps none, as
+in the reference. Recurrent families prefill by stepping serve_step, as
+the reference does.
 """
 from __future__ import annotations
 
@@ -34,6 +38,7 @@ from repro_torch.core.go_cache import (GOCache, go_cache_init,
                                        go_cache_init_slot, go_cache_prefill,
                                        go_cache_write_slot)
 from repro_torch.models import blocks as B
+from repro_torch.models import xlstm as X
 from repro_torch.models.layers import (dense_init, dtype_of, embed_init,
                                        rmsnorm)
 
@@ -45,8 +50,11 @@ def layer_windows(cfg) -> list[int]:
 
 def check_served(cfg) -> None:
     """Raise on a configuration the port does not serve yet: it serves the
-    attention family with an MoE sublayer, either expert choice with the
-    GO cache or token choice, and no shared experts."""
+    xlstm family (model_forward and static generate()) and the attention
+    family with an MoE sublayer, either expert choice with the GO cache or
+    token choice, and no shared experts."""
+    if cfg.block == "xlstm":
+        return
     e = cfg.moe
     if cfg.block != "attn" or e is None or e.routing not in (
             "expert_choice", "token_choice") or (
@@ -98,17 +106,41 @@ def _groups(cfg, device) -> dict:
             "group_members": expert_group_members(cfg, device)}
 
 
+def _xlstm_segments(cfg) -> tuple[int, int]:
+    """(num_segments, mlstm_per_segment); an sLSTM closes each segment."""
+    if cfg.slstm_every <= 0:
+        return 1, cfg.num_layers
+    if cfg.num_layers % cfg.slstm_every:
+        raise ValueError(f"{cfg.name}: num_layers={cfg.num_layers} is not a "
+                         f"multiple of slstm_every={cfg.slstm_every}")
+    return cfg.num_layers // cfg.slstm_every, cfg.slstm_every - 1
+
+
 # ----------------------------------------------------------------------- init
 
-def _stacked(n: int, make) -> torch.Tensor:
-    """Stack n tensors from make() into one, one slice at a time (keeps the
-    fp32 staging of a full-width init to one layer)."""
+def _tree_map(fn, tree):
+    if isinstance(tree, dict):
+        return {k: _tree_map(fn, v) for k, v in tree.items()}
+    return fn(tree)
+
+
+def _tree_zip(fn, a, b) -> None:
+    if isinstance(a, dict):
+        for k in a:
+            _tree_zip(fn, a[k], b[k])
+    else:
+        fn(a, b)
+
+
+def _stacked(n: int, make):
+    """Stack n tensors (or dicts of them) from make() leaf by leaf into a
+    leading axis of size n, one make() at a time (keeps the fp32 staging of
+    a full-width init to one layer)."""
     first = make()
-    out = torch.empty((n, *first.shape), dtype=first.dtype,
-                      device=first.device)
-    out[0] = first
-    for i in range(1, n):
-        out[i] = make()
+    out = _tree_map(lambda a: a.new_empty((n, *a.shape)), first)
+    for i in range(n):
+        _tree_zip(lambda dst, src: dst[i].copy_(src), out,
+                  first if i == 0 else make())
     return out
 
 
@@ -128,6 +160,13 @@ def model_init(cfg, generator: torch.Generator, device) -> dict:
 
     p = {"embed": embed_init(g, cfg.vocab_size, d, dt, device),
          "final_norm": {"scale": torch.ones(d, device=device)}}
+    if cfg.block == "xlstm":
+        n_seg, n_m = _xlstm_segments(cfg)
+        p["mlayers"] = _stacked(n_seg, lambda: _stacked(
+            n_m, lambda: B.mlstm_block_init(g, cfg, dt, device)))
+        p["slayers"] = _stacked(
+            n_seg, lambda: B.slstm_block_init(g, cfg, dt, device))
+        return p
     layers = {
         "ln1": {"scale": torch.ones((L, d), device=device)},
         "ln2": {"scale": torch.ones((L, d), device=device)},
@@ -151,6 +190,32 @@ def layer_params(tree: dict, l: int) -> dict:
             for k, v in tree.items()}
 
 
+# -------------------------------------------------------------------- forward
+
+def model_forward(params: dict, tokens: torch.Tensor, cfg):
+    """tokens [B, S] -> (x_final [B, S, d] normalized, aux loss: a zero fp32
+    scalar, as the reference's for a family without MoE). Ported for the
+    xlstm family, where each sLSTM block runs its whole sequence in one K9
+    launch on a card."""
+    check_served(cfg)
+    if cfg.block != "xlstm":
+        raise NotImplementedError(
+            f"{cfg.name}: model_forward is ported for the xlstm family only; "
+            "the attention family's branch is ROADMAP.md Queue 1 item 10")
+    return _fwd_xlstm(params, params["embed"][tokens], cfg)
+
+
+def _fwd_xlstm(params: dict, x: torch.Tensor, cfg):
+    n_seg, n_m = _xlstm_segments(cfg)
+    for s in range(n_seg):
+        mstack = layer_params(params["mlayers"], s)
+        for i in range(n_m):
+            x = B.mlstm_block(layer_params(mstack, i), x, cfg=cfg)
+        x = B.slstm_block(layer_params(params["slayers"], s), x, cfg=cfg)
+    return (rmsnorm(params["final_norm"], x, cfg.norm_eps),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
 # ---------------------------------------------------------------------- heads
 
 def logits_from_hidden(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
@@ -162,7 +227,8 @@ def logits_from_hidden(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
 
 def paged_supported(cfg) -> bool:
     """Paged KV pools cover the plain attention family: the KV cache is the
-    only sequence-shaped decode state there."""
+    only sequence-shaped decode state there (recurrent families keep O(1)
+    state per row)."""
     return cfg.block == "attn"
 
 
@@ -177,14 +243,27 @@ def init_decode_state(cfg, batch: int, max_len: int, device, *,
     `paged=(num_pages, page_size)`, a shared page pool `k_pages`/`v_pages`
     [L, num_pages, page_size, Hkv, hd] plus a per-slot `block_table`
     [B, max_len // page_size] int32 of physical page ids (0 = the reserved
-    null page). GO caches stay slot-resident either way."""
+    null page). GO caches stay slot-resident either way.
+
+    xlstm keeps the reference's nesting: `mlstm` {"mlstm": (C, n, M),
+    "conv"} with leading axes [n_seg, n_m] and `slstm` c/n/m/h with a
+    leading [n_seg] (no KV, no pages)."""
     check_served(cfg)
+    st = {"t": (torch.zeros(batch, dtype=torch.int32, device=device)
+                if per_slot_t else 0)}
+    if cfg.block == "xlstm":
+        if paged is not None:
+            raise ValueError(f"{cfg.name}: paged decode state is "
+                             "attention-family only")
+        n_seg, n_m = _xlstm_segments(cfg)
+        st["mlstm"] = X.mlstm_init_state(cfg, batch, device,
+                                         lead=(n_seg, n_m))
+        st["slstm"] = X.slstm_init_state(cfg, batch, device, lead=(n_seg,))
+        return st
     dt = dtype_of(cfg)
     L = cfg.num_layers
     hd = cfg.resolved_head_dim()
     e = cfg.moe
-    st = {"t": (torch.zeros(batch, dtype=torch.int32, device=device)
-                if per_slot_t else 0)}
     if paged is not None:
         num_pages, ps = paged
         if max_len % ps:
@@ -266,11 +345,18 @@ def _layer_go(state: dict, l: int) -> GOCache | None:
 
 def prefill(params: dict, tokens: torch.Tensor, cfg, max_len: int = 0):
     """Full-sequence forward that fills the decode state: KV caches and,
-    for expert choice, each layer's GO cache from its routing. tokens
-    [B, S] -> (state, last-position logits [B, V] fp32)."""
+    for expert choice, each layer's GO cache from its routing; a recurrent
+    family steps serve_step over the prompt instead (max_len unused).
+    tokens [B, S] -> (state, last-position logits [B, V] fp32)."""
     Bsz, S = tokens.shape
     dev = tokens.device
     state = init_decode_state(cfg, Bsz, max_len or 2 * S, dev)
+    if cfg.block != "attn":
+        # step-by-step prefill, exact for a recurrent family
+        logits = None
+        for i in range(S):
+            logits, state = serve_step(params, state, tokens[:, i], cfg)
+        return state, logits
     positions = torch.arange(S, dtype=torch.int32, device=dev)
     groups = _groups(cfg, dev)
     x = params["embed"][tokens]
@@ -340,12 +426,38 @@ def serve_step(params: dict, state: dict, tokens_t: torch.Tensor, cfg):
     per-slot [B] tensor; a paged state walks its block table."""
     t = state["t"]
     x = params["embed"][tokens_t][:, None, :]                     # [B, 1, d]
-    for l, w in enumerate(layer_windows(cfg)):
-        ck, cv, bt = _kv(state, l)
-        x, _ = B.attn_block_decode(
-            layer_params(params["layers"], l), x, ck, cv, t, cfg=cfg,
-            go_cache=_layer_go(state, l), window=w, block_table=bt)
+    if cfg.block == "xlstm":
+        x = _dec_xlstm(params, x, state, cfg)
+    else:
+        for l, w in enumerate(layer_windows(cfg)):
+            ck, cv, bt = _kv(state, l)
+            x, _ = B.attn_block_decode(
+                layer_params(params["layers"], l), x, ck, cv, t, cfg=cfg,
+                go_cache=_layer_go(state, l), window=w, block_table=bt)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_from_hidden(params, x[:, 0, :], cfg)
     state["t"] = t + 1
     return logits, state
+
+
+def _dec_xlstm(params: dict, x: torch.Tensor, state: dict, cfg):
+    """One token through every segment; each block's new recurrent state is
+    written into its slice of the decode state in place."""
+    n_seg, n_m = _xlstm_segments(cfg)
+    ms, ss = state["mlstm"], state["slstm"]
+    for s in range(n_seg):
+        mstack = layer_params(params["mlayers"], s)
+        for i in range(n_m):
+            st = {"mlstm": tuple(a[s, i] for a in ms["mlstm"]),
+                  "conv": ms["conv"][s, i]}
+            x, new = B.mlstm_block(layer_params(mstack, i), x, cfg=cfg,
+                                   decode_state=st)
+            for dst, src in zip((*st["mlstm"], st["conv"]),
+                                (*new["mlstm"], new["conv"])):
+                dst.copy_(src)
+        sst = {k: v[s] for k, v in ss.items()}
+        x, new = B.slstm_block(layer_params(params["slayers"], s), x,
+                               cfg=cfg, decode_state=sst)
+        for k, dst in sst.items():
+            dst.copy_(new[k])
+    return x

@@ -80,6 +80,12 @@ class ServingEngine:
                  paged: bool = False, page_size: int = 16,
                  num_pages: int | None = None, prefill_chunk: int = 0,
                  device=None):
+        if cfg.block != "attn":
+            raise NotImplementedError(
+                f"{cfg.name}: the engine serves the attention family; a "
+                "recurrent family's pool slots (the slot ops of its decode "
+                "state) are ROADMAP.md Queue 1 item 9. Use the static "
+                "generate()")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "

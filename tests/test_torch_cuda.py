@@ -337,3 +337,70 @@ def test_cuda_engine_streams_equal_cpu(cuda_device, arch):
 def _to(tree, device):
     return {k: _to(v, device) if isinstance(v, dict) else v.to(device)
             for k, v in tree.items()}
+
+
+def _slstm_inputs(B, S, H, hd, device, r_dtype, seed=0):
+    rng = np.random.default_rng(seed)
+    u = torch.from_numpy((rng.standard_normal((B, S, 4 * H * hd)) * 0.5)
+                         .astype(np.float32)).to(device)
+    r = torch.from_numpy((rng.standard_normal((4, H, hd, hd)) / np.sqrt(hd))
+                         .astype(np.float32)).to(device, r_dtype)
+    return u, r
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,S,H,hd,r_dtype,tol", [
+    (3, 33, 4, 32, torch.float32, 1e-5),
+    (2, 9, 2, 20, torch.float32, 1e-5),     # hd not a multiple of 4 or 8
+    (4, 128, 4, 512, torch.bfloat16, 1e-4)])
+def test_cuda_slstm_seq_matches_plain(cuda_device, B, S, H, hd, r_dtype, tol):
+    """K9 against its plain version: the JAX test's largest fp32 shape, a
+    ragged head width, and xlstm-1.3b's full-width sLSTM (fp32 u, bf16 r,
+    as model_forward passes them). fp32 throughout; only the order of the
+    recurrent sums differs. Repeated launches give the same bits."""
+    from repro_torch.kernels import slstm_cell as SC
+    u, r = _slstm_inputs(B, S, H, hd, cuda_device, r_dtype)
+    before = SC.LAUNCHES["slstm_seq"]
+    h = SC.slstm_seq(u, r)
+    h2 = SC.slstm_seq(u, r)
+    torch.cuda.synchronize()
+    assert SC.LAUNCHES["slstm_seq"] == before + 2
+    torch.testing.assert_close(h, SC.slstm_seq_plain(u, r), rtol=tol,
+                               atol=tol)
+    assert torch.equal(h, h2)
+    hb = SC.slstm_seq(u.to(torch.bfloat16), r)       # output follows u
+    assert hb.dtype == torch.bfloat16
+
+
+@pytest.mark.requires_cuda
+def test_cuda_slstm_seq_raises_instead_of_falling_back(cuda_device):
+    from repro_torch.kernels import slstm_cell as SC
+    u, r = _slstm_inputs(1, 4, 1, 520, cuda_device, torch.float32)
+    with pytest.raises(ValueError, match="at most 512"):
+        SC.slstm_seq(u, r)
+    u, r = _slstm_inputs(1, 4, 2, 16, cuda_device, torch.float32)
+    with pytest.raises(TypeError, match="no kernel"):
+        SC.slstm_seq(u.half(), r)
+    with pytest.raises(ValueError, match="u on"):
+        SC.slstm_seq(u, r.cpu())
+
+
+@pytest.mark.requires_cuda
+def test_cuda_xlstm_forward_launches_k9_and_equals_cpu(cuda_device):
+    """The smoke xlstm model_forward on the card launches K9 once per sLSTM
+    block (2) and gives the CPU's hidden states to 1e-4 (fp32; the random
+    smoke model amplifies rounding: the CPU's fp32 forward lies ~2e-5 from
+    its fp64 one, chip_smoke.py XLSTM_SMOKE_HIDDEN_TOL)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import slstm_cell as SC
+    from repro_torch.models.model import model_forward, model_init
+    cfg = get_config("xlstm-1.3b", smoke=True)
+    params = model_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 12)))
+    x_cpu, _ = model_forward(params, tokens, cfg)
+    SC.reset_launches()
+    x_gpu, _ = model_forward(_to(params, cuda_device), tokens.to(cuda_device),
+                             cfg)
+    assert SC.LAUNCHES["slstm_seq"] == 2
+    torch.testing.assert_close(x_gpu.cpu(), x_cpu, rtol=1e-4, atol=1e-4)

@@ -40,7 +40,9 @@ def test_importing_every_module_builds_and_loads_nothing():
     assert {"repro_torch.serving", "repro_torch.serving.engine",
             "repro_torch.serving.pool", "repro_torch.serving.paging",
             "repro_torch.serving.scheduler",
-            "repro_torch.kernels.paged_attn"} <= set(mods)
+            "repro_torch.kernels.paged_attn",
+            "repro_torch.kernels.slstm_cell",
+            "repro_torch.models.xlstm"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
             "from repro_torch.kernels import build\n"
@@ -92,4 +94,5 @@ def test_failed_launch_raises():
 def test_kernel_sources_ship_with_the_package():
     assert (build.CSRC / "moe_gmm.cu").is_file()
     assert (build.CSRC / "paged_attn.cu").is_file()
+    assert (build.CSRC / "slstm_cell.cu").is_file()
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
