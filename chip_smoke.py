@@ -20,6 +20,17 @@ Phases (none catches an exception; any failure exits non-zero):
      (mid-tile, at a tile's last row, an empty primary lane, invalid tail
      tiles), then bf16 at the full-width granite prefill plan (4 x 128
      tokens, top-8 of 40, group-major lanes fused pairwise), with times.
+  1b. K5 go_topk_update (the GO cache's TopKUpdate) against its plain
+     version, bit for bit, at the reference's four shapes (empty rows, tied
+     minima, new scores at the minimum; an int and a [B] token id;
+     functional and in place); the in-place form must refuse a strided
+     view; times at llama's decode shape (4, 16, 4).
+  1c. K6 gmm (the plain grouped GEMM) against its plain version: fp32 at
+     the reference's sweep shapes re-tiled at 64 rows, with invalid tiles;
+     then bf16 through expert_ffn_gmm (K1 then K6) at llama's full-width
+     prefill plan, as the path `llama_expert_ffn_gmm`, with times. K6
+     shares K2's body, so it must equal K2 with a unit row scale bit for
+     bit.
   3. K3 paged_attn_decode and K4 paged_attn_chunk against their plain
      versions: fp32 at small shapes (GQA 4/2/1, window, softcap, null and
      reused pages, ragged positions and kv_len), then bf16 at the engine
@@ -35,7 +46,8 @@ Phases (none catches an exception; any failure exits non-zero):
      granite-moe-3b-a800m (token choice, C1 groups: K7/K8 at prefill);
      then xlstm-1.3b: model_forward (K9 once per sLSTM block) and
      generate(), and on the card the forward's last logits against a
-     stepwise prefill plus one serve_step.
+     stepwise prefill plus one serve_step. llama's decode runs K5 once
+     per layer and decode step.
   5. full width, bf16, one set of random weights per model, first
      llama_moe_4_16, then granite-moe-3b-a800m:
      a. static generate(): 4 requests x 128 prompt tokens, 16 new tokens,
@@ -52,7 +64,9 @@ Phases (none catches an exception; any failure exits non-zero):
         through serve_step and 16 new tokens, three runs, tokens and
         logits equal bit for bit; profiles of the forward, 8 steps of
         the stepwise prefill and one decode step.
-     Each path runs with the launch counts set to 0 just before it.
+     Each path runs with the launch counts set to 0 just before it; K5
+     must run once per layer and decode step on llama's paths and never
+     on granite's or xlstm's.
 Then one JSON line with every kernel's numbers, the card line again, and
 the final {"ok": true, ...} line.
 """
@@ -66,9 +80,23 @@ import time
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
-# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 FLOP/s
+# H100 SXM peaks (NVIDIA data sheet, dense): HBM3 bytes/s, bf16 FLOP/s,
+# fp32 outside the tensor cores
 HBM_BPS = 3.35e12
 BF16_FLOPS = 989e12
+FP32_FLOPS = 67e12
+
+# K5's four shapes (B, E, k), tests/test_kernels.py::test_go_topk_sweep
+GO_TOPK_SHAPES = [(1, 4, 2), (4, 16, 4), (8, 64, 6), (3, 40, 8)]
+
+# K6 fp32: tests/test_kernels.py:SWEEP's (N, K, F, E), re-tiled at the
+# card's 64 rows, at the reference's fp32 tolerance (the order of the sums
+# only). The bf16 path check takes K1's 1e-2 (one rounding of h and of y).
+GMM_SWEEP = [(128, 256, 128, 2), (256, 512, 256, 4), (256, 512, 384, 8),
+             (512, 1024, 512, 8), (128, 512, 128, 3), (128, 48, 96, 4),
+             (64, 688, 172, 4)]
+GMM_TOL_F32 = 2e-5
+GMM_TOL_BF16 = 1e-2
 
 # Paged attention, kernel vs plain version. fp32: an online softmax page by
 # page against a one-shot softmax (the reference's own kernel-vs-gather
@@ -105,6 +133,16 @@ def need(cond, what):
         raise RuntimeError(f"chip_smoke check failed: {what}")
 
 
+def raises(exc, fn):
+    """Whether fn raises `exc`: the check that a wrapper refuses an operand
+    (any other exception propagates)."""
+    try:
+        fn()
+    except exc:
+        return True
+    return False
+
+
 def card_line():
     out = subprocess.run(
         ["nvidia-smi", "--query-gpu=name,power.limit",
@@ -130,12 +168,13 @@ def time_ms(torch, fn, flush, reps=15):
     return statistics.median(times)
 
 
-def bound(rows, experts, K, F, n_out_rows, swiglu):
+def bound(rows, experts, K, F, n_out_rows, swiglu, out_elem_bytes=None):
     """Least time (ms) for the work this run's data needs: real rows and the
     weights of experts that own one, each read once; every output row
-    written once. Returns (ms, "bytes" | "operations")."""
+    written once (bf16 with SwiGLU, else fp32 unless `out_elem_bytes`).
+    Returns (ms, "bytes" | "operations")."""
     streams = 2 if swiglu else 1
-    out_bytes = n_out_rows * F * (2 if swiglu else 4)
+    out_bytes = n_out_rows * F * (out_elem_bytes or (2 if swiglu else 4))
     nbytes = rows * K * 2 + experts * streams * K * F * 2 + out_bytes
     flops = 2 * streams * rows * K * F
     t_b, t_f = nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
@@ -211,6 +250,7 @@ def kernel_phase_full(torch, G, OPS, R, cfg_granite):
     experts = int(torch.unique(plan.tile_expert[plan.tile_valid]).numel())
     x_runs = x[plan.row_valid].reshape(E, Bq * cap, K)
     results["prefill"] = dict(te=plan.tile_expert, tv=plan.tile_valid, x=x,
+                              row_valid=plan.row_valid,
                               sc=sc, rows=rows, experts=experts,
                               n_rows=plan.n_pad, lib_x=x_runs, lib_w=w_cat,
                               lib_wo=wo, w=llama_w, K=K, F=F,
@@ -310,7 +350,199 @@ def kernel_phase_full(torch, G, OPS, R, cfg_granite):
                 "bound_ms": b_ms, "bound_by": b_by}
             print(f"[kernels bf16 {phase}] {name} {r['shape']}: "
                   f"{json.dumps(out[name][phase])}", flush=True)
-    return out
+    return out, results["prefill"]
+
+
+def _go_topk_inputs(torch, g, B, E, k):
+    """Cached scores with empty rows (-inf, id -1), rows of tied minima,
+    and new scores equal to a row's minimum; per-row token ids."""
+    sp = torch.randn(B, E, k, device="cuda", generator=g)
+    tp = torch.randint(0, 1000, (B, E, k), device="cuda", generator=g,
+                       dtype=torch.int32)
+    sn = torch.randn(B, E, device="cuda", generator=g)
+    rows = torch.randperm(B * E, device="cuda", generator=g)
+    n = max(1, B * E // 6)
+    empty, ties, at_min = rows[:n], rows[n:2 * n], rows[2 * n:3 * n]
+    s2, t2 = sp.view(-1, k), tp.view(-1, k)
+    s2[empty] = float("-inf")
+    t2[empty] = -1
+    s2[ties] = s2[ties].round()
+    sn.view(-1)[at_min] = s2[at_min].min(dim=1).values
+    tid = torch.randint(1000, 2000, (B,), device="cuda", generator=g,
+                        dtype=torch.int32)
+    return sp, tp, sn, tid
+
+
+def _diff(a, b):
+    """Largest |a - b| over the elements that differ (0.0 when equal)."""
+    ne = a != b
+    return (a[ne].double() - b[ne].double()).abs().max().item() \
+        if bool(ne.any()) else 0.0
+
+
+def go_topk_phase(torch, GT):
+    """K5 against its plain version at the reference's four shapes, with an
+    int and a [B] token id, functional and in place: every output is a copy
+    or a comparison, so all four must be equal, bit for bit. Empty rows
+    must select at slot 0. The in-place form must refuse a strided view
+    (a hidden copy would drop the write). Times at llama's decode shape,
+    in place with the engine's [B] token ids; the plain version is the one
+    the decode ran before K5 (topk_update, then the cache's two copies).
+    Bound: every input read once and output written once, against one
+    fp32 comparison per cached score; no single PyTorch call computes it."""
+    g = torch.Generator(device="cuda").manual_seed(8)
+    err = 0.0
+    for B, E, k in GO_TOPK_SHAPES:
+        sp, tp, sn, tid = _go_topk_inputs(torch, g, B, E, k)
+        for token_id in (1001, tid):
+            want = GT.go_topk_update_plain(sp, tp, sn, token_id)
+            got = GT.go_topk_update(sp, tp, sn, token_id)
+            s, t = sp.clone(), tp.clone()
+            sel, slot = GT.go_topk_update_(s, t, sn, token_id)
+            torch.cuda.synchronize()
+            for a, b in list(zip(got, want)) + list(zip((s, t, sel, slot),
+                                                         want)):
+                need(a.dtype == b.dtype and a.shape == b.shape,
+                     f"K5 {(B, E, k)}: {a.dtype} {tuple(a.shape)} vs "
+                     f"{b.dtype} {tuple(b.shape)}")
+                err = max(err, _diff(a, b))
+        empty = torch.isneginf(sp).all(dim=2)
+        need(bool(want[2][empty].all() and (want[3][empty] == 0).all()),
+             f"K5 {(B, E, k)}: an empty row did not select at slot 0")
+    need(err == 0.0, f"K5 differs from its plain version by {err}")
+    sp, tp, sn, tid = _go_topk_inputs(torch, g, 4, 16, 4)
+    wide = torch.zeros(4, 16, 8, device="cuda")
+    before = GT.LAUNCHES["go_topk_update"]
+    need(raises(ValueError, lambda: GT.go_topk_update_(wide[..., :4], tp, sn,
+                                                       tid))
+         and GT.LAUNCHES["go_topk_update"] == before,
+         "K5's in-place form took a strided view")
+    print(f"[go_topk] shapes {GO_TOPK_SHAPES}, int and [B] token ids, "
+          "functional and in place: bit-equal to the plain version; empty "
+          "rows select at slot 0; a strided view raises", flush=True)
+
+    B, E, k = 4, 16, 4
+    s, t = sp.clone(), tp.clone()
+
+    def plain():
+        ns, nt, sel, slot = GT.go_topk_update_plain(s, t, sn, tid)
+        s.copy_(ns)
+        t.copy_(nt)
+
+    nbytes = B * E * k * (4 + 4) * 2 + B * E * 4 + B * 4 + B * E * (1 + 4)
+    t_b = nbytes / HBM_BPS * 1e3
+    t_f = B * E * k / FP32_FLOPS * 1e3
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    entry = {"shape": f"B={B} E={E} k={k}, in place, [B] token ids",
+             "max_abs_err": err,
+             "ms": time_ms(torch, lambda: GT.go_topk_update_(s, t, sn, tid),
+                           flush),
+             "plain_ms": time_ms(torch, plain, flush),
+             "bound_ms": max(t_b, t_f),
+             "bound_by": "bytes" if t_b >= t_f else "operations",
+             "bound_note": f"{nbytes} bytes; the time is launch latency",
+             "library_ms": None,
+             "library_note": "no single PyTorch call"}
+    del flush
+    print(f"[go_topk] {json.dumps(entry)}", flush=True)
+    return entry
+
+
+def gmm_phase_small(torch, G):
+    """K6 in fp32 at the reference's sweep shapes re-tiled at 64 rows, with
+    invalid tiles (some every third tile), against its plain version at
+    GMM_TOL_F32; invalid tiles write zeros; K6 shares K2's body, so its
+    output must equal K2's with a unit row scale bit for bit."""
+    bn = G.KERNEL_BLOCK_ROWS
+    g = torch.Generator(device="cuda").manual_seed(9)
+    worst = 0.0
+    for N, K, F, E in GMM_SWEEP:
+        ni = -(-N // bn)
+        x = torch.randn(N, K, device="cuda", generator=g) * 0.1
+        w = torch.randn(E, K, F, device="cuda", generator=g) * 0.05
+        te = torch.randint(0, E, (ni,), device="cuda", generator=g,
+                           dtype=torch.int32)
+        tv = torch.arange(ni, device="cuda") % 3 != 1
+        y = G.gmm(x, w, te, tv, bn=bn)
+        yp = G.gmm_plain(x, w, te, tv, bn)
+        y1 = G.gmm_scaled(x, w, te, tv, torch.ones(N, 1, device="cuda"),
+                          bn=bn)
+        torch.cuda.synchronize()
+        err = (y - yp).abs().max().item()
+        worst = max(worst, err)
+        need(torch.allclose(y, yp, rtol=GMM_TOL_F32, atol=GMM_TOL_F32),
+             f"K6 fp32 {(N, K, F, E)} err {err}")
+        need(torch.equal(y, y1), f"K6 fp32 {(N, K, F, E)} differs from K2 "
+             "with a unit row scale")
+        rows_invalid = (~tv).repeat_interleave(bn)[:N]
+        need(bool((y[rows_invalid] == 0).all()), "K6: invalid tiles not zero")
+    print(f"[gmm fp32] (N, K, F, E) in {GMM_SWEEP} at bn={bn}: max_abs_err "
+          f"{worst:.3e} (tol {GMM_TOL_F32:g}); bit-equal to K2 at unit "
+          "scale; invalid tiles zero", flush=True)
+    return worst
+
+
+def gmm_phase_full(torch, G, OPS, pf, counts, reset_counts):
+    """The path `llama_expert_ffn_gmm`: expert_ffn_gmm (K1 then K6) in bf16
+    at llama's full-width prefill plan of phase 1 (4 x 128 tokens, expert
+    choice, 16 experts of 688: N_pad 3072), the counts set to 0 just
+    before it and read just after. Against the plain versions at
+    GMM_TOL_BF16 (K1's: one rounding of h, one of y); K6 on its own input
+    likewise; K6 must equal K2 with a unit row scale, rounded once to bf16
+    (and unrounded with out_dtype=float32), bit for bit. The library call
+    multiplies each expert's run of rows by its weights (torch.bmm)."""
+    bn = G.KERNEL_BLOCK_ROWS
+    te, tv, x, rv = pf["te"], pf["tv"], pf["x"], pf["row_valid"]
+    wg, wi, wo, _ = pf["w"]
+    K, F = pf["K"], pf["F"]
+    E = wo.shape[0]
+    zero = {k: 0 for k in counts()}
+    reset_counts()
+    y = OPS.expert_ffn_gmm(x, wg, wi, wo, te, tv, bn=bn)
+    launches = counts()
+    need(launches == {**zero, "gmm_swiglu": 1, "gmm": 1},
+         f"expert_ffn_gmm launches {launches}")
+    h = G.gmm_swiglu(x, wg, wi, te, tv, bn=bn)
+    yp = G.gmm_plain(G.gmm_swiglu_plain(x, wg, wi, te, tv, bn), wo, te, tv,
+                     bn)
+    yh = G.gmm_plain(h, wo, te, tv, bn)
+    one = torch.ones(x.shape[0], 1, device="cuda")
+    y2 = G.gmm_scaled(h, wo, te, tv, one, bn=bn)
+    y32 = G.gmm(h, wo, te, tv, bn=bn, out_dtype=torch.float32)
+    torch.cuda.synchronize()
+    need(y.dtype == torch.bfloat16 and y.shape == (x.shape[0], K) and
+         bool(torch.isfinite(y).all()), "expert_ffn_gmm: output of another "
+         "type or shape, or not finite")
+    e_path = (y.float() - yp.float()).abs().max().item()
+    err = (y.float() - yh.float()).abs().max().item()
+    need(torch.allclose(y.float(), yp.float(), rtol=GMM_TOL_BF16,
+                        atol=GMM_TOL_BF16),
+         f"expert_ffn_gmm bf16 vs the plain versions: err {e_path}")
+    need(torch.allclose(y.float(), yh.float(), rtol=GMM_TOL_BF16,
+                        atol=GMM_TOL_BF16), f"K6 bf16 err {err}")
+    need(torch.equal(y, y2.to(torch.bfloat16)) and torch.equal(y32, y2),
+         "K6 differs from K2 with a unit row scale")
+    need(bool((y[~rv] == 0).all()), "expert_ffn_gmm: padding rows not zero")
+    h_runs = h[rv].reshape(E, -1, F)
+    b_ms, b_by = bound(pf["rows"], pf["experts"], F, K, pf["n_rows"], False,
+                       out_elem_bytes=2)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    entry = {"shape": f"expert_ffn_gmm {pf['shape']}, x [{x.shape[0]}, {F}] "
+                      f"-> [{x.shape[0]}, {K}] bf16",
+             "max_abs_err": err, "path_max_abs_err": e_path,
+             "ms": time_ms(torch, lambda: G.gmm(h, wo, te, tv, bn=bn), flush),
+             "plain_ms": time_ms(torch,
+                                 lambda: G.gmm_plain(h, wo, te, tv, bn),
+                                 flush),
+             "library_ms": time_ms(torch, lambda: torch.bmm(h_runs, wo),
+                                   flush),
+             "bound_ms": b_ms, "bound_by": b_by,
+             "path_ms": time_ms(torch, lambda: OPS.expert_ffn_gmm(
+                 x, wg, wi, wo, te, tv, bn=bn), flush)}
+    del flush
+    print(f"[gmm bf16] {json.dumps(entry)}; launches {launches}; bit-equal "
+          "to K2 at unit scale", flush=True)
+    return entry, launches
 
 
 # Lane pairs (0,1), (2,3), (4,5) of the small fused cases, and each case's
@@ -699,24 +931,34 @@ def gmm_launches(cfg, prefills, decodes):
     unfused = L * (decodes + (0 if grouped else prefills))
     fused = L * prefills if grouped else 0
     return {"gmm_swiglu": unfused, "gmm_scaled": unfused,
-            "gmm_swiglu_fused": fused, "gmm_scaled_fused": fused}
+            "gmm_swiglu_fused": fused, "gmm_scaled_fused": fused, "gmm": 0}
 
 
-def smoke_phase(torch, G, cfg_smoke, TM, TS):
+def go_topk_launches(cfg, decodes):
+    """K5's launches over `decodes` decode steps: one per layer and step
+    where the decode runs through the GO cache (expert choice), else 0."""
+    go = cfg.block == "attn" and cfg.moe is not None and \
+        cfg.moe.routing == "expert_choice" and cfg.moe.go_cache
+    return {"go_topk_update": cfg.num_layers * decodes if go else 0}
+
+
+def smoke_phase(torch, G, GT, cfg_smoke, TM, TS):
     """Smoke-size slice on the CPU (plain versions) and on the card
     (kernels), same fp32 weights. Greedy tokens equal; logits within
     SMOKE_LOGIT_TOL; one prefill and 8 decode steps' grouped GEMMs
-    launched."""
+    launched, and K5 once per layer and decode step with a GO cache."""
     params = TM.model_init(cfg_smoke, torch.Generator().manual_seed(0), "cpu")
     params_cuda = _tree_to(params, "cuda")
     prompts = torch.randint(0, cfg_smoke.vocab_size, (4, 32),
                             generator=torch.Generator().manual_seed(1))
     r_cpu = TS.generate(params, cfg_smoke, prompts, 8, device="cpu")
     G.reset_launches()
+    GT.reset_launches()
     r_gpu = TS.generate(params_cuda, cfg_smoke, prompts, 8, device="cuda")
-    launches = dict(G.LAUNCHES)
+    launches = {**G.LAUNCHES, **GT.LAUNCHES}
     err = (r_gpu["logits"].cpu() - r_cpu["logits"]).abs().max().item()
-    need(launches == gmm_launches(cfg_smoke, 1, 8),
+    need(launches == {**gmm_launches(cfg_smoke, 1, 8),
+                      **go_topk_launches(cfg_smoke, 8)},
          f"smoke cuda launches {launches}")
     need(torch.equal(r_gpu["tokens"].cpu(), r_cpu["tokens"]),
          f"{cfg_smoke.name}: greedy tokens differ between cpu and cuda")
@@ -728,12 +970,12 @@ def smoke_phase(torch, G, cfg_smoke, TM, TS):
     return err
 
 
-def engine_smoke_phase(torch, G, PA, cfg_smoke, TM, TS):
+def engine_smoke_phase(torch, G, PA, GT, cfg_smoke, TM, TS):
     """The smoke engine on a paged pool with chunked prefill, the same fp32
     weights and trace on the CPU (plain versions) and on the card (K1-K4,
     K7/K8): greedy streams equal; K3/K4 launched once per layer per decode
     or chunk tick, the grouped GEMMs once per layer per prefill pass and
-    decode tick."""
+    decode tick, K5 once per layer and decode tick with a GO cache."""
     import numpy as np
     params = TM.model_init(cfg_smoke, torch.Generator().manual_seed(0), "cpu")
     rng = np.random.default_rng(0)
@@ -745,9 +987,10 @@ def engine_smoke_phase(torch, G, PA, cfg_smoke, TM, TS):
                                 **kw)
     PA.reset_launches()
     G.reset_launches()
+    GT.reset_launches()
     r_gpu = TS.serve_continuous(_tree_to(params, "cuda"), cfg_smoke, prompts,
                                 7, device="cuda", **kw)
-    launches = {**G.LAUNCHES, **PA.LAUNCHES}
+    launches = {**G.LAUNCHES, **PA.LAUNCHES, **GT.LAUNCHES}
     s, L = r_gpu["stats"], cfg_smoke.num_layers
     for rid, toks in r_cpu["tokens"].items():
         need(np.array_equal(r_gpu["tokens"][rid], toks),
@@ -756,6 +999,7 @@ def engine_smoke_phase(torch, G, PA, cfg_smoke, TM, TS):
     one_shot = sum(len(p) <= kw["prefill_chunk"] for p in prompts)
     need(launches == {**gmm_launches(cfg_smoke, s["chunk_ticks"] + one_shot,
                                      s["decode_ticks"]),
+                      **go_topk_launches(cfg_smoke, s["decode_ticks"]),
                       "paged_attn_decode": L * s["decode_ticks"],
                       "paged_attn_chunk": L * s["chunk_ticks"]},
          f"smoke engine launches {launches}, stats {s}")
@@ -914,7 +1158,7 @@ def _tree_to(tree, device):
             for k, v in tree.items()}
 
 
-def full_phase(torch, G, PA, SC, cfg, params, TM, TS):
+def full_phase(torch, G, PA, SC, GT, cfg, params, TM, TS):
     """Full width, bf16, static generate(): 4 requests x 128 prompt tokens,
     16 new tokens. One warm-up generate(), then the counted, timed run and
     two repeats of it for the spread; the repeats must give its tokens."""
@@ -927,20 +1171,22 @@ def full_phase(torch, G, PA, SC, cfg, params, TM, TS):
     G.reset_launches()
     PA.reset_launches()
     SC.reset_launches()
+    GT.reset_launches()
     res = TS.generate(params, cfg, prompts, GEN, device="cuda")
-    launches = {**G.LAUNCHES, **PA.LAUNCHES, **SC.LAUNCHES}
+    launches = {**G.LAUNCHES, **PA.LAUNCHES, **SC.LAUNCHES, **GT.LAUNCHES}
     # two more identical runs: the spread of the host-bound times, and the
     # combine's determinism (the same tokens, bit for bit)
     reps = [res] + [TS.generate(params, cfg, prompts, GEN, device="cuda")
                     for _ in range(2)]
-    expect = gmm_launches(cfg, 1, GEN)
+    expect = {**gmm_launches(cfg, 1, GEN), **go_topk_launches(cfg, GEN)}
     need(bool(torch.isfinite(res["logits"]).all()), "non-finite logits")
     need(res["tokens"].shape == (Bq, GEN), "token shape")
     need(launches == {**expect, "paged_attn_decode": 0,
                       "paged_attn_chunk": 0, "slstm_seq": 0},
          f"launch counts {launches}, expected {expect} ({cfg.num_layers} "
-         f"layers x (1 prefill + {GEN} decode steps)) and no paged "
-         "attention on the dense static path")
+         f"layers x (1 prefill + {GEN} decode steps); K5 x {GEN} decode "
+         "steps with a GO cache) and no paged attention on the dense static "
+         "path")
     repeat_equal = all(torch.equal(r["tokens"], res["tokens"]) and
                        torch.equal(r["logits"], res["logits"]) for r in reps)
     stats = {"prefill_ms": res["prefill_s"] * 1e3,
@@ -975,7 +1221,7 @@ ENGINE_POOL = dict(num_slots=4, max_tokens=512, paged=True, page_size=16,
                    num_pages=97, prefill_chunk=128)
 
 
-def engine_phase(torch, G, PA, SC, cfg, params, ServingEngine):
+def engine_phase(torch, G, PA, SC, GT, cfg, params, ServingEngine):
     """Full width, bf16, through the continuous-batching engine on a paged
     pool: 8 staggered requests of ENGINE_LENS prompt tokens, 32 new tokens
     each, greedy. A warm-up engine first (one one-shot and one chunked
@@ -1001,6 +1247,7 @@ def engine_phase(torch, G, PA, SC, cfg, params, ServingEngine):
     G.reset_launches()
     PA.reset_launches()
     SC.reset_launches()
+    GT.reset_launches()
     ticks = []                 # (ms, decoded, chunked, admitted one-shot)
     decode_ticks = chunk_ticks = peak_pages = 0
     t_all = time.perf_counter()
@@ -1017,7 +1264,7 @@ def engine_phase(torch, G, PA, SC, cfg, params, ServingEngine):
         ticks.append((ms, dd, dc, eng.pool.admitted_total - a0))
         peak_pages = max(peak_pages, eng.pool.alloc.pages_in_use)
     wall_s = time.perf_counter() - t_all
-    launches = {**G.LAUNCHES, **PA.LAUNCHES, **SC.LAUNCHES}
+    launches = {**G.LAUNCHES, **PA.LAUNCHES, **SC.LAUNCHES, **GT.LAUNCHES}
 
     L = cfg.num_layers
     fin = eng.finished
@@ -1034,6 +1281,7 @@ def engine_phase(torch, G, PA, SC, cfg, params, ServingEngine):
     need(eng.pool.alloc.pages_in_use == 0, "pages leaked after the drain")
     one_shot = sum(n <= ENGINE_POOL["prefill_chunk"] for n in ENGINE_LENS)
     expect = {**gmm_launches(cfg, chunk_ticks + one_shot, decode_ticks),
+              **go_topk_launches(cfg, decode_ticks),
               "paged_attn_decode": L * decode_ticks,
               "paged_attn_chunk": L * chunk_ticks, "slstm_seq": 0}
     need(launches == expect, f"engine launches {launches}, expected "
@@ -1112,11 +1360,17 @@ def _kind(name):
         return "K3 paged_attn_decode"
     if "paged_chunk_kernel" in name:
         return "K4 paged_attn_chunk"
+    if "go_topk_kernel" in name:
+        return "K5 go_topk_update"
     if "gmm_kernel" in name:
-        # template arguments <T, SWIGLU, FUSED>, demangled or mangled
-        m = re.search(r"gmm_kernel<[^,]+, (true|false), (true|false)>", name) \
-            or re.search(r"Lb([01])ELb([01])E", name)
+        # template arguments <T, SWIGLU, FUSED, OUT>, demangled or mangled;
+        # OUT 2 scales the rows (K2, K8), K6 stores the sum (OUT 0 or 1)
+        m = re.search(r"gmm_kernel<[^,]+, (true|false), (true|false), "
+                      r"\(?\w*\)?(\d)>", name) \
+            or re.search(r"Lb([01])ELb([01])ELi(\d)E", name)
         swiglu, fused = (m.group(i) in ("true", "1") for i in (1, 2))
+        if not swiglu and not fused and m.group(3) != "2":
+            return "K6 gmm"
         return {(True, False): "K1 gmm_swiglu", (False, False): "K2 gmm_scaled",
                 (True, True): "K7 gmm_swiglu_fused",
                 (False, True): "K8 gmm_scaled_fused"}[(swiglu, fused)]
@@ -1187,6 +1441,7 @@ def main():
     from repro_torch.core import moe as MOE
     from repro_torch.core import routing as R
     from repro_torch.kernels import build
+    from repro_torch.kernels import go_topk as GT
     from repro_torch.kernels import moe_gmm as G
     from repro_torch.kernels import ops as OPS
     from repro_torch.kernels import paged_attn as PA
@@ -1207,10 +1462,24 @@ def main():
             if "registers" in line or "Compiling entry" in line:
                 print(f"[build] {name}: {line.strip()}", flush=True)
 
+    def counts():
+        return {**G.LAUNCHES, **PA.LAUNCHES, **SC.LAUNCHES, **GT.LAUNCHES}
+
+    def reset_counts():
+        for mod in (G, PA, SC, GT):
+            mod.reset_launches()
+
     llama, granite = "llama_moe_4_16", "granite-moe-3b-a800m"
     cfgs = {m: get_config(m) for m in (llama, granite)}
+    by_path = {}
     kernel_phase_small(torch, G)
-    timings = kernel_phase_full(torch, G, OPS, R, cfgs[granite])
+    timings, llama_prefill = kernel_phase_full(torch, G, OPS, R,
+                                               cfgs[granite])
+    timings["go_topk_update"] = go_topk_phase(torch, GT)
+    gmm_phase_small(torch, G)
+    timings["gmm"], by_path["llama_expert_ffn_gmm"] = gmm_phase_full(
+        torch, G, OPS, llama_prefill, counts, reset_counts)
+    del llama_prefill
     fused_phase_small(torch, G, OPS)
     timings.update(fused_phase_full(torch, G, OPS, MOE, R, TM,
                                     cfgs[granite]))
@@ -1222,12 +1491,12 @@ def main():
     timings["slstm_seq"] = slstm_phase(torch, SC)
     torch.cuda.empty_cache()
     for m in cfgs:
-        smoke_phase(torch, G, get_config(m, smoke=True), TM, TS)
-        engine_smoke_phase(torch, G, PA, get_config(m, smoke=True), TM, TS)
+        smoke_phase(torch, G, GT, get_config(m, smoke=True), TM, TS)
+        engine_smoke_phase(torch, G, PA, GT, get_config(m, smoke=True), TM,
+                           TS)
     xlstm = "xlstm-1.3b"
     xlstm_smoke_phase(torch, SC, get_config(xlstm, smoke=True), TM, TS)
 
-    by_path = {}
     for m, short in ((llama, "llama"), (granite, "granite")):
         cfg = cfgs[m]
         t0 = time.perf_counter()
@@ -1237,19 +1506,12 @@ def main():
         print(f"[full] {cfg.name}: {sum(t.numel() for t in _leaves(params))} "
               f"parameters initialised in {time.perf_counter() - t0:.2f} s",
               flush=True)
-        by_path[f"{short}_static"] = full_phase(torch, G, PA, SC, cfg, params,
-                                                TM, TS)
-        by_path[f"{short}_engine"] = engine_phase(torch, G, PA, SC, cfg,
+        by_path[f"{short}_static"] = full_phase(torch, G, PA, SC, GT, cfg,
+                                                params, TM, TS)
+        by_path[f"{short}_engine"] = engine_phase(torch, G, PA, SC, GT, cfg,
                                                   params, ServingEngine)
         del params
         torch.cuda.empty_cache()
-
-    def counts():
-        return {**G.LAUNCHES, **PA.LAUNCHES, **SC.LAUNCHES}
-
-    def reset_counts():
-        for mod in (G, PA, SC):
-            mod.reset_launches()
 
     by_path.update(xlstm_full_phase(torch, counts, reset_counts,
                                     get_config(xlstm), TM, TS))
@@ -1257,7 +1519,8 @@ def main():
     # launches: each kernel's count on the path it was ported for (K1/K2
     # llama's static generate() of slice 1, K3/K4 llama's engine of slice 2,
     # K7/K8 granite's engine of slice 3, K9 xlstm's model_forward of slice
-    # 4); every path's count beside it
+    # 4, K5 llama's engine and K6 llama's expert_ffn_gmm of slice 5); every
+    # path's count beside it
     meta = {
         "gmm_swiglu": ("moe_gmm.cu", "src/repro/kernels/moe_gmm.py:466",
                        "llama_static"),
@@ -1275,11 +1538,16 @@ def main():
                              "granite_engine"),
         "slstm_seq": ("slstm_cell.cu", "src/repro/kernels/slstm_cell.py:62",
                       "xlstm_forward"),
+        "go_topk_update": ("go_topk.cu", "src/repro/kernels/go_topk.py:43",
+                           "llama_engine"),
+        "gmm": ("moe_gmm.cu", "src/repro/kernels/moe_gmm.py:274",
+                "llama_expert_ffn_gmm"),
     }
     kernels = []
     for name, (src, replaces, path) in meta.items():
         need(by_path[path][name] > 0 and
-             (not name.endswith("_fused") or by_path["granite_static"][name]),
+             (not name.endswith("_fused") or by_path["granite_static"][name])
+             and (name != "go_topk_update" or by_path["llama_static"][name]),
              f"{name} was not launched on its path: {by_path}")
         main_t = timings[name].get("prefill", timings[name])
         entry = {
@@ -1293,7 +1561,8 @@ def main():
             "launches_by_path": {p: by_path[p][name] for p in by_path}}
         entry.update({k: main_t[k] for k in (
             "planted_fault_err", "tol", "bound_bytes_ms",
-            "bound_operations_ms", "bound_note") if k in main_t})
+            "bound_operations_ms", "bound_note", "library_note",
+            "path_max_abs_err", "path_ms") if k in main_t})
         if "decode" in timings[name]:
             entry["shape"] = "prefill " + main_t["shape"]
             entry["decode"] = timings[name]["decode"]

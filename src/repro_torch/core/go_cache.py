@@ -18,7 +18,8 @@ from typing import NamedTuple
 
 import torch
 
-from repro_torch.core.routing import stable_topk, topk_update
+from repro_torch.core.routing import stable_topk
+from repro_torch.kernels.go_topk import go_topk_update, go_topk_update_
 
 
 class GOCache(NamedTuple):
@@ -114,18 +115,28 @@ def go_cache_step(cache: GOCache, x_t: torch.Tensor, token_id,
     x_t [B, d]; token_id an int (static batch) or [B]. `contrib_fn(x, sel,
     g)` returns the fp32 weighted contributions [B, E, d] of the SELECTED
     pairs, zero elsewhere (kernels/ops.py:go_selected_ffn). The cache's
-    tensors are updated in place."""
+    tensors are updated in place: the TopKUpdate (K5, one launch on a
+    card) writes the scores and ids, then the selected outputs land in the
+    slots it replaced."""
     s_raw = x_t.float() @ gate_w.float()                           # [B, E]
     g = torch.softmax(s_raw, dim=-1)
-    upd = topk_update(cache.scores, cache.token_ids, g, token_id)
-    selected = upd.selected                                        # [B, E]
+    if cache.scores.is_contiguous() and cache.token_ids.is_contiguous():
+        selected, slot = go_topk_update_(cache.scores, cache.token_ids, g,
+                                         token_id)                 # [B, E]
+    else:
+        # a cache of strided views (go_cache_prefill's top-k slices, used
+        # on their own); the decode state's per-layer views take the branch
+        # above, and making the slices contiguous would cost every prefill
+        # a copy per layer
+        s, t, selected, slot = go_topk_update(cache.scores, cache.token_ids,
+                                              g, token_id)
+        cache.scores.copy_(s)
+        cache.token_ids.copy_(t)
     contrib = contrib_fn(x_t, selected, g)                         # [B, E, d]
     y = contrib.sum(dim=1)
     k = cache.scores.shape[-1]
-    onehot = upd.slot[..., None] == torch.arange(k, device=x_t.device)
+    onehot = slot[..., None] == torch.arange(k, device=x_t.device)
     write = (selected[..., None] & onehot)[..., None]              # [B,E,k,1]
     cache.outputs.copy_(torch.where(
         write, contrib[:, :, None, :].to(cache.outputs.dtype), cache.outputs))
-    cache.scores.copy_(upd.new_scores)
-    cache.token_ids.copy_(upd.new_token_ids)
     return GOStepResult(y.to(x_t.dtype), cache, selected)

@@ -9,8 +9,14 @@
 //       _gmm_swiglu_fused_kernel): K1 on a fused lane pair's tiles
 //   K8  repro/kernels/moe_gmm.py:_gmm_scaled_fused (body
 //       _gmm_scaled_fused_kernel): K2 on a fused lane pair's tiles
+//   K6  repro/kernels/moe_gmm.py:_gmm (body _gmm_kernel)
+//       y[i] = x[i] @ w[te[t]]   (x's type, or fp32 out)
 // Rows come packed by expert in row tiles of bn rows; tile t uses expert
 // te[t]. A tile with tv[t] == 0 does no multiply-adds and writes zeros.
+//
+// K6 is K2's body with another epilogue: the fp32 sum is stored as it is
+// (or rounded once to x's type), not multiplied by a row scale. Its K loop
+// is K2's, so its fp32 output equals K2's with row_scale = 1 bit for bit.
 //
 // K7/K8 (FUSED): a fused pair's two lane runs share tiles, so one
 // "straddle" tile may hold rows of two experts. There te2[t] != te[t], and
@@ -30,7 +36,9 @@
 // prefill plan (K=1536, F=512, 40 experts, 4096 pairs in 5376 packed rows)
 // read 126 MB (K7) and 63 MB (K8) of weights for 13 and 6.4 GFLOP: bytes
 // bound them too, and a
-// straddle tile reads its second expert's stripe once more.
+// straddle tile reads its second expert's stripe once more. K6 at the
+// full-width expert_ffn_gmm (2048 real rows of 3072, K=688, F=4096, 16
+// experts) reads 90 MB of weights for 11.5 GFLOP: bytes again.
 //
 // Design: one block per (row tile, 64-column stripe); a loop over K inside
 // the block replaces the TPU's sequential k grid axis, and the fp32
@@ -78,6 +86,23 @@ __device__ __forceinline__ T from_float(float v) {
 
 __device__ __forceinline__ float silu(float g) { return g / (1.0f + __expf(-g)); }
 
+// Epilogues: store the fp32 sum in the input type T (K1, K7, K6), store it
+// as fp32 (K6 with an fp32 output), or store it times the row scale as
+// fp32 (K2, K8).
+enum Out { OUT_T = 0, OUT_F32 = 1, OUT_F32_SCALED = 2 };
+
+template <typename T, int OUT>
+__device__ __forceinline__ void store(void* out, size_t i, float v,
+                                      const float* __restrict__ scale, int gr) {
+  if constexpr (OUT == OUT_F32_SCALED) {
+    static_cast<float*>(out)[i] = v * scale[gr];
+  } else if constexpr (OUT == OUT_F32) {
+    static_cast<float*>(out)[i] = v;
+  } else {
+    static_cast<T*>(out)[i] = from_float<T>(v);
+  }
+}
+
 // Row masks of the fused kernels' x staging: every row, or only the rows
 // of the tile's primary (sel > 0.5) or secondary expert.
 enum RowMask { ALL_ROWS = 0, PRIMARY_ROWS = 1, SECONDARY_ROWS = 2 };
@@ -124,9 +149,9 @@ __device__ __forceinline__ void load_tile(T* __restrict__ s,
 }
 
 // x [N, K]; w0 (and w1 with SWIGLU) [E, K, F]; te/tv (and te2 with FUSED)
-// [>= ceil(N/BM)]; sel [N] with FUSED; out [N, F]: T with SWIGLU, fp32
-// with the row scale otherwise.
-template <typename T, bool SWIGLU, bool FUSED>
+// [>= ceil(N/BM)]; sel [N] with FUSED; scale [N] with OUT_F32_SCALED;
+// out [N, F] as OUT says.
+template <typename T, bool SWIGLU, bool FUSED, int OUT>
 __global__ void __launch_bounds__(THREADS)
 gmm_kernel(const T* __restrict__ x, const T* __restrict__ w0,
            const T* __restrict__ w1, const int* __restrict__ te,
@@ -154,7 +179,7 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w0,
     for (int idx = threadIdx.x; idx < BM * BN; idx += THREADS) {
       const int gr = r0 + idx / BN, gc = c0 + idx % BN;
       if (gr < N && gc < F) {
-        if constexpr (SWIGLU) {
+        if constexpr (OUT == OUT_T) {
           static_cast<T*>(out)[(size_t)gr * F + gc] = zero_of<T>();
         } else {
           static_cast<float*>(out)[(size_t)gr * F + gc] = 0.0f;
@@ -210,12 +235,9 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w0,
       for (int j = 0; j < 4; ++j) {
         const int gc = c0 + tx * 4 + j;
         if (gc >= F) continue;
-        if constexpr (SWIGLU) {
-          static_cast<float*>(out)[(size_t)gr * F + gc] =
-              silu(acc[0][i][j]) * acc[NW - 1][i][j];
-        } else {
-          static_cast<float*>(out)[(size_t)gr * F + gc] = acc[0][i][j] * scale[gr];
-        }
+        const float v = SWIGLU ? silu(acc[0][i][j]) * acc[NW - 1][i][j]
+                               : acc[0][i][j];
+        store<T, OUT>(out, (size_t)gr * F + gc, v, scale, gr);
       }
     }
   } else {
@@ -275,12 +297,7 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w0,
       const int r = idx / BN, c = idx % BN;
       const int gr = r0 + r, gc = c0 + c;
       if (gr < N && gc < F) {
-        const float v = cs[r * LDC + c];
-        if constexpr (SWIGLU) {
-          static_cast<T*>(out)[(size_t)gr * F + gc] = from_float<T>(v);
-        } else {
-          static_cast<float*>(out)[(size_t)gr * F + gc] = v * scale[gr];
-        }
+        store<T, OUT>(out, (size_t)gr * F + gc, cs[r * LDC + c], scale, gr);
       }
     }
   }
@@ -288,7 +305,7 @@ gmm_kernel(const T* __restrict__ x, const T* __restrict__ w0,
 
 bool aligned16(const void* p) { return (reinterpret_cast<uintptr_t>(p) & 15) == 0; }
 
-template <typename T, bool SWIGLU, bool FUSED>
+template <typename T, bool SWIGLU, bool FUSED, int OUT>
 int launch(const void* x, const void* w0, const void* w1, const void* te,
            const void* te2, const void* tv, const void* sel,
            const void* scale, void* out, int N, int K, int F, int bn,
@@ -300,7 +317,7 @@ int launch(const void* x, const void* w0, const void* w1, const void* te,
   const bool vec_x = (K % 8 == 0) && aligned16(x);
   const bool vec_w = (F % 8 == 0) && aligned16(w0) && (!SWIGLU || aligned16(w1));
   const dim3 grid((F + BN - 1) / BN, ni);
-  gmm_kernel<T, SWIGLU, FUSED><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
+  gmm_kernel<T, SWIGLU, FUSED, OUT><<<grid, THREADS, 0, static_cast<cudaStream_t>(stream)>>>(
       static_cast<const T*>(x), static_cast<const T*>(w0),
       static_cast<const T*>(w1), static_cast<const int*>(te),
       static_cast<const int*>(te2), static_cast<const int*>(tv),
@@ -317,32 +334,30 @@ extern "C" {
 int gmm_swiglu_f32(const void* x, const void* wg, const void* wi,
                    const void* te, const void* tv, void* out, int N, int K,
                    int F, int bn, void* stream) {
-  return launch<float, true, false>(x, wg, wi, te, nullptr, tv, nullptr,
-                                    nullptr, out, N, K, F, bn, stream);
+  return launch<float, true, false, OUT_T>(x, wg, wi, te, nullptr, tv, nullptr,
+                                           nullptr, out, N, K, F, bn, stream);
 }
 
 int gmm_swiglu_bf16(const void* x, const void* wg, const void* wi,
                     const void* te, const void* tv, void* out, int N, int K,
                     int F, int bn, void* stream) {
-  return launch<__nv_bfloat16, true, false>(x, wg, wi, te, nullptr, tv,
-                                            nullptr, nullptr, out, N, K, F,
-                                            bn, stream);
+  return launch<__nv_bfloat16, true, false, OUT_T>(
+      x, wg, wi, te, nullptr, tv, nullptr, nullptr, out, N, K, F, bn, stream);
 }
 
 // K2: x [N, K], w [E, K, F], te/tv int32 [tiles], scale f32 [N] -> out f32 [N, F]
 int gmm_scaled_f32(const void* x, const void* w, const void* te,
                    const void* tv, const void* scale, void* out, int N, int K,
                    int F, int bn, void* stream) {
-  return launch<float, false, false>(x, w, nullptr, te, nullptr, tv, nullptr,
-                                     scale, out, N, K, F, bn, stream);
+  return launch<float, false, false, OUT_F32_SCALED>(
+      x, w, nullptr, te, nullptr, tv, nullptr, scale, out, N, K, F, bn, stream);
 }
 
 int gmm_scaled_bf16(const void* x, const void* w, const void* te,
                     const void* tv, const void* scale, void* out, int N, int K,
                     int F, int bn, void* stream) {
-  return launch<__nv_bfloat16, false, false>(x, w, nullptr, te, nullptr, tv,
-                                             nullptr, scale, out, N, K, F, bn,
-                                             stream);
+  return launch<__nv_bfloat16, false, false, OUT_F32_SCALED>(
+      x, w, nullptr, te, nullptr, tv, nullptr, scale, out, N, K, F, bn, stream);
 }
 
 // K7: K1 plus te2 int32 [tiles] and sel f32 [N] (1.0 = the te row of a
@@ -351,16 +366,17 @@ int gmm_swiglu_fused_f32(const void* x, const void* wg, const void* wi,
                          const void* te, const void* te2, const void* tv,
                          const void* sel, void* out, int N, int K, int F,
                          int bn, void* stream) {
-  return launch<float, true, true>(x, wg, wi, te, te2, tv, sel, nullptr, out,
-                                   N, K, F, bn, stream);
+  return launch<float, true, true, OUT_T>(x, wg, wi, te, te2, tv, sel, nullptr,
+                                          out, N, K, F, bn, stream);
 }
 
 int gmm_swiglu_fused_bf16(const void* x, const void* wg, const void* wi,
                           const void* te, const void* te2, const void* tv,
                           const void* sel, void* out, int N, int K, int F,
                           int bn, void* stream) {
-  return launch<__nv_bfloat16, true, true>(x, wg, wi, te, te2, tv, sel,
-                                           nullptr, out, N, K, F, bn, stream);
+  return launch<__nv_bfloat16, true, true, OUT_T>(x, wg, wi, te, te2, tv, sel,
+                                                  nullptr, out, N, K, F, bn,
+                                                  stream);
 }
 
 // K8: K2 plus te2 int32 [tiles] and sel f32 [N]
@@ -368,16 +384,40 @@ int gmm_scaled_fused_f32(const void* x, const void* w, const void* te,
                          const void* te2, const void* tv, const void* sel,
                          const void* scale, void* out, int N, int K, int F,
                          int bn, void* stream) {
-  return launch<float, false, true>(x, w, nullptr, te, te2, tv, sel, scale,
-                                    out, N, K, F, bn, stream);
+  return launch<float, false, true, OUT_F32_SCALED>(
+      x, w, nullptr, te, te2, tv, sel, scale, out, N, K, F, bn, stream);
 }
 
 int gmm_scaled_fused_bf16(const void* x, const void* w, const void* te,
                           const void* te2, const void* tv, const void* sel,
                           const void* scale, void* out, int N, int K, int F,
                           int bn, void* stream) {
-  return launch<__nv_bfloat16, false, true>(x, w, nullptr, te, te2, tv, sel,
-                                            scale, out, N, K, F, bn, stream);
+  return launch<__nv_bfloat16, false, true, OUT_F32_SCALED>(
+      x, w, nullptr, te, te2, tv, sel, scale, out, N, K, F, bn, stream);
+}
+
+// K6: x [N, K], w [E, K, F], te/tv int32 [tiles] -> out [N, F] in x's type
+// (gmm_f32, gmm_bf16) or fp32 (gmm_bf16_out_f32)
+int gmm_f32(const void* x, const void* w, const void* te, const void* tv,
+            void* out, int N, int K, int F, int bn, void* stream) {
+  return launch<float, false, false, OUT_T>(x, w, nullptr, te, nullptr, tv,
+                                            nullptr, nullptr, out, N, K, F, bn,
+                                            stream);
+}
+
+int gmm_bf16(const void* x, const void* w, const void* te, const void* tv,
+             void* out, int N, int K, int F, int bn, void* stream) {
+  return launch<__nv_bfloat16, false, false, OUT_T>(
+      x, w, nullptr, te, nullptr, tv, nullptr, nullptr, out, N, K, F, bn,
+      stream);
+}
+
+int gmm_bf16_out_f32(const void* x, const void* w, const void* te,
+                     const void* tv, void* out, int N, int K, int F, int bn,
+                     void* stream) {
+  return launch<__nv_bfloat16, false, false, OUT_F32>(
+      x, w, nullptr, te, nullptr, tv, nullptr, nullptr, out, N, K, F, bn,
+      stream);
 }
 
 }  // extern "C"

@@ -1,11 +1,13 @@
-"""Grouped expert GEMMs (K1 `gmm_swiglu`, K2 `gmm_scaled`, and their fused
-forms K7 and K8): wrappers, plain versions and launch counters.
+"""Grouped expert GEMMs (K1 `gmm_swiglu`, K2 `gmm_scaled`, their fused
+forms K7 and K8, and the plain K6 `gmm`): wrappers, plain versions and
+launch counters.
 
 Rows arrive packed by expert in row tiles of `bn` rows; tile t uses expert
 `tile_expert[t]`, and a tile with `tile_valid[t] == 0` contributes zeros.
 
   gmm_swiglu(x, wg, wi, te, tv)      h[i] = silu(x[i] @ wg[e]) * (x[i] @ wi[e])
   gmm_scaled(x, w, te, tv, scale)    y[i] = (x[i] @ w[e]) * scale[i]   (fp32)
+  gmm(x, w, te, tv)                  y[i] = x[i] @ w[e]   (x.dtype or out_dtype)
 
 With `tile_expert2=` and `row_sel=` (a fused lane pair's plan) the same
 wrappers run K7 and K8: on a straddle tile (te2[t] != te[t]) row i uses
@@ -30,7 +32,7 @@ KERNEL_BLOCK_ROWS = 64          # the CUDA kernels' row tile (csrc BM)
 # Launch counts, one per wrapper: raised by one at each kernel launch and
 # nowhere else (the plain versions do not count).
 LAUNCHES = {"gmm_swiglu": 0, "gmm_scaled": 0, "gmm_swiglu_fused": 0,
-            "gmm_scaled_fused": 0}
+            "gmm_scaled_fused": 0, "gmm": 0}
 
 
 def reset_launches() -> None:
@@ -84,6 +86,17 @@ def gmm_scaled_plain(x, w, te, tv, row_scale, bn: int) -> torch.Tensor:
     y = y.reshape(ni * bn, -1)[:N] * row_scale.reshape(N, 1).float()
     valid_rows = tv.bool().repeat_interleave(bn)[:N]
     return torch.where(valid_rows[:, None], y, 0.0)
+
+
+def gmm_plain(x, w, te, tv, bn: int, out_dtype=None) -> torch.Tensor:
+    """Reference arithmetic of K6 (ref.py:gmm_ref plus invalid-tile
+    zeros): the fp32 product, rounded once to out_dtype or x.dtype."""
+    N = x.shape[0]
+    ni = te.shape[0]
+    y = torch.bmm(_tiled(x, ni, bn), w[te.long()].float())
+    valid_rows = tv.bool().repeat_interleave(bn)[:N]
+    y = torch.where(valid_rows[:, None], y.reshape(ni * bn, -1)[:N], 0.0)
+    return y.to(out_dtype or x.dtype)
 
 
 def _fused_bmm(x, w, te, te2, row_sel, bn: int) -> torch.Tensor:
@@ -158,6 +171,10 @@ def _lib():
             f.restype = I
             f = getattr(lib, f"gmm_scaled_fused_{dt}")
             f.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, P]
+            f.restype = I
+        for fn in ("gmm_f32", "gmm_bf16", "gmm_bf16_out_f32"):
+            f = getattr(lib, fn)
+            f.argtypes = [P, P, P, P, P, I, I, I, I, P]
             f.restype = I
         lib._typed = True
     return lib
@@ -265,4 +282,37 @@ def gmm_scaled(x: torch.Tensor, w: torch.Tensor, tile_expert: torch.Tensor,
                 scale.data_ptr(), out.data_ptr(), N, K, Fd, bn, stream)
     build.check(rc, name)
     LAUNCHES[name] += 1
+    return out
+
+
+def gmm(x: torch.Tensor, w: torch.Tensor, tile_expert: torch.Tensor,
+        tile_valid: torch.Tensor | None = None, *, bn: int,
+        out_dtype: torch.dtype | None = None) -> torch.Tensor:
+    """K6. x [N, K], w [E, K, F] -> [N, F] in out_dtype or x.dtype, one
+    rounding of the fp32 sum; rows of invalid tiles are zero. The kernel
+    writes x.dtype or fp32."""
+    N, K = x.shape
+    E, K2, Fd = w.shape
+    if K2 != K:
+        raise ValueError(f"gmm: x {tuple(x.shape)}, w {tuple(w.shape)}")
+    ni, te, tv = _row_tiles(N, bn, tile_expert, tile_valid)
+    if _where(x) == "cpu":
+        return gmm_plain(x, w, te, tv, bn, out_dtype)
+    dt = _check_cuda("gmm", bn, x, w, te, tv)
+    if w.dtype != x.dtype:
+        raise TypeError("gmm: x and w must share a dtype")
+    od = out_dtype or x.dtype
+    if od == x.dtype:
+        name = f"gmm_{dt}"
+    elif od == torch.float32:
+        name = f"gmm_{dt}_out_f32"
+    else:
+        raise TypeError(f"gmm: no kernel writes {od} from {x.dtype}")
+    out = torch.empty((N, Fd), dtype=od, device=x.device)
+    stream = torch.cuda.current_stream(x.device).cuda_stream
+    rc = getattr(_lib(), name)(x.data_ptr(), w.data_ptr(), te.data_ptr(),
+                               tv.data_ptr(), out.data_ptr(), N, K, Fd, bn,
+                               stream)
+    build.check(rc, "gmm")
+    LAUNCHES["gmm"] += 1
     return out

@@ -18,6 +18,9 @@ static; no step reads a value back to the host.
                     a sort and a gather, then one reduction; no float
                     atomics, so repeated runs on a card agree bit for bit).
   go_selected_ffn   C4 decode: only the pairs the TopKUpdate selected.
+  expert_ffn_gmm    tile-aligned rows through each tile's expert FFN (K1
+                    then K6), uncombined.
+  moe_ffn_pallas    [T, k] routing -> [T, d] through moe_ffn_fused.
 """
 from __future__ import annotations
 
@@ -27,8 +30,8 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
-from repro_torch.kernels.moe_gmm import (KERNEL_BLOCK_ROWS, gmm_scaled,
-                                         gmm_swiglu)
+from repro_torch.kernels.moe_gmm import (KERNEL_BLOCK_ROWS, gmm,
+                                         gmm_scaled, gmm_swiglu)
 
 _I32 = torch.int32
 
@@ -215,6 +218,17 @@ def gather_rows(y_rows: torch.Tensor, plan: TilePlan) -> torch.Tensor:
     return yz[plan.dest.long()]
 
 
+def expert_ffn_gmm(x_rows: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
+                   wo: torch.Tensor, tile_expert: torch.Tensor,
+                   tile_valid: torch.Tensor | None = None, *,
+                   bn: int) -> torch.Tensor:
+    """Tile-aligned rows [N_pad, d] through per-expert SwiGLU FFNs: K1
+    (gmm_swiglu) then K6 (gmm) -> [N_pad, d] in x_rows' dtype; rows of
+    invalid tiles are zero."""
+    h = gmm_swiglu(x_rows, wg, wi, tile_expert, tile_valid, bn=bn)
+    return gmm(h, wo, tile_expert, tile_valid, bn=bn)
+
+
 def combine_pairs(y_pairs: torch.Tensor, tok: torch.Tensor, num_tokens: int,
                   max_per_token: int, *, token_major: bool = False
                   ) -> torch.Tensor:
@@ -299,6 +313,22 @@ def moe_ffn_fused(x_src: torch.Tensor, tok: torch.Tensor, ef: torch.Tensor,
     y = combine_pairs(gather_rows(y_rows, plan), tok, num_tokens,
                       max_per_token, token_major=token_major)
     return y, y_rows, plan
+
+
+def moe_ffn_pallas(x: torch.Tensor, expert_idx: torch.Tensor,
+                   weights: torch.Tensor, bank: dict, num_experts: int, *,
+                   bn: int = 0) -> torch.Tensor:
+    """Full MoE FFN over a [T, k] routing: x [T, d]; expert_idx [T, k];
+    weights [T, k] -> y [T, d] in x's dtype. Every pair runs (no capacity
+    drops); the pairs come k per token in token order, so the combine is a
+    reshape and one sum."""
+    T = x.shape[0]
+    k = expert_idx.shape[1]
+    tok = torch.arange(T, dtype=_I32, device=x.device).repeat_interleave(k)
+    y, _, _ = moe_ffn_fused(x, tok, expert_idx.reshape(-1).to(_I32),
+                            weights.reshape(-1), bank, num_experts, T,
+                            max_per_token=k, token_major=True, bn=bn)
+    return y.to(x.dtype)
 
 
 # ------------------------------------------------------------ GO decode

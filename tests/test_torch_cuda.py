@@ -404,3 +404,143 @@ def test_cuda_xlstm_forward_launches_k9_and_equals_cpu(cuda_device):
                              cfg)
     assert SC.LAUNCHES["slstm_seq"] == 2
     torch.testing.assert_close(x_gpu.cpu(), x_cpu, rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------------------- K5 TopKUpdate, K6 gmm
+
+from repro_torch.kernels import go_topk as GT  # noqa: E402
+
+
+def _topk_inputs(seed, B, E, k, device):
+    """Cached scores with empty rows (-inf, id -1), tied minima, and new
+    scores equal to a row's minimum; per-row token ids."""
+    rng = np.random.default_rng(seed)
+    sp = rng.standard_normal((B, E, k)).astype(np.float32)
+    tp = rng.integers(0, 1000, (B, E, k)).astype(np.int32)
+    sn = rng.standard_normal((B, E)).astype(np.float32)
+    rows = rng.permutation(B * E)
+    n = max(1, B * E // 6)
+    sp.reshape(-1, k)[rows[:n]] = -np.inf
+    tp.reshape(-1, k)[rows[:n]] = -1
+    sp.reshape(-1, k)[rows[n:2 * n]] = np.round(sp.reshape(-1, k)[rows[n:2 * n]])
+    sn.reshape(-1)[rows[2 * n:3 * n]] = sp.reshape(-1, k)[rows[2 * n:3 * n]].min(1)
+    tid = rng.integers(1000, 2000, B).astype(np.int32)
+    t = lambda a: torch.from_numpy(a).to(device)      # noqa: E731
+    return t(sp), t(tp), t(sn), t(tid)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,E,k", [(1, 4, 2), (4, 16, 4), (8, 64, 6),
+                                   (3, 40, 8)])
+def test_cuda_go_topk_equals_plain_bit_for_bit(cuda_device, B, E, k):
+    """K5 against its plain version at tests/test_kernels.py's four
+    shapes, with an int and a [B] token id, functional and in place: every
+    output is a copy or a comparison, so all four are equal."""
+    sp, tp, sn, tid = _topk_inputs(B + E + k, B, E, k, cuda_device)
+    for token_id in (1001, tid):
+        before = GT.LAUNCHES["go_topk_update"]
+        got = GT.go_topk_update(sp, tp, sn, token_id)
+        s, t = sp.clone(), tp.clone()
+        sel, slot = GT.go_topk_update_(s, t, sn, token_id)
+        want = GT.go_topk_update_plain(sp, tp, sn, token_id)
+        torch.cuda.synchronize()
+        assert GT.LAUNCHES["go_topk_update"] == before + 2
+        for g, w in zip(got, want):
+            assert g.dtype == w.dtype and torch.equal(g, w)
+        for g, w in zip((s, t, sel, slot), want):
+            assert torch.equal(g, w)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_go_topk_raises_instead_of_falling_back(cuda_device):
+    sp, tp, sn, tid = _topk_inputs(0, 4, 16, 4, cuda_device)
+    wide = torch.zeros(4, 16, 8, device=cuda_device)
+    with pytest.raises(ValueError, match="contiguous"):
+        GT.go_topk_update_(wide[..., :4], tp, sn, 3)
+    with pytest.raises(TypeError, match="int32"):
+        GT.go_topk_update_(sp.clone(), tp.long(), sn, 3)
+    with pytest.raises(ValueError, match="operands on"):
+        GT.go_topk_update(sp, tp, sn.cpu(), 3)
+    with pytest.raises(ValueError, match="operands on"):
+        GT.go_topk_update(sp, tp, sn, tid.cpu())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("N,K,F,E", [(128, 256, 128, 2), (128, 48, 96, 4),
+                                     (64, 688, 172, 4)])
+def test_cuda_gmm_matches_plain_and_k2_at_unit_scale(cuda_device, N, K, F, E):
+    """K6 at three of tests/test_kernels.py's SWEEP shapes, re-tiled at the
+    card's 64 rows, with an invalid tile: fp32 against its plain version at
+    the reference's 2e-5; K6 shares K2's body, so its fp32 output equals
+    K2's with row_scale = 1 bit for bit, and its bf16 output is that
+    result rounded once."""
+    bn = G.KERNEL_BLOCK_ROWS
+    N = N + 40                                   # a ragged last tile
+    x, wg, _, _, te, tv, _ = _inputs(N + K, N, K, F, E, bn, cuda_device)
+    before = G.LAUNCHES["gmm"]
+    y = G.gmm(x, wg, te, tv, bn=bn)
+    torch.cuda.synchronize()
+    assert G.LAUNCHES["gmm"] == before + 1
+    torch.testing.assert_close(y, G.gmm_plain(x, wg, te, tv, bn), rtol=2e-5,
+                               atol=2e-5)
+    one = torch.ones(N, 1, device=cuda_device)
+    assert torch.equal(y, G.gmm_scaled(x, wg, te, tv, one, bn=bn))
+    xb, wb = x.bfloat16(), wg.bfloat16()
+    y2 = G.gmm_scaled(xb, wb, te, tv, one, bn=bn)
+    assert torch.equal(G.gmm(xb, wb, te, tv, bn=bn), y2.bfloat16())
+    assert torch.equal(G.gmm(xb, wb, te, tv, bn=bn, out_dtype=torch.float32),
+                       y2)
+    rows_invalid = (~tv).repeat_interleave(bn)[:N]
+    assert bool((y[rows_invalid] == 0).all())
+
+
+@pytest.mark.requires_cuda
+def test_cuda_gmm_raises_instead_of_falling_back(cuda_device):
+    x, wg, _, _, te, tv, _ = _inputs(1, 64, 16, 8, 2, 64, cuda_device)
+    with pytest.raises(ValueError, match="tiles 64 rows"):
+        G.gmm(x, wg, torch.zeros(8, dtype=torch.int32, device=cuda_device),
+              bn=8)
+    with pytest.raises(TypeError, match="no kernel for dtype"):
+        G.gmm(x.half(), wg.half(), te, tv, bn=64)
+    with pytest.raises(TypeError, match="no kernel writes"):
+        G.gmm(x, wg, te, tv, bn=64, out_dtype=torch.bfloat16)
+    with pytest.raises(ValueError, match="operands on"):
+        G.gmm(x, wg.cpu(), te, tv, bn=64)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("engine", [False, True])
+def test_cuda_llama_decode_runs_k5_once_per_layer_and_step(cuda_device,
+                                                            engine):
+    """The smoke llama decode on the card: K5 launched layers x decode
+    steps (static generate() and the engine), the tokens the CPU gives."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import generate, serve_continuous
+    from repro_torch.models.model import model_init
+    cfg = get_config("llama_moe_4_16", smoke=True)
+    params = model_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    gpu_params = _to(params, cuda_device)
+    L = cfg.num_layers
+    if engine:
+        rng = np.random.default_rng(1)
+        prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+                   for n in (6, 9, 4)]
+        kw = dict(num_slots=2, max_tokens=32, arrival_steps=[0, 0, 2],
+                  paged=True, page_size=4, num_pages=12, prefill_chunk=8)
+        cpu = serve_continuous(params, cfg, prompts, 5, device="cpu", **kw)
+        GT.reset_launches()
+        gpu = serve_continuous(gpu_params, cfg, prompts, 5, device="cuda",
+                               **kw)
+        for rid, toks in cpu["tokens"].items():
+            np.testing.assert_array_equal(gpu["tokens"][rid], toks)
+        steps = gpu["stats"]["decode_ticks"]
+    else:
+        prompts = torch.randint(0, cfg.vocab_size, (2, 12),
+                                generator=torch.Generator().manual_seed(1))
+        cpu = generate(params, cfg, prompts, 6, device="cpu")
+        GT.reset_launches()
+        gpu = generate(gpu_params, cfg, prompts.to(cuda_device), 6,
+                       device="cuda")
+        assert torch.equal(gpu["tokens"].cpu(), cpu["tokens"])
+        steps = 6
+    assert steps > 0 and GT.LAUNCHES["go_topk_update"] == L * steps

@@ -42,6 +42,7 @@ def test_importing_every_module_builds_and_loads_nothing():
             "repro_torch.serving.scheduler",
             "repro_torch.kernels.paged_attn",
             "repro_torch.kernels.slstm_cell",
+            "repro_torch.kernels.go_topk",
             "repro_torch.models.xlstm"} <= set(mods)
     code = ("import importlib, sys\n"
             f"for m in {mods!r}: importlib.import_module(m)\n"
@@ -95,4 +96,5 @@ def test_kernel_sources_ship_with_the_package():
     assert (build.CSRC / "moe_gmm.cu").is_file()
     assert (build.CSRC / "paged_attn.cu").is_file()
     assert (build.CSRC / "slstm_cell.cu").is_file()
+    assert (build.CSRC / "go_topk.cu").is_file()
     assert "sm_90a" in " ".join(build.NVCC_FLAGS)
