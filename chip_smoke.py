@@ -4,6 +4,12 @@
 Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
+    python3 chip_smoke.py --parent DIR   # DIR: an older csrc/ (moe_gmm.cu,
+                                         # paged_attn.cu), timed in turns
+
+With --parent, every timing of K1, K2, K4, K6, K7 and K8 runs that older
+body and this checkout's in turns (parent, change, change, parent) in the
+same call; without it, each kernel is timed alone.
 
 Phases (none catches an exception; any failure exits non-zero):
   0. the card's name and power limit; build the CUDA kernels from
@@ -14,12 +20,15 @@ Phases (none catches an exception; any failure exits non-zero):
      tile plan and its decode on the [16*bn, 4096] selected-pair layout;
      granite's decode on a real token-choice dispatch plan, 4 rows top-8
      of 40), with median times of kernel, plain version and one library
-     call (`library_ms`).
+     call (`library_ms`), achieved bytes/s and share of the bound; a
+     second launch must repeat every bit.
   2. K7 gmm_swiglu_fused and K8 gmm_scaled_fused (the fused lane pairs of
      the C1 group path): fp32 at small ragged shapes with straddle tiles
      (mid-tile, at a tile's last row, an empty primary lane, invalid tail
      tiles), then bf16 at the full-width granite prefill plan (4 x 128
-     tokens, top-8 of 40, group-major lanes fused pairwise), with times.
+     tokens, top-8 of 40, group-major lanes fused pairwise), with times;
+     off the straddle tiles they must equal K1/K2 bit for bit (one bf16
+     body), and a second launch must repeat every bit.
   1b. K5 go_topk_update (the GO cache's TopKUpdate) against its plain
      version, bit for bit, at the reference's four shapes (empty rows, tied
      minima, new scores at the minimum; an int and a [B] token id;
@@ -36,6 +45,11 @@ Phases (none catches an exception; any failure exits non-zero):
      reused pages, ragged positions and kv_len), then bf16 at the engine
      run's full-width shapes of both models (llama 32/32 heads of 128,
      granite 24/8 heads of 64) with kernel, plain and library times.
+     K4's bf16 body also at every head_dim and GQA 1/3/4/16 against its
+     plain version; at both full-width chunks poisoned unreachable
+     positions (+-1e4) must move no output bit, a second launch must
+     repeat every bit, and 1, 2 and 4 warps per CTA are each checked and
+     timed (the wrapper picks one).
      K9 slstm_seq against its plain version: fp32 at the JAX test's three
      shapes, then xlstm-1.3b's full-width sLSTM (B 4, S 128, H 4, hd 512,
      fp32 u, bf16 r) with a planted fault beside it, with times.
@@ -168,6 +182,68 @@ def time_ms(torch, fn, flush, reps=15):
     return statistics.median(times)
 
 
+# `--parent DIR`: the parent commit's csrc/ sources of the two redesigned
+# kernel files, built beside this checkout's; every timing of K1, K2, K4,
+# K6, K7 and K8 then runs the two bodies in turns in this call.
+PARENT_SOURCES = ("moe_gmm", "paged_attn")
+PARENT = {}
+
+
+def timed(torch, kern, flush, parent=None):
+    """{"ms": median launch time}; with the parent body's closure the two
+    run in turns, parent, change, change, parent, and "ms" is the mean of
+    the change's two medians, "parent_ms" of the parent's."""
+    if parent is None:
+        return {"ms": time_ms(torch, kern, flush)}
+    t = [time_ms(torch, f, flush) for f in (parent, kern, kern, parent)]
+    return {"ms": (t[1] + t[2]) / 2, "parent_ms": (t[0] + t[3]) / 2,
+            "turns_ms": t}
+
+
+def parent_call(torch, source, fn, *args):
+    """A closure launching the parent body's C entry `fn` of `source` on
+    `args` (tensors by pointer, floats as float, ints as int; the stream
+    last); None without --parent."""
+    import ctypes
+    if source not in PARENT:
+        return None
+    f = getattr(PARENT[source], fn)
+    conv = [(ctypes.c_void_p, a.data_ptr()) if isinstance(a, torch.Tensor)
+            else (ctypes.c_float, a) if isinstance(a, float)
+            else (ctypes.c_int, int(a)) for a in args]
+    f.argtypes = [c for c, _ in conv] + [ctypes.c_void_p]
+    f.restype = ctypes.c_int
+
+    def run():
+        rc = f(*(v for _, v in conv), torch.cuda.current_stream().cuda_stream)
+        need(rc == 0, f"parent {fn}: cudaError {rc}")
+    return run
+
+
+def parent_gmm(torch, G, name, x, ws, te, tv, N, K, F, out_dtype,
+               scale=None, te2=None, sel=None):
+    """The parent body of K1/K2/K6/K7/K8 on the wrapper's operands."""
+    if not PARENT:
+        return None
+    i32 = torch.int32
+    te, tv = te.to(i32).contiguous(), tv.to(i32).contiguous()
+    out = torch.empty((N, F), dtype=out_dtype, device=x.device)
+    fused = () if te2 is None else (te2.to(i32).contiguous(),)
+    rest = (tv,) + (() if sel is None else
+                    (sel.reshape(N).float().contiguous(),))
+    sc = () if scale is None else (scale.reshape(N).float().contiguous(),)
+    return parent_call(torch, "moe_gmm", name, x, *ws, te, *fused, *rest,
+                       *sc, out, N, K, F, G.KERNEL_BLOCK_ROWS)
+
+
+def rates(entry, nbytes):
+    """Achieved bytes/s (the bytes the bound counts over the kernel's time)
+    and the share of the bound the kernel reaches."""
+    entry["achieved_bytes_per_s"] = nbytes / (entry["ms"] * 1e-3)
+    entry["bound_share"] = entry["bound_ms"] / entry["ms"]
+    return entry
+
+
 def bound(rows, experts, K, F, n_out_rows, swiglu, out_elem_bytes=None):
     """Least time (ms) for the work this run's data needs: real rows and the
     weights of experts that own one, each read once; every output row
@@ -179,6 +255,12 @@ def bound(rows, experts, K, F, n_out_rows, swiglu, out_elem_bytes=None):
     flops = 2 * streams * rows * K * F
     t_b, t_f = nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
     return (t_b, "bytes") if t_b >= t_f else (t_f, "operations")
+
+
+def bound_bytes(rows, experts, K, F, n_out_rows, swiglu, out_elem_bytes=None):
+    """The bytes `bound` counts."""
+    return bound(rows, experts, K, F, n_out_rows, swiglu,
+                 out_elem_bytes)[0] * 1e-3 * HBM_BPS
 
 
 def kernel_phase_small(torch, G):
@@ -317,6 +399,7 @@ def kernel_phase_full(torch, G, OPS, R, cfg_granite):
         te, tv, x, sc = r["te"], r["tv"], r["x"], r["sc"]
         wg, wi, wo, _ = r["w"]
         Kp, Fp = r["K"], r["F"]
+        N = x.shape[0]
         h = G.gmm_swiglu(x, wg, wi, te, tv, bn=bn)
         hp = G.gmm_swiglu_plain(x, wg, wi, te, tv, bn)
         y = G.gmm_scaled(h, wo, te, tv, sc, bn=bn)
@@ -328,26 +411,38 @@ def kernel_phase_full(torch, G, OPS, R, cfg_granite):
              f"K1 bf16 {phase} err {e1}")
         need(torch.allclose(y, yp, rtol=1e-4, atol=1e-4),
              f"K2 bf16 {phase} err {e2}")
+        need(torch.equal(h, G.gmm_swiglu(x, wg, wi, te, tv, bn=bn)) and
+             torch.equal(y, G.gmm_scaled(h, wo, te, tv, sc, bn=bn)),
+             f"K1/K2 bf16 {phase}: a second launch gave other bits")
         h_runs = torch.zeros(r["lib_x"].shape[0], r["lib_x"].shape[1], Fp,
                              dtype=bf, device="cuda")
-        for name, kern, plain, lib, err, swiglu, Kd, Fd in [
+        for name, kern, plain, lib, err, swiglu, Kd, Fd, parent in [
             ("gmm_swiglu",
              lambda: G.gmm_swiglu(x, wg, wi, te, tv, bn=bn),
              lambda: G.gmm_swiglu_plain(x, wg, wi, te, tv, bn),
-             lambda: torch.bmm(r["lib_x"], r["lib_w"]), e1, True, Kp, Fp),
+             lambda: torch.bmm(r["lib_x"], r["lib_w"]), e1, True, Kp, Fp,
+             parent_gmm(torch, G, "gmm_swiglu_bf16", x, (wg, wi), te, tv, N,
+                        Kp, Fp, bf)),
             ("gmm_scaled",
              lambda: G.gmm_scaled(h, wo, te, tv, sc, bn=bn),
              lambda: G.gmm_scaled_plain(h, wo, te, tv, sc, bn),
-             lambda: torch.bmm(h_runs, r["lib_wo"]), e2, False, Fp, Kp),
+             lambda: torch.bmm(h_runs, r["lib_wo"]), e2, False, Fp, Kp,
+             parent_gmm(torch, G, "gmm_scaled_bf16", h, (wo,), te, tv, N,
+                        Fp, Kp, torch.float32, scale=sc)),
         ]:
             b_ms, b_by = bound(r["rows"], r["experts"], Kd, Fd, r["n_rows"],
                                swiglu)
-            out[name][phase] = {
+            out[name][phase] = rates({
                 "shape": r["shape"], "max_abs_err": err,
-                "ms": time_ms(torch, kern, flush),
+                **timed(torch, kern, flush, parent),
                 "plain_ms": time_ms(torch, plain, flush),
                 "library_ms": time_ms(torch, lib, flush),
-                "bound_ms": b_ms, "bound_by": b_by}
+                "bound_ms": b_ms, "bound_by": b_by,
+                "tiles_per_block": G.gemm_ring(N, Kd, Fd, r["w"][0].shape[0],
+                                               swiglu=swiglu)[
+                                                   "tiles_per_block"]},
+                bound_bytes(r["rows"], r["experts"], Kd, Fd, r["n_rows"],
+                            swiglu))
             print(f"[kernels bf16 {phase}] {name} {r['shape']}: "
                   f"{json.dumps(out[name][phase])}", flush=True)
     return out, results["prefill"]
@@ -522,15 +617,20 @@ def gmm_phase_full(torch, G, OPS, pf, counts, reset_counts):
                         atol=GMM_TOL_BF16), f"K6 bf16 err {err}")
     need(torch.equal(y, y2.to(torch.bfloat16)) and torch.equal(y32, y2),
          "K6 differs from K2 with a unit row scale")
+    need(torch.equal(y, G.gmm(h, wo, te, tv, bn=bn)),
+         "K6 bf16: a second launch gave other bits")
     need(bool((y[~rv] == 0).all()), "expert_ffn_gmm: padding rows not zero")
     h_runs = h[rv].reshape(E, -1, F)
     b_ms, b_by = bound(pf["rows"], pf["experts"], F, K, pf["n_rows"], False,
                        out_elem_bytes=2)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    N = x.shape[0]
     entry = {"shape": f"expert_ffn_gmm {pf['shape']}, x [{x.shape[0]}, {F}] "
                       f"-> [{x.shape[0]}, {K}] bf16",
              "max_abs_err": err, "path_max_abs_err": e_path,
-             "ms": time_ms(torch, lambda: G.gmm(h, wo, te, tv, bn=bn), flush),
+             **timed(torch, lambda: G.gmm(h, wo, te, tv, bn=bn), flush,
+                     parent_gmm(torch, G, "gmm_bf16", h, (wo,), te, tv, N, F,
+                                K, torch.bfloat16)),
              "plain_ms": time_ms(torch,
                                  lambda: G.gmm_plain(h, wo, te, tv, bn),
                                  flush),
@@ -538,7 +638,10 @@ def gmm_phase_full(torch, G, OPS, pf, counts, reset_counts):
                                    flush),
              "bound_ms": b_ms, "bound_by": b_by,
              "path_ms": time_ms(torch, lambda: OPS.expert_ffn_gmm(
-                 x, wg, wi, wo, te, tv, bn=bn), flush)}
+                 x, wg, wi, wo, te, tv, bn=bn), flush),
+             "tiles_per_block": G.gemm_ring(N, F, K, E)["tiles_per_block"]}
+    rates(entry, bound_bytes(pf["rows"], pf["experts"], F, K, pf["n_rows"],
+                             False, out_elem_bytes=2))
     del flush
     print(f"[gmm bf16] {json.dumps(entry)}; launches {launches}; bit-equal "
           "to K2 at unit scale", flush=True)
@@ -654,6 +757,17 @@ def fused_phase_full(torch, G, OPS, MOE, R, TM, cfg):
          f"K7 bf16 granite err {e1}")
     need(torch.allclose(y, yp, rtol=1e-4, atol=1e-4),
          f"K8 bf16 granite err {e2}")
+    # one body: off the straddle tiles K7/K8 are K1/K2 bit for bit, and a
+    # second launch repeats every bit
+    off = (te2 == te).repeat_interleave(bn)
+    h1 = G.gmm_swiglu(x, wg, wi, te, tv, bn=bn)
+    y1 = G.gmm_scaled(h, wo, te, tv, sc, bn=bn)
+    need(torch.equal(h[off], h1[off]) and torch.equal(y[off], y1[off]),
+         "K7/K8 bf16 differ from K1/K2 on tiles that straddle nothing")
+    need(torch.equal(h, G.gmm_swiglu(x, wg, wi, te, tv, bn=bn, **kw)) and
+         torch.equal(y, G.gmm_scaled(h, wo, te, tv, sc, bn=bn, **kw)),
+         "K7/K8 bf16: a second launch gave other bits")
+    del h1, y1
 
     ni = plan.n_tiles
     strad = (te2 != te) & tv
@@ -674,23 +788,32 @@ def fused_phase_full(torch, G, OPS, MOE, R, TM, cfg):
              f"{int(strad.sum())} straddle), {rows} pairs on {experts} "
              f"experts, K={K} F={F}")
     out = {}
-    for name, kern, plain, lib, err, swiglu, Kd, Fd in [
+    N = plan.n_pad
+    for name, kern, plain, lib, err, swiglu, Kd, Fd, parent in [
         ("gmm_swiglu_fused",
          lambda: G.gmm_swiglu(x, wg, wi, te, tv, bn=bn, **kw),
          lambda: G.gmm_swiglu_fused_plain(x, wg, wi, te, te2, tv, sel, bn),
-         lambda: torch.bmm(lib_x, lib_w), e1, True, K, F),
+         lambda: torch.bmm(lib_x, lib_w), e1, True, K, F,
+         parent_gmm(torch, G, "gmm_swiglu_fused_bf16", x, (wg, wi), te, tv,
+                    N, K, F, bf, te2=te2, sel=sel)),
         ("gmm_scaled_fused",
          lambda: G.gmm_scaled(h, wo, te, tv, sc, bn=bn, **kw),
          lambda: G.gmm_scaled_fused_plain(h, wo, te, te2, tv, sel, sc, bn),
-         lambda: torch.bmm(lib_h, lib_wo), e2, False, F, K),
+         lambda: torch.bmm(lib_h, lib_wo), e2, False, F, K,
+         parent_gmm(torch, G, "gmm_scaled_fused_bf16", h, (wo,), te, tv, N,
+                    F, K, torch.float32, scale=sc, te2=te2, sel=sel)),
     ]:
         flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
         b_ms, b_by = bound(rows, experts, Kd, Fd, plan.n_pad, swiglu)
-        out[name] = {"shape": shape, "max_abs_err": err,
-                     "ms": time_ms(torch, kern, flush),
-                     "plain_ms": time_ms(torch, plain, flush),
-                     "library_ms": time_ms(torch, lib, flush),
-                     "bound_ms": b_ms, "bound_by": b_by}
+        out[name] = rates({
+            "shape": shape, "max_abs_err": err,
+            **timed(torch, kern, flush, parent),
+            "plain_ms": time_ms(torch, plain, flush),
+            "library_ms": time_ms(torch, lib, flush),
+            "bound_ms": b_ms, "bound_by": b_by,
+            "tiles_per_block": G.gemm_ring(N, Kd, Fd, E, swiglu=swiglu)[
+                "tiles_per_block"]},
+            bound_bytes(rows, experts, Kd, Fd, plan.n_pad, swiglu))
         del flush
         print(f"[kernels bf16 granite] {name}: {json.dumps(out[name])}",
               flush=True)
@@ -780,6 +903,36 @@ def paged_phase_small(torch, PA):
     return worst
 
 
+def chunk_bf16_sweep(torch, PA):
+    """K4's bf16 body at every head_dim the wrapper takes and GQA 1, 3, 4
+    and 16 (2 kv heads, 24 queries at 37..60 against kv_len 57: 4 pad
+    queries, a ragged last warp of rows), against its plain version on the
+    real queries at PAGED_TOL_BF16; a second launch repeats every bit."""
+    g = torch.Generator(device="cuda").manual_seed(10)
+    bf, nkv, ps, P, Cs, start, kv_len = torch.bfloat16, 2, 16, 5, 24, 37, 57
+    worst = 0.0
+    for hd in PA.KERNEL_HEAD_DIMS:
+        for G_ in (1, 3, 4, 16):
+            kp, vp, bt = _pools(torch, g, 2, P, ps, nkv, hd, bf, [kv_len] * 2)
+            q = torch.randn(2, Cs, nkv * G_, hd, device="cuda",
+                            generator=g).to(bf)
+            out = PA.paged_attn_chunk(q, kp, vp, bt, start, kv_len)
+            ref = PA.paged_attn_chunk_plain(q, kp, vp, bt, start, kv_len)
+            n = kv_len - start
+            err = (out[:, :n] - ref[:, :n]).abs().max().item()
+            worst = max(worst, err)
+            need(torch.allclose(out[:, :n], ref[:, :n], rtol=PAGED_TOL_BF16,
+                                atol=PAGED_TOL_BF16),
+                 f"K4 bf16 hd={hd} G={G_} err {err}")
+            need(bool(torch.isfinite(out).all()) and torch.equal(
+                out, PA.paged_attn_chunk(q, kp, vp, bt, start, kv_len)),
+                f"K4 bf16 hd={hd} G={G_}: not finite or not repeatable")
+    print(f"[paged bf16] K4 at head_dim {PA.KERNEL_HEAD_DIMS} x GQA "
+          f"(1, 3, 4, 16): max_abs_err {worst:.3e} (tol {PAGED_TOL_BF16:g}); "
+          "repeats bit-equal", flush=True)
+    return worst
+
+
 def paged_phase_full(torch, PA, cfg, page_size, max_tokens):
     """K3 and K4 in bf16 at the shapes of the full-width engine run: the
     four first requests' last decode tick (t = prompt + 31) and the last
@@ -839,28 +992,70 @@ def paged_phase_full(torch, PA, cfg, page_size, max_tokens):
     keys = sum(min(p + 1, kv_len) for p in range(start, start + Cs))
     nbytes = live * page_bytes + Cs * Hq * hd * (2 + 4)
     flops = 4 * Hq * hd * keys
-    out["paged_attn_chunk"] = _paged_entry(
+    o_par = torch.empty(1, Cs, Hq, hd, device="cuda")
+    entry = _paged_entry(
         torch, flush,
         lambda: PA.paged_attn_chunk(qc, kp, vp, bt, start, kv_len),
         lambda: PA.paged_attn_chunk_plain(qc, kp, vp, bt, start, kv_len),
         lib_chunk, nbytes, flops, f"B=1 Cs={Cs} start={start} "
-        f"kv_len={kv_len} Hq={Hq} Hkv={Hkv} hd={hd} ps={ps}, {live} live pages")
+        f"kv_len={kv_len} Hq={Hq} Hkv={Hkv} hd={hd} ps={ps}, {live} live pages",
+        parent_call(torch, "paged_attn", "paged_attn_chunk_bf16", qc, kp, vp,
+                    bt, o_par, 1, Cs, Hkv, Hq // Hkv, hd, ps, P, start, kv_len,
+                    0, 0.0))
+    # poison: +-1e4 at every position no query may read (past kv_len in
+    # the last live page, the pages past it, the null page) moves no bit
+    pos = torch.arange(kv_len, device="cuda")
+    readable = torch.zeros(kp.shape[:2], dtype=torch.bool, device="cuda")
+    readable[bt[0, pos // ps].long(), pos % ps] = True
+    sel = readable[:, :, None, None]
+    clean = PA.paged_attn_chunk(qc, kp * sel, vp * sel, bt, start, kv_len)
+    dirty = PA.paged_attn_chunk(qc, torch.where(sel, kp, 1e4),
+                                torch.where(sel, vp, -1e4), bt, start, kv_len)
+    need(torch.equal(clean, dirty), f"K4 bf16 {cfg.name}: poisoned "
+         "unreachable positions moved an output bit")
+    # warps per CTA (the wrapper's chunk_warps picks one), through the C
+    # entry, each against the plain version
+    lib, ref = PA._lib(), PA.paged_attn_chunk_plain(qc, kp, vp, bt, start,
+                                                     kv_len)
+    entry["warps"] = PA.chunk_warps(Cs * (Hq // Hkv))
+    entry["warps_ms"] = {}
+    for w in (1, 2, 4):
+        o = torch.empty(1, Cs, Hq, hd, device="cuda")
+
+        def launch(w=w, o=o):
+            rc = lib.paged_attn_chunk_bf16(
+                qc.data_ptr(), kp.data_ptr(), vp.data_ptr(), bt.data_ptr(),
+                o.data_ptr(), 1, Cs, Hkv, Hq // Hkv, hd, ps, P, start, kv_len,
+                0, 0.0, w, torch.cuda.current_stream().cuda_stream)
+            need(rc == 0, f"K4 at {w} warps per CTA: cudaError {rc}")
+        launch()
+        need(torch.allclose(o, ref, rtol=PAGED_TOL_BF16, atol=PAGED_TOL_BF16),
+             f"K4 bf16 at {w} warps per CTA")
+        entry["warps_ms"][w] = time_ms(torch, launch, flush)
+    print(f"[paged bf16] {cfg.name} K4 poisoned pages: outputs bit-equal; "
+          f"ms by warps per CTA {entry['warps_ms']} (chosen: "
+          f"{entry['warps']})", flush=True)
+    out["paged_attn_chunk"] = entry
     return out
 
 
-def _paged_entry(torch, flush, kern, plain, lib, nbytes, flops, shape):
+def _paged_entry(torch, flush, kern, plain, lib, nbytes, flops, shape,
+                 parent=None):
     got, ref = kern(), plain()
     torch.cuda.synchronize()
     err = (got - ref).abs().max().item()
     need(torch.allclose(got, ref, rtol=PAGED_TOL_BF16, atol=PAGED_TOL_BF16),
          f"paged attention bf16 err {err} ({shape})")
+    need(torch.equal(got, kern()), f"paged attention bf16: a second launch "
+         f"gave other bits ({shape})")
     t_b, t_f = nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
-    entry = {"shape": shape, "max_abs_err": err,
-             "ms": time_ms(torch, kern, flush),
-             "plain_ms": time_ms(torch, plain, flush),
-             "library_ms": time_ms(torch, lib, flush),
-             "bound_ms": max(t_b, t_f),
-             "bound_by": "bytes" if t_b >= t_f else "operations"}
+    entry = rates({"shape": shape, "max_abs_err": err,
+                   **timed(torch, kern, flush, parent),
+                   "plain_ms": time_ms(torch, plain, flush),
+                   "library_ms": time_ms(torch, lib, flush),
+                   "bound_ms": max(t_b, t_f),
+                   "bound_by": "bytes" if t_b >= t_f else "operations"},
+                  nbytes)
     print(f"[paged bf16] {json.dumps(entry)}", flush=True)
     return entry
 
@@ -1358,15 +1553,16 @@ def _kind(name):
     """Profile bucket of a device kernel's name."""
     if "paged_decode_kernel" in name:
         return "K3 paged_attn_decode"
-    if "paged_chunk_kernel" in name:
+    if "paged_chunk_kernel" in name or "paged_chunk_tc_kernel" in name:
         return "K4 paged_attn_chunk"
     if "go_topk_kernel" in name:
         return "K5 go_topk_update"
     if "gmm_kernel" in name:
-        # template arguments <T, SWIGLU, FUSED, OUT>, demangled or mangled;
-        # OUT 2 scales the rows (K2, K8), K6 stores the sum (OUT 0 or 1)
+        # template arguments <T, SWIGLU, FUSED, OUT, TM, STAGES>, demangled
+        # or mangled; OUT 2 scales the rows (K2, K8), K6 stores the sum (OUT
+        # 0 or 1)
         m = re.search(r"gmm_kernel<[^,]+, (true|false), (true|false), "
-                      r"\(?\w*\)?(\d)>", name) \
+                      r"(?:\([^)]*\))?(\d)(?:, \d+)*>", name) \
             or re.search(r"Lb([01])ELb([01])ELi(\d)E", name)
         swiglu, fused = (m.group(i) in ("true", "1") for i in (1, 2))
         if not swiglu and not fused and m.group(3) != "2":
@@ -1455,8 +1651,15 @@ def main():
     torch.set_float32_matmul_precision("highest")
     card = card_line()
     print(f"[card] {card}", flush=True)
-    build_s = build.build_all()
+    parent = sys.argv[sys.argv.index("--parent") + 1] \
+        if "--parent" in sys.argv else None
+    extra = [os.path.join(parent, f"{n}.cu") for n in PARENT_SOURCES] \
+        if parent else []
+    build_s = build.build_all(extra)
     print(f"[build] kernels built in {build_s:.1f} s", flush=True)
+    for n, src in zip(PARENT_SOURCES, extra):
+        PARENT[n] = build.load_path(src)
+        print(f"[build] parent body {src}: timed in turns", flush=True)
     for name, log in build.BUILD_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "Compiling entry" in line:
@@ -1484,6 +1687,7 @@ def main():
     timings.update(fused_phase_full(torch, G, OPS, MOE, R, TM,
                                     cfgs[granite]))
     paged_phase_small(torch, PA)
+    chunk_bf16_sweep(torch, PA)
     paged = {m: paged_phase_full(torch, PA, cfgs[m], ENGINE_POOL["page_size"],
                                  ENGINE_POOL["max_tokens"]) for m in cfgs}
     for name, entry in paged[llama].items():
@@ -1562,7 +1766,9 @@ def main():
         entry.update({k: main_t[k] for k in (
             "planted_fault_err", "tol", "bound_bytes_ms",
             "bound_operations_ms", "bound_note", "library_note",
-            "path_max_abs_err", "path_ms") if k in main_t})
+            "path_max_abs_err", "path_ms", "parent_ms", "turns_ms",
+            "achieved_bytes_per_s", "bound_share", "tiles_per_block",
+            "warps", "warps_ms") if k in main_t})
         if "decode" in timings[name]:
             entry["shape"] = "prefill " + main_t["shape"]
             entry["decode"] = timings[name]["decode"]

@@ -56,12 +56,14 @@ def _lib_path(src: Path) -> Path:
     return build_dir() / f"lib{src.stem}_{digest}.so"
 
 
-def build_all() -> float:
-    """Compile every source whose library is missing, all at once. Returns
-    the wall seconds spent; raises with nvcc's output if one fails."""
+def build_all(extra=()) -> float:
+    """Compile every source whose library is missing, all at once, and the
+    `extra` sources (other builds of a kernel, e.g. a parent commit's for
+    a same-call comparison: load those with `load_path`). Returns the wall
+    seconds spent; raises with nvcc's output if one fails."""
     t0 = time.perf_counter()
     jobs = []
-    for src in sorted(CSRC.glob("*.cu")):
+    for src in [*sorted(CSRC.glob("*.cu")), *map(Path, extra)]:
         out = _lib_path(src)
         if out.exists():
             continue
@@ -73,7 +75,7 @@ def build_all() -> float:
     failed = []
     for src, out, tmp, proc in jobs:
         log, _ = proc.communicate()
-        BUILD_LOG[src.stem] = log
+        BUILD_LOG[src.stem if src.parent == CSRC else str(src)] = log
         if proc.returncode != 0:
             failed.append(f"nvcc {src.name} exited {proc.returncode}:\n{log}")
             continue
@@ -93,6 +95,12 @@ def load(name: str) -> ctypes.CDLL:
         lib = ctypes.CDLL(str(path))
         _LIBS[name] = lib
     return lib
+
+
+def load_path(src) -> ctypes.CDLL:
+    """The library of a source outside csrc/ that `build_all(extra=...)`
+    built; the wrappers never load it."""
+    return ctypes.CDLL(str(_lib_path(Path(src))))
 
 
 def check(rc: int, what: str) -> None:

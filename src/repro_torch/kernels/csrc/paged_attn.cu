@@ -25,22 +25,44 @@
 //
 // What bounds it on an H100: bytes. A decode reads each live page once per
 // kv head (ps * hd * 2 values) for 4 * hd FLOPs per key and query head:
-// about 1 FLOP per byte in bf16, far below the ~295 FLOP/byte ridge. The
-// design therefore reads only live pages: the page loop runs from the
-// first page the window can reach to the last page holding a key <= the
-// block's last query (the reference's liveness rule, here applied to the
-// query block), so dead pages, the null page behind a short row included,
-// cost no load and no FLOPs.
+// about 1 FLOP per byte in bf16, far below the ~295 FLOP/byte ridge. A
+// chunk of 128 queries does ~128x more FLOPs on the same pages (llama's
+// last chunk: ~0.8 GFLOP over ~7.3 MB), still under the ridge, but only if
+// the products run on the tensor cores and each K/V tile is reused by many
+// query rows. Both kernels read only live pages: the key loop runs from the
+// first key the window can reach to the last key < kv_len that the block's
+// last query may see (the reference's liveness rule, applied to the block's
+// rows), so dead pages, the null page behind a short row included, cost no
+// load and no FLOPs.
 //
-// Design: one block of 128 threads per (kv head h, row b, block of query
-// rows; a decode has one query per row). A block holds up to 16 (query,
-// head) rows: the G query heads of kv head h for each of its queries
-// (decode: G rows). Per page it stages
-// tiles of KT keys of K[page, :, h, :] and V with 16-byte loads into shared
-// memory, computes the KT x rows scores with groups of threads per dot
-// product (shuffle-reduced), updates the softmax statistics one warp per
-// row, and accumulates PV into fp32 registers (rows x hd spread over the
-// threads). Simple first: no TMA, no wgmma, no split-KV (later work).
+// K3 and the fp32 K4 share one block body (`attend`): one block of 128
+// threads per (kv head h, row b, block of up to 16 (query, head) rows),
+// tiles of KT keys staged with 16-byte loads, scores as fp32 dot products
+// from shared memory (shuffle-reduced), the softmax one warp per row, PV
+// into fp32 registers. Split-KV for K3 is later work.
+//
+// The bf16 K4 has a FlashAttention-2-style body of its own
+// (`paged_chunk_tc_kernel`). A warp owns 16 (query, head) rows, folded as
+// r = qi * G + g so GQA needs no second pass, and keeps their Q fragments
+// in registers for the whole key loop. A CTA of W warps (16 W rows; the
+// wrapper's chunk_warps picks 4 wherever a chunk has more than 32 rows per
+// kv head: every K/V tile then feeds 64 rows, which beat more, smaller
+// CTAs at both served chunk shapes) walks key tiles of chunk_kt keys (64,
+// or 32 at head_dim 256: several pages of 16), each gathered through the
+// block table with 16-byte cp.async copies into a ring of chunk_stages
+// (3, or 2 at head_dim 256), so later tiles' loads overlap this tile's
+// math under one __syncthreads per tile; keys outside the block's live
+// range are zero-filled by the copy (src-size 0) and never read.
+// S = Q K^T runs on mma.sync m16n8k16 (bf16 in, fp32 accumulate; K by
+// ldmatrix), then the scale, the softcap and the masks in fp32 registers;
+// a masked score is -inf against a running max that starts at the
+// reference's -1e30, so a masked key gets p = 0 exactly and a row that has
+// seen no live key yet gets no NaN. The online softmax keeps its row max
+// and sum in registers (quad shuffles); l sums the unrounded p, and P,
+// rounded to bf16 (the reference's p.astype(v.dtype)), is the A operand of
+// PV on mma.sync (V by ldmatrix.trans). A warp skips the math of a tile
+// that none of its rows can see. The tile range per CTA is
+// kernels/paged_attn.py:chunk_tiles.
 //
 // C interface: each entry point launches on the given stream and returns
 // cudaGetLastError() as an int (0 = launched); an unsupported head_dim
@@ -244,7 +266,8 @@ __global__ void __launch_bounds__(THREADS) paged_decode_kernel(
                 Hkv, G, 1, ps, P, window, softcap, scale);
 }
 
-// K4: one block per (kv head, row, block of QB queries of the chunk).
+// K4 in fp32: one block per (kv head, row, block of QB queries of the
+// chunk). The bf16 K4 runs paged_chunk_tc_kernel below.
 template <typename T, int HD>
 __global__ void __launch_bounds__(THREADS) paged_chunk_kernel(
     const T* __restrict__ q, const T* __restrict__ k_pages,
@@ -257,20 +280,359 @@ __global__ void __launch_bounds__(THREADS) paged_chunk_kernel(
                 scale);
 }
 
+// ----------------------------------------------------------- bf16 chunk body
+
+template <int HD>
+__host__ __device__ constexpr int chunk_kt() {  // keys per K/V tile
+  return HD > 128 ? 32 : 64;
+}
+
+template <int HD>
+__host__ __device__ constexpr int chunk_stages() {  // K/V ring depth
+  return HD > 128 ? 2 : 3;
+}
+
+template <int HD>
+__host__ __device__ constexpr int chunk_smem_bytes(int warps) {
+  // Q rows, then the K and V rings; rows padded by 16 bytes so ldmatrix's
+  // eight row reads of a matrix fall in distinct banks
+  return (16 * warps + 2 * chunk_stages<HD>() * chunk_kt<HD>()) * (HD + 8) *
+         2;
+}
+
+__device__ __forceinline__ unsigned smem_addr(const void* p) {
+  return static_cast<unsigned>(__cvta_generic_to_shared(p));
+}
+
+// 16 bytes global -> shared; src_bytes 0 zero-fills without reading.
+__device__ __forceinline__ void cp_async16(void* dst, const void* src,
+                                           int src_bytes) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+__device__ __forceinline__ void cp_async_commit() {
+  asm volatile("cp.async.commit_group;\n" ::);
+}
+
+template <int N>
+__device__ __forceinline__ void cp_async_wait() {
+  asm volatile("cp.async.wait_group %0;\n" ::"n"(N));
+}
+
+__device__ __forceinline__ void ldmatrix_x4(unsigned (&r)[4], const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.shared.b16 {%0, %1, %2, %3}, [%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+__device__ __forceinline__ void ldmatrix_x4_trans(unsigned (&r)[4],
+                                                  const void* p) {
+  asm volatile(
+      "ldmatrix.sync.aligned.m8n8.x4.trans.shared.b16 {%0, %1, %2, %3}, "
+      "[%4];\n"
+      : "=r"(r[0]), "=r"(r[1]), "=r"(r[2]), "=r"(r[3])
+      : "r"(smem_addr(p)));
+}
+
+// d += a (16x16, row) * b (16x8, col); bf16 in, fp32 accumulate
+__device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
+                                         unsigned b0, unsigned b1) {
+  asm volatile(
+      "mma.sync.aligned.m16n8k16.row.col.f32.bf16.bf16.f32 {%0, %1, %2, %3}, "
+      "{%4, %5, %6, %7}, {%8, %9}, {%0, %1, %2, %3};\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3])
+      : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
+}
+
+// two floats rounded to bf16 (p.astype(v.dtype)), lo in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// Keys a block of rows [row0, row0 + nrows) may see: [first, last]
+// (empty when last < first). chunk_tiles in kernels/paged_attn.py.
+__device__ __forceinline__ void chunk_key_range(int row0, int nrows, int G,
+                                                int start, int kv_len,
+                                                int window, int ps, int P,
+                                                int& first, int& last) {
+  const int q_first = row0 / G, q_last = (row0 + nrows - 1) / G;
+  last = min(min(kv_len - 1, start + q_last), P * ps - 1);
+  first = window > 0 ? max(0, start + q_first - window + 1) : 0;
+}
+
+// K4, bf16: one CTA of W warps per (kv head h, row b, block of 16 W
+// (query, head) rows); see the header.
+template <int HD, int W>
+__global__ void __launch_bounds__(32 * W) paged_chunk_tc_kernel(
+    const __nv_bfloat16* __restrict__ q,       // [B, Cs, Hkv * G, HD]
+    const __nv_bfloat16* __restrict__ k_pages, // [NP, ps, Hkv, HD]
+    const __nv_bfloat16* __restrict__ v_pages, // [NP, ps, Hkv, HD]
+    const int32_t* __restrict__ bt,            // [B, P]
+    float* __restrict__ out,                   // [B, Cs, Hkv * G, HD]
+    int Cs, int Hkv, int G, int ps, int P, int start, int kv_len, int window,
+    float softcap, float scale) {
+  using bf16 = __nv_bfloat16;
+  constexpr int KT = chunk_kt<HD>();
+  constexpr int STAGES = chunk_stages<HD>();
+  constexpr int LD = HD + 8;                 // smem row stride (elements)
+  constexpr int CPR = HD / 8;                // 16-byte chunks per row
+  constexpr int NT = 32 * W;                 // threads
+  constexpr int DN = HD / 8;                 // 8-wide output column tiles
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  bf16* sq = reinterpret_cast<bf16*>(dsmem);           // [16 W][LD]
+  bf16* sk = sq + 16 * W * LD;                          // [STAGES][KT][LD]
+  bf16* sv = sk + STAGES * KT * LD;                     // [STAGES][KT][LD]
+
+  const int h = blockIdx.x, b = blockIdx.y;
+  const int Hq = Hkv * G;
+  const int R = Cs * G;                      // (query, head) rows of (b, h)
+  const int row0 = blockIdx.z * 16 * W;
+  const int nrows = min(16 * W, R - row0);
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int g8 = lane / 4, tig = lane % 4;
+
+  int first_key, last_key;
+  chunk_key_range(row0, nrows, G, start, kv_len, window, ps, P, first_key,
+                  last_key);
+  const int t_lo = first_key / KT;
+  const int t_hi = last_key < first_key ? t_lo - 1 : last_key / KT;
+
+  // this warp's rows and the keys they may see
+  const int wrow0 = row0 + warp * 16;
+  const int wrows = min(16, R - wrow0);
+  int w_first = 0, w_last = -1;
+  if (wrows > 0)
+    chunk_key_range(wrow0, wrows, G, start, kv_len, window, ps, P, w_first,
+                    w_last);
+
+  // Q rows -> shared (zeros past R)
+  for (int c = tid; c < 16 * W * CPR; c += NT) {
+    const int r = c / CPR, cc = (c % CPR) * 8;
+    const int gr = row0 + r;
+    const bool live = gr < R;
+    const size_t src =
+        live ? (((size_t)b * Cs + gr / G) * Hq + h * G + gr % G) * HD + cc : 0;
+    cp_async16(sq + r * LD + cc, q + src, live ? 16 : 0);
+  }
+  auto load_tile = [&](int t, int slot) {
+    bf16* dk = sk + slot * KT * LD;
+    bf16* dv = sv + slot * KT * LD;
+#pragma unroll 4
+    for (int c = tid; c < KT * CPR; c += NT) {
+      const int kk = c / CPR, cc = (c % CPR) * 8;
+      const int pos = t * KT + kk;
+      const bool live = pos >= first_key && pos <= last_key;
+      size_t src = 0;
+      if (live) {
+        const int page = bt[(size_t)b * P + pos / ps];
+        src = (((size_t)page * ps + pos % ps) * Hkv + h) * HD + cc;
+      }
+      cp_async16(dk + kk * LD + cc, k_pages + src, live ? 16 : 0);
+      cp_async16(dv + kk * LD + cc, v_pages + src, live ? 16 : 0);
+    }
+  };
+  // groups: Q and the first tile, then one tile each
+#pragma unroll
+  for (int j = 0; j < STAGES - 1; ++j) {
+    if (t_lo + j <= t_hi) load_tile(t_lo + j, j);
+    cp_async_commit();
+  }
+
+  // per-thread rows: g8 and g8 + 8 of the warp's 16
+  int qpos[2];
+#pragma unroll
+  for (int i = 0; i < 2; ++i) qpos[i] = start + (wrow0 + g8 + 8 * i) / G;
+  float m[2] = {NEG_INF, NEG_INF};
+  float l[2] = {0.0f, 0.0f};                 // this thread's part of the sum
+  float o[DN][4];
+#pragma unroll
+  for (int dn = 0; dn < DN; ++dn)
+#pragma unroll
+    for (int e = 0; e < 4; ++e) o[dn][e] = 0.0f;
+  unsigned qa[HD / 16][4];
+
+  for (int t = t_lo; t <= t_hi; ++t) {
+    const int it = t - t_lo;
+    cp_async_wait<STAGES - 2>();             // tile t (and Q) have landed
+    __syncthreads();     // ... for every thread; slot (it - 1) is free again
+    if (t + STAGES - 1 <= t_hi)
+      load_tile(t + STAGES - 1, (it + STAGES - 1) % STAGES);
+    cp_async_commit();
+    if (it == 0) {
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks)
+        ldmatrix_x4(qa[ks], sq + (warp * 16 + lane % 16) * LD + ks * 16 +
+                                (lane / 16) * 8);
+    }
+    const bool sees = wrows > 0 && t * KT <= w_last &&
+                      (t + 1) * KT - 1 >= w_first;
+    if (sees) {
+      const bf16* tk = sk + (it % STAGES) * KT * LD;
+      const bf16* tvv = sv + (it % STAGES) * KT * LD;
+      // S = Q K^T: KT / 8 column tiles of 8 keys
+      float s[KT / 8][4];
+#pragma unroll
+      for (int n = 0; n < KT / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) s[n][e] = 0.0f;
+#pragma unroll
+      for (int ks = 0; ks < HD / 16; ++ks) {
+#pragma unroll
+        for (int nj = 0; nj < KT / 16; ++nj) {
+          unsigned kb[4];
+          ldmatrix_x4(kb, tk + (nj * 16 + lane % 8 + (lane / 16) * 8) * LD +
+                              ks * 16 + ((lane / 8) % 2) * 8);
+          mma_bf16(s[2 * nj], qa[ks], kb[0], kb[1]);
+          mma_bf16(s[2 * nj + 1], qa[ks], kb[2], kb[3]);
+        }
+      }
+      // scale, softcap, masks; the row max
+      float mx[2] = {-INFINITY, -INFINITY};
+#pragma unroll
+      for (int n = 0; n < KT / 8; ++n)
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          float v = s[n][e] * scale;
+          if (softcap > 0.0f) v = softcap * tanhf(v / softcap);
+          const int kpos = t * KT + n * 8 + 2 * tig + (e % 2);
+          const int qp = qpos[e / 2];
+          const bool live = kpos <= last_key && kpos < kv_len && kpos <= qp &&
+                            (window <= 0 || kpos > qp - window);
+          s[n][e] = live ? v : -INFINITY;
+          mx[e / 2] = fmaxf(mx[e / 2], s[n][e]);
+        }
+      float corr[2];
+#pragma unroll
+      for (int i = 0; i < 2; ++i) {
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 1));
+        mx[i] = fmaxf(mx[i], __shfl_xor_sync(0xffffffffu, mx[i], 2));
+        const float m_new = fmaxf(m[i], mx[i]);
+        corr[i] = expf(m[i] - m_new);
+        m[i] = m_new;
+        l[i] *= corr[i];
+      }
+      // p = exp(s - m) (masked: exp(-inf) = 0), l sums it unrounded, the
+      // bf16 P fragments feed PV
+      unsigned pa[KT / 16][4];
+#pragma unroll
+      for (int n = 0; n < KT / 8; ++n) {
+        float p[4];
+#pragma unroll
+        for (int e = 0; e < 4; ++e) {
+          p[e] = expf(s[n][e] - m[e / 2]);
+          l[e / 2] += p[e];
+        }
+        pa[n / 2][(n % 2) * 2] = pack_bf16(p[0], p[1]);
+        pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
+      }
+#pragma unroll
+      for (int dn = 0; dn < DN; ++dn) {
+        o[dn][0] *= corr[0];
+        o[dn][1] *= corr[0];
+        o[dn][2] *= corr[1];
+        o[dn][3] *= corr[1];
+      }
+      // O += P V: V fragments by ldmatrix.trans, 16 keys x 16 columns each
+#pragma unroll
+      for (int kj = 0; kj < KT / 16; ++kj) {
+#pragma unroll
+        for (int dj = 0; dj < HD / 16; ++dj) {
+          unsigned vb[4];
+          ldmatrix_x4_trans(
+              vb, tvv + (kj * 16 + lane % 8 + ((lane / 8) % 2) * 8) * LD +
+                      dj * 16 + (lane / 16) * 8);
+          mma_bf16(o[2 * dj], pa[kj], vb[0], vb[1]);
+          mma_bf16(o[2 * dj + 1], pa[kj], vb[2], vb[3]);
+        }
+      }
+    }
+  }
+  cp_async_wait<0>();
+
+#pragma unroll
+  for (int i = 0; i < 2; ++i) {
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 1);
+    l[i] += __shfl_xor_sync(0xffffffffu, l[i], 2);
+    const int gr = wrow0 + g8 + 8 * i;
+    if (gr >= R) continue;
+    const float den = fmaxf(l[i], 1e-20f);
+    float* dst = out + (((size_t)b * Cs + gr / G) * Hq + h * G + gr % G) * HD;
+#pragma unroll
+    for (int dn = 0; dn < DN; ++dn)
+      *reinterpret_cast<float2*>(dst + dn * 8 + 2 * tig) =
+          make_float2(o[dn][2 * i] / den, o[dn][2 * i + 1] / den);
+  }
+}
+
+// Lets a kernel use `bytes` of dynamic shared memory, and asks for the
+// SM's whole carveout as shared memory: by default the carveout
+// may hold fewer CTAs than fit.
+template <typename K>
+cudaError_t set_smem(K kernel, int bytes) {
+  cudaError_t e = cudaFuncSetAttribute(
+      kernel, cudaFuncAttributeMaxDynamicSharedMemorySize, bytes);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(kernel,
+                              cudaFuncAttributePreferredSharedMemoryCarveout,
+                              (int)cudaSharedmemCarveoutMaxShared);
+}
+
+template <int HD, int W>
+int launch_chunk_tc(const void* q, const void* kp, const void* vp,
+                    const void* bt, void* out, int B, int Cs, int Hkv, int G,
+                    int ps, int P, int start, int kv_len, int window,
+                    float softcap, float scale, cudaStream_t st) {
+  constexpr int smem = chunk_smem_bytes<HD>(W);
+  static const cudaError_t attr = set_smem(paged_chunk_tc_kernel<HD, W>, smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int ctas = (Cs * G + 16 * W - 1) / (16 * W);
+  paged_chunk_tc_kernel<HD, W><<<dim3(Hkv, B, ctas), 32 * W, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q),
+      static_cast<const __nv_bfloat16*>(kp),
+      static_cast<const __nv_bfloat16*>(vp), static_cast<const int32_t*>(bt),
+      static_cast<float*>(out), Cs, Hkv, G, ps, P, start, kv_len, window,
+      softcap, scale);
+  return (int)cudaGetLastError();
+}
+
 template <typename T, int HD>
 int launch_hd(const void* q, const void* kp, const void* vp, const void* bt,
               const void* t, void* out, int B, int Cs, int Hkv, int G, int ps,
               int P, int start, int kv_len, int window, float softcap,
-              void* stream) {
+              int warps, void* stream) {
   const float scale = (float)(1.0 / sqrt((double)HD));
   const cudaStream_t st = (cudaStream_t)stream;
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    if (t == nullptr) {
+      switch (warps) {
+        case 1:
+          return launch_chunk_tc<HD, 1>(q, kp, vp, bt, out, B, Cs, Hkv, G, ps,
+                                        P, start, kv_len, window, softcap,
+                                        scale, st);
+        case 2:
+          return launch_chunk_tc<HD, 2>(q, kp, vp, bt, out, B, Cs, Hkv, G, ps,
+                                        P, start, kv_len, window, softcap,
+                                        scale, st);
+        case 4:
+          return launch_chunk_tc<HD, 4>(q, kp, vp, bt, out, B, Cs, Hkv, G, ps,
+                                        P, start, kv_len, window, softcap,
+                                        scale, st);
+        default:
+          return (int)cudaErrorInvalidValue;
+      }
+    }
+  }
   if (t != nullptr) {
     paged_decode_kernel<T, HD><<<dim3(Hkv, B), THREADS, 0, st>>>(
         static_cast<const T*>(q), static_cast<const T*>(kp),
         static_cast<const T*>(vp), static_cast<const int32_t*>(bt),
         static_cast<const int32_t*>(t), static_cast<float*>(out), Hkv, G, ps,
         P, window, softcap, scale);
-  } else {
+  } else if constexpr (std::is_same<T, float>::value) {
     const int QB = G >= MAX_ROWS ? 1 : MAX_ROWS / G;   // queries per block
     paged_chunk_kernel<T, HD>
         <<<dim3(Hkv, B, (Cs + QB - 1) / QB), THREADS, 0, st>>>(
@@ -286,24 +648,29 @@ template <typename T>
 int launch(int hd, const void* q, const void* kp, const void* vp,
            const void* bt, const void* t, void* out, int B, int Cs, int Hkv,
            int G, int ps, int P, int start, int kv_len, int window,
-           float softcap, void* stream) {
+           float softcap, int warps, void* stream) {
   if (G < 1 || G > MAX_ROWS) return (int)cudaErrorInvalidValue;
   switch (hd) {
     case 16:
       return launch_hd<T, 16>(q, kp, vp, bt, t, out, B, Cs, Hkv, G, ps, P,
-                              start, kv_len, window, softcap, stream);
+                              start, kv_len, window, softcap, warps,
+                              stream);
     case 32:
       return launch_hd<T, 32>(q, kp, vp, bt, t, out, B, Cs, Hkv, G, ps, P,
-                              start, kv_len, window, softcap, stream);
+                              start, kv_len, window, softcap, warps,
+                              stream);
     case 64:
       return launch_hd<T, 64>(q, kp, vp, bt, t, out, B, Cs, Hkv, G, ps, P,
-                              start, kv_len, window, softcap, stream);
+                              start, kv_len, window, softcap, warps,
+                              stream);
     case 128:
       return launch_hd<T, 128>(q, kp, vp, bt, t, out, B, Cs, Hkv, G, ps, P,
-                               start, kv_len, window, softcap, stream);
+                               start, kv_len, window, softcap, warps,
+                               stream);
     case 256:
       return launch_hd<T, 256>(q, kp, vp, bt, t, out, B, Cs, Hkv, G, ps, P,
-                               start, kv_len, window, softcap, stream);
+                               start, kv_len, window, softcap, warps,
+                               stream);
     default:
       return (int)cudaErrorInvalidValue;
   }
@@ -320,7 +687,7 @@ int paged_attn_decode_f32(const void* q, const void* kp, const void* vp,
                           int Hkv, int G, int hd, int ps, int P, int window,
                           float softcap, void* stream) {
   return launch<float>(hd, q, kp, vp, bt, t, out, B, 1, Hkv, G, ps, P, 0, 0,
-                       window, softcap, stream);
+                       window, softcap, 0, stream);
 }
 
 int paged_attn_decode_bf16(const void* q, const void* kp, const void* vp,
@@ -328,7 +695,7 @@ int paged_attn_decode_bf16(const void* q, const void* kp, const void* vp,
                            int Hkv, int G, int hd, int ps, int P, int window,
                            float softcap, void* stream) {
   return launch<__nv_bfloat16>(hd, q, kp, vp, bt, t, out, B, 1, Hkv, G, ps,
-                               P, 0, 0, window, softcap, stream);
+                               P, 0, 0, window, softcap, 0, stream);
 }
 
 // K4: q [B, Cs, Hq, hd], pages, bt as K3, start / kv_len scalars
@@ -338,15 +705,18 @@ int paged_attn_chunk_f32(const void* q, const void* kp, const void* vp,
                          int G, int hd, int ps, int P, int start, int kv_len,
                          int window, float softcap, void* stream) {
   return launch<float>(hd, q, kp, vp, bt, nullptr, out, B, Cs, Hkv, G, ps, P,
-                       start, kv_len, window, softcap, stream);
+                       start, kv_len, window, softcap, 0, stream);
 }
 
+// the bf16 body takes `warps` (1, 2 or 4) per CTA from the wrapper
+// (kernels/paged_attn.py:chunk_warps)
 int paged_attn_chunk_bf16(const void* q, const void* kp, const void* vp,
                           const void* bt, void* out, int B, int Cs, int Hkv,
                           int G, int hd, int ps, int P, int start, int kv_len,
-                          int window, float softcap, void* stream) {
+                          int window, float softcap, int warps, void* stream) {
   return launch<__nv_bfloat16>(hd, q, kp, vp, bt, nullptr, out, B, Cs, Hkv, G,
-                               ps, P, start, kv_len, window, softcap, stream);
+                               ps, P, start, kv_len, window, softcap, warps,
+                               stream);
 }
 
 }  // extern "C"

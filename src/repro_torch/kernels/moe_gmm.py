@@ -28,6 +28,13 @@ import torch.nn.functional as F
 from repro_torch.kernels import build
 
 KERNEL_BLOCK_ROWS = 64          # the CUDA kernels' row tile (csrc BM)
+# the bf16 body's ring (csrc GEMM_BK, BN, GEMM_LDX/LDW, GEMM_RING_BYTES)
+GEMM_BK = 64                    # reduction depth per ring stage
+GEMM_BN = 64                    # output columns per block
+GEMM_ROW_PAD = 8                # elements that pad each staged row
+GEMM_RING_BYTES = 113 * 1024    # a block's ring: two blocks share an SM
+GEMM_DEEP_RING = 6              # stages of a grid of few blocks
+H100_SMS = 132
 
 # Launch counts, one per wrapper: raised by one at each kernel launch and
 # nowhere else (the plain versions do not count).
@@ -55,6 +62,75 @@ def _row_tiles(N: int, bn: int, tile_expert: torch.Tensor,
     tv = (torch.ones_like(te) if tile_valid is None
           else tile_valid[:ni].to(torch.int32))
     return ni, te, tv
+
+
+def ring_launch(N: int, K: int, F: int, E: int, *,
+                swiglu: bool = False) -> tuple[int, int]:
+    """(tiles_per_block, ring_depth) of the bf16 body for x [N, K] and
+    weights [E, K, F] (csrc `gmm_tc`); the wrapper passes both to the
+    kernel on every launch, so this is arithmetic only. A block owns one or
+    two planner tiles of KERNEL_BLOCK_ROWS rows and a stripe of GEMM_BN
+    columns: two where the experts average at least two tiles each
+    (N >= 2 * E tiles, a prefill) and the grid still gives every SM a
+    block, so one weight stage feeds two tiles of one expert; else one (a
+    decode: one tile per expert, where pairs would halve the blocks for
+    nothing). The ring is GEMM_DEEP_RING deep for single tiles on a grid of
+    at most two blocks per SM (a decode, where about one block per SM has
+    a valid tile: it keeps five stages in flight alone), else 4 stages, or
+    3 where 4 would not fit GEMM_RING_BYTES (two blocks share an SM).
+    Shapes only: the choice never waits on the device."""
+    bm = KERNEL_BLOCK_ROWS
+    ni, stripes = -(-N // bm), -(-F // GEMM_BN)
+    tm = 2 if ni >= 2 * E and -(-ni // 2) * stripes >= H100_SMS else 1
+    if tm == 1 and ni * stripes <= 2 * H100_SMS:
+        return tm, GEMM_DEEP_RING
+    ld = GEMM_BK + GEMM_ROW_PAD            # = GEMM_BN + GEMM_ROW_PAD
+    stage_bytes = 2 * (bm * tm * ld + (2 if swiglu else 1) * GEMM_BK * ld)
+    return tm, 4 if 4 * stage_bytes <= GEMM_RING_BYTES else 3
+
+
+def gemm_ring(N: int, K: int, F: int, E: int, *, swiglu: bool = False,
+              straddle: bool = False) -> dict:
+    """The bf16 body's launch and ragged edges for x [N, K] and weights
+    [E, K, F]: `ring_launch`'s tiles per block and ring depth, the grid,
+    and `k_stages` stages of GEMM_BK per block (per pass: a straddle tile,
+    or a pair of two experts, runs one pass per expert). Every stage moves
+    16-byte chunks of 8 elements, each copied or zero-filled by cp.async
+    (src-size 0) when `vec` (K and F multiples of 8, so no chunk is cut by
+    an edge), else staged element by element. Zero-filled, in the edge
+    blocks: `x_zero`, the chunk columns of the last stage at or past K;
+    `w_zero_rows`, its rows at or past K; `w_zero_cols`, the chunk columns
+    of the last stripe at or past F; `pad_rows`, the rows of the last row
+    tile at or past N (and, per pass, the rows of another expert:
+    row_sel and tile_expert, not shape). `ring_chunk_live` is the
+    per-chunk rule."""
+    bm = KERNEL_BLOCK_ROWS
+    ni, stripes, nk = -(-N // bm), -(-F // GEMM_BN), -(-K // GEMM_BK)
+    tm, depth = ring_launch(N, K, F, E, swiglu=swiglu)
+    k_last = (nk - 1) * GEMM_BK
+    f_last = (stripes - 1) * GEMM_BN
+    r_last = (ni - 1) * bm
+    return {
+        "tiles_per_block": tm,
+        "grid": (stripes, -(-ni // tm)),
+        "ring_depth": depth,
+        "k_stages": nk * (2 if straddle else 1),
+        "vec": K % 8 == 0 and F % 8 == 0,
+        "x_zero": [c for c in range(GEMM_BK // 8)
+                   if not ring_chunk_live(0, k_last + 8 * c, 1, K)],
+        "w_zero_rows": [r for r in range(GEMM_BK)
+                        if not ring_chunk_live(k_last + r, 0, K, 1)],
+        "w_zero_cols": [c for c in range(GEMM_BN // 8)
+                        if not ring_chunk_live(0, f_last + 8 * c, 1, F)],
+        "pad_rows": [r for r in range(bm) if r_last + r >= N],
+    }
+
+
+def ring_chunk_live(row: int, col: int, nrows: int, ncols: int) -> bool:
+    """Whether the ring copies the chunk at (row, col..col+7) of a matrix
+    with nrows x ncols valid elements (csrc `stage_chunk`, vec case); a
+    chunk that is not live is zero-filled."""
+    return row < nrows and col < ncols
 
 
 # ------------------------------------------------------------ plain versions
@@ -161,20 +237,20 @@ def _lib():
         P, I = ctypes.c_void_p, ctypes.c_int
         for dt in _KERNEL_DTYPES.values():
             f = getattr(lib, f"gmm_swiglu_{dt}")
-            f.argtypes = [P, P, P, P, P, P, I, I, I, I, P]
+            f.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
             f.restype = I
             f = getattr(lib, f"gmm_scaled_{dt}")
-            f.argtypes = [P, P, P, P, P, P, I, I, I, I, P]
+            f.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, P]
             f.restype = I
             f = getattr(lib, f"gmm_swiglu_fused_{dt}")
-            f.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, P]
+            f.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P]
             f.restype = I
             f = getattr(lib, f"gmm_scaled_fused_{dt}")
-            f.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, P]
+            f.argtypes = [P, P, P, P, P, P, P, P, I, I, I, I, I, I, P]
             f.restype = I
         for fn in ("gmm_f32", "gmm_bf16", "gmm_bf16_out_f32"):
             f = getattr(lib, fn)
-            f.argtypes = [P, P, P, P, P, I, I, I, I, P]
+            f.argtypes = [P, P, P, P, P, I, I, I, I, I, I, P]
             f.restype = I
         lib._typed = True
     return lib
@@ -186,6 +262,15 @@ def _where(x: torch.Tensor) -> str:
     if x.device.type == "cuda":
         return "cuda"
     raise ValueError(f"no grouped-GEMM path for device {x.device}")
+
+
+def _ring_args(x: torch.Tensor, N: int, K: int, F: int, E: int,
+               swiglu: bool) -> tuple[int, int]:
+    """The kernel's (planner tiles per block, ring depth): ring_launch's
+    choice in bf16; (1, 1) in fp32, whose body has no ring."""
+    if x.dtype != torch.bfloat16:
+        return 1, 1
+    return ring_launch(N, K, F, E, swiglu=swiglu)
 
 
 def _fused_operands(N: int, ni: int, tile_expert2, row_sel):
@@ -231,13 +316,14 @@ def gmm_swiglu(x: torch.Tensor, wg: torch.Tensor, wi: torch.Tensor,
     out = torch.empty((N, Fd), dtype=x.dtype, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     fn = getattr(_lib(), f"{name}_{dt}")
+    ring = _ring_args(x, N, K, Fd, E, True)
     if fused:
         rc = fn(x.data_ptr(), wg.data_ptr(), wi.data_ptr(), te.data_ptr(),
                 te2.data_ptr(), tv.data_ptr(), sel.data_ptr(),
-                out.data_ptr(), N, K, Fd, bn, stream)
+                out.data_ptr(), N, K, Fd, bn, *ring, stream)
     else:
         rc = fn(x.data_ptr(), wg.data_ptr(), wi.data_ptr(), te.data_ptr(),
-                tv.data_ptr(), out.data_ptr(), N, K, Fd, bn, stream)
+                tv.data_ptr(), out.data_ptr(), N, K, Fd, bn, *ring, stream)
     build.check(rc, name)
     LAUNCHES[name] += 1
     return out
@@ -273,13 +359,15 @@ def gmm_scaled(x: torch.Tensor, w: torch.Tensor, tile_expert: torch.Tensor,
     out = torch.empty((N, Fd), dtype=torch.float32, device=x.device)
     stream = torch.cuda.current_stream(x.device).cuda_stream
     fn = getattr(_lib(), f"{name}_{dt}")
+    ring = _ring_args(x, N, K, Fd, E, False)
     if fused:
         rc = fn(x.data_ptr(), w.data_ptr(), te.data_ptr(), te2.data_ptr(),
                 tv.data_ptr(), sel.data_ptr(), scale.data_ptr(),
-                out.data_ptr(), N, K, Fd, bn, stream)
+                out.data_ptr(), N, K, Fd, bn, *ring, stream)
     else:
         rc = fn(x.data_ptr(), w.data_ptr(), te.data_ptr(), tv.data_ptr(),
-                scale.data_ptr(), out.data_ptr(), N, K, Fd, bn, stream)
+                scale.data_ptr(), out.data_ptr(), N, K, Fd, bn, *ring,
+                stream)
     build.check(rc, name)
     LAUNCHES[name] += 1
     return out
@@ -312,7 +400,7 @@ def gmm(x: torch.Tensor, w: torch.Tensor, tile_expert: torch.Tensor,
     stream = torch.cuda.current_stream(x.device).cuda_stream
     rc = getattr(_lib(), name)(x.data_ptr(), w.data_ptr(), te.data_ptr(),
                                tv.data_ptr(), out.data_ptr(), N, K, Fd, bn,
-                               stream)
+                               *_ring_args(x, N, K, Fd, E, False), stream)
     build.check(rc, "gmm")
     LAUNCHES["gmm"] += 1
     return out

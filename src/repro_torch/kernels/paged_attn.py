@@ -142,7 +142,8 @@ def _lib():
             f.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, F, P]
             f.restype = I
             f = getattr(lib, f"paged_attn_chunk_{dt}")
-            f.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F, P]
+            f.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F,
+                          *((I,) if dt == "bf16" else ()), P]
             f.restype = I
         lib._typed = True
     return lib
@@ -205,14 +206,68 @@ def paged_attn_chunk(q: torch.Tensor, k_pages: torch.Tensor,
     _, ps, Hkv, _ = k_pages.shape
     out = torch.empty((B, Cs, Hq, hd), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
+    warps = (chunk_warps(Cs * (Hq // Hkv)),) if dt == "bf16" else ()
     rc = getattr(_lib(), f"paged_attn_chunk_{dt}")(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
         block_table.data_ptr(), out.data_ptr(), B, Cs, Hkv, Hq // Hkv, hd, ps,
         block_table.shape[1], int(start), int(kv_len), int(window),
-        float(softcap), stream)
+        float(softcap), *warps, stream)
     build.check(rc, "paged_attn_chunk")
     LAUNCHES["paged_attn_chunk"] += 1
     return out
+
+
+# ------------------------------------------------- K4's bf16 launch arithmetic
+
+def chunk_key_tile(hd: int) -> int:
+    """Keys per K/V tile of K4's bf16 body (csrc `chunk_kt`): 64, or 32 at
+    head_dim 256, where 64 keys would not leave registers for the output."""
+    return 32 if hd > 128 else 64
+
+
+def chunk_warps(rows: int) -> int:
+    """Warps per CTA of K4's bf16 body (16 (query, head) rows each): 4, or
+    fewer where a chunk has at most 32 rows per kv head. Each K/V tile a
+    CTA gathers feeds all its warps, so more warps per CTA move fewer
+    bytes from L2; at both served chunk shapes 4 warps beat 1 and 2,
+    although they leave SMs idle (llama: 64 CTAs, granite: 48): see
+    `chip_smoke.py`'s K4 warps sweep. Shapes only, so the choice never
+    waits on the device."""
+    return 4 if rows > 32 else 2 if rows > 16 else 1
+
+
+def chunk_tiles(Cs: int, G: int, hd: int, ps: int, P: int, start: int,
+                kv_len: int, window: int = 0):
+    """K4's bf16 launch: (W, ctas), ctas[z] = (row_lo, row_hi, tile_lo,
+    tile_hi) for the CTA at grid z of every (kv head, row): its (query,
+    head) rows r = qi * G + g in [row_lo, row_hi), and the first and last
+    key tile (of `chunk_key_tile(hd)` keys from position 0) it loads;
+    tile_hi < tile_lo loads none. The keys run from the first one the
+    window reaches for the CTA's first query to the last one < kv_len its
+    last query may see (the block table's end included); keys of those
+    tiles outside that range are zero-filled, never read. The CUDA body
+    (csrc/paged_attn.cu `chunk_key_range`) follows the same formulas."""
+    W, KT, R = chunk_warps(Cs * G), chunk_key_tile(hd), Cs * G
+    ctas = []
+    for row_lo in range(0, R, 16 * W):
+        row_hi = min(row_lo + 16 * W, R)
+        first, last = chunk_key_range(row_lo, row_hi, G, ps, P, start,
+                                      kv_len, window)
+        t_lo = first // KT
+        ctas.append((row_lo, row_hi, t_lo,
+                     last // KT if last >= first else t_lo - 1))
+    return W, ctas
+
+
+def chunk_key_range(row_lo: int, row_hi: int, G: int, ps: int, P: int,
+                    start: int, kv_len: int, window: int = 0):
+    """(first, last): the keys the (query, head) rows [row_lo, row_hi) of
+    a chunk may see, empty when last < first (csrc `chunk_key_range`; a
+    warp's 16 rows skip the tiles outside their own range)."""
+    q_first, q_last = row_lo // G, (row_hi - 1) // G
+    last = min(kv_len - 1, start + q_last, P * ps - 1)
+    first = max(0, start + q_first - window + 1) if window > 0 else 0
+    return first, last
 
 
 # ------------------------------------------------------------ traffic model

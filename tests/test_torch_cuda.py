@@ -544,3 +544,166 @@ def test_cuda_llama_decode_runs_k5_once_per_layer_and_step(cuda_device,
         assert torch.equal(gpu["tokens"].cpu(), cpu["tokens"])
         steps = 6
     assert steps > 0 and GT.LAUNCHES["go_topk_update"] == L * steps
+
+
+# ------------------------------------- the bf16 bodies: K4 and the GEMM ring
+
+def _chunk_inputs(seed, nkv, G_, hd, device, B=2, Cs=24, ps=16, P=5,
+                  kv_len=57, poison=None):
+    """bf16 pages for a chunk of Cs queries ending past kv_len (pad
+    queries), and q for Hq = nkv * G_ heads."""
+    kp, vp, bt, _, _ = _paged(seed, nkv, [kv_len] * B, device,
+                              torch.bfloat16, ps=ps, P=P, hd=hd,
+                              poison=poison)
+    rng = np.random.default_rng(seed + 1)
+    q = torch.from_numpy(rng.standard_normal(
+        (B, Cs, nkv * G_, hd)).astype(np.float32)).to(device).bfloat16()
+    return q, kp, vp, bt
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("G_", [1, 3, 4, 16])
+@pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
+def test_cuda_chunk_bf16_every_head_dim_and_group(cuda_device, hd, G_):
+    """K4's bf16 body at every head_dim the wrapper takes and GQA 1/3/4/16
+    (rows folded r = qi * G + g over 16-row warps, a ragged last warp),
+    against its plain version on the real queries: 2e-2, as
+    PAGED_TOL_BF16 (the plain path rounds q * scale to bf16, the kernel
+    scales the fp32 product)."""
+    assert hd in PA.KERNEL_HEAD_DIMS and G_ <= PA.KERNEL_MAX_GROUP
+    start, kv_len = 37, 57
+    q, kp, vp, bt = _chunk_inputs(hd + G_, 2, G_, hd, cuda_device,
+                                  kv_len=kv_len)
+    before = PA.LAUNCHES["paged_attn_chunk"]
+    out = PA.paged_attn_chunk(q, kp, vp, bt, start, kv_len)
+    ref = PA.paged_attn_chunk_plain(q, kp, vp, bt, start, kv_len)
+    torch.cuda.synchronize()
+    assert PA.LAUNCHES["paged_attn_chunk"] == before + 1
+    n = kv_len - start
+    assert bool(torch.isfinite(out).all())
+    torch.testing.assert_close(out[:, :n], ref[:, :n], rtol=2e-2, atol=2e-2)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("G_", [1, 3])
+@pytest.mark.parametrize("window,softcap,start", [(9, 0.0, 37), (0, 4.0, 37),
+                                                  (20, 3.0, 0)])
+def test_cuda_chunk_bf16_window_softcap(cuda_device, G_, window, softcap,
+                                        start):
+    """K4's bf16 body with a sliding window (tiles before the window are
+    skipped), a softcap, and a chunk starting at 0, at head_dim 128:
+    2e-2 against the plain version."""
+    kv_len = start + 20
+    q, kp, vp, bt = _chunk_inputs(5 + window, 2, G_, 128, cuda_device,
+                                  kv_len=kv_len)
+    out = PA.paged_attn_chunk(q, kp, vp, bt, start, kv_len, window=window,
+                              softcap=softcap)
+    ref = PA.paged_attn_chunk_plain(q, kp, vp, bt, start, kv_len,
+                                    window=window, softcap=softcap)
+    torch.testing.assert_close(out[:, :20], ref[:, :20], rtol=2e-2,
+                               atol=2e-2)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("G_", [1, 3])
+def test_cuda_chunk_bf16_poisoned_pages_change_no_bit(cuda_device, G_):
+    """K4's bf16 body reads no position past kv_len: pages holding +-1e4
+    there (and on the null page) give the same output bits as clean
+    pages, pad queries included; two launches give the same bits."""
+    start, kv_len = 37, 57
+    clean = _chunk_inputs(21, 2, G_, 128, cuda_device, kv_len=kv_len,
+                          poison=0.0)
+    dirty = _chunk_inputs(21, 2, G_, 128, cuda_device, kv_len=kv_len,
+                          poison=1e4)
+    a = PA.paged_attn_chunk(*clean, start, kv_len)
+    assert torch.equal(a, PA.paged_attn_chunk(*dirty, start, kv_len))
+    assert torch.equal(a, PA.paged_attn_chunk(*clean, start, kv_len))
+
+
+@pytest.mark.requires_cuda
+def test_cuda_gemm_ring_bf16_is_deterministic(cuda_device):
+    """Two launches of each kernel of the bf16 GEMM body (K1, K2, K6, K7,
+    K8) on the same inputs give the same bits, at a ragged K = F = 688
+    (the last ring stage zero-filled) with invalid tiles; and at a shape
+    whose rows are not 16-byte multiples (F = 172: staged element by
+    element) the kernels still match their plain versions."""
+    bn = G.KERNEL_BLOCK_ROWS
+    N, K, F, E = 300, 688, 688, 5
+    x, wg, wi, wo, te, tv, scale = _inputs(13, N, K, F, E, bn, cuda_device)
+    x, wg, wi, wo = (a.bfloat16() for a in (x, wg, wi, wo))
+    plan = _fused_plan(14, cuda_device)
+    xf, wg6, wi6, wo6, _, _, sf = _inputs(15, plan.n_pad, K, F, 6, bn,
+                                          cuda_device)
+    xf = (xf * plan.row_valid[:, None]).bfloat16()
+    wg6, wi6, wo6 = (a.bfloat16() for a in (wg6, wi6, wo6))
+    kw = dict(tile_expert2=plan.tile_expert2, row_sel=plan.row_sel)
+    for fn in (lambda: G.gmm_swiglu(x, wg, wi, te, tv, bn=bn),
+               lambda: G.gmm_scaled(x, wo, te, tv, scale, bn=bn),
+               lambda: G.gmm(x, wo, te, tv, bn=bn),
+               lambda: G.gmm_swiglu(xf, wg6, wi6, plan.tile_expert,
+                                    plan.tile_valid, bn=bn, **kw),
+               lambda: G.gmm_scaled(xf, wo6, plan.tile_expert,
+                                    plan.tile_valid, sf, bn=bn, **kw)):
+        assert torch.equal(fn(), fn())
+    xs, ws = x[:, :48].contiguous(), wg[:, :48, :172].contiguous()
+    wis = wi[:, :48, :172].contiguous()
+    torch.testing.assert_close(
+        G.gmm_swiglu(xs, ws, wis, te, tv, bn=bn).float(),
+        G.gmm_swiglu_plain(xs, ws, wis, te, tv, bn).float(), rtol=1e-2,
+        atol=1e-2)
+    torch.testing.assert_close(
+        G.gmm(xs, ws, te, tv, bn=bn, out_dtype=torch.float32),
+        G.gmm_plain(xs, ws, te, tv, bn, torch.float32), rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.requires_cuda
+def test_cuda_fused_bf16_equals_unfused_off_straddle_at_granite_width(
+        cuda_device):
+    """K7/K8 in bf16 at granite's full-width prefill plan (4 x 128 tokens,
+    top-8 of 40, lanes fused pairwise): on every tile that straddles
+    nothing they equal K1/K2 bit for bit (one body, one pass), and they
+    match their plain versions (K7 1e-2, K8 1e-4)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.core import moe as MOE
+    from repro_torch.core import routing as R
+    from repro_torch.models import model as TM
+    cfg = get_config("granite-moe-3b-a800m")
+    e = cfg.moe
+    bn, E, K, F, k, T = (G.KERNEL_BLOCK_ROWS, e.num_experts, cfg.d_model,
+                         e.d_expert, e.top_k, 512)
+    g = torch.Generator(device="cuda").manual_seed(6)
+    bf = torch.bfloat16
+    wg, wi = (torch.randn(E, K, F, device="cuda", generator=g).div_(
+        K ** 0.5).to(bf) for _ in range(2))
+    wo = torch.randn(E, F, K, device="cuda", generator=g).div_(F ** 0.5).to(bf)
+    gate = torch.randn(K, E, device="cuda", generator=g) / K ** 0.5
+    xt = torch.randn(T, K, device="cuda", generator=g).to(bf)
+    r = R.token_choice(xt, gate, k)
+    members = TM.expert_group_members(cfg, "cuda")
+    lane_of_rank, rank_of_expert, fuse = MOE.group_lane_map(members,
+                                                            e.group_size)
+    plan = OPS.plan_tile_dispatch(rank_of_expert[r.expert_idx.reshape(-1)
+                                                 .long()], E, bn, fuse=fuse)
+    te = lane_of_rank[plan.tile_expert.long()].int()
+    te2 = lane_of_rank[plan.tile_expert2.long()].int()
+    tv, sel = plan.tile_valid, plan.row_sel
+    tok = torch.arange(T, device="cuda").repeat_interleave(k)
+    rp = plan.row_pair.long()
+    x = torch.cat([xt, xt.new_zeros((1, K))])[
+        torch.cat([tok, tok.new_full((1,), T)])[rp]]
+    sc = torch.cat([r.weights.reshape(-1), r.weights.new_zeros(1)])[rp][:, None]
+    kw = dict(tile_expert2=te2, row_sel=sel)
+    strad = te2 != te
+    assert bool((strad & tv).any())
+    h = G.gmm_swiglu(x, wg, wi, te, tv, bn=bn, **kw)
+    y = G.gmm_scaled(h, wo, te, tv, sc, bn=bn, **kw)
+    h1 = G.gmm_swiglu(x, wg, wi, te, tv, bn=bn)
+    y1 = G.gmm_scaled(h, wo, te, tv, sc, bn=bn)
+    rows = (~strad).repeat_interleave(bn)
+    assert torch.equal(h[rows], h1[rows]) and torch.equal(y[rows], y1[rows])
+    torch.testing.assert_close(
+        h.float(), G.gmm_swiglu_fused_plain(x, wg, wi, te, te2, tv, sel,
+                                            bn).float(), rtol=1e-2, atol=1e-2)
+    torch.testing.assert_close(
+        y, G.gmm_scaled_fused_plain(h, wo, te, te2, tv, sel, sc, bn),
+        rtol=1e-4, atol=1e-4)

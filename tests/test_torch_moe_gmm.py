@@ -129,3 +129,123 @@ def test_device_without_a_path_raises():
     te = torch.zeros((1,), dtype=torch.int32, device="meta")
     with pytest.raises(ValueError, match="no grouped-GEMM path"):
         G.gmm_swiglu(x, w, w, te, None, bn=8)
+
+
+# ------------------------------------ the bf16 body's ring and tile pairs
+
+# (N, K, F, E, swiglu) -> (tiles per block, ring depth): llama's K1 prefill
+# and decode, K2/K6 at prefill and decode, granite's decode and K7/K8
+# prefill, a small shape, and one whose rows are not 16-byte multiples
+RING_CASES = {
+    "llama_k1_prefill": ((3072, 4096, 688, 16, True), (2, 3)),
+    "llama_k1_decode": ((1024, 4096, 688, 16, True), (1, 6)),
+    "llama_k2_prefill": ((3072, 688, 4096, 16, False), (2, 4)),
+    "llama_k2_decode": ((1024, 688, 4096, 16, False), (1, 4)),
+    "granite_k1_decode": ((2624, 1536, 512, 40, True), (1, 4)),
+    "granite_k7_prefill": ((5376, 1536, 512, 40, True), (2, 3)),
+    "granite_k8_prefill": ((5376, 512, 1536, 40, False), (2, 4)),
+    "small": ((300, 200, 136, 5, True), (1, 6)),
+    "unaligned": ((100, 48, 172, 4, False), (1, 6)),
+}
+
+
+@pytest.mark.parametrize("case", list(RING_CASES))
+def test_gemm_ring_matches_a_brute_force_edge_mask(case):
+    """The ring's ragged edges against every element of the edge blocks:
+    with K and F multiples of 8 a chunk of 8 is zero-filled exactly when
+    none of its elements lies inside the matrix (x: the last k stage's
+    columns; weights: its rows and the last stripe's columns), and padding
+    rows are those of the last row tile past N. Pairs of planner tiles go
+    to prefills (at least two tiles per expert), single tiles to decodes;
+    a grid of at most two single-tile blocks per SM takes the deep ring
+    (6), any other 4 stages where they fit 113 KB, else 3."""
+    (N, K, F, E, swiglu), (tm, depth) = RING_CASES[case]
+    r = G.gemm_ring(N, K, F, E, swiglu=swiglu)
+    assert (r["tiles_per_block"], r["ring_depth"]) == (tm, depth)
+    bm, bk, bnc = G.KERNEL_BLOCK_ROWS, G.GEMM_BK, G.GEMM_BN
+    ni, nk, stripes = -(-N // bm), -(-K // bk), -(-F // bnc)
+    assert r["grid"] == (stripes, -(-ni // tm)) and r["k_stages"] == nk
+    assert G.gemm_ring(N, K, F, E, straddle=True)["k_stages"] == 2 * nk
+    assert r["vec"] == (K % 8 == 0 and F % 8 == 0)
+    cols = (nk - 1) * bk + np.arange(bk)          # the last stage's columns
+    fcols = (stripes - 1) * bnc + np.arange(bnc)  # the last stripe's columns
+    rows = (ni - 1) * bm + np.arange(bm)          # the last row tile
+    if r["vec"]:
+        x_dead = [c for c in range(bk // 8) if (cols[8 * c:8 * c + 8] >= K).all()]
+        w_dead = [c for c in range(bnc // 8)
+                  if (fcols[8 * c:8 * c + 8] >= F).all()]
+        assert r["x_zero"] == x_dead and r["w_zero_cols"] == w_dead
+        # no chunk is cut by an edge: each lies wholly inside or outside
+        for edge, idx in ((K, cols), (F, fcols)):
+            inside = (idx < edge).reshape(-1, 8)
+            assert (inside.all(1) | ~inside.any(1)).all()
+    assert r["w_zero_rows"] == [i for i in range(bk) if cols[i] >= K]
+    assert r["pad_rows"] == [i for i in range(bm) if rows[i] >= N]
+
+
+def _gmm_tc_emulated(x, wg, wi, te, te2, tv, sel, tm):
+    """The bf16 body's passes in fp32 on the CPU: blocks of `tm` planner
+    tiles of 64 rows; each row's expert (te, or te2 on a straddle tile
+    where sel <= 0.5; none on an invalid tile); one pass per distinct
+    expert of the block's valid tiles, with the other rows zeroed; the
+    rows of invalid tiles write zeros."""
+    N, F = x.shape[0], wg.shape[2]
+    bm = G.KERNEL_BLOCK_ROWS
+    ni = -(-N // bm)
+    out = np.zeros((N, F), np.float32)
+    for t0 in range(0, ni, tm):
+        tiles = range(t0, min(t0 + tm, ni))
+        r = np.arange(t0 * bm, min((t0 + tm) * bm, N))
+        t = r // bm
+        row_e = np.where(~tv[t], -1,
+                         np.where((te2[t] != te[t]) & ~(sel[r] > 0.5),
+                                  te2[t], te[t]))
+        passes = list(dict.fromkeys(int(e) for j in tiles if tv[j]
+                                    for e in (te[j], te2[j])))
+        g = np.zeros((len(r), F), np.float32)
+        u = np.zeros((len(r), F), np.float32)
+        for e in passes:
+            xm = np.where((row_e == e)[:, None], x[r], 0.0)
+            g += xm @ wg[e]
+            u += xm @ wi[e]
+        h = g / (1 + np.exp(-g)) * u
+        out[r] = np.where((row_e >= 0)[:, None], h, 0.0)
+    return out
+
+
+@pytest.mark.parametrize("tm", [1, 2])
+@pytest.mark.parametrize("fused", [False, True])
+def test_gmm_tc_passes_match_pallas(tm, fused):
+    """The bf16 body's row-expert passes, on blocks of one or two planner
+    tiles (a pair of two experts, straddle tiles, invalid tiles), emulated
+    on the CPU in fp32, against the JAX Pallas kernel (interpret mode) at
+    the card's 64-row tile: 1e-5, sums in another order."""
+    from repro_torch.kernels import ops as OPS
+    rng = np.random.default_rng(40 + tm + 2 * fused)
+    per_lane = (61, 3, 0, 70, 63, 1)
+    ef = np.concatenate([np.full(n, e, np.int32)
+                         for e, n in enumerate(per_lane)])
+    rng.shuffle(ef)
+    plan = OPS.plan_tile_dispatch(torch.from_numpy(ef), 6,
+                                  G.KERNEL_BLOCK_ROWS,
+                                  fuse=(0, 0, 1, 1, 2, 2) if fused else None)
+    te = plan.tile_expert.numpy()
+    te2 = plan.tile_expert2.numpy() if fused else te
+    tv = plan.tile_valid.numpy().astype(bool)
+    sel = plan.row_sel.numpy().reshape(-1) if fused else np.ones(plan.n_pad)
+    tv[-1] = False
+    if fused:
+        assert (te2 != te).any()
+    N, K, F = plan.n_pad, 24, 40
+    x = (rng.standard_normal((N, K)) * 0.5).astype(np.float32)
+    wg, wi = ((rng.standard_normal((6, K, F)) / np.sqrt(K)).astype(np.float32)
+              for _ in range(2))
+    got = _gmm_tc_emulated(x, wg, wi, te, te2, tv, sel, tm)
+    kw = (dict(tile_expert2=jnp.asarray(te2),
+               row_sel=jnp.asarray(sel.astype(np.float32)[:, None]))
+          if fused else {})
+    want = np.asarray(j_gmm_swiglu(jnp.asarray(x), jnp.asarray(wg),
+                                   jnp.asarray(wi), jnp.asarray(te),
+                                   jnp.asarray(tv), bn=G.KERNEL_BLOCK_ROWS,
+                                   interpret=True, **kw))
+    np.testing.assert_allclose(got, want, **TOL)

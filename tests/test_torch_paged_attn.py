@@ -207,3 +207,135 @@ def test_page_traffic_model_matches_reference():
     active = np.array([True, False, True, True])
     assert PA.decode_tick_pages(t_host, active, 16, 4, 32) == \
         JPA.decode_tick_pages(t_host, active, 16, 4, 32) == (29 + 1 + 2, 128)
+
+
+# ------------------------------------------ K4's bf16 body: launch arithmetic
+
+# (Cs, G, hd, ps, P, start, kv_len, window): llama's and granite's last
+# engine chunk, a window, kv_len inside a page with pad queries, a chunk
+# starting at 0, head_dim 256 (32-key tiles), a chunk of 16 rows (W = 1)
+TILE_CASES = {
+    "llama": (128, 1, 128, 16, 32, 320, 448, 0),
+    "granite": (128, 3, 64, 16, 32, 320, 448, 0),
+    "window": (128, 1, 128, 16, 32, 320, 448, 100),
+    "kv_len_in_page": (32, 3, 64, 16, 4, 16, 37, 0),
+    "start_0": (128, 1, 128, 16, 32, 0, 128, 0),
+    "hd256_window": (24, 4, 256, 16, 5, 37, 57, 9),
+    "one_warp": (16, 1, 64, 8, 6, 5, 21, 3),
+}
+
+
+@pytest.mark.parametrize("case", list(TILE_CASES))
+def test_chunk_tiles_cover_exactly_the_visible_keys(case):
+    """Each CTA's key tiles, against a brute-force mask of every (row, key):
+    the rows partition the chunk in blocks of 16 W; every key a row of the
+    CTA may see lies in its tiles; and its first and last tiles hold such
+    a key (no dead tile is loaded) wherever the CTA has a real query
+    (q_pos < kv_len; pad queries alone may make the range looser, never
+    narrower)."""
+    Cs, G, hd, ps, P, start, kv_len, window = TILE_CASES[case]
+    W, ctas = PA.chunk_tiles(Cs, G, hd, ps, P, start, kv_len, window)
+    KT = PA.chunk_key_tile(hd)
+    assert W == PA.chunk_warps(Cs * G) and KT == (32 if hd > 128 else 64)
+    assert [c[:2] for c in ctas] == [
+        (lo, min(lo + 16 * W, Cs * G)) for lo in range(0, Cs * G, 16 * W)]
+    k_pos = np.arange(P * ps)
+    for row_lo, row_hi, t_lo, t_hi in ctas:
+        q_pos = start + np.arange(row_lo, row_hi) // G
+        seen = (k_pos[None] < kv_len) & (k_pos[None] <= q_pos[:, None])
+        if window > 0:
+            seen &= k_pos[None] > q_pos[:, None] - window
+        keys = k_pos[seen.any(0)]
+        if keys.size == 0:
+            assert t_hi < t_lo
+            continue
+        assert t_lo * KT <= keys.min() and keys.max() < (t_hi + 1) * KT
+        if q_pos.min() < kv_len:
+            assert keys.min() // KT == t_lo and keys.max() // KT == t_hi
+    if case in ("llama", "granite"):       # 64 rows per CTA, 7 key tiles
+        assert W == 4 and len(ctas) == Cs * G // 64
+        assert ctas[0][2:] == (0, 5) and ctas[-1][2:] == (0, 6)
+
+
+def _chunk_tc_emulated(q, kp, vp, bt, start, kv_len, window, softcap):
+    """K4's bf16 body, step for step, in fp32 torch on the CPU (p is not
+    rounded: fp32 pages): CTAs of chunk_tiles, warps of 16 rows skipping
+    the tiles outside their own key range, tiles zero-filled outside the
+    CTA's range, masked scores -inf against a running max from -1e30, l
+    summed from p, out = acc / max(l, 1e-20)."""
+    B, Cs, Hq, hd = q.shape
+    _, ps, Hkv, _ = kp.shape
+    G, P, R = Hq // Hkv, bt.shape[1], Cs * Hq // Hkv
+    W, ctas = PA.chunk_tiles(Cs, G, hd, ps, P, start, kv_len, window)
+    KT = PA.chunk_key_tile(hd)
+    out = torch.zeros(B, Cs, Hq, hd)
+    for b in range(B):
+        for h in range(Hkv):
+            for row_lo, row_hi, t_lo, t_hi in ctas:
+                first, last = PA.chunk_key_range(row_lo, row_hi, G, ps, P,
+                                                 start, kv_len, window)
+                for w0 in range(row_lo, row_hi, 16):
+                    rows = torch.arange(w0, min(w0 + 16, R))
+                    w_first, w_last = PA.chunk_key_range(
+                        w0, int(rows[-1]) + 1, G, ps, P, start, kv_len,
+                        window)
+                    qr = q[b, rows // G, h * G + rows % G]
+                    q_pos = start + rows // G
+                    m = torch.full((len(rows),), -1e30)
+                    l = torch.zeros(len(rows))
+                    o = torch.zeros(len(rows), hd)
+                    for t in range(t_lo, t_hi + 1):
+                        if t * KT > w_last or (t + 1) * KT - 1 < w_first:
+                            continue
+                        pos = t * KT + torch.arange(KT)
+                        load = (pos >= first) & (pos <= last)
+                        k = torch.zeros(KT, hd)
+                        v = torch.zeros(KT, hd)
+                        page = bt[b, pos[load] // ps].long()
+                        k[load] = kp[page, pos[load] % ps, h]
+                        v[load] = vp[page, pos[load] % ps, h]
+                        s = (qr @ k.T) * hd ** -0.5
+                        if softcap > 0:
+                            s = softcap * torch.tanh(s / softcap)
+                        live = ((pos[None] <= last) & (pos[None] < kv_len)
+                                & (pos[None] <= q_pos[:, None]))
+                        if window > 0:
+                            live &= pos[None] > q_pos[:, None] - window
+                        s = torch.where(live, s, -torch.inf)
+                        m_new = torch.maximum(m, s.max(1).values)
+                        corr = torch.exp(m - m_new)
+                        p = torch.exp(s - m_new[:, None])
+                        l = l * corr + p.sum(1)
+                        o = o * corr[:, None] + p @ v
+                        m = m_new
+                    out[b, rows // G, h * G + rows % G] = \
+                        o / torch.clamp(l, min=1e-20)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (50, 0.0), (0, 4.0),
+                                            (70, 3.0)])
+def test_chunk_tc_algorithm_matches_jax_kernel(window, softcap):
+    """The new body's tiling on several key tiles (192 positions, pages of
+    16, GQA 3 so rows fold across warps and CTAs, a last CTA of pad rows),
+    emulated on the CPU, against the JAX Pallas chunk kernel in interpret
+    mode on the real queries: 1e-5 (fp32, sums in another order)."""
+    rng = np.random.default_rng(30 + window)
+    B, Cs, nkv, G_, hd, ps, Pn, start, kv_len = 2, 40, 2, 3, 16, 16, 12, \
+        130, 165
+    q = rng.standard_normal((B, Cs, nkv * G_, hd)).astype(np.float32)
+    NP = B * Pn + 1
+    kp = rng.standard_normal((NP, ps, nkv, hd)).astype(np.float32)
+    vp = rng.standard_normal((NP, ps, nkv, hd)).astype(np.float32)
+    bt = (rng.permutation(np.arange(1, NP))[:B * Pn]
+          .reshape(B, Pn).astype(np.int32))
+    bt[:, -(-kv_len // ps):] = 0                  # the null page past kv_len
+    got = _chunk_tc_emulated(_t(q), _t(kp), _t(vp), _t(bt), start, kv_len,
+                             window, softcap)
+    kern = JPA.paged_attn_chunk(jnp.asarray(q), jnp.asarray(kp),
+                                jnp.asarray(vp), jnp.asarray(bt), start,
+                                kv_len, window=window, softcap=softcap,
+                                interpret=True)
+    n = kv_len - start
+    np.testing.assert_allclose(got.numpy()[:, :n], np.asarray(kern)[:, :n],
+                               **TOL_KERNEL)
