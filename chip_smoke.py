@@ -4,12 +4,13 @@
 Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
-    python3 chip_smoke.py --parent DIR   # DIR: an older csrc/ (moe_gmm.cu,
-                                         # paged_attn.cu), timed in turns
+    python3 chip_smoke.py --parent DIR   # DIR: an older csrc/ (its
+                                         # paged_attn.cu, slstm_cell.cu),
+                                         # timed in turns
 
-With --parent, every timing of K1, K2, K4, K6, K7 and K8 runs that older
-body and this checkout's in turns (parent, change, change, parent) in the
-same call; without it, each kernel is timed alone.
+With --parent, every timing of K3, K4 and K9 runs that older body and this
+checkout's in turns (parent, change, change, parent) in the same call;
+without it, each kernel is timed alone.
 
 Phases (none catches an exception; any failure exits non-zero):
   0. the card's name and power limit; build the CUDA kernels from
@@ -42,9 +43,13 @@ Phases (none catches an exception; any failure exits non-zero):
      bit.
   3. K3 paged_attn_decode and K4 paged_attn_chunk against their plain
      versions: fp32 at small shapes (GQA 4/2/1, window, softcap, null and
-     reused pages, ragged positions and kv_len), then bf16 at the engine
-     run's full-width shapes of both models (llama 32/32 heads of 128,
-     granite 24/8 heads of 64) with kernel, plain and library times.
+     reused pages, ragged positions and kv_len); K3's split-KV body in
+     fp32 and bf16 at GQA 1/3/4 and head_dim 64/128 over several splits
+     (t = 0, a window that leaves the first splits empty, NaN in every
+     page position past t, a second launch bit-equal); then bf16 at the
+     engine run's full-width shapes of both models (llama 32/32 heads of
+     128, granite 24/8 heads of 64) with kernel, plain and library times,
+     K3's splits and CTAs.
      K4's bf16 body also at every head_dim and GQA 1/3/4/16 against its
      plain version; at both full-width chunks poisoned unreachable
      positions (+-1e4) must move no output bit, a second launch must
@@ -52,7 +57,10 @@ Phases (none catches an exception; any failure exits non-zero):
      timed (the wrapper picks one).
      K9 slstm_seq against its plain version: fp32 at the JAX test's three
      shapes, then xlstm-1.3b's full-width sLSTM (B 4, S 128, H 4, hd 512,
-     fp32 u, bf16 r) with a planted fault beside it, with times.
+     fp32 u, bf16 r) on its cluster body (16 CTAs a head, r resident in
+     shared memory) with a planted fault beside it, a second launch
+     bit-equal, with times; and fp32 r at hd 512, which keeps the
+     per-(head, batch row) body.
   4. the slices end to end at smoke size, fp32, the same weights on the
      CPU (plain versions) and on the card (kernels): static generate(),
      then the continuous-batching engine on a paged pool with chunked
@@ -164,14 +172,23 @@ def card_line():
     return out.stdout.strip().splitlines()[0]
 
 
+# A spin kernel of this many clock cycles (~1 ms on an H100) runs before
+# each timed launch, so the card is still busy while the host enqueues
+# the launch: the time between the events is the device's, not the host
+# path of a short kernel's wrapper.
+SPIN_CYCLES = 2_000_000
+
+
 def time_ms(torch, fn, flush, reps=15):
     """Median of per-launch CUDA-event times; the L2 cache is flushed
-    before each launch (the main path finds its weights cold)."""
+    before each launch (the main path finds its weights cold), and the
+    start event waits behind a spin kernel (SPIN_CYCLES)."""
     for _ in range(2):
         fn()
     times = []
     for _ in range(reps):
         flush.zero_()
+        torch.cuda._sleep(SPIN_CYCLES)
         s = torch.cuda.Event(enable_timing=True)
         e = torch.cuda.Event(enable_timing=True)
         s.record()
@@ -182,10 +199,11 @@ def time_ms(torch, fn, flush, reps=15):
     return statistics.median(times)
 
 
-# `--parent DIR`: the parent commit's csrc/ sources of the two redesigned
-# kernel files, built beside this checkout's; every timing of K1, K2, K4,
-# K6, K7 and K8 then runs the two bodies in turns in this call.
-PARENT_SOURCES = ("moe_gmm", "paged_attn")
+# `--parent DIR`: the parent commit's csrc/ sources of the kernel files
+# this checkout redesigned, built beside this checkout's; every timing of
+# a kernel in them then runs the two bodies in turns in this call, each
+# body called through its own C signature (parent_call, parent_gmm).
+PARENT_SOURCES = ("paged_attn", "slstm_cell")
 PARENT = {}
 
 
@@ -223,7 +241,7 @@ def parent_call(torch, source, fn, *args):
 def parent_gmm(torch, G, name, x, ws, te, tv, N, K, F, out_dtype,
                scale=None, te2=None, sel=None):
     """The parent body of K1/K2/K6/K7/K8 on the wrapper's operands."""
-    if not PARENT:
+    if "moe_gmm" not in PARENT:
         return None
     i32 = torch.int32
     te, tv = te.to(i32).contiguous(), tv.to(i32).contiguous()
@@ -232,8 +250,10 @@ def parent_gmm(torch, G, name, x, ws, te, tv, N, K, F, out_dtype,
     rest = (tv,) + (() if sel is None else
                     (sel.reshape(N).float().contiguous(),))
     sc = () if scale is None else (scale.reshape(N).float().contiguous(),)
+    ring = G._ring_args(x, N, K, F, ws[0].shape[0],
+                        name.startswith("gmm_swiglu"))
     return parent_call(torch, "moe_gmm", name, x, *ws, te, *fused, *rest,
-                       *sc, out, N, K, F, G.KERNEL_BLOCK_ROWS)
+                       *sc, out, N, K, F, G.KERNEL_BLOCK_ROWS, *ring)
 
 
 def rates(entry, nbytes):
@@ -903,6 +923,62 @@ def paged_phase_small(torch, PA):
     return worst
 
 
+def decode_split_sweep(torch, PA):
+    """K3's split-KV body in fp32 and bf16 at GQA 1, 3 and 4 and head_dim
+    64 and 128, 256 positions in pages of 16 (4 splits of 4 pages): t = 0,
+    positions on and beside split edges, no window and a window of 40 that
+    leaves the first splits of the long rows empty. NaN in every page
+    position no row may read (the tail of each row's last page, the pages
+    past it, the null page) moves no output bit; against the plain version
+    on the clean pools at PAGED_TOL_F32 / _BF16; a second launch repeats
+    every bit."""
+    g = torch.Generator(device="cuda").manual_seed(12)
+    ps, P, nkv = 16, 16, 2
+    t = torch.tensor([0, 63, 64, 130, 255], dtype=torch.int32, device="cuda")
+    pos = torch.arange(P * ps, device="cuda")
+    pages, splits = PA.decode_splits(P, ps)
+    worst = {}
+    for dtype, tol in ((torch.float32, PAGED_TOL_F32),
+                       (torch.bfloat16, PAGED_TOL_BF16)):
+        for hd in (64, 128):
+            for G_ in (1, 3, 4):
+                kp, vp, bt = _pools(torch, g, len(t), P, ps, nkv, hd, dtype,
+                                    (t + 1).tolist())
+                readable = torch.zeros(kp.shape[:2], dtype=torch.bool,
+                                       device="cuda")
+                for b in range(len(t)):
+                    p = pos[:int(t[b]) + 1]
+                    readable[bt[b, p // ps].long(), p % ps] = True
+                sel = readable[:, :, None, None]
+                kc, vc = kp * sel, vp * sel
+                kn = torch.where(sel, kp, float("nan")).to(dtype)
+                vn = torch.where(sel, vp, float("nan")).to(dtype)
+                q = torch.randn(len(t), nkv * G_, hd, device="cuda",
+                                generator=g).to(dtype)
+                for window in (0, 40):
+                    out = PA.paged_attn_decode(q, kc, vc, bt, t,
+                                               window=window)
+                    ref = PA.paged_attn_decode_plain(q, kc, vc, bt, t,
+                                                     window=window)
+                    err = (out - ref).abs().max().item()
+                    key = f"{str(dtype)[6:]} hd={hd} G={G_} w={window}"
+                    worst[key] = err
+                    need(torch.allclose(out, ref, rtol=tol, atol=tol),
+                         f"K3 split-KV {key}: err {err}")
+                    need(torch.equal(out, PA.paged_attn_decode(
+                        q, kn, vn, bt, t, window=window)),
+                        f"K3 split-KV {key}: NaN past t reached the output")
+                    need(torch.equal(out, PA.paged_attn_decode(
+                        q, kc, vc, bt, t, window=window)),
+                        f"K3 split-KV {key}: a second launch gave other "
+                        "bits")
+    print(f"[paged K3 split-KV] {pages} pages x {splits} splits, t "
+          f"{t.tolist()}: max_abs_err {json.dumps(worst)} (tol fp32 "
+          f"{PAGED_TOL_F32:g}, bf16 {PAGED_TOL_BF16:g}); NaN past t: "
+          "outputs bit-equal; repeats bit-equal", flush=True)
+    return worst
+
+
 def chunk_bf16_sweep(torch, PA):
     """K4's bf16 body at every head_dim the wrapper takes and GQA 1, 3, 4
     and 16 (2 kv heads, 24 queries at 37..60 against kv_len 57: 4 pad
@@ -968,11 +1044,32 @@ def paged_phase_full(torch, PA, cfg, page_size, max_tokens):
     keys = sum(int(x) + 1 for x in t.tolist())
     nbytes = live * page_bytes + B * Hq * hd * (2 + 4)
     flops = 4 * Hq * hd * keys
-    out["paged_attn_decode"] = _paged_entry(
+    o_par = torch.empty(B, Hq, hd, device="cuda")
+    entry = _paged_entry(
         torch, flush, lambda: PA.paged_attn_decode(q, kp, vp, bt, t),
         lambda: PA.paged_attn_decode_plain(q, kp, vp, bt, t), lib_decode,
         nbytes, flops, f"B={B} t={t.tolist()} Hq={Hq} Hkv={Hkv} hd={hd} ps={ps} "
-        f"P={P}, {live} live pages")
+        f"P={P}, {live} live pages",
+        parent_call(torch, "paged_attn", "paged_attn_decode_bf16", q, kp, vp,
+                    bt, t, o_par, B, Hkv, Hq // Hkv, hd, ps, P, 0, 0.0))
+    pages, splits = PA.decode_splits(P, ps)
+    entry.update(pages_per_split=pages, splits=splits, ctas=Hkv * B * splits)
+    # NaN at every position no row may read moves no output bit
+    pos = torch.arange(S, device="cuda")
+    readable = torch.zeros(kp.shape[:2], dtype=torch.bool, device="cuda")
+    for b in range(B):
+        p = pos[:int(t[b]) + 1]
+        readable[bt[b, p // ps].long(), p % ps] = True
+    sel = readable[:, :, None, None]
+    need(torch.equal(
+        PA.paged_attn_decode(q, kp * sel, vp * sel, bt, t),
+        PA.paged_attn_decode(q, torch.where(sel, kp, float("nan")),
+                             torch.where(sel, vp, float("nan")), bt, t)),
+        f"K3 bf16 {cfg.name}: NaN past t reached the output")
+    print(f"[paged bf16] {cfg.name} K3: {pages} pages x {splits} splits, "
+          f"{Hkv * B * splits} CTAs; NaN past t: outputs bit-equal",
+          flush=True)
+    out["paged_attn_decode"] = entry
 
     start, kv_len, Cs = 320, 448, 128
     kp, vp, bt = _pools(torch, g, 1, P, ps, Hkv, hd, bf, [kv_len])
@@ -1001,7 +1098,7 @@ def paged_phase_full(torch, PA, cfg, page_size, max_tokens):
         f"kv_len={kv_len} Hq={Hq} Hkv={Hkv} hd={hd} ps={ps}, {live} live pages",
         parent_call(torch, "paged_attn", "paged_attn_chunk_bf16", qc, kp, vp,
                     bt, o_par, 1, Cs, Hkv, Hq // Hkv, hd, ps, P, start, kv_len,
-                    0, 0.0))
+                    0, 0.0, PA.chunk_warps(Cs * (Hq // Hkv))))
     # poison: +-1e4 at every position no query may read (past kv_len in
     # the last live page, the pages past it, the null page) moves no bit
     pos = torch.arange(kv_len, device="cuda")
@@ -1063,11 +1160,13 @@ def _paged_entry(torch, flush, kern, plain, lib, nbytes, flops, shape,
 def slstm_phase(torch, SC):
     """K9 against its plain version: fp32 at the JAX test's shapes, then
     the full-width sLSTM of xlstm-1.3b (fp32 u, bf16 r, as model_forward
-    passes them) beside a planted fault, repeated launches bit-equal, with
-    times. The bound: u and r read once, h written once, over 3.35 TB/s,
-    against 2·B·S·4·H·hd² FLOPs over 989 TFLOP/s; neither sees the S
-    serial steps. No single PyTorch call computes the recurrence, so the
-    library column is null."""
+    passes them) on its cluster body beside a planted fault, repeated
+    launches bit-equal, with times; then fp32 r at the same width, which
+    does not fit a cluster and keeps the per-(head, batch row) body. The
+    bound: u and r read once, h written once, over 3.35 TB/s, against
+    2·B·S·4·H·hd² FLOPs over 989 TFLOP/s; neither sees the S serial steps.
+    No single PyTorch call computes the recurrence, so the library column
+    is null."""
     g = torch.Generator(device="cuda").manual_seed(7)
     worst = 0.0
     for B, S, H, hd in SLSTM_SMALL:
@@ -1079,13 +1178,16 @@ def slstm_phase(torch, SC):
         need(torch.allclose(h, hp, rtol=SLSTM_TOL_F32, atol=SLSTM_TOL_F32),
              f"K9 fp32 {(B, S, H, hd)} err {err}")
         worst = max(worst, err)
-    print(f"[slstm fp32] (B, S, H, hd) in {SLSTM_SMALL}: max_abs_err "
-          f"{worst:.3e} (tol {SLSTM_TOL_F32:g})", flush=True)
+    print(f"[slstm fp32] (B, S, H, hd) in {SLSTM_SMALL} (clusters of "
+          f"{[SC.slstm_cluster(b, d, 4) for b, _, _, d in SLSTM_SMALL]}): "
+          f"max_abs_err {worst:.3e} (tol {SLSTM_TOL_F32:g})", flush=True)
 
     B, S, H, hd = SLSTM_FULL
     u = torch.randn(B, S, 4 * H * hd, device="cuda", generator=g)
-    r = (torch.randn(4, H, hd, hd, device="cuda", generator=g)
-         / hd ** 0.5).to(torch.bfloat16)
+    r32 = torch.randn(4, H, hd, hd, device="cuda", generator=g) / hd ** 0.5
+    r = r32.to(torch.bfloat16)
+    CL = SC.slstm_cluster(B, hd, r.element_size())
+    need(CL == SC.CLUSTER_MAX, f"K9 full width: cluster {CL}, want 16")
     r_fault = r.clone()
     r_fault[..., -1] = 0
     h, h2 = SC.slstm_seq(u, r), SC.slstm_seq(u, r)
@@ -1100,10 +1202,15 @@ def slstm_phase(torch, SC):
     flops = 2 * B * S * 4 * H * hd * hd
     t_b, t_f = nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    o_par = torch.empty_like(h)
     entry = {"shape": f"B={B} S={S} H={H} hd={hd}, u fp32, r bf16",
              "max_abs_err": err, "planted_fault_err": fault,
-             "tol": SLSTM_TOL_FULL,
-             "ms": time_ms(torch, lambda: SC.slstm_seq(u, r), flush),
+             "tol": SLSTM_TOL_FULL, "cluster": CL, "ctas": CL * H,
+             "cluster_capacity": SC._CLUSTERS_FIT[("f32", "bf16", B, hd,
+                                                   CL)],
+             **timed(torch, lambda: SC.slstm_seq(u, r), flush,
+                     parent_call(torch, "slstm_cell", "slstm_seq_f32_bf16",
+                                 u, r, o_par, B, S, H, hd)),
              "plain_ms": time_ms(torch, lambda: SC.slstm_seq_plain(u, r),
                                  flush),
              "bound_ms": max(t_b, t_f),
@@ -1111,6 +1218,21 @@ def slstm_phase(torch, SC):
              "bound_bytes_ms": t_b, "bound_operations_ms": t_f,
              "bound_note": f"{S} serial steps, which neither bound sees",
              "library_ms": None}
+    if PARENT:
+        need(torch.allclose(o_par, hp, rtol=SLSTM_TOL_FULL,
+                            atol=SLSTM_TOL_FULL), "K9 parent body disagrees")
+    # fp32 r: 256 KB of r a CTA even at 16 CTAs, so the other body
+    need(SC.slstm_cluster(B, hd, 4) is None, "K9 fp32 r at hd 512 fits a "
+         "cluster")
+    h32, hp32 = SC.slstm_seq(u, r32), SC.slstm_seq_plain(u, r32)
+    err32 = (h32 - hp32).abs().max().item()
+    need(err32 <= SLSTM_TOL_FULL, f"K9 fp32 r, per-row body: err {err32}")
+    need(torch.equal(h32, SC.slstm_seq(u, r32)),
+         "K9 fp32 r gave other bits when launched again")
+    entry["fp32_r"] = {"body": "slstm_seq_kernel (per head, batch row)",
+                       "max_abs_err": err32,
+                       "ms": time_ms(torch, lambda: SC.slstm_seq(u, r32),
+                                     flush)}
     del flush
     print(f"[slstm bf16 r] {json.dumps(entry)}", flush=True)
     return entry
@@ -1551,7 +1673,7 @@ def engine_profile_phase(torch, cfg, params, prompts, ServingEngine):
 
 def _kind(name):
     """Profile bucket of a device kernel's name."""
-    if "paged_decode_kernel" in name:
+    if "paged_decode" in name:
         return "K3 paged_attn_decode"
     if "paged_chunk_kernel" in name or "paged_chunk_tc_kernel" in name:
         return "K4 paged_attn_chunk"
@@ -1570,7 +1692,7 @@ def _kind(name):
         return {(True, False): "K1 gmm_swiglu", (False, False): "K2 gmm_scaled",
                 (True, True): "K7 gmm_swiglu_fused",
                 (False, True): "K8 gmm_scaled_fused"}[(swiglu, fused)]
-    if "slstm_seq_kernel" in name:
+    if "slstm_seq_kernel" in name or "slstm_cluster_kernel" in name:
         return "K9 slstm_seq"
     if "gemm" in name.lower() or "xmma" in name or "cutlass" in name:
         return "cuBLAS gemm"
@@ -1687,6 +1809,7 @@ def main():
     timings.update(fused_phase_full(torch, G, OPS, MOE, R, TM,
                                     cfgs[granite]))
     paged_phase_small(torch, PA)
+    decode_split_sweep(torch, PA)
     chunk_bf16_sweep(torch, PA)
     paged = {m: paged_phase_full(torch, PA, cfgs[m], ENGINE_POOL["page_size"],
                                  ENGINE_POOL["max_tokens"]) for m in cfgs}
@@ -1768,7 +1891,8 @@ def main():
             "bound_operations_ms", "bound_note", "library_note",
             "path_max_abs_err", "path_ms", "parent_ms", "turns_ms",
             "achieved_bytes_per_s", "bound_share", "tiles_per_block",
-            "warps", "warps_ms") if k in main_t})
+            "warps", "warps_ms", "pages_per_split", "splits", "ctas",
+            "cluster", "cluster_capacity", "fp32_r") if k in main_t})
         if "decode" in timings[name]:
             entry["shape"] = "prefill " + main_t["shape"]
             entry["decode"] = timings[name]["decode"]

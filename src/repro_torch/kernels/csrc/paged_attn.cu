@@ -8,12 +8,13 @@
 //   K4  repro/kernels/paged_attn.py:_paged_attn_chunk (body _chunk_kernel)
 //       a chunk of Cs queries at start..start+Cs-1; keys k_pos < kv_len,
 //       k_pos <= q_pos, and k_pos > q_pos - window when window > 0
-// A decode is the chunk case with one query at start = t[b] and
-// kv_len = t[b] + 1, so one block body (`attend`) serves both kernels,
-// `paged_decode_kernel` and `paged_chunk_kernel`. Pages are
+// K3 runs a split-KV body of its own (`paged_decode_split_kernel`); the
+// fp32 K4 runs the block body `attend` (`paged_chunk_kernel`) and the bf16
+// K4 a tensor-core body (`paged_chunk_tc_kernel`). Pages are
 // [NP, ps, Hkv, hd] (fp32 or bf16), the block table [B, P] int32 maps a
 // row's logical page j to its physical page (0 = the null page); outputs are
-// fp32 [B, Cs, Hq, hd], heads grouped as Hq = Hkv * G (GQA).
+// fp32 [B, Cs, Hq, hd] ([B, Hq, hd] for K3), heads grouped as Hq = Hkv * G
+// (GQA).
 //
 // Arithmetic, as the TPU kernel's: s = (q . k) * (1/sqrt(hd)) in fp32, then
 // softcap c * tanh(s / c), then the mask; an online softmax in fp32; p is
@@ -35,11 +36,39 @@
 // rows), so dead pages, the null page behind a short row included, cost no
 // load and no FLOPs.
 //
-// K3 and the fp32 K4 share one block body (`attend`): one block of 128
-// threads per (kv head h, row b, block of up to 16 (query, head) rows),
-// tiles of KT keys staged with 16-byte loads, scores as fp32 dot products
-// from shared memory (shuffle-reduced), the softmax one warp per row, PV
-// into fp32 registers. Split-KV for K3 is later work.
+// K3 is flash-decoding (split-KV), templated on the page dtype. A decode
+// has one query per row, so a CTA per (kv head, row) walking the row's
+// pages in order leaves most SMs idle and serialises a long row. The grid
+// is (kv head h, row b, split s): split s is a fixed span of whole pages,
+// key positions [s * split_keys, (s + 1) * split_keys) with split_keys =
+// pages_per_split * ps, about 64 keys (kernels/paged_attn.py:decode_splits,
+// a function of P and ps alone, so a row's result never depends on its
+// batch). A CTA of DEC_WARPS warps stages the G <= 16 query heads of its
+// kv head (fp32) and the split's block-table entries in shared memory,
+// loaded beside t, and spreads the split's keys over its warps in tiles of
+// 32, one key per lane: each tile's K and V rows are gathered through the
+// staged entries by 16-byte cp.async into the warp's own ring (two slots
+// where a warp has more than one tile), keys outside the row's live range
+// zero-filled (src-size 0), never read. A lane computes
+// its key's G scores as fp32 dot products; each warp keeps its own online
+// softmax per head (warp-shuffle max and sum, -inf for a masked key
+// against a running max from -1e30) and its PV accumulators, a lane per
+// head_dim / 32 output columns. The warps' partials merge through shared
+// memory in warp order into the split's partial (m, l, acc[hd]) in a
+// workspace [B, Hkv, splits, G, hd + 2]. A CTA whose split lies wholly
+// past t or before the window writes the empty partial (m = -1e30, l = 0,
+// acc = 0), whose weight in the combine is exactly 0. Then each CTA counts
+// itself in an integer counter of its (row, kv head); the last to arrive
+// resets it to 0 and combines the splits in index order:
+//   M = max_s m_s; out = sum_s e^(m_s - M) acc_s / max(sum_s e^(m_s - M) l_s,
+//   1e-20).
+// No float atomics, so a repeated launch gives the same bits.
+//
+// The fp32 K4 runs the block body (`attend`): one block of 128 threads per
+// (kv head h, row b, block of up to 16 (query, head) rows), tiles of KT
+// keys staged with 16-byte loads, scores as fp32 dot products from shared
+// memory (shuffle-reduced), the softmax one warp per row, PV into fp32
+// registers.
 //
 // The bf16 K4 has a FlashAttention-2-style body of its own
 // (`paged_chunk_tc_kernel`). A warp owns 16 (query, head) rows, folded as
@@ -100,7 +129,7 @@ __device__ __forceinline__ float round_to(float p) {
   }
 }
 
-// The body both kernels share: the block of (kv head h, row b, queries
+// The fp32 K4 body: the block of (kv head h, row b, queries
 // q0..q0+QB-1) whose first query sits at absolute position pos0; keys at
 // positions >= kvl are masked.
 template <typename T, int HD>
@@ -251,19 +280,6 @@ __device__ __forceinline__ void attend(
           acc[i] / fmaxf(sl[r], 1e-20f);
     }
   }
-}
-
-// K3: one block per (kv head, row); its one query sits at t[b].
-template <typename T, int HD>
-__global__ void __launch_bounds__(THREADS) paged_decode_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pages,
-    const T* __restrict__ v_pages, const int32_t* __restrict__ bt,
-    const int32_t* __restrict__ t_vec, float* __restrict__ out, int Hkv,
-    int G, int ps, int P, int window, float softcap, float scale) {
-  const int b = blockIdx.y;
-  const int t = t_vec[b];
-  attend<T, HD>(q, k_pages, v_pages, bt, out, blockIdx.x, b, 0, t, t + 1, 1,
-                Hkv, G, 1, ps, P, window, softcap, scale);
 }
 
 // K4 in fp32: one block per (kv head, row, block of QB queries of the
@@ -568,6 +584,338 @@ __global__ void __launch_bounds__(32 * W) paged_chunk_tc_kernel(
   }
 }
 
+// ------------------------------------------------ K3: split-KV decode body
+
+constexpr int DEC_WARPS = 2;       // warps per CTA
+constexpr int DEC_TILE = 32;       // keys per warp tile: one per lane
+constexpr int DEC_MAX_PAGES = 64;  // pages a split (64 keys of pages of 1)
+
+// smem row stride of a K/V tile (elements): 16 bytes of pad put the rows
+// of a tile, which the lanes read at once, in distinct bank groups
+template <typename T, int HD>
+__host__ __device__ constexpr int dec_ld() {
+  return HD + 16 / (int)sizeof(T);
+}
+
+// K/V ring slots a warp may use: two, or one where two would not fit
+// (fp32 at head_dim 256)
+template <typename T, int HD>
+__host__ __device__ constexpr int dec_max_slots() {
+  return HD * (int)sizeof(T) > 512 ? 1 : 2;
+}
+
+// the K/V ring, q (fp32), the rounded p and the warps' partials
+template <typename T, int HD>
+__host__ __device__ constexpr int dec_smem_bytes(int G, int slots) {
+  return DEC_WARPS * slots * 2 * DEC_TILE * dec_ld<T, HD>() * (int)sizeof(T) +
+         G * HD * 4 + DEC_WARPS * G * DEC_TILE * 4 +
+         DEC_WARPS * G * (HD + 2) * 4;
+}
+
+// N consecutive elements of a shared-memory row, widened to fp32: one
+// aligned load of N * sizeof(T) bytes (two at 32 bytes)
+template <typename T, int N>
+__device__ __forceinline__ void load_f32(const T* p, float (&f)[N]) {
+  if constexpr (std::is_same<T, float>::value) {
+    if constexpr (N % 4 == 0) {
+#pragma unroll
+      for (int i = 0; i < N; i += 4) {
+        const float4 v = *reinterpret_cast<const float4*>(p + i);
+        f[i] = v.x;
+        f[i + 1] = v.y;
+        f[i + 2] = v.z;
+        f[i + 3] = v.w;
+      }
+    } else if constexpr (N == 2) {
+      const float2 v = *reinterpret_cast<const float2*>(p);
+      f[0] = v.x;
+      f[1] = v.y;
+    } else {
+      f[0] = p[0];
+    }
+  } else {
+    if constexpr (N == 1) {
+      f[0] = __bfloat162float(p[0]);
+    } else {
+      constexpr int W = N * 2 >= 16 ? 4 : N * 2 / 4;   // 32-bit words a load
+      static_assert(N * 2 % 4 == 0, "whole bf16 pairs");
+#pragma unroll
+      for (int i = 0; i < N; i += 2 * W) {
+        unsigned w[W];
+        if constexpr (W == 4) {
+          const uint4 v = *reinterpret_cast<const uint4*>(p + i);
+          w[0] = v.x;
+          w[1] = v.y;
+          w[2] = v.z;
+          w[3] = v.w;
+        } else if constexpr (W == 2) {
+          const uint2 v = *reinterpret_cast<const uint2*>(p + i);
+          w[0] = v.x;
+          w[1] = v.y;
+        } else {
+          w[0] = *reinterpret_cast<const unsigned*>(p + i);
+        }
+#pragma unroll
+        for (int k = 0; k < W; ++k) {
+          const float2 x = __bfloat1622float2(
+              *reinterpret_cast<const __nv_bfloat162*>(&w[k]));
+          f[i + 2 * k] = x.x;
+          f[i + 2 * k + 1] = x.y;
+        }
+      }
+    }
+  }
+}
+
+// K3: one CTA per (kv head h, row b, split s); see the header. GB >= G
+// bounds the per-head register arrays and loops at compile time (1, 4 or
+// 16), so a kernel for G = 1 issues no work for absent heads.
+template <typename T, int HD, int GB>
+__global__ void __launch_bounds__(DEC_WARPS * 32) paged_decode_split_kernel(
+    const T* __restrict__ q,            // [B, Hkv * G, HD]
+    const T* __restrict__ k_pages,      // [NP, ps, Hkv, HD]
+    const T* __restrict__ v_pages,      // [NP, ps, Hkv, HD]
+    const int32_t* __restrict__ bt,     // [B, P]
+    const int32_t* __restrict__ t_vec,  // [B]
+    float* __restrict__ ws,             // [B, Hkv, splits, G, HD + 2]
+    int* __restrict__ counters,         // [B * Hkv], 0 between launches
+    float* __restrict__ out,            // [B, Hkv * G, HD]
+    int Hkv, int G, int ps, int P, int split_pages, int slots, int window,
+    float softcap, float scale) {
+  constexpr int LD = dec_ld<T, HD>();
+  constexpr int VE = 16 / sizeof(T);          // elements per 16-byte chunk
+  constexpr int CPR = HD / VE;                // chunks per key row
+  constexpr int DPL = HD >= 32 ? HD / 32 : 1; // output columns per lane
+  constexpr int GMAX = GB;                    // query heads per kv head
+  constexpr int PW = HD + 2;                  // a head's partial: acc, m, l
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  __shared__ int s_last;
+  __shared__ int s_page[DEC_MAX_PAGES];       // the split's physical pages
+  T* skv = reinterpret_cast<T*>(dsmem);       // [W][slots][K, V][TILE][LD]
+  float* sq = reinterpret_cast<float*>(skv + DEC_WARPS * slots * 2 *
+                                                 DEC_TILE * LD);  // [G][HD]
+  float* sp = sq + G * HD;                    // [W][G][TILE] rounded p
+  float* sw = sp + DEC_WARPS * G * DEC_TILE;  // [W][G][PW] warp partials
+
+  const int h = blockIdx.x, b = blockIdx.y, split = blockIdx.z;
+  const int splits = gridDim.z;
+  const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
+  const int Hq = Hkv * G;
+
+  // the split's keys the row may see (kernels/paged_attn.py
+  // decode_split_keys): k_pos <= t, k_pos > t - window when window > 0
+  const int t = t_vec[b];
+  const int split_keys = split_pages * ps;
+  const int sb = split * split_keys;
+  // the split's block-table entries and q, loaded beside t (neither waits
+  // for it), so a live split's gather waits on one round trip, not two
+  for (int i = tid; i < split_pages; i += DEC_WARPS * 32) {
+    const int j = split * split_pages + i;
+    s_page[i] = j < P ? bt[(size_t)b * P + j] : 0;
+  }
+  for (int i = tid; i < G * HD; i += DEC_WARPS * 32)
+    sq[i] = to_float(q[((size_t)b * Hq + h * G) * HD + i]);
+  const int khi = min(t, min(sb + split_keys, P * ps) - 1);
+  const int klo = window > 0 ? max(sb, t - window + 1) : sb;
+  float* part = ws + (((size_t)b * Hkv + h) * splits + split) * G * PW;
+
+  if (klo > khi) {
+    for (int i = tid; i < G * PW; i += DEC_WARPS * 32)
+      part[i] = i % PW == HD ? NEG_INF : 0.0f;
+  } else {
+
+    // this warp's tiles: tile j of the split holds keys sb + 32 j ..;
+    // warp w takes the tiles j = w (mod W) that hold a live key
+    const int j_lo = (klo - sb) / DEC_TILE, j_hi = (khi - sb) / DEC_TILE;
+    const int j0 = j_lo + (warp - j_lo % DEC_WARPS + DEC_WARPS) % DEC_WARPS;
+    const int ntiles = j0 > j_hi ? 0 : (j_hi - j0) / DEC_WARPS + 1;
+    T* wkv = skv + warp * slots * 2 * DEC_TILE * LD;
+
+    // gather tile `it` into slot it % slots: lane r finds key r's row,
+    // then the warp copies the rows 16 bytes a lane, zero-filling dead keys
+    auto issue = [&](int it) {
+      const int pos = sb + (j0 + it * DEC_WARPS) * DEC_TILE + lane;
+      const bool live = pos >= klo && pos <= khi;
+      long long row = 0;
+      if (live) {
+        const int page = s_page[(pos - sb) / ps];
+        row = (((long long)page * ps + pos % ps) * Hkv + h) * HD;
+      }
+      T* dk = wkv + (it % slots) * 2 * DEC_TILE * LD;
+      T* dv = dk + DEC_TILE * LD;
+#pragma unroll 4
+      for (int c = lane; c < DEC_TILE * CPR; c += 32) {
+        const int r = c / CPR, cc = (c % CPR) * VE;
+        const long long src = __shfl_sync(0xffffffffu, row, r);
+        const int ok = __shfl_sync(0xffffffffu, (int)live, r);
+        cp_async16(dk + r * LD + cc, k_pages + src + cc, ok ? 16 : 0);
+        cp_async16(dv + r * LD + cc, v_pages + src + cc, ok ? 16 : 0);
+      }
+      cp_async_commit();
+    };
+
+    float m[GMAX], l[GMAX], acc[GMAX][DPL];
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g) {
+      m[g] = NEG_INF;
+      l[g] = 0.0f;
+#pragma unroll
+      for (int e = 0; e < DPL; ++e) acc[g][e] = 0.0f;
+    }
+    __syncthreads();                          // q and pages staged
+    int issued = 0;
+    for (; issued < min(slots, ntiles); ++issued) issue(issued);
+
+    float* wp = sp + warp * G * DEC_TILE;
+    for (int it = 0; it < ntiles; ++it) {
+      if (issued > it + 1) {
+        cp_async_wait<1>();
+      } else {
+        cp_async_wait<0>();
+      }
+      __syncwarp();
+      const T* tk = wkv + (it % slots) * 2 * DEC_TILE * LD;
+      const T* tv = tk + DEC_TILE * LD;
+      const int pos = sb + (j0 + it * DEC_WARPS) * DEC_TILE + lane;
+      const bool live = pos >= klo && pos <= khi;
+
+      // scores of this lane's key for the G heads, fp32
+      float s[GMAX];
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) s[g] = 0.0f;
+#pragma unroll 2
+      for (int d = 0; d < HD; d += VE) {
+        float kf[VE];
+        load_f32<T, VE>(tk + lane * LD + d, kf);
+#pragma unroll
+        for (int g = 0; g < GMAX; ++g) {
+          if (GB == 1 || g < G) {
+            float qf[VE];
+            load_f32<float, VE>(sq + g * HD + d, qf);
+#pragma unroll
+            for (int e = 0; e < VE; ++e) s[g] = fmaf(qf[e], kf[e], s[g]);
+          }
+        }
+      }
+      // scale, softcap, mask; the warp's online softmax per head
+#pragma unroll
+      for (int g = 0; g < GMAX; ++g) {
+        if (GB == 1 || g < G) {
+          float v = s[g] * scale;
+          if (softcap > 0.0f) v = softcap * tanhf(v / softcap);
+          v = live ? v : -INFINITY;
+          float mx = v;
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+            mx = fmaxf(mx, __shfl_xor_sync(0xffffffffu, mx, o));
+          const float m_new = fmaxf(m[g], mx);
+          const float p = expf(v - m_new);     // masked: exp(-inf) = 0
+          float psum = p;
+#pragma unroll
+          for (int o = 16; o > 0; o >>= 1)
+            psum += __shfl_xor_sync(0xffffffffu, psum, o);
+          const float corr = expf(m[g] - m_new);
+          l[g] = l[g] * corr + psum;
+          m[g] = m_new;
+#pragma unroll
+          for (int e = 0; e < DPL; ++e) acc[g][e] *= corr;
+          wp[g * DEC_TILE + lane] = round_to<T>(p);
+        }
+      }
+      __syncwarp();
+      // acc[g][columns of this lane] += sum_k p[g][k] * V[k][column]
+      if (lane * DPL < HD) {
+#pragma unroll 4
+        for (int k = 0; k < DEC_TILE; ++k) {
+          float vf[DPL];
+          load_f32<T, DPL>(tv + k * LD + lane * DPL, vf);
+#pragma unroll
+          for (int g = 0; g < GMAX; ++g) {
+            if (GB == 1 || g < G) {
+              const float pk = wp[g * DEC_TILE + k];
+#pragma unroll
+              for (int e = 0; e < DPL; ++e)
+                acc[g][e] = fmaf(pk, vf[e], acc[g][e]);
+            }
+          }
+        }
+      }
+      __syncwarp();                           // slot and p free again
+      if (issued < ntiles) {
+        issue(issued);
+        ++issued;
+      }
+    }
+
+    // the warps' partials, merged in warp order into the split's
+    float* mw = sw + warp * G * PW;
+#pragma unroll
+    for (int g = 0; g < GMAX; ++g) {
+      if (GB == 1 || g < G) {
+        if (lane * DPL < HD) {
+#pragma unroll
+          for (int e = 0; e < DPL; ++e) mw[g * PW + lane * DPL + e] = acc[g][e];
+        }
+        if (lane == 0) {
+          mw[g * PW + HD] = m[g];
+          mw[g * PW + HD + 1] = l[g];
+        }
+      }
+    }
+    __syncthreads();
+    for (int i = tid; i < G * HD; i += DEC_WARPS * 32) {
+      const int g = i / HD, d = i % HD;
+      float M = NEG_INF;
+#pragma unroll
+      for (int w = 0; w < DEC_WARPS; ++w)
+        M = fmaxf(M, sw[(w * G + g) * PW + HD]);
+      float a = 0.0f, L = 0.0f;
+#pragma unroll
+      for (int w = 0; w < DEC_WARPS; ++w) {
+        const float* x = sw + (w * G + g) * PW;
+        const float c = expf(x[HD] - M);
+        a += c * x[d];
+        L += c * x[HD + 1];
+      }
+      part[g * PW + d] = a;
+      if (d == 0) {
+        part[g * PW + HD] = M;
+        part[g * PW + HD + 1] = L;
+      }
+    }
+  }
+
+  // the last CTA of (row, kv head) to arrive combines the splits
+  __threadfence();
+  __syncthreads();
+  if (tid == 0) {
+    int* cnt = counters + (size_t)b * Hkv + h;
+    const int last = atomicAdd(cnt, 1) == splits - 1;
+    if (last) atomicExch(cnt, 0);
+    s_last = last;
+  }
+  __syncthreads();
+  if (!s_last) return;
+  __threadfence();
+  const float* base = ws + ((size_t)b * Hkv + h) * splits * G * PW;
+  for (int i = tid; i < G * HD; i += DEC_WARPS * 32) {
+    const int g = i / HD, d = i % HD;
+    float M = NEG_INF;
+#pragma unroll 8
+    for (int s = 0; s < splits; ++s)
+      M = fmaxf(M, __ldcg(base + ((size_t)s * G + g) * PW + HD));
+    float a = 0.0f, L = 0.0f;
+#pragma unroll 8
+    for (int s = 0; s < splits; ++s) {
+      const float* x = base + ((size_t)s * G + g) * PW;
+      const float c = expf(__ldcg(x + HD) - M);
+      a += c * __ldcg(x + d);
+      L += c * __ldcg(x + HD + 1);
+    }
+    out[((size_t)b * Hq + h * G + g) * HD + d] = a / fmaxf(L, 1e-20f);
+  }
+}
+
 // Lets a kernel use `bytes` of dynamic shared memory, and asks for the
 // SM's whole carveout as shared memory: by default the carveout
 // may hold fewer CTAs than fit.
@@ -599,40 +947,100 @@ int launch_chunk_tc(const void* q, const void* kp, const void* vp,
   return (int)cudaGetLastError();
 }
 
-template <typename T, int HD>
-int launch_hd(const void* q, const void* kp, const void* vp, const void* bt,
-              const void* t, void* out, int B, int Cs, int Hkv, int G, int ps,
-              int P, int start, int kv_len, int window, float softcap,
-              int warps, void* stream) {
-  const float scale = (float)(1.0 / sqrt((double)HD));
-  const cudaStream_t st = (cudaStream_t)stream;
-  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
-    if (t == nullptr) {
-      switch (warps) {
-        case 1:
-          return launch_chunk_tc<HD, 1>(q, kp, vp, bt, out, B, Cs, Hkv, G, ps,
-                                        P, start, kv_len, window, softcap,
-                                        scale, st);
-        case 2:
-          return launch_chunk_tc<HD, 2>(q, kp, vp, bt, out, B, Cs, Hkv, G, ps,
-                                        P, start, kv_len, window, softcap,
-                                        scale, st);
-        case 4:
-          return launch_chunk_tc<HD, 4>(q, kp, vp, bt, out, B, Cs, Hkv, G, ps,
-                                        P, start, kv_len, window, softcap,
-                                        scale, st);
-        default:
-          return (int)cudaErrorInvalidValue;
-      }
-    }
+// f(std::integral_constant<int, HD>) for the head_dims the kernels take
+template <typename F>
+int with_head_dim(int hd, F&& f) {
+  switch (hd) {
+    case 16:
+      return f(std::integral_constant<int, 16>{});
+    case 32:
+      return f(std::integral_constant<int, 32>{});
+    case 64:
+      return f(std::integral_constant<int, 64>{});
+    case 128:
+      return f(std::integral_constant<int, 128>{});
+    case 256:
+      return f(std::integral_constant<int, 256>{});
+    default:
+      return (int)cudaErrorInvalidValue;
   }
-  if (t != nullptr) {
-    paged_decode_kernel<T, HD><<<dim3(Hkv, B), THREADS, 0, st>>>(
-        static_cast<const T*>(q), static_cast<const T*>(kp),
-        static_cast<const T*>(vp), static_cast<const int32_t*>(bt),
-        static_cast<const int32_t*>(t), static_cast<float*>(out), Hkv, G, ps,
-        P, window, softcap, scale);
-  } else if constexpr (std::is_same<T, float>::value) {
+}
+
+template <typename T, int HD, int GB>
+int launch_decode(const void* q, const void* kp, const void* vp,
+                  const void* bt, const void* t, void* ws, void* counters,
+                  void* out, int B, int Hkv, int G, int ps, int P,
+                  int split_pages, int splits, int window, float softcap,
+                  cudaStream_t st) {
+  constexpr int max_smem = dec_smem_bytes<T, HD>(GB, dec_max_slots<T, HD>());
+  static const cudaError_t attr =
+      set_smem(paged_decode_split_kernel<T, HD, GB>, max_smem);
+  if (attr != cudaSuccess) return (int)attr;
+  const int split_keys = split_pages * ps;
+  const int tiles = (split_keys + DEC_WARPS * DEC_TILE - 1) /
+                    (DEC_WARPS * DEC_TILE);   // per warp, at most
+  const int slots = min(dec_max_slots<T, HD>(), tiles);
+  paged_decode_split_kernel<T, HD, GB>
+      <<<dim3(Hkv, B, splits), DEC_WARPS * 32,
+         dec_smem_bytes<T, HD>(G, slots), st>>>(
+          static_cast<const T*>(q), static_cast<const T*>(kp),
+          static_cast<const T*>(vp), static_cast<const int32_t*>(bt),
+          static_cast<const int32_t*>(t), static_cast<float*>(ws),
+          static_cast<int*>(counters), static_cast<float*>(out), Hkv, G, ps, P,
+          split_pages, slots, window, softcap,
+          (float)(1.0 / sqrt((double)HD)));
+  return (int)cudaGetLastError();
+}
+
+template <typename T>
+int decode(int hd, const void* q, const void* kp, const void* vp,
+           const void* bt, const void* t, void* ws, void* counters, void* out,
+           int B, int Hkv, int G, int ps, int P, int split_pages, int splits,
+           int window, float softcap, void* stream) {
+  if (G < 1 || G > MAX_ROWS || split_pages < 1 ||
+      split_pages > DEC_MAX_PAGES || splits < 1 || splits * split_pages < P)
+    return (int)cudaErrorInvalidValue;
+  return with_head_dim(hd, [&](auto c) {
+    constexpr int HD = decltype(c)::value;
+    const auto st = (cudaStream_t)stream;
+    if (G == 1)
+      return launch_decode<T, HD, 1>(q, kp, vp, bt, t, ws, counters, out, B,
+                                     Hkv, G, ps, P, split_pages, splits,
+                                     window, softcap, st);
+    if (G <= 4)
+      return launch_decode<T, HD, 4>(q, kp, vp, bt, t, ws, counters, out, B,
+                                     Hkv, G, ps, P, split_pages, splits,
+                                     window, softcap, st);
+    return launch_decode<T, HD, MAX_ROWS>(q, kp, vp, bt, t, ws, counters, out,
+                                          B, Hkv, G, ps, P, split_pages,
+                                          splits, window, softcap, st);
+  });
+}
+
+template <typename T, int HD>
+int launch_chunk(const void* q, const void* kp, const void* vp,
+                 const void* bt, void* out, int B, int Cs, int Hkv, int G,
+                 int ps, int P, int start, int kv_len, int window,
+                 float softcap, int warps, cudaStream_t st) {
+  const float scale = (float)(1.0 / sqrt((double)HD));
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
+    switch (warps) {
+      case 1:
+        return launch_chunk_tc<HD, 1>(q, kp, vp, bt, out, B, Cs, Hkv, G, ps, P,
+                                      start, kv_len, window, softcap, scale,
+                                      st);
+      case 2:
+        return launch_chunk_tc<HD, 2>(q, kp, vp, bt, out, B, Cs, Hkv, G, ps, P,
+                                      start, kv_len, window, softcap, scale,
+                                      st);
+      case 4:
+        return launch_chunk_tc<HD, 4>(q, kp, vp, bt, out, B, Cs, Hkv, G, ps, P,
+                                      start, kv_len, window, softcap, scale,
+                                      st);
+      default:
+        return (int)cudaErrorInvalidValue;
+    }
+  } else {
     const int QB = G >= MAX_ROWS ? 1 : MAX_ROWS / G;   // queries per block
     paged_chunk_kernel<T, HD>
         <<<dim3(Hkv, B, (Cs + QB - 1) / QB), THREADS, 0, st>>>(
@@ -640,40 +1048,21 @@ int launch_hd(const void* q, const void* kp, const void* vp, const void* bt,
             static_cast<const T*>(vp), static_cast<const int32_t*>(bt),
             static_cast<float*>(out), Cs, Hkv, G, QB, ps, P, start, kv_len,
             window, softcap, scale);
+    return (int)cudaGetLastError();
   }
-  return (int)cudaGetLastError();
 }
 
 template <typename T>
-int launch(int hd, const void* q, const void* kp, const void* vp,
-           const void* bt, const void* t, void* out, int B, int Cs, int Hkv,
-           int G, int ps, int P, int start, int kv_len, int window,
-           float softcap, int warps, void* stream) {
+int chunk(int hd, const void* q, const void* kp, const void* vp,
+          const void* bt, void* out, int B, int Cs, int Hkv, int G, int ps,
+          int P, int start, int kv_len, int window, float softcap, int warps,
+          void* stream) {
   if (G < 1 || G > MAX_ROWS) return (int)cudaErrorInvalidValue;
-  switch (hd) {
-    case 16:
-      return launch_hd<T, 16>(q, kp, vp, bt, t, out, B, Cs, Hkv, G, ps, P,
-                              start, kv_len, window, softcap, warps,
-                              stream);
-    case 32:
-      return launch_hd<T, 32>(q, kp, vp, bt, t, out, B, Cs, Hkv, G, ps, P,
-                              start, kv_len, window, softcap, warps,
-                              stream);
-    case 64:
-      return launch_hd<T, 64>(q, kp, vp, bt, t, out, B, Cs, Hkv, G, ps, P,
-                              start, kv_len, window, softcap, warps,
-                              stream);
-    case 128:
-      return launch_hd<T, 128>(q, kp, vp, bt, t, out, B, Cs, Hkv, G, ps, P,
-                               start, kv_len, window, softcap, warps,
-                               stream);
-    case 256:
-      return launch_hd<T, 256>(q, kp, vp, bt, t, out, B, Cs, Hkv, G, ps, P,
-                               start, kv_len, window, softcap, warps,
-                               stream);
-    default:
-      return (int)cudaErrorInvalidValue;
-  }
+  return with_head_dim(hd, [&](auto c) {
+    return launch_chunk<T, decltype(c)::value>(
+        q, kp, vp, bt, out, B, Cs, Hkv, G, ps, P, start, kv_len, window,
+        softcap, warps, (cudaStream_t)stream);
+  });
 }
 
 }  // namespace
@@ -681,21 +1070,28 @@ int launch(int hd, const void* q, const void* kp, const void* vp,
 extern "C" {
 
 // K3: q [B, Hq, hd], pages [NP, ps, Hkv, hd], bt int32 [B, P], t int32 [B]
-//     -> out fp32 [B, Hq, hd]
+//     -> out fp32 [B, Hq, hd]. The wrapper passes the split
+//     (kernels/paged_attn.py:decode_splits: split_pages pages a split,
+//     splits * split_pages >= P), a workspace of B * Hkv * splits * G *
+//     (hd + 2) floats, and B * Hkv int counters that are 0 and that each
+//     launch leaves 0.
 int paged_attn_decode_f32(const void* q, const void* kp, const void* vp,
-                          const void* bt, const void* t, void* out, int B,
-                          int Hkv, int G, int hd, int ps, int P, int window,
-                          float softcap, void* stream) {
-  return launch<float>(hd, q, kp, vp, bt, t, out, B, 1, Hkv, G, ps, P, 0, 0,
-                       window, softcap, 0, stream);
+                          const void* bt, const void* t, void* ws,
+                          void* counters, void* out, int B, int Hkv, int G,
+                          int hd, int ps, int P, int split_pages, int splits,
+                          int window, float softcap, void* stream) {
+  return decode<float>(hd, q, kp, vp, bt, t, ws, counters, out, B, Hkv, G, ps,
+                       P, split_pages, splits, window, softcap, stream);
 }
 
 int paged_attn_decode_bf16(const void* q, const void* kp, const void* vp,
-                           const void* bt, const void* t, void* out, int B,
-                           int Hkv, int G, int hd, int ps, int P, int window,
-                           float softcap, void* stream) {
-  return launch<__nv_bfloat16>(hd, q, kp, vp, bt, t, out, B, 1, Hkv, G, ps,
-                               P, 0, 0, window, softcap, 0, stream);
+                           const void* bt, const void* t, void* ws,
+                           void* counters, void* out, int B, int Hkv, int G,
+                           int hd, int ps, int P, int split_pages, int splits,
+                           int window, float softcap, void* stream) {
+  return decode<__nv_bfloat16>(hd, q, kp, vp, bt, t, ws, counters, out, B,
+                               Hkv, G, ps, P, split_pages, splits, window,
+                               softcap, stream);
 }
 
 // K4: q [B, Cs, Hq, hd], pages, bt as K3, start / kv_len scalars
@@ -704,8 +1100,8 @@ int paged_attn_chunk_f32(const void* q, const void* kp, const void* vp,
                          const void* bt, void* out, int B, int Cs, int Hkv,
                          int G, int hd, int ps, int P, int start, int kv_len,
                          int window, float softcap, void* stream) {
-  return launch<float>(hd, q, kp, vp, bt, nullptr, out, B, Cs, Hkv, G, ps, P,
-                       start, kv_len, window, softcap, 0, stream);
+  return chunk<float>(hd, q, kp, vp, bt, out, B, Cs, Hkv, G, ps, P, start,
+                      kv_len, window, softcap, 0, stream);
 }
 
 // the bf16 body takes `warps` (1, 2 or 4) per CTA from the wrapper
@@ -714,9 +1110,8 @@ int paged_attn_chunk_bf16(const void* q, const void* kp, const void* vp,
                           const void* bt, void* out, int B, int Cs, int Hkv,
                           int G, int hd, int ps, int P, int start, int kv_len,
                           int window, float softcap, int warps, void* stream) {
-  return launch<__nv_bfloat16>(hd, q, kp, vp, bt, nullptr, out, B, Cs, Hkv, G,
-                               ps, P, start, kv_len, window, softcap, warps,
-                               stream);
+  return chunk<__nv_bfloat16>(hd, q, kp, vp, bt, out, B, Cs, Hkv, G, ps, P,
+                              start, kv_len, window, softcap, warps, stream);
 }
 
 }  // extern "C"

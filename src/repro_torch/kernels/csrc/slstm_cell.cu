@@ -16,29 +16,51 @@
 // log1pf without fast math; no atomics, so a launch repeats bit for bit.
 //
 // What bounds it on an H100: neither bytes nor FLOPs but the S serial
-// steps. The TPU kernel keeps all of r (4 * H * hd * hd) in VMEM across the
-// scan; at xlstm-1.3b's width one head's r alone is 4 * 512 * 512 bf16 =
-// 2 MiB, against 227 KB of shared memory per SM, while all four heads
-// (8.4 MB) fit in the 50 MB L2. The heads are independent (r is
-// block-diagonal), so the grid is (head, batch row): one block per pair,
-// which the TPU's grid (B,) could not split. Each block keeps its head's
-// state in registers (the thread that owns unit i holds c, n, m) and h_prev
-// in shared memory; per step it runs the GEMV over the head's 4 * hd rows
-// of r, read from global memory where L2 holds them: a warp per row (4 rows
-// a pass, all their loads issued before the first product), lanes along j
-// with 16-byte loads, h_prev's columns of each lane in registers, a shuffle
-// reduction. Then the owner of unit i runs the cell update, writes h_t, and
-// a barrier closes the step. The gate inputs u_t do not depend on h and are
-// loaded before the GEMV.
-// At B = 4, H = 4 this runs 16 blocks, each re-reading 2 MiB from L2 per
-// step: latency- and L2-bound by design. The faster design (a thread-block
-// cluster per (row, head), r split over the cluster's shared memory, h
-// exchanged through distributed shared memory) is later work.
+// steps, and how fast each step reads r. The TPU kernel keeps all of r
+// (4 * H * hd * hd) in VMEM across the scan; at xlstm-1.3b's width one
+// head's r alone is 4 * 512 * 512 bf16 = 2 MiB, against 227 KB of shared
+// memory per SM. The heads are independent (r is block-diagonal), so each
+// head gets its own thread-block cluster (`slstm_cluster_kernel`), which
+// holds all B batch rows, so each element of r read from shared memory
+// serves B rows per step:
+//   - CTA c of a cluster of CL owns the units [c hd / CL, (c + 1) hd / CL)
+//     (hd need not divide evenly) and keeps their four gate rows of r
+//     (4 hd / CL rows x hd, rows padded to 16 bytes) in its shared memory,
+//     loaded once before step 0; at full width (hd 512, bf16 r) CL = 16,
+//     128 KB of r a CTA, 64 CTAs.
+//   - Each step, rec = r_slice . h_prev for the CTA's rows and all B rows:
+//     a warp takes 8 rows at a time, a lane 16-byte pieces of the columns
+//     with h_prev of those columns for 4 batch rows in registers, fp32
+//     FMAs (bf16 r widens exactly; h is never rounded), and the 32 sums
+//     (8 rows x 4 batch rows) reduce across the lanes in one butterfly
+//     that leaves one finished sum on each lane (31 shuffles).
+//   - The owner of each (batch row, unit) cell runs the cell update with
+//     c, n and m in registers, writes h_t, and pushes it into every CTA's
+//     h buffer through distributed shared memory; the buffer is
+//     double-buffered by step parity, so one cluster barrier
+//     (barrier.cluster.arrive.release / wait.acquire) closes each step.
+//     u_{t+1} is loaded into registers during step t, behind its
+//     products.
+// kernels/slstm_cell.py:slstm_cluster picks CL from the shapes: the
+// smallest power of two <= 16 whose r slice and h buffers fit a CTA's
+// shared memory, or none; a shape with none (fp32 r at hd 512 needs 256 KB
+// a CTA even at CL = 16) keeps the per-(head, batch row) body
+// `slstm_seq_kernel`. That body keeps the state in registers (the thread
+// that owns unit i holds c, n, m) and h_prev in shared memory, and per
+// step runs the GEMV over the head's 4 * hd rows of r, read from global
+// memory where L2 holds them: a warp per row (4 rows a pass, all their
+// loads issued before the first product), lanes along j with 16-byte
+// loads, a shuffle reduction; then the owner of unit i runs the cell
+// update, writes h_t, and a barrier closes the step. At B = 4, H = 4 it
+// runs 16 blocks, each re-reading 2 MiB from L2 per step.
 //
 // C interface: each entry point launches on the given stream and returns
-// cudaGetLastError() as an int (0 = launched); hd outside 1..512 returns
-// cudaErrorInvalidValue without launching.
+// the launch's error as an int (0 = launched); hd outside 1..512, or a
+// cluster size the shapes do not fit, returns cudaErrorInvalidValue
+// without launching. `slstm_cluster_capacity_*` reports how many clusters
+// of a size can be resident at once (cudaOccupancyMaxActiveClusters).
 
+#include <cooperative_groups.h>
 #include <cuda_bf16.h>
 #include <cuda_runtime.h>
 #include <stdint.h>
@@ -197,11 +219,264 @@ slstm_seq_kernel(const TU* __restrict__ u, const TR* __restrict__ r,
   }
 }
 
+// ------------------------------------------------------- the cluster body
+
+constexpr int CL_THREADS = 256;     // 8 warps
+constexpr int CL_WARPS = CL_THREADS / 32;
+constexpr int CL_ROWS = 8;          // rows of r a warp sums together
+constexpr int CL_BATCH = 4;         // batch rows a pass: 8 x 4 = 32 sums
+constexpr int CL_CELLS = 4;         // (batch row, unit) cells a thread holds
+constexpr int CL_MAX = 16;          // CTAs a cluster (non-portable above 8)
+constexpr int SMEM_MAX = 232448;    // dynamic shared memory a CTA may use
+
+// a row of r or h in shared memory: hd rounded up to 16 bytes of r
+__host__ __device__ constexpr int cl_ld(int hd, int r_bytes) {
+  return (hd + 16 / r_bytes - 1) / (16 / r_bytes) * (16 / r_bytes);
+}
+
+// the r slice [4 ceil(hd / CL)][ld], h [2][B][ld] and rec [B][4 ceil(hd /
+// CL)], fp32; kernels/slstm_cell.py:slstm_cluster_smem
+__host__ __device__ constexpr int cl_smem(int B, int hd, int r_bytes,
+                                          int CL) {
+  return 4 * ((hd + CL - 1) / CL) * cl_ld(hd, r_bytes) * r_bytes +
+         2 * B * cl_ld(hd, r_bytes) * 4 + 4 * ((hd + CL - 1) / CL) * B * 4;
+}
+
+__device__ __forceinline__ void cp_async16(void* dst, const void* src) {
+  asm volatile("cp.async.cg.shared.global [%0], [%1], 16;\n" ::"r"(
+                   static_cast<unsigned>(__cvta_generic_to_shared(dst))),
+               "l"(src));
+}
+
+__device__ __forceinline__ void cluster_barrier() {
+  __syncwarp();        // the .aligned barrier wants whole, converged warps
+  asm volatile("barrier.cluster.arrive.release.aligned;\n" ::: "memory");
+  asm volatile("barrier.cluster.wait.acquire.aligned;\n" ::: "memory");
+}
+
+// 32 partial sums a lane -> lane l holds the warp's total of sum l: at
+// step N (16, 8, .., 1) keep the half of the 2N sums left that this lane's
+// bit N selects, adding the partner lane's copy of it (31 shuffles)
+template <int N>
+__device__ __forceinline__ void butterfly(float (&a)[32], int lane) {
+  const bool upper = lane & N;
+#pragma unroll
+  for (int i = 0; i < N; ++i) {
+    const float send = upper ? a[i] : a[i + N];
+    const float keep = upper ? a[i + N] : a[i];
+    a[i] = keep + __shfl_xor_sync(0xffffffffu, send, N);
+  }
+  if constexpr (N > 1) butterfly<N / 2>(a, lane);
+}
+
+// One cluster per head (blockIdx.y), CTA rank c of CL along x; see the
+// header.
+template <typename TU, typename TR>
+__global__ void __launch_bounds__(CL_THREADS, 1)
+slstm_cluster_kernel(const TU* __restrict__ u, const TR* __restrict__ r,
+                     TU* __restrict__ out, int B, int S, int H, int hd,
+                     int CL) {
+  constexpr int V = 16 / sizeof(TR);         // r elements per 16 bytes
+  constexpr int NCH = MAX_HD / (32 * V);     // 16-byte pieces a lane, at most
+  cooperative_groups::cluster_group cluster =
+      cooperative_groups::this_cluster();
+  const int rank = blockIdx.x, head = blockIdx.y;   // cluster (CL, 1, 1)
+  const int lo = rank * hd / CL, U = (rank + 1) * hd / CL - lo;
+  const int rows = 4 * U, umax = (hd + CL - 1) / CL;
+  const int ld = cl_ld(hd, sizeof(TR));
+  const int tid = threadIdx.x, lane = tid & 31, warp = tid >> 5;
+  const long D = (long)H * hd;               // one gate's width in u
+  extern __shared__ __align__(16) unsigned char dsmem[];
+  TR* r_s = reinterpret_cast<TR*>(dsmem);                      // [4 umax][ld]
+  float* h_s = reinterpret_cast<float*>(r_s + 4 * umax * ld);  // [2][B][ld]
+  float* rec_s = h_s + 2 * B * ld;                             // [B][4 umax]
+
+  // r slice: row g U + i holds r[g, head, lo + i, :]; pad columns are 0
+  if (hd * (int)sizeof(TR) % 16 == 0) {
+    const int cpr = hd / V;
+    for (int c = tid; c < rows * cpr; c += CL_THREADS) {
+      const int row = c / cpr, cc = (c % cpr) * V;
+      const int g = row / U, i = row % U;
+      cp_async16(r_s + (long)row * ld + cc,
+                 r + (((long)g * H + head) * hd + lo + i) * hd + cc);
+    }
+    asm volatile("cp.async.commit_group;\n" ::);
+  } else {
+    for (int c = tid; c < rows * ld; c += CL_THREADS) {
+      const int row = c / ld, j = c % ld, g = row / U, i = row % U;
+      r_s[(long)row * ld + j] =
+          j < hd ? r[(((long)g * H + head) * hd + lo + i) * hd + j]
+                 : from_float<TR>(0.f);
+    }
+  }
+  for (int i = tid; i < 2 * B * ld; i += CL_THREADS) h_s[i] = 0.f;
+
+  // cells: ci = tid + k * CL_THREADS is (batch row ci / U, unit lo + ci % U)
+  const int ncell = B * U;
+  float c[CL_CELLS], n[CL_CELLS], m[CL_CELLS], gin[CL_CELLS][4];
+  auto load_u = [&](int t) {
+#pragma unroll
+    for (int k = 0; k < CL_CELLS; ++k) {
+      const int ci = tid + k * CL_THREADS;
+      if (ci < ncell) {
+        const TU* ut = u + ((long)(ci / U) * S + t) * 4 * D + (long)head * hd +
+                       lo + ci % U;
+#pragma unroll
+        for (int g = 0; g < 4; ++g) gin[k][g] = to_float(ut[g * D]);
+      }
+    }
+  };
+#pragma unroll
+  for (int k = 0; k < CL_CELLS; ++k) c[k] = n[k] = m[k] = 0.f;
+  load_u(0);
+  asm volatile("cp.async.wait_group 0;\n" ::);
+  cluster_barrier();   // every CTA running, its r slice and h buffers set
+
+  for (int t = 0; t < S; ++t) {
+    const float* hp = h_s + (t & 1) * B * ld;
+    for (int b0 = 0; b0 < B; b0 += CL_BATCH) {
+      // h_prev of this lane's columns for batch rows b0 .. b0 + 3
+      float hreg[NCH * V][CL_BATCH];
+#pragma unroll
+      for (int k = 0; k < NCH; ++k) {
+        const int j = (k * 32 + lane) * V;
+#pragma unroll
+        for (int bb = 0; bb < CL_BATCH; ++bb) {
+          const bool ok = j < hd && b0 + bb < B;
+#pragma unroll
+          for (int e = 0; e < V; e += 4) {
+            const float4 x = ok ? *reinterpret_cast<const float4*>(
+                                      hp + (long)(b0 + bb) * ld + j + e)
+                                : make_float4(0.f, 0.f, 0.f, 0.f);
+            hreg[k * V + e][bb] = x.x;
+            hreg[k * V + e + 1][bb] = x.y;
+            hreg[k * V + e + 2][bb] = x.z;
+            hreg[k * V + e + 3][bb] = x.w;
+          }
+        }
+      }
+      for (int p0 = warp * CL_ROWS; p0 < rows; p0 += CL_WARPS * CL_ROWS) {
+        float acc[CL_ROWS * CL_BATCH];
+#pragma unroll
+        for (int i = 0; i < CL_ROWS * CL_BATCH; ++i) acc[i] = 0.f;
+#pragma unroll
+        for (int k = 0; k < NCH; ++k) {
+          const int j = (k * 32 + lane) * V;
+          if (j < hd) {
+            uint4 raw[CL_ROWS];
+#pragma unroll
+            for (int q = 0; q < CL_ROWS; ++q)
+              raw[q] = p0 + q < rows ? *reinterpret_cast<const uint4*>(
+                                           r_s + (long)(p0 + q) * ld + j)
+                                     : make_uint4(0u, 0u, 0u, 0u);
+#pragma unroll
+            for (int q = 0; q < CL_ROWS; ++q) {
+              float w[V];
+              widen<TR, V>(raw[q], w);
+#pragma unroll
+              for (int e = 0; e < V; ++e)
+#pragma unroll
+                for (int bb = 0; bb < CL_BATCH; ++bb)
+                  acc[q * CL_BATCH + bb] =
+                      fmaf(w[e], hreg[k * V + e][bb], acc[q * CL_BATCH + bb]);
+            }
+          }
+        }
+        butterfly<16>(acc, lane);
+        const float sum = acc[0];
+        const int row = p0 + lane / CL_BATCH, b = b0 + lane % CL_BATCH;
+        if (row < rows && b < B) rec_s[b * 4 * umax + row] = sum;
+      }
+    }
+    __syncthreads();
+
+    float* hn = h_s + ((t + 1) & 1) * B * ld;
+#pragma unroll
+    for (int k = 0; k < CL_CELLS; ++k) {
+      const int ci = tid + k * CL_THREADS;
+      if (ci < ncell) {
+        const int b = ci / U, i = ci % U;
+        const float* rec = rec_s + b * 4 * umax;
+        const float li = gin[k][0] + rec[i];
+        float lf = gin[k][1] + rec[U + i];
+        const float z = gin[k][2] + rec[2 * U + i];
+        const float o = gin[k][3] + rec[3 * U + i];
+        lf = fminf(lf, 0.f) - log1pf(expf(-fabsf(lf)));
+        const float m_new = fmaxf(lf + m[k], li);
+        const float fi = expf(lf + m[k] - m_new);
+        const float ii = expf(li - m_new);
+        c[k] = fi * c[k] + ii * tanhf(z);
+        n[k] = fi * n[k] + ii;
+        const float h = (1.f / (1.f + expf(-o))) * c[k] / fmaxf(n[k], 1e-6f);
+        m[k] = m_new;
+        out[((long)b * S + t) * D + (long)head * hd + lo + i] =
+            from_float<TU>(h);
+        float* dst = hn + (long)b * ld + lo + i;
+        for (int q = 0; q < CL; ++q) *cluster.map_shared_rank(dst, q) = h;
+      }
+    }
+    if (t + 1 < S) load_u(t + 1);
+    cluster_barrier();   // h_t in every CTA; rec_s and h_s[t & 1] free
+  }
+}
+
+// The cluster kernel's attributes, set once: non-portable cluster sizes
+// (16) and all of a CTA's dynamic shared memory
+template <typename TU, typename TR>
+cudaError_t cluster_attrs() {
+  const auto k = slstm_cluster_kernel<TU, TR>;
+  cudaError_t e = cudaFuncSetAttribute(
+      k, cudaFuncAttributeNonPortableClusterSizeAllowed, 1);
+  if (e != cudaSuccess) return e;
+  return cudaFuncSetAttribute(k, cudaFuncAttributeMaxDynamicSharedMemorySize,
+                              SMEM_MAX);
+}
+
+// Launch the cluster body (capacity == nullptr), or report in *capacity
+// how many of its clusters can be resident at once.
+template <typename TU, typename TR>
+int launch_cluster(const void* u, const void* r, void* out, int B, int S,
+                   int H, int hd, int CL, cudaStream_t stream,
+                   int* capacity) {
+  const int smem = cl_smem(B, hd, sizeof(TR), CL);
+  if (CL < 1 || CL > CL_MAX || (CL & (CL - 1)) || smem > SMEM_MAX ||
+      B * ((hd + CL - 1) / CL) > CL_THREADS * CL_CELLS) {
+    return (int)cudaErrorInvalidValue;
+  }
+  static const cudaError_t attr = cluster_attrs<TU, TR>();
+  if (attr != cudaSuccess) return (int)attr;
+  cudaLaunchAttribute at[1];
+  at[0].id = cudaLaunchAttributeClusterDimension;
+  at[0].val.clusterDim.x = CL;
+  at[0].val.clusterDim.y = 1;
+  at[0].val.clusterDim.z = 1;
+  cudaLaunchConfig_t cfg = {};
+  cfg.gridDim = dim3(CL, H);
+  cfg.blockDim = dim3(CL_THREADS);
+  cfg.dynamicSmemBytes = smem;
+  cfg.stream = stream;
+  cfg.attrs = at;
+  cfg.numAttrs = 1;
+  if (capacity != nullptr) {
+    return (int)cudaOccupancyMaxActiveClusters(
+        capacity, slstm_cluster_kernel<TU, TR>, &cfg);
+  }
+  const cudaError_t e = cudaLaunchKernelEx(
+      &cfg, slstm_cluster_kernel<TU, TR>, static_cast<const TU*>(u),
+      static_cast<const TR*>(r), static_cast<TU*>(out), B, S, H, hd, CL);
+  if (e != cudaSuccess) return (int)e;
+  return (int)cudaGetLastError();
+}
+
 template <typename TU, typename TR>
 int launch(const void* u, const void* r, void* out, int B, int S, int H,
-           int hd, cudaStream_t stream) {
+           int hd, int CL, cudaStream_t stream) {
   if (hd < 1 || hd > MAX_HD || H < 1 || B < 1 || S < 1) {
     return (int)cudaErrorInvalidValue;
+  }
+  if (CL > 0) {
+    return launch_cluster<TU, TR>(u, r, out, B, S, H, hd, CL, stream,
+                                  nullptr);
   }
   constexpr int VEC = 16 / sizeof(TR);
   const dim3 grid(H, B);
@@ -220,14 +495,23 @@ int launch(const void* u, const void* r, void* out, int B, int S, int H,
 
 }  // namespace
 
-#define SLSTM_ENTRY(NAME, TU, TR)                                            \
-  extern "C" int NAME(const void* u, const void* r, void* out, int B, int S, \
-                      int H, int hd, void* stream) {                         \
-    return launch<TU, TR>(u, r, out, B, S, H, hd,                            \
+// slstm_seq_<u>_<r>: CL = 0 runs the per-(head, batch row) body, CL > 0 the
+// cluster body with CL CTAs a head (kernels/slstm_cell.py:slstm_cluster).
+#define SLSTM_ENTRY(DU, DR, TU, TR)                                          \
+  extern "C" int slstm_seq_##DU##_##DR(const void* u, const void* r,         \
+                                        void* out, int B, int S, int H,      \
+                                        int hd, int CL, void* stream) {      \
+    return launch<TU, TR>(u, r, out, B, S, H, hd, CL,                        \
                           static_cast<cudaStream_t>(stream));                \
+  }                                                                          \
+  extern "C" int slstm_cluster_capacity_##DU##_##DR(int B, int hd, int CL) { \
+    int n = 0;                                                               \
+    const int e = launch_cluster<TU, TR>(nullptr, nullptr, nullptr, B, 1, 1, \
+                                         hd, CL, nullptr, &n);               \
+    return e != 0 ? -e : n;                                                  \
   }
 
-SLSTM_ENTRY(slstm_seq_f32_f32, float, float)
-SLSTM_ENTRY(slstm_seq_f32_bf16, float, __nv_bfloat16)
-SLSTM_ENTRY(slstm_seq_bf16_f32, __nv_bfloat16, float)
-SLSTM_ENTRY(slstm_seq_bf16_bf16, __nv_bfloat16, __nv_bfloat16)
+SLSTM_ENTRY(f32, f32, float, float)
+SLSTM_ENTRY(f32, bf16, float, __nv_bfloat16)
+SLSTM_ENTRY(bf16, f32, __nv_bfloat16, float)
+SLSTM_ENTRY(bf16, bf16, __nv_bfloat16, __nv_bfloat16)

@@ -139,7 +139,7 @@ def _lib():
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         for dt in _KERNEL_DTYPES.values():
             f = getattr(lib, f"paged_attn_decode_{dt}")
-            f.argtypes = [P, P, P, P, P, P, I, I, I, I, I, I, I, F, P]
+            f.argtypes = [P] * 8 + [I] * 9 + [F, P]
             f.restype = I
             f = getattr(lib, f"paged_attn_chunk_{dt}")
             f.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F,
@@ -174,13 +174,17 @@ def paged_attn_decode(q: torch.Tensor, k_pages: torch.Tensor,
     dt = _check_cuda("paged_attn_decode", q, k_pages, v_pages, block_table,
                      t)
     _, ps, Hkv, _ = k_pages.shape
+    P, G = block_table.shape[1], Hq // Hkv
+    pages, splits = decode_splits(P, ps)
     out = torch.empty((B, Hq, hd), dtype=torch.float32, device=q.device)
+    ws = torch.empty(B * Hkv * splits * G * (hd + 2), dtype=torch.float32,
+                     device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     rc = getattr(_lib(), f"paged_attn_decode_{dt}")(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_table.data_ptr(), t.data_ptr(), out.data_ptr(), B, Hkv,
-        Hq // Hkv, hd, ps, block_table.shape[1], int(window), float(softcap),
-        stream)
+        block_table.data_ptr(), t.data_ptr(), ws.data_ptr(),
+        _counters(q.device, B * Hkv).data_ptr(), out.data_ptr(), B, Hkv, G,
+        hd, ps, P, pages, splits, int(window), float(softcap), stream)
     build.check(rc, "paged_attn_decode")
     LAUNCHES["paged_attn_decode"] += 1
     return out
@@ -215,6 +219,47 @@ def paged_attn_chunk(q: torch.Tensor, k_pages: torch.Tensor,
     build.check(rc, "paged_attn_chunk")
     LAUNCHES["paged_attn_chunk"] += 1
     return out
+
+
+# ------------------------------------------------------ K3's launch arithmetic
+
+DECODE_SPLIT_KEYS = 64          # about this many keys per split of K3
+
+# K3's arrival counters, one per (row, kv head) and device: 0 between
+# launches (the last CTA of each resets its own), so they are made once and
+# only grown. Launches of K3 on one device run in stream order.
+_COUNTERS: dict = {}
+
+
+def _counters(device, n: int) -> torch.Tensor:
+    c = _COUNTERS.get(device)
+    if c is None or c.numel() < n:
+        c = torch.zeros(n, dtype=torch.int32, device=device)
+        _COUNTERS[device] = c
+    return c
+
+
+def decode_splits(P: int, ps: int) -> tuple[int, int]:
+    """K3's split-KV launch: (pages per split, splits). A split is a fixed
+    span of whole pages, about DECODE_SPLIT_KEYS keys and at least one
+    page, and `splits` of them cover a row's P pages: the grid is (kv head,
+    row, split). Shapes only, so the split a key falls in never depends on
+    the batch, the positions or the device."""
+    pages = max(1, DECODE_SPLIT_KEYS // ps)
+    return pages, -(-P // pages)
+
+
+def decode_split_keys(split: int, pages: int, ps: int, P: int, t: int,
+                      window: int = 0) -> tuple[int, int]:
+    """(first, last): the keys of `split` (of `pages` pages) a row at
+    position t may see, k_pos <= t and k_pos > t - window when window > 0;
+    empty when last < first, and then the split's CTA writes the empty
+    partial (m = -1e30, l = 0, acc = 0). csrc/paged_attn.cu
+    `paged_decode_split_kernel` follows the same formulas."""
+    lo = split * pages * ps
+    last = min(t, min(lo + pages * ps, P * ps) - 1)
+    first = max(lo, t - window + 1) if window > 0 else lo
+    return first, last
 
 
 # ------------------------------------------------- K4's bf16 launch arithmetic

@@ -707,3 +707,123 @@ def test_cuda_fused_bf16_equals_unfused_off_straddle_at_granite_width(
     torch.testing.assert_close(
         y, G.gmm_scaled_fused_plain(h, wo, te, te2, tv, sel, sc, bn),
         rtol=1e-4, atol=1e-4)
+
+
+# ------------------------------------- K3 split-KV body, K9 cluster body
+
+# the engine cell's last decode tick (chip_smoke.py paged_phase_full):
+# positions of the four first requests, pages of 16, 32 pages a row
+ENGINE_T = [64 + 31, 448 + 31, 128 + 31, 320 + 31]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("hq,nkv,hd", [(32, 32, 128), (24, 8, 64)])
+def test_cuda_decode_split_at_engine_shape(cuda_device, dtype, tol, hq, nkv,
+                                           hd):
+    """K3's split-KV body at the engine's decode shapes (llama 32/32 heads
+    of 128, granite 24/8 of 64; 8 splits of 4 pages, rows reaching 2 to 8
+    of them) against its plain version: fp32 at 2e-5 (the online softmax
+    sums in another order), bf16 at 2e-2 (p rounded per split). NaN in
+    every position no row may read (the tail of each row's last page, the
+    pages past it, the null page) changes no output bit, and a second
+    launch repeats every bit."""
+    t = np.array(ENGINE_T, np.int32)
+    kw = dict(ps=16, P=32, hq=hq, hd=hd)
+    kp, vp, bt, _, _ = _paged(40, nkv, t + 1, cuda_device, dtype, poison=0.0,
+                              **kw)
+    dirty = _paged(40, nkv, t + 1, cuda_device, dtype, poison=np.nan, **kw)
+    assert PA.decode_splits(32, 16) == (4, 8)
+    g = torch.Generator(device="cuda").manual_seed(41)
+    q = torch.randn(len(t), hq, hd, device="cuda", generator=g).to(dtype)
+    tt = torch.from_numpy(t).to(cuda_device)
+    before = PA.LAUNCHES["paged_attn_decode"]
+    out = PA.paged_attn_decode(q, kp, vp, bt, tt)
+    out_dirty = PA.paged_attn_decode(q, *dirty[:3], tt)
+    again = PA.paged_attn_decode(q, kp, vp, bt, tt)
+    torch.cuda.synchronize()
+    assert PA.LAUNCHES["paged_attn_decode"] == before + 3
+    torch.testing.assert_close(out, PA.paged_attn_decode_plain(
+        q, kp, vp, bt, tt), rtol=tol, atol=tol)
+    assert torch.equal(out, out_dirty) and torch.equal(out, again)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("G_,hd,ps", [(1, 128, 8), (3, 64, 16), (4, 128, 4),
+                                      (16, 256, 32), (3, 16, 128)])
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (40, 0.0), (70, 3.0)])
+def test_cuda_decode_split_window_and_groups(cuda_device, dtype, tol, G_, hd,
+                                             ps, window, softcap):
+    """K3's split-KV body at GQA 1/3/4/16, head_dim 16 to 256, pages of 4
+    to 128 (one to 16 pages a split; two tiles a warp at 128), t = 0 and
+    positions on split edges, a window that leaves the first splits empty,
+    a softcap; against its plain version at PAGED_TOL_F32 / _BF16."""
+    t = np.array([0, 63, 64, 200, 255], np.int32)
+    P = 256 // ps
+    kp, vp, bt, _, _ = _paged(50 + G_, 2, t + 1, cuda_device, dtype, ps=ps,
+                              P=P, hq=2 * G_, hd=hd, poison=0.0)
+    g = torch.Generator(device="cuda").manual_seed(51)
+    q = torch.randn(len(t), 2 * G_, hd, device="cuda", generator=g).to(dtype)
+    tt = torch.from_numpy(t).to(cuda_device)
+    out = PA.paged_attn_decode(q, kp, vp, bt, tt, window=window,
+                               softcap=softcap)
+    torch.testing.assert_close(out, PA.paged_attn_decode_plain(
+        q, kp, vp, bt, tt, window=window, softcap=softcap), rtol=tol,
+        atol=tol)
+
+
+def _slstm_cl(SC, u, r, CL):
+    """K9 through its C entry at a forced cluster size (0: the per-(head,
+    batch row) body); the wrapper picks slstm_cluster's."""
+    B, S, _ = u.shape
+    _, H, hd, _ = r.shape
+    names = {torch.float32: "f32", torch.bfloat16: "bf16"}
+    out = torch.empty(B, S, H * hd, device=u.device, dtype=u.dtype)
+    rc = getattr(SC._lib(), f"slstm_seq_{names[u.dtype]}_{names[r.dtype]}")(
+        u.data_ptr(), r.data_ptr(), out.data_ptr(), B, S, H, hd, CL,
+        torch.cuda.current_stream().cuda_stream)
+    assert rc == 0, f"cudaError {rc}"
+    return out
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,S,H,hd,r_dtype", [
+    (3, 33, 4, 32, torch.float32), (2, 9, 2, 20, torch.float32),
+    (5, 17, 2, 40, torch.bfloat16), (1, 6, 1, 8, torch.float32)])
+def test_cuda_slstm_cluster_sizes_match_plain(cuda_device, B, S, H, hd,
+                                              r_dtype):
+    """K9's cluster body at every cluster size from 1 to 16, unit slices
+    that do not divide evenly (hd 20, 40), CTAs that own no unit (hd 8 at
+    CL 16), more than 4 batch rows (two passes), fp32 and bf16 r: 1e-5
+    against the plain version (fp32 arithmetic, only the order of the
+    recurrent sums differs), and CL 0, the other body, too."""
+    from repro_torch.kernels import slstm_cell as SC
+    u, r = _slstm_inputs(B, S, H, hd, cuda_device, r_dtype, seed=hd)
+    ref = SC.slstm_seq_plain(u, r)
+    for CL in (0, 1, 2, 4, 8, 16):
+        torch.testing.assert_close(_slstm_cl(SC, u, r, CL), ref, rtol=1e-5,
+                                   atol=1e-5, msg=f"CL={CL}")
+
+
+@pytest.mark.requires_cuda
+def test_cuda_slstm_full_width_runs_on_a_16_cta_cluster(cuda_device):
+    """xlstm-1.3b's full-width sLSTM (4 x 128, 4 heads of 512, bf16 r)
+    runs on a cluster of 16 CTAs with r resident in shared memory, within
+    1e-4 of the plain version and bit-equal when launched again; fp32 r at
+    hd 512 does not fit a CTA, keeps the per-(head, batch row) body and
+    matches too."""
+    from repro_torch.kernels import slstm_cell as SC
+    B, S, H, hd = 4, 128, 4, 512
+    assert SC.slstm_cluster(B, hd, 2) == 16
+    assert SC.slstm_cluster(B, hd, 4) is None
+    u, r = _slstm_inputs(B, S, H, hd, cuda_device, torch.bfloat16)
+    h, h2 = SC.slstm_seq(u, r), SC.slstm_seq(u, r)
+    torch.testing.assert_close(h, SC.slstm_seq_plain(u, r), rtol=1e-4,
+                               atol=1e-4)
+    assert torch.equal(h, h2) and torch.equal(h, _slstm_cl(SC, u, r, 16))
+    u, r = _slstm_inputs(B, 16, H, hd, cuda_device, torch.float32)
+    torch.testing.assert_close(SC.slstm_seq(u, r), SC.slstm_seq_plain(u, r),
+                               rtol=1e-4, atol=1e-4)

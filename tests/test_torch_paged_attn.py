@@ -339,3 +339,133 @@ def test_chunk_tc_algorithm_matches_jax_kernel(window, softcap):
     n = kv_len - start
     np.testing.assert_allclose(got.numpy()[:, :n], np.asarray(kern)[:, :n],
                                **TOL_KERNEL)
+
+
+# ---------------------------------------- K3's split-KV body: launch arithmetic
+
+# (P, ps, window): the engine's pool (32 pages of 16), pages of 8 and 4
+# (several pages a split), pages larger than a split (128), a page count
+# the splits do not divide, windows that leave the first splits empty
+SPLIT_CASES = [(32, 16, 0), (32, 16, 100), (24, 8, 40), (10, 4, 0),
+               (4, 128, 0), (7, 16, 30), (3, 24, 0)]
+
+
+@pytest.mark.parametrize("P_,ps,window", SPLIT_CASES)
+def test_decode_splits_cover_exactly_the_visible_keys(P_, ps, window):
+    """Each split is a span of whole pages, about 64 keys (at least one
+    page), the splits cover the row's P pages, and over every position t
+    the splits' key ranges are disjoint and their union is exactly the
+    keys the row may see (a brute-force mask: k_pos <= t, and k_pos > t -
+    window when window > 0)."""
+    pages, splits = PA.decode_splits(P_, ps)
+    assert pages == max(1, PA.DECODE_SPLIT_KEYS // ps)
+    assert (splits - 1) * pages < P_ <= splits * pages
+    k_pos = np.arange(P_ * ps)
+    for t in range(P_ * ps):
+        seen = k_pos <= t
+        if window > 0:
+            seen &= k_pos > t - window
+        got = np.zeros(P_ * ps, int)
+        for s in range(splits):
+            first, last = PA.decode_split_keys(s, pages, ps, P_, t, window)
+            if last < first:
+                continue
+            assert s * pages * ps <= first and last < (s + 1) * pages * ps
+            got[first:last + 1] += 1
+        np.testing.assert_array_equal(got, seen.astype(int), err_msg=f"t={t}")
+
+
+def _decode_split_emulated(q, kp, vp, bt, t, window, softcap):
+    """K3's split-KV body step by step in fp32 torch on the CPU: per (row,
+    kv head) a partial (m, l, acc) per split, the empty partial (-1e30, 0,
+    0) where the split holds no visible key; inside a split, warps of
+    32-key tiles (tile j to warp j mod 2) each with its own online softmax
+    (masked scores -inf against a running max from -1e30; p rounded to
+    the page dtype only for PV, l summing it unrounded) and keys outside
+    the split's range zero-filled; the warps merged in order; then the
+    splits combined in index order, out = sum e^(m_s - M) acc_s /
+    max(sum e^(m_s - M) l_s, 1e-20)."""
+    B, Hq, hd = q.shape
+    _, ps, Hkv, _ = kp.shape
+    G, P_ = Hq // Hkv, bt.shape[1]
+    pages, splits = PA.decode_splits(P_, ps)
+    SK, W, TILE = pages * ps, 2, 32
+    out = torch.zeros(B, Hq, hd)
+    for b in range(B):
+        for h in range(Hkv):
+            qg = q[b, h * G:(h + 1) * G]
+            parts = []
+            for s in range(splits):
+                first, last = PA.decode_split_keys(s, pages, ps, P_,
+                                                   int(t[b]), window)
+                if last < first:
+                    parts.append((torch.full((G,), -1e30), torch.zeros(G),
+                                  torch.zeros(G, hd)))
+                    continue
+                warps = [(torch.full((G,), -1e30), torch.zeros(G),
+                          torch.zeros(G, hd)) for _ in range(W)]
+                for j in range(-(-SK // TILE)):
+                    pos = s * SK + j * TILE + torch.arange(TILE)
+                    live = (pos >= first) & (pos <= last)
+                    if not bool(live.any()):
+                        continue
+                    k = torch.zeros(TILE, hd, dtype=kp.dtype)
+                    v = torch.zeros(TILE, hd, dtype=vp.dtype)
+                    page = bt[b, pos[live] // ps].long()
+                    k[live] = kp[page, pos[live] % ps, h]
+                    v[live] = vp[page, pos[live] % ps, h]
+                    sc = (qg.float() @ k.float().T) * hd ** -0.5
+                    if softcap > 0:
+                        sc = softcap * torch.tanh(sc / softcap)
+                    sc = torch.where(live[None], sc, -torch.inf)
+                    m, l, acc = warps[j % W]
+                    m_new = torch.maximum(m, sc.max(1).values)
+                    corr = torch.exp(m - m_new)
+                    p = torch.exp(sc - m_new[:, None])
+                    warps[j % W] = (m_new, l * corr + p.sum(1),
+                                    acc * corr[:, None]
+                                    + p.to(v.dtype).float() @ v.float())
+                M = torch.stack([w[0] for w in warps]).max(0).values
+                c = [torch.exp(w[0] - M) for w in warps]
+                parts.append((M, sum(ci * w[1] for ci, w in zip(c, warps)),
+                              sum(ci[:, None] * w[2]
+                                  for ci, w in zip(c, warps))))
+            M = torch.stack([p[0] for p in parts]).max(0).values
+            c = [torch.exp(p[0] - M) for p in parts]
+            num = sum(ci[:, None] * p[2] for ci, p in zip(c, parts))
+            den = sum(ci * p[1] for ci, p in zip(c, parts))
+            out[b, h * G:(h + 1) * G] = num / torch.clamp(den,
+                                                          min=1e-20)[:, None]
+    return out
+
+
+@pytest.mark.parametrize("G_,window,softcap", [(3, 0, 0.0), (3, 40, 0.0),
+                                               (3, 0, 4.0), (1, 70, 3.0),
+                                               (4, 100, 0.0)])
+def test_decode_split_algorithm_matches_jax_kernel(G_, window, softcap):
+    """K3's split-KV algorithm, emulated on the CPU at pages of 8 (8 pages,
+    64 keys a split, 3 splits of 24 pages; two 32-key tiles a split, one a
+    warp): rows at t = 0, on split edges and at the end, windows that
+    empty the first splits, a softcap and GQA 1/3/4, against the JAX
+    Pallas decode kernel in interpret mode: 1e-5 (fp32, sums in another
+    order)."""
+    rng = np.random.default_rng(60 + G_ + window)
+    t = np.array([0, 63, 64, 100, 191], np.int32)
+    B, nkv, hd, ps, Pn = len(t), 2, 16, 8, 24
+    q = rng.standard_normal((B, nkv * G_, hd)).astype(np.float32)
+    NP = B * Pn + 1
+    kp = rng.standard_normal((NP, ps, nkv, hd)).astype(np.float32)
+    vp = rng.standard_normal((NP, ps, nkv, hd)).astype(np.float32)
+    ids = iter(rng.permutation(np.arange(1, NP)))
+    bt = np.zeros((B, Pn), np.int32)
+    for b in range(B):
+        for j in range(int(t[b]) // ps + 1):
+            bt[b, j] = next(ids)
+    assert PA.decode_splits(Pn, ps) == (8, 3)
+    got = _decode_split_emulated(_t(q), _t(kp), _t(vp), _t(bt), t, window,
+                                 softcap)
+    kern = JPA.paged_attn_decode(jnp.asarray(q), jnp.asarray(kp),
+                                 jnp.asarray(vp), jnp.asarray(bt),
+                                 jnp.asarray(t), window=window,
+                                 softcap=softcap, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(kern), **TOL_KERNEL)
