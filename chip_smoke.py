@@ -5,12 +5,12 @@ Run from the root of a checkout, on a machine with one CUDA card:
 
     python3 chip_smoke.py
     python3 chip_smoke.py --parent DIR   # DIR: an older csrc/ (its
-                                         # paged_attn.cu, slstm_cell.cu),
-                                         # timed in turns
+                                         # paged_attn.cu), timed in turns
 
-With --parent, every timing of K3, K4 and K9 runs that older body and this
-checkout's in turns (parent, change, change, parent) in the same call;
-without it, each kernel is timed alone.
+With --parent, every bf16 timing of K3 and K4 runs that older body and
+this checkout's in turns (parent, change, change, parent) in the same
+call, and the two must give the same bits; without it, each kernel is
+timed alone.
 
 Phases (none catches an exception; any failure exits non-zero):
   0. the card's name and power limit; build the CUDA kernels from
@@ -55,6 +55,18 @@ Phases (none catches an exception; any failure exits non-zero):
      positions (+-1e4) must move no output bit, a second launch must
      repeat every bit, and 1, 2 and 4 warps per CTA are each checked and
      timed (the wrapper picks one).
+  3b. K3 and K4 on int8 pages (the TPU kernels' int8 page operand, one f32
+     scale per page and kv head) against their plain versions (gather,
+     then dequantize): at small ragged shapes with q fp32 (K3's split
+     body, K4's fp32 body) at PAGED_TOL_I8_F32, which must sit below a
+     planted fault's error, and q bf16 (K3, K4's tensor-core body) at
+     PAGED_TOL_BF16: pages whose scale grew during writes, a partly filled
+     last page, the null page; NaN in every dead and null page's scales and
+     +-127 at every unreadable position move no output bit; a second
+     launch repeats every bit. Then both models' full-width engine shapes
+     (the live pages of the bf16 rows above, quantized) with kernel, plain
+     and library times (library: the gather, dequantization, then
+     scaled_dot_product_attention).
      K9 slstm_seq against its plain version: fp32 at the JAX test's three
      shapes, then xlstm-1.3b's full-width sLSTM (B 4, S 128, H 4, hd 512,
      fp32 u, bf16 r) on its cluster body (16 CTAs a head, r resident in
@@ -69,7 +81,10 @@ Phases (none catches an exception; any failure exits non-zero):
      then xlstm-1.3b: model_forward (K9 once per sLSTM block) and
      generate(), and on the card the forward's last logits against a
      stepwise prefill plus one serve_step. llama's decode runs K5 once
-     per layer and decode step.
+     per layer and decode step. Each MoE model's engine also runs on an
+     int8 pool (pages of 8): card streams equal the CPU's, a second card
+     run repeats streams, pages, scales and GO rows bit for bit, and
+     llama's streams equal each request alone on a 1-slot int8 engine.
   5. full width, bf16, one set of random weights per model, first
      llama_moe_4_16, then granite-moe-3b-a800m:
      a. static generate(): 4 requests x 128 prompt tokens, 16 new tokens,
@@ -78,7 +93,11 @@ Phases (none catches an exception; any failure exits non-zero):
         16, 97 pages, chunks of 128): 8 staggered requests, 32 new tokens
         each, with its profile of one decode tick and one chunk tick; the
         trace runs twice and both runs must stream the same tokens and
-        leave the same KV pages and GO rows, bit for bit.
+        leave the same KV pages and GO rows, bit for bit. llama then runs
+        the same trace on int8 KV pages and GO rows (`llama_engine_int8`:
+        K3/K4 on the int8 operand): the same checks, scales included,
+        its pool's page bytes beside the bf16 pool's (about half), and
+        its own profile.
      Then xlstm-1.3b (48 layers: 6 segments of 7 mLSTM + 1 sLSTM):
      c. `xlstm_forward`: model_forward on 4 x 128 tokens, three runs, K9
         launched 6 times per call, hidden states equal bit for bit;
@@ -127,6 +146,13 @@ GMM_TOL_BF16 = 1e-2
 # 2e-2 covers a few bf16 ulps at |out| ~ 1.
 PAGED_TOL_F32 = 2e-5
 PAGED_TOL_BF16 = 2e-2
+
+# int8 pages (K3/K4's int8 operand), kernel vs plain version with q fp32:
+# the kernel multiplies each int8 dot product by its key's scale, where the
+# plain version dequantizes every key first; an online softmax against a
+# one-shot one, as PAGED_TOL_F32. The phase requires err <= tol < a planted
+# fault's error (the scales rounded to bf16). bf16 q takes PAGED_TOL_BF16.
+PAGED_TOL_I8_F32 = 2e-5
 
 # Smoke logits, card vs CPU, both fp32. A sound run differs by ~4e-7 (sums
 # in other orders); a faulty kernel moves them by ~9e-4 (K2's row scale
@@ -200,10 +226,11 @@ def time_ms(torch, fn, flush, reps=15):
 
 
 # `--parent DIR`: the parent commit's csrc/ sources of the kernel files
-# this checkout redesigned, built beside this checkout's; every timing of
-# a kernel in them then runs the two bodies in turns in this call, each
-# body called through its own C signature (parent_call, parent_gmm).
-PARENT_SOURCES = ("paged_attn", "slstm_cell")
+# this checkout changed, built beside this checkout's; every timing of a
+# kernel in them then runs the two bodies in turns in this call, each body
+# called through its own C signature (parent_call, parent_gmm), and the
+# bf16 K3/K4 of both must give the same bits.
+PARENT_SOURCES = ("paged_attn",)
 PARENT = {}
 
 
@@ -1045,14 +1072,21 @@ def paged_phase_full(torch, PA, cfg, page_size, max_tokens):
     nbytes = live * page_bytes + B * Hq * hd * (2 + 4)
     flops = 4 * Hq * hd * keys
     o_par = torch.empty(B, Hq, hd, device="cuda")
+    pages, splits = PA.decode_splits(P, ps)
+    ws = torch.empty(B * Hkv * splits * (Hq // Hkv) * (hd + 2),
+                     device="cuda")
+    cnt = torch.zeros(B * Hkv, dtype=torch.int32, device="cuda")
     entry = _paged_entry(
         torch, flush, lambda: PA.paged_attn_decode(q, kp, vp, bt, t),
         lambda: PA.paged_attn_decode_plain(q, kp, vp, bt, t), lib_decode,
         nbytes, flops, f"B={B} t={t.tolist()} Hq={Hq} Hkv={Hkv} hd={hd} ps={ps} "
         f"P={P}, {live} live pages",
         parent_call(torch, "paged_attn", "paged_attn_decode_bf16", q, kp, vp,
-                    bt, t, o_par, B, Hkv, Hq // Hkv, hd, ps, P, 0, 0.0))
-    pages, splits = PA.decode_splits(P, ps)
+                    bt, t, ws, cnt, o_par, B, Hkv, Hq // Hkv, hd, ps, P,
+                    pages, splits, 0, 0.0))
+    if PARENT:
+        need(torch.equal(o_par, PA.paged_attn_decode(q, kp, vp, bt, t)),
+             f"K3 bf16 {cfg.name}: the parent's body gave other bits")
     entry.update(pages_per_split=pages, splits=splits, ctas=Hkv * B * splits)
     # NaN at every position no row may read moves no output bit
     pos = torch.arange(S, device="cuda")
@@ -1099,6 +1133,10 @@ def paged_phase_full(torch, PA, cfg, page_size, max_tokens):
         parent_call(torch, "paged_attn", "paged_attn_chunk_bf16", qc, kp, vp,
                     bt, o_par, 1, Cs, Hkv, Hq // Hkv, hd, ps, P, start, kv_len,
                     0, 0.0, PA.chunk_warps(Cs * (Hq // Hkv))))
+    if PARENT:
+        need(torch.equal(o_par, PA.paged_attn_chunk(qc, kp, vp, bt, start,
+                                                    kv_len)),
+             f"K4 bf16 {cfg.name}: the parent's body gave other bits")
     # poison: +-1e4 at every position no query may read (past kv_len in
     # the last live page, the pages past it, the null page) moves no bit
     pos = torch.arange(kv_len, device="cuda")
@@ -1133,6 +1171,246 @@ def paged_phase_full(torch, PA, cfg, page_size, max_tokens):
           f"ms by warps per CTA {entry['warps_ms']} (chosen: "
           f"{entry['warps']})", flush=True)
     out["paged_attn_chunk"] = entry
+    return out
+
+
+# ------------------------------------------------------ phase 3b: int8 pages
+
+def _int8_views(torch, Q, kp, vp, bt, live, grow_g=None):
+    """An int8 pool from float pages, as the engine builds one: each page
+    quantized against its own amax (Q.quantize_pages), then, with
+    `grow_g`, each row's last live position rewritten through
+    Q.scatter_token with values 4x larger, so its page's scale grows and
+    the page rescales. Returns (clean, dirty, readable): clean zeroes every
+    position no row may read and the scales of every page no row may read
+    (the null page, the pages past a row's live keys); dirty holds +-127
+    there and NaN in those scales. The kernels must give both the same
+    bits."""
+    k8, ks = Q.quantize_pages(kp)
+    v8, vs = Q.quantize_pages(vp)
+    B, ps = bt.shape[0], kp.shape[1]
+    if grow_g is not None:
+        pos = torch.tensor([int(n) - 1 for n in live], device="cuda")
+        page = bt[torch.arange(B, device="cuda"), pos // ps].long()
+        for c, s in ((k8, ks), (v8, vs)):
+            val = 4 * torch.randn(B, *kp.shape[2:], device="cuda",
+                                  generator=grow_g)
+            Q.scatter_token(c, s, page, pos % ps, val)
+    readable = torch.zeros(kp.shape[:2], dtype=torch.bool, device="cuda")
+    for b in range(B):
+        p = torch.arange(int(live[b]), device="cuda")
+        readable[bt[b, p // ps].long(), p % ps] = True
+    sel, used = readable[:, :, None, None], readable.any(dim=1)[:, None]
+    i8 = torch.int8
+    clean = dict(k_pages=torch.where(sel, k8, 0).to(i8),
+                 v_pages=torch.where(sel, v8, 0).to(i8),
+                 k_scales=torch.where(used, ks, 0.0),
+                 v_scales=torch.where(used, vs, 0.0))
+    dirty = dict(k_pages=torch.where(sel, k8, 127).to(i8),
+                 v_pages=torch.where(sel, v8, -127).to(i8),
+                 k_scales=torch.where(used, ks, float("nan")),
+                 v_scales=torch.where(used, vs, float("nan")))
+    return clean, dirty
+
+
+def _i8_call(fn, q, pool, bt, *args, **kw):
+    return fn(q, pool["k_pages"], pool["v_pages"], bt, *args,
+              k_scales=pool["k_scales"], v_scales=pool["v_scales"], **kw)
+
+
+def paged_int8_phase_small(torch, PA, Q):
+    """K3 and K4 on int8 pages against their plain versions (gather, then
+    dequantize) at small ragged shapes: q fp32 (K3's split body, K4's fp32
+    body) and bf16 (K3, K4's tensor-core body); GQA 1/3/4, head_dim 64 and
+    128, pages of 8 and 16, no window and a window of 20; rows of 1..64 live
+    keys (a partly filled last page, the null page behind short rows), each
+    row's last page's scale grown by a later write. fp32 q at
+    PAGED_TOL_I8_F32, which must sit below a planted fault's error (the
+    scales rounded to bf16); bf16 q at PAGED_TOL_BF16 as rtol and atol, as
+    the bf16 pages' checks hold it (the grown pages hold values 4x the
+    others). NaN in every dead and null page's scales and +-127 at every
+    unreadable position move no output bit; a second launch repeats every
+    bit."""
+    g = torch.Generator(device="cuda").manual_seed(31)
+    live = [1, 9, 16, 17, 40, 64]
+    B, P, nkv = len(live), 8, 2
+    t = torch.tensor([n - 1 for n in live], dtype=torch.int32, device="cuda")
+    chunks = ((0, 9), (24, 40), (48, 64))
+    worst, fault = {}, {}
+    for ps in (8, 16):
+        for hd in (64, 128):
+            for G_ in (1, 3, 4):
+                kp, vp, bt = _pools(torch, g, B, P, ps, nkv, hd,
+                                    torch.float32, live)
+                clean, dirty = _int8_views(torch, Q, kp, vp, bt, live, g)
+                bf_sc = {k: (v.to(torch.bfloat16).float()
+                             if k.endswith("scales") else v)
+                         for k, v in clean.items()}
+                for qdt in (torch.float32, torch.bfloat16):
+                    tol = PAGED_TOL_I8_F32 if qdt == torch.float32 \
+                        else PAGED_TOL_BF16
+                    key = f"{str(qdt)[6:]} ps={ps} hd={hd} G={G_}"
+                    q = torch.randn(B, nkv * G_, hd, device="cuda",
+                                    generator=g).to(qdt)
+                    qc = torch.randn(B, 16, nkv * G_, hd, device="cuda",
+                                     generator=g).to(qdt)
+                    errs, faults = [], []
+
+                    def check(out, ref, what):
+                        errs.append((out - ref).abs().max().item())
+                        ok = errs[-1] <= tol if qdt == torch.float32 else \
+                            torch.allclose(out, ref, rtol=tol, atol=tol)
+                        need(ok, f"{what} int8 {key}: err {errs[-1]} "
+                             f"(tol {tol})")
+                    for window in (0, 20):
+                        out = _i8_call(PA.paged_attn_decode, q, clean, bt, t,
+                                       window=window)
+                        ref = _i8_call(PA.paged_attn_decode_plain, q, clean,
+                                       bt, t, window=window)
+                        check(out, ref, f"K3 w={window}")
+                        faults.append((out - _i8_call(
+                            PA.paged_attn_decode_plain, q, bf_sc, bt, t,
+                            window=window)).abs().max().item())
+                        need(torch.equal(out, _i8_call(
+                            PA.paged_attn_decode, q, dirty, bt, t,
+                            window=window)),
+                            f"K3 int8 {key} w={window}: a dead page's NaN "
+                            "scale or an unreadable value reached the output")
+                        need(torch.equal(out, _i8_call(
+                            PA.paged_attn_decode, q, clean, bt, t,
+                            window=window)),
+                            f"K3 int8 {key}: a second launch gave other bits")
+                    for start, kv_len in chunks:
+                        full = [b for b in range(B) if live[b] >= kv_len]
+                        n = kv_len - start
+                        out = _i8_call(PA.paged_attn_chunk, qc, clean, bt,
+                                       start, kv_len)
+                        ref = _i8_call(PA.paged_attn_chunk_plain, qc, clean,
+                                       bt, start, kv_len)
+                        check(out[full, :n], ref[full, :n],
+                              f"K4 {start}..{kv_len}")
+                        faults.append((out[full, :n] - _i8_call(
+                            PA.paged_attn_chunk_plain, qc, bf_sc, bt, start,
+                            kv_len)[full, :n]).abs().max().item())
+                        need(torch.equal(out[full], _i8_call(
+                            PA.paged_attn_chunk, qc, dirty, bt, start,
+                            kv_len)[full]),
+                            f"K4 int8 {key} {start}..{kv_len}: a dead page's "
+                            "NaN scale or an unreadable value reached the "
+                            "output")
+                        need(torch.equal(out, _i8_call(
+                            PA.paged_attn_chunk, qc, clean, bt, start,
+                            kv_len)),
+                            f"K4 int8 {key}: a second launch gave other bits")
+                    worst[key], fault[key] = max(errs), min(faults)
+                    if qdt == torch.float32:
+                        need(fault[key] > tol, f"K3/K4 int8 {key}: a planted "
+                             f"fault's err {fault[key]} is within the "
+                             f"tolerance {tol}")
+    f32 = [v for k, v in worst.items() if k.startswith("float32")]
+    bf = [v for k, v in worst.items() if k.startswith("bfloat16")]
+    f32_fault = min(v for k, v in fault.items() if k.startswith("float32"))
+    print(f"[paged int8] K3/K4 at live {live}, ps 8/16, hd 64/128, GQA "
+          f"1/3/4, window 0/20, chunks {chunks}: max_abs_err by case "
+          f"{json.dumps(worst)}; fp32 q "
+          f"{max(f32):.3e} (tol {PAGED_TOL_I8_F32:g}; planted fault, scales "
+          f"rounded to bf16: min {f32_fault:.3e}), bf16 q {max(bf):.3e} (tol "
+          f"{PAGED_TOL_BF16:g}); NaN dead-page scales and +-127 unreadable "
+          "values: outputs bit-equal; repeats bit-equal", flush=True)
+    return {"fp32_q": max(f32), "bf16_q": max(bf), "fault_fp32_q": f32_fault}
+
+
+def paged_int8_phase_full(torch, PA, Q, cfg, page_size, max_tokens):
+    """K3 and K4 on int8 pages, bf16 q, at the full-width engine shapes of
+    paged_phase_full: the same live pages (the same generator calls),
+    quantized with Q.quantize_pages. Against the plain version at
+    PAGED_TOL_BF16, NaN in every dead and null page's scales and +-127 at
+    every unreadable position move no bit, a second launch repeats every
+    bit; kernel, plain and library times (the library: the block-table
+    gather, dequantization, then scaled_dot_product_attention). bound_ms
+    counts each live page's int8 K and V and its scales once, q and the
+    fp32 output."""
+    import torch.nn.functional as F
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(4)
+    Hq, Hkv, hd, ps = cfg.num_heads, cfg.num_kv_heads, \
+        cfg.resolved_head_dim(), page_size
+    P, S = max_tokens // ps, max_tokens
+    page_bytes = PA.page_bytes(cfg.with_overrides(kv_quant="int8"), ps)
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    out = {}
+
+    def deq(pool, bt, B):
+        bt = bt.long()
+        k = (pool["k_pages"][bt].float()
+             * pool["k_scales"][bt][:, :, None, :, None]).to(bf)
+        v = (pool["v_pages"][bt].float()
+             * pool["v_scales"][bt][:, :, None, :, None]).to(bf)
+        return (k.reshape(B, S, Hkv, hd).transpose(1, 2),
+                v.reshape(B, S, Hkv, hd).transpose(1, 2))
+
+    t = torch.tensor([64 + 31, 448 + 31, 128 + 31, 320 + 31],
+                     dtype=torch.int32, device="cuda")
+    B = len(t)
+    kp, vp, bt = _pools(torch, g, B, P, ps, Hkv, hd, bf, (t + 1).tolist())
+    q = torch.randn(B, Hq, hd, device="cuda", generator=g).to(bf)
+    clean, dirty = _int8_views(torch, Q, kp, vp, bt, (t + 1).tolist())
+    del kp, vp
+    mask = torch.arange(S, device="cuda")[None, :] <= t[:, None]
+
+    def lib_decode():
+        k, v = deq(clean, bt, B)
+        return F.scaled_dot_product_attention(q[:, :, None], k, v,
+                                              attn_mask=mask[:, None, None],
+                                              enable_gqa=Hq != Hkv)
+
+    live, _ = PA.decode_tick_pages(t.tolist(), [True] * B, ps, B, P)
+    keys = sum(int(x) + 1 for x in t.tolist())
+    entry = _paged_entry(
+        torch, flush, lambda: _i8_call(PA.paged_attn_decode, q, clean, bt, t),
+        lambda: _i8_call(PA.paged_attn_decode_plain, q, clean, bt, t),
+        lib_decode, live * page_bytes + B * Hq * hd * (2 + 4),
+        4 * Hq * hd * keys, f"int8 pages, B={B} t={t.tolist()} Hq={Hq} "
+        f"Hkv={Hkv} hd={hd} ps={ps} P={P}, {live} live pages")
+    need(torch.equal(_i8_call(PA.paged_attn_decode, q, clean, bt, t),
+                     _i8_call(PA.paged_attn_decode, q, dirty, bt, t)),
+         f"K3 int8 {cfg.name}: a dead page's NaN scale reached the output")
+    out["paged_attn_decode_int8"] = entry
+
+    start, kv_len, Cs = 320, 448, 128
+    kp, vp, bt = _pools(torch, g, 1, P, ps, Hkv, hd, bf, [kv_len])
+    qc = torch.randn(1, Cs, Hq, hd, device="cuda", generator=g).to(bf)
+    clean, dirty = _int8_views(torch, Q, kp, vp, bt, [kv_len])
+    del kp, vp
+    qpos = torch.arange(start, start + Cs, device="cuda")
+    kpos = torch.arange(S, device="cuda")
+    cmask = (kpos[None, :] < kv_len) & (kpos[None, :] <= qpos[:, None])
+
+    def lib_chunk():
+        k, v = deq(clean, bt, 1)
+        return F.scaled_dot_product_attention(qc.transpose(1, 2), k, v,
+                                              attn_mask=cmask[None, None],
+                                              enable_gqa=Hq != Hkv)
+
+    live = -(-kv_len // ps)
+    keys = sum(min(p + 1, kv_len) for p in range(start, start + Cs))
+    entry = _paged_entry(
+        torch, flush,
+        lambda: _i8_call(PA.paged_attn_chunk, qc, clean, bt, start, kv_len),
+        lambda: _i8_call(PA.paged_attn_chunk_plain, qc, clean, bt, start,
+                         kv_len),
+        lib_chunk, live * page_bytes + Cs * Hq * hd * (2 + 4),
+        4 * Hq * hd * keys, f"int8 pages, B=1 Cs={Cs} start={start} "
+        f"kv_len={kv_len} Hq={Hq} Hkv={Hkv} hd={hd} ps={ps}, {live} live "
+        "pages")
+    need(torch.equal(
+        _i8_call(PA.paged_attn_chunk, qc, clean, bt, start, kv_len),
+        _i8_call(PA.paged_attn_chunk, qc, dirty, bt, start, kv_len)),
+        f"K4 int8 {cfg.name}: a dead page's NaN scale reached the output")
+    entry["warps"] = PA.chunk_warps(Cs * (Hq // Hkv))
+    out["paged_attn_chunk_int8"] = entry
+    print(f"[paged int8] {cfg.name} K3/K4 at full width: NaN dead-page "
+          "scales and +-127 unreadable values move no bit", flush=True)
     return out
 
 
@@ -1202,15 +1480,12 @@ def slstm_phase(torch, SC):
     flops = 2 * B * S * 4 * H * hd * hd
     t_b, t_f = nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
-    o_par = torch.empty_like(h)
     entry = {"shape": f"B={B} S={S} H={H} hd={hd}, u fp32, r bf16",
              "max_abs_err": err, "planted_fault_err": fault,
              "tol": SLSTM_TOL_FULL, "cluster": CL, "ctas": CL * H,
              "cluster_capacity": SC._CLUSTERS_FIT[("f32", "bf16", B, hd,
                                                    CL)],
-             **timed(torch, lambda: SC.slstm_seq(u, r), flush,
-                     parent_call(torch, "slstm_cell", "slstm_seq_f32_bf16",
-                                 u, r, o_par, B, S, H, hd)),
+             **timed(torch, lambda: SC.slstm_seq(u, r), flush),
              "plain_ms": time_ms(torch, lambda: SC.slstm_seq_plain(u, r),
                                  flush),
              "bound_ms": max(t_b, t_f),
@@ -1218,9 +1493,6 @@ def slstm_phase(torch, SC):
              "bound_bytes_ms": t_b, "bound_operations_ms": t_f,
              "bound_note": f"{S} serial steps, which neither bound sees",
              "library_ms": None}
-    if PARENT:
-        need(torch.allclose(o_par, hp, rtol=SLSTM_TOL_FULL,
-                            atol=SLSTM_TOL_FULL), "K9 parent body disagrees")
     # fp32 r: 256 KB of r a CTA even at 16 CTAs, so the other body
     need(SC.slstm_cluster(B, hd, 4) is None, "K9 fp32 r at hd 512 fits a "
          "cluster")
@@ -1287,12 +1559,44 @@ def smoke_phase(torch, G, GT, cfg_smoke, TM, TS):
     return err
 
 
-def engine_smoke_phase(torch, G, PA, GT, cfg_smoke, TM, TS):
+def paged_launches(cfg, decodes, chunks, kv_quant="none"):
+    """K3's and K4's launches over `decodes` decode ticks and `chunks` chunk
+    ticks: one per layer and tick, counted under the `_int8` names on an
+    int8 pool and the plain names otherwise."""
+    L, q8 = cfg.num_layers, kv_quant == "int8"
+    return {"paged_attn_decode": 0 if q8 else L * decodes,
+            "paged_attn_chunk": 0 if q8 else L * chunks,
+            "paged_attn_decode_int8": L * decodes if q8 else 0,
+            "paged_attn_chunk_int8": L * chunks if q8 else 0}
+
+
+def _pool_state(state):
+    """Every tensor of a drained pool's decode state (GO rows and scales
+    included), the null page 0 left out of the pages and their scales:
+    free rows write there, several to one position in a tick in no fixed
+    order, and nothing reads it."""
+    return _tensors({k: v[:, 1:] if k in ("k_pages", "v_pages", "k_scales",
+                                          "v_scales") else v
+                     for k, v in state.items()})
+
+
+def _same(torch, a, b):
+    """Two lists of tensors, equal bit for bit."""
+    return len(a) == len(b) and all(torch.equal(u, v) for u, v in zip(a, b))
+
+
+def engine_smoke_phase(torch, G, PA, GT, cfg_smoke, TM, TS, kv_quant="none"):
     """The smoke engine on a paged pool with chunked prefill, the same fp32
     weights and trace on the CPU (plain versions) and on the card (K1-K4,
     K7/K8): greedy streams equal; K3/K4 launched once per layer per decode
     or chunk tick, the grouped GEMMs once per layer per prefill pass and
-    decode tick, K5 once per layer and decode tick with a GO cache."""
+    decode tick, K5 once per layer and decode tick with a GO cache. With
+    kv_quant="int8" (pages of 8: int8 pages need a multiple of 8) the card
+    runs K3/K4 on int8 pages, a second card run repeats the streams and the
+    pool's pages, scales, GO rows and GO scales bit for bit (page 0 left
+    out), and, for expert choice, each stream equals the request alone on a
+    1-slot int8 engine on the card (token choice routes the pool's rows
+    together under a capacity, so no solo oracle exists there)."""
     import numpy as np
     params = TM.model_init(cfg_smoke, torch.Generator().manual_seed(0), "cpu")
     rng = np.random.default_rng(0)
@@ -1300,30 +1604,55 @@ def engine_smoke_phase(torch, G, PA, GT, cfg_smoke, TM, TS):
                for n in (5, 20, 8, 11, 3)]
     kw = dict(num_slots=2, max_tokens=32, arrival_steps=[0, 0, 1, 4, 6],
               paged=True, page_size=4, num_pages=10, prefill_chunk=8)
+    if kv_quant != "none":
+        kw.update(page_size=8, num_pages=6, kv_quant=kv_quant)
     r_cpu = TS.serve_continuous(params, cfg_smoke, prompts, 7, device="cpu",
                                 **kw)
+    params_cuda = _tree_to(params, "cuda")
     PA.reset_launches()
     G.reset_launches()
     GT.reset_launches()
-    r_gpu = TS.serve_continuous(_tree_to(params, "cuda"), cfg_smoke, prompts,
-                                7, device="cuda", **kw)
+    r_gpu = TS.serve_continuous(params_cuda, cfg_smoke, prompts, 7,
+                                device="cuda", **kw)
     launches = {**G.LAUNCHES, **PA.LAUNCHES, **GT.LAUNCHES}
-    s, L = r_gpu["stats"], cfg_smoke.num_layers
+    s = r_gpu["stats"]
     for rid, toks in r_cpu["tokens"].items():
         need(np.array_equal(r_gpu["tokens"][rid], toks),
-             f"{cfg_smoke.name} engine request {rid}: cuda "
+             f"{cfg_smoke.name} {kv_quant} engine request {rid}: cuda "
              f"{r_gpu['tokens'][rid].tolist()} != cpu {toks.tolist()}")
     one_shot = sum(len(p) <= kw["prefill_chunk"] for p in prompts)
     need(launches == {**gmm_launches(cfg_smoke, s["chunk_ticks"] + one_shot,
                                      s["decode_ticks"]),
                       **go_topk_launches(cfg_smoke, s["decode_ticks"]),
-                      "paged_attn_decode": L * s["decode_ticks"],
-                      "paged_attn_chunk": L * s["chunk_ticks"]},
+                      **paged_launches(cfg_smoke, s["decode_ticks"],
+                                       s["chunk_ticks"], kv_quant)},
          f"smoke engine launches {launches}, stats {s}")
-    print(f"[smoke engine] {cfg_smoke.name}: cpu and cuda greedy streams "
-          f"equal for {len(prompts)} requests ({s['decode_ticks']} decode "
-          f"ticks, {s['chunk_ticks']} chunk ticks), cuda launches "
-          f"{launches}", flush=True)
+    extra = ""
+    if kv_quant != "none":
+        again = TS.serve_continuous(params_cuda, cfg_smoke, prompts, 7,
+                                    device="cuda", **kw)
+        need(all(np.array_equal(again["tokens"][r], t)
+                 for r, t in r_gpu["tokens"].items()) and
+             _same(torch, _pool_state(r_gpu["engine"].pool.state),
+                   _pool_state(again["engine"].pool.state)),
+             f"{cfg_smoke.name} int8 engine: a second card run gave other "
+             "streams, pages, scales or GO rows")
+        extra = "; a second run repeats streams, pages, scales and GO rows"
+        if cfg_smoke.moe.routing == "expert_choice":
+            solo = dict(kw, num_slots=1, arrival_steps=None)
+            for rid, p in enumerate(prompts):
+                one = TS.serve_continuous(params_cuda, cfg_smoke, [p], 7,
+                                          device="cuda", **solo)
+                need(np.array_equal(one["tokens"][0], r_gpu["tokens"][rid]),
+                     f"{cfg_smoke.name} int8 engine request {rid}: pooled "
+                     "stream differs from the request alone")
+            extra += ", and each stream equals its request alone"
+        extra += (f"; dequant_max_abs_err {s['dequant_max_abs_err']:.3e}, "
+                  f"{s['kv_bytes_per_token']:g} KV bytes a token")
+    print(f"[smoke engine] {cfg_smoke.name} kv_quant={kv_quant}: cpu and "
+          f"cuda greedy streams equal for {len(prompts)} requests "
+          f"({s['decode_ticks']} decode ticks, {s['chunk_ticks']} chunk "
+          f"ticks), cuda launches {launches}{extra}", flush=True)
 
 
 def xlstm_smoke_phase(torch, SC, cfg, TM, TS):
@@ -1498,8 +1827,8 @@ def full_phase(torch, G, PA, SC, GT, cfg, params, TM, TS):
     expect = {**gmm_launches(cfg, 1, GEN), **go_topk_launches(cfg, GEN)}
     need(bool(torch.isfinite(res["logits"]).all()), "non-finite logits")
     need(res["tokens"].shape == (Bq, GEN), "token shape")
-    need(launches == {**expect, "paged_attn_decode": 0,
-                      "paged_attn_chunk": 0, "slstm_seq": 0},
+    need(launches == {**expect, **paged_launches(cfg, 0, 0),
+                      "slstm_seq": 0},
          f"launch counts {launches}, expected {expect} ({cfg.num_layers} "
          f"layers x (1 prefill + {GEN} decode steps); K5 x {GEN} decode "
          "steps with a GO cache) and no paged attention on the dense static "
@@ -1538,19 +1867,23 @@ ENGINE_POOL = dict(num_slots=4, max_tokens=512, paged=True, page_size=16,
                    num_pages=97, prefill_chunk=128)
 
 
-def engine_phase(torch, G, PA, SC, GT, cfg, params, ServingEngine):
+def engine_phase(torch, G, PA, SC, GT, cfg, params, ServingEngine,
+                 kv_quant="none"):
     """Full width, bf16, through the continuous-batching engine on a paged
     pool: 8 staggered requests of ENGINE_LENS prompt tokens, 32 new tokens
     each, greedy. A warm-up engine first (one one-shot and one chunked
     admission, 4 tokens each), then the counted, timed run, one
     synchronised step at a time, then the same trace once more on a fresh
     engine, which must stream the same tokens and leave the same pool
-    state."""
+    state. kv_quant="int8" runs the pool on int8 KV pages and GO rows
+    (K3/K4 on the int8 operand) and records the pool's page bytes and the
+    admissions' dequant_max_abs_err; its repeat covers the scales too."""
     import numpy as np
+    pool = dict(ENGINE_POOL, kv_quant=kv_quant)
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
                for n in ENGINE_LENS]
-    warm = ServingEngine(params, cfg, device="cuda", **ENGINE_POOL)
+    warm = ServingEngine(params, cfg, device="cuda", **pool)
     for p in prompts[:2]:
         warm.submit(p, 4)
     warm.run()
@@ -1558,7 +1891,7 @@ def engine_phase(torch, G, PA, SC, GT, cfg, params, ServingEngine):
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
 
-    eng = ServingEngine(params, cfg, device="cuda", **ENGINE_POOL)
+    eng = ServingEngine(params, cfg, device="cuda", **pool)
     rids = [eng.submit(p, ENGINE_GEN, arrival_step=a)
             for p, a in zip(prompts, ENGINE_ARRIVALS)]
     G.reset_launches()
@@ -1591,34 +1924,30 @@ def engine_phase(torch, G, PA, SC, GT, cfg, params, ServingEngine):
              all(0 <= x < cfg.vocab_size for x in r.tokens),
              f"request {rid}: status {r.status}, {len(r.tokens)} tokens")
     st = eng.pool.state
-    need(all(bool(torch.isfinite(st[k]).all()) for k in ("k_pages", "v_pages"))
+    need(all(bool(torch.isfinite(st[k]).all()) for k in (
+        "k_pages", "v_pages", "k_scales", "v_scales", "go_scales") if k in st)
          and ("go" not in st or bool(torch.isfinite(st["go"].outputs).all())),
-         "non-finite KV pages or GO rows after the run")
+         "non-finite KV pages, scales or GO rows after the run")
     eng.pool.alloc.check()
     need(eng.pool.alloc.pages_in_use == 0, "pages leaked after the drain")
     one_shot = sum(n <= ENGINE_POOL["prefill_chunk"] for n in ENGINE_LENS)
     expect = {**gmm_launches(cfg, chunk_ticks + one_shot, decode_ticks),
               **go_topk_launches(cfg, decode_ticks),
-              "paged_attn_decode": L * decode_ticks,
-              "paged_attn_chunk": L * chunk_ticks, "slstm_seq": 0}
+              **paged_launches(cfg, decode_ticks, chunk_ticks, kv_quant),
+              "slstm_seq": 0}
     need(launches == expect, f"engine launches {launches}, expected "
          f"{expect} ({decode_ticks} decode ticks, {chunk_ticks} chunk ticks, "
          f"{one_shot} one-shot prefills)")
-    again = ServingEngine(params, cfg, device="cuda", **ENGINE_POOL)
+    again = ServingEngine(params, cfg, device="cuda", **pool)
     rids2 = [again.submit(p, ENGINE_GEN, arrival_step=a)
              for p, a in zip(prompts, ENGINE_ARRIVALS)]
     fin2 = again.run()
     # the streams' argmaxes can hide a changed sum; the drained pools'
     # pages (every layer's K/V of every token, which the MoE outputs of the
-    # layers below feed) and GO rows must repeat bit for bit as well. Page
-    # 0 is the null page: free rows write there, several to one position
-    # in a tick in no fixed order, and nothing reads it.
-    def live(state):
-        return _tensors({k: v[:, 1:] if k in ("k_pages", "v_pages") else v
-                         for k, v in state.items()})
-    a, b = live(st), live(again.pool.state)
-    repeat_state_equal = len(a) == len(b) and all(
-        torch.equal(u, v) for u, v in zip(a, b))
+    # layers below feed), their scales and the GO rows must repeat bit for
+    # bit as well (page 0, the null page, left out: _pool_state)
+    repeat_state_equal = _same(torch, _pool_state(st),
+                               _pool_state(again.pool.state))
     repeat_equal = all(fin2[r2].tokens == fin[r].tokens
                        for r, r2 in zip(rids, rids2))
     pure_decode = sorted(ms for ms, dd, dc, da in ticks
@@ -1639,44 +1968,54 @@ def engine_phase(torch, G, PA, SC, GT, cfg, params, ServingEngine):
              "max_memory_allocated_gb":
                  torch.cuda.max_memory_allocated() / 1e9,
              "launches": launches,
+             "kv_quant": kv_quant,
+             "pool_page_bytes": eng.pool.num_pages * L * PA.page_bytes(
+                 eng.cfg, ENGINE_POOL["page_size"]),
+             "kv_bytes_per_token": eng.stats()["kv_bytes_per_token"],
+             "dequant_max_abs_err": eng.stats()["dequant_max_abs_err"],
              "repeat_streams_equal": repeat_equal,
              "repeat_pool_state_equal": repeat_state_equal,
              "admit_steps": [fin[r].admit_step for r in rids],
              "finish_steps": [fin[r].finish_step for r in rids]}
-    print(f"[full engine] {cfg.name} bf16 {ENGINE_POOL}, prompts "
+    print(f"[full engine] {cfg.name} bf16 {pool}, prompts "
           f"{ENGINE_LENS}, arrivals {ENGINE_ARRIVALS}, gen {ENGINE_GEN}: "
           f"{json.dumps(stats)}", flush=True)
     print(f"[full engine] sample tokens {fin[rids[1]].tokens}", flush=True)
     need(repeat_equal, f"{cfg.name}: the engine trace streamed other tokens "
          "when run again")
     need(repeat_state_equal, f"{cfg.name}: the engine trace left other KV "
-         "pages or GO rows when run again")
-    engine_profile_phase(torch, cfg, params, prompts, ServingEngine)
-    return launches
+         "pages, scales or GO rows when run again")
+    engine_profile_phase(torch, cfg, params, prompts, ServingEngine, pool)
+    return launches, stats
 
 
-def engine_profile_phase(torch, cfg, params, prompts, ServingEngine):
+def engine_profile_phase(torch, cfg, params, prompts, ServingEngine, pool):
     """One chunk tick (3 slots decoding beside a chunk of 128) and one
     decode tick with 4 active slots, on a fresh engine of the same pool:
     three one-shot 64/128/96-token prompts and the 384-token one."""
-    eng = ServingEngine(params, cfg, device="cuda", **ENGINE_POOL)
+    eng = ServingEngine(params, cfg, device="cuda", **pool)
     for i in (0, 2, 4, 5):
         eng.submit(prompts[i], 16)
     eng.step()                       # 3 one-shot admissions, chunk 1 of 3
-    regions = {"engine_chunk_tick": eng.step}
-    profile_phase(torch, cfg, regions)
+    tag = "" if pool["kv_quant"] == "none" else f"_{pool['kv_quant']}"
+    profile_phase(torch, cfg, {f"engine{tag}_chunk_tick": eng.step})
     eng.step()                       # chunk 3 of 3, the 4th slot installs
     need(eng.pool.num_active() == 4, "profile engine: 4 slots not active")
-    profile_phase(torch, cfg, {"engine_decode_tick_4_active": eng.step})
+    profile_phase(torch, cfg,
+                  {f"engine{tag}_decode_tick_4_active": eng.step})
     eng.run()
 
 
 def _kind(name):
     """Profile bucket of a device kernel's name."""
+    # the paged kernels' int8-page instantiations (KV = int8_t: "signed
+    # char" demangled, "a" mangled)
+    i8 = " int8" if "signed char" in name or re.search(
+        r"kernelI(?:13__nv_bfloat16|f)aLi|Li\d+EaEE", name) else ""
     if "paged_decode" in name:
-        return "K3 paged_attn_decode"
+        return "K3 paged_attn_decode" + i8
     if "paged_chunk_kernel" in name or "paged_chunk_tc_kernel" in name:
-        return "K4 paged_attn_chunk"
+        return "K4 paged_attn_chunk" + i8
     if "go_topk_kernel" in name:
         return "K5 go_topk_update"
     if "gmm_kernel" in name:
@@ -1757,6 +2096,7 @@ def main():
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs.registry import get_config
     from repro_torch.core import moe as MOE
+    from repro_torch.core import quant as Q
     from repro_torch.core import routing as R
     from repro_torch.kernels import build
     from repro_torch.kernels import go_topk as GT
@@ -1815,12 +2155,23 @@ def main():
                                  ENGINE_POOL["max_tokens"]) for m in cfgs}
     for name, entry in paged[llama].items():
         timings[name] = {**entry, "granite": paged[granite][name]}
+    int8_small = paged_int8_phase_small(torch, PA, Q)
+    paged = {m: paged_int8_phase_full(torch, PA, Q, cfgs[m],
+                                      ENGINE_POOL["page_size"],
+                                      ENGINE_POOL["max_tokens"]) for m in cfgs}
+    for name, entry in paged[llama].items():
+        timings[name] = {**entry, "granite": paged[granite][name],
+                         "small_max_abs_err": int8_small,
+                         "tol": {"fp32_q": PAGED_TOL_I8_F32,
+                                 "bf16_q": PAGED_TOL_BF16}}
+    del paged
     timings["slstm_seq"] = slstm_phase(torch, SC)
     torch.cuda.empty_cache()
     for m in cfgs:
         smoke_phase(torch, G, GT, get_config(m, smoke=True), TM, TS)
-        engine_smoke_phase(torch, G, PA, GT, get_config(m, smoke=True), TM,
-                           TS)
+        for kv_quant in ("none", "int8"):
+            engine_smoke_phase(torch, G, PA, GT, get_config(m, smoke=True),
+                               TM, TS, kv_quant)
     xlstm = "xlstm-1.3b"
     xlstm_smoke_phase(torch, SC, get_config(xlstm, smoke=True), TM, TS)
 
@@ -1835,8 +2186,20 @@ def main():
               flush=True)
         by_path[f"{short}_static"] = full_phase(torch, G, PA, SC, GT, cfg,
                                                 params, TM, TS)
-        by_path[f"{short}_engine"] = engine_phase(torch, G, PA, SC, GT, cfg,
-                                                  params, ServingEngine)
+        by_path[f"{short}_engine"], bf16_stats = engine_phase(
+            torch, G, PA, SC, GT, cfg, params, ServingEngine)
+        if m == llama:
+            # the same trace on int8 KV pages and GO rows (slice 8)
+            by_path["llama_engine_int8"], i8_stats = engine_phase(
+                torch, G, PA, SC, GT, cfg, params, ServingEngine, "int8")
+            ratio = i8_stats["pool_page_bytes"] / bf16_stats["pool_page_bytes"]
+            print(f"[full engine] {cfg.name}: int8 pool pages "
+                  f"{i8_stats['pool_page_bytes']} B, bf16 "
+                  f"{bf16_stats['pool_page_bytes']} B (ratio {ratio:.4f}); "
+                  f"tok/s int8 {i8_stats['tok_per_s']:.2f}, bf16 "
+                  f"{bf16_stats['tok_per_s']:.2f}", flush=True)
+            need(0.45 < ratio < 0.55, f"int8 pool pages are {ratio:.3f} of "
+                 "the bf16 pool's, not about half")
         del params
         torch.cuda.empty_cache()
 
@@ -1846,8 +2209,9 @@ def main():
     # launches: each kernel's count on the path it was ported for (K1/K2
     # llama's static generate() of slice 1, K3/K4 llama's engine of slice 2,
     # K7/K8 granite's engine of slice 3, K9 xlstm's model_forward of slice
-    # 4, K5 llama's engine and K6 llama's expert_ffn_gmm of slice 5); every
-    # path's count beside it
+    # 4, K5 llama's engine and K6 llama's expert_ffn_gmm of slice 5, K3/K4
+    # on int8 pages llama's int8 engine of slice 8); every path's count
+    # beside it
     meta = {
         "gmm_swiglu": ("moe_gmm.cu", "src/repro/kernels/moe_gmm.py:466",
                        "llama_static"),
@@ -1859,6 +2223,12 @@ def main():
         "paged_attn_chunk": ("paged_attn.cu",
                              "src/repro/kernels/paged_attn.py:325",
                              "llama_engine"),
+        "paged_attn_decode_int8": ("paged_attn.cu",
+                                   "src/repro/kernels/paged_attn.py:179",
+                                   "llama_engine_int8"),
+        "paged_attn_chunk_int8": ("paged_attn.cu",
+                                  "src/repro/kernels/paged_attn.py:325",
+                                  "llama_engine_int8"),
         "gmm_swiglu_fused": ("moe_gmm.cu", "src/repro/kernels/moe_gmm.py:423",
                              "granite_engine"),
         "gmm_scaled_fused": ("moe_gmm.cu", "src/repro/kernels/moe_gmm.py:384",
@@ -1892,7 +2262,8 @@ def main():
             "path_max_abs_err", "path_ms", "parent_ms", "turns_ms",
             "achieved_bytes_per_s", "bound_share", "tiles_per_block",
             "warps", "warps_ms", "pages_per_split", "splits", "ctas",
-            "cluster", "cluster_capacity", "fp32_r") if k in main_t})
+            "cluster", "cluster_capacity", "fp32_r",
+            "small_max_abs_err") if k in main_t})
         if "decode" in timings[name]:
             entry["shape"] = "prefill " + main_t["shape"]
             entry["decode"] = timings[name]["decode"]

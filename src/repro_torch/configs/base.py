@@ -2,7 +2,7 @@
 
 A copy of the reference package's schema, cut to the fields the port's
 slices read (the attention family and the xlstm family, tied embeddings,
-no logit softcap).
+no logit softcap, the int8 decode state).
 Plain dataclasses: no torch, no JAX.
 """
 from __future__ import annotations
@@ -54,6 +54,16 @@ class ModelConfig:
     conv_width: int = 4               # xlstm: mLSTM short causal conv
     dtype: str = "bfloat16"
     norm_eps: float = 1e-6
+
+    # --- serving: quantized decode state (paged pools only) ---
+    # "int8" stores KV pages as int8 with per-page, per-kv-head amax scales
+    # (f32 [L, NP, Hkv]) and GO rows as int8 with per-row scales — bytes per
+    # resident token drop ~4x vs the fp32 smoke dtype (~2x vs bf16) while
+    # attention compute stays fp32 (dequantized in-kernel / at the gather).
+    # The enum leaves room for fp8 once hardware dtypes land. "none" keeps
+    # the full-precision pages. Quantized mode REQUIRES a paged pool — scale
+    # granularity is page granularity (core/quant.py).
+    kv_quant: str = "none"            # "none" | "int8"
 
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads

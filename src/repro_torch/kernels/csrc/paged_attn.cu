@@ -11,10 +11,10 @@
 // K3 runs a split-KV body of its own (`paged_decode_split_kernel`); the
 // fp32 K4 runs the block body `attend` (`paged_chunk_kernel`) and the bf16
 // K4 a tensor-core body (`paged_chunk_tc_kernel`). Pages are
-// [NP, ps, Hkv, hd] (fp32 or bf16), the block table [B, P] int32 maps a
-// row's logical page j to its physical page (0 = the null page); outputs are
-// fp32 [B, Cs, Hq, hd] ([B, Hq, hd] for K3), heads grouped as Hq = Hkv * G
-// (GQA).
+// [NP, ps, Hkv, hd] (fp32 or bf16, or int8 with scales: below), the block
+// table [B, P] int32 maps a row's logical page j to its physical page (0 =
+// the null page); outputs are fp32 [B, Cs, Hq, hd] ([B, Hq, hd] for K3),
+// heads grouped as Hq = Hkv * G (GQA).
 //
 // Arithmetic, as the TPU kernel's: s = (q . k) * (1/sqrt(hd)) in fp32, then
 // softcap c * tanh(s / c), then the mask; an online softmax in fp32; p is
@@ -93,6 +93,31 @@
 // that none of its rows can see. The tile range per CTA is
 // kernels/paged_attn.py:chunk_tiles.
 //
+// The int8 page operand (the TPU kernels' `quant` branch, their
+// k_scales/v_scales [NP, Hkv] f32 operands gathered through the block
+// table beside the pages): pages hold int8 values and one f32 scale per
+// (page, kv head), and each body reads the int8 page (half the bytes of a
+// bf16 one) and dequantizes it in the kernel, with q fp32 or bf16. As in
+// the reference the dequantized V is fp32, so p is not rounded to the page
+// dtype before PV. A key's scales are read only where the key is live
+// (else 0), so a NaN scale on a dead page or the null page never reaches an
+// output. K3: a lane loads the K and V scale of its own key's page through
+// the staged block-table entries; the K scale multiplies its fp32 scores,
+// the V scale its p before the PV sum (p * s_v, with l summing p). fp32
+// K4: one page per key tile, its two scales loaded once per tile, the same
+// two multiplies. bf16 K4: the cp.async ring stages int8 tiles and each
+// key's two scales (4-byte cp.async, zero-filled for dead keys); after a
+// tile lands the CTA widens it into one bf16 K and one bf16 V tile (every
+// int8 value is an integer of magnitude <= 127, exact in bf16) that
+// ldmatrix reads as before. Widening once per CTA, not in each warp's
+// fragment loads, converts each value once instead of once per warp, and
+// keeps V's transposed fragments on ldmatrix.trans (an int8 fragment would
+// need byte gathers from two rows per register); it costs one more
+// __syncthreads per tile and 2 x KT bf16 rows of shared memory. The K
+// scale multiplies S per key column in fp32 registers before the softcap
+// and masks; the V scale is folded into P before P is rounded to bf16,
+// with l summing the unscaled p.
+//
 // C interface: each entry point launches on the given stream and returns
 // cudaGetLastError() as an int (0 = launched); an unsupported head_dim
 // returns cudaErrorInvalidValue without launching.
@@ -114,46 +139,62 @@ template <typename T>
 __device__ __forceinline__ float to_float(T v) {
   if constexpr (std::is_same<T, float>::value) {
     return v;
+  } else if constexpr (std::is_same<T, int8_t>::value) {
+    return (float)v;
   } else {
     return __bfloat162float(v);
   }
 }
 
-// p rounded to the page dtype, as the reference's p.astype(v.dtype)
+// p rounded to the page dtype, as the reference's p.astype(v.dtype); an
+// int8 page dequantizes to fp32, so p stays fp32
 template <typename T>
 __device__ __forceinline__ float round_to(float p) {
-  if constexpr (std::is_same<T, float>::value) {
-    return p;
-  } else {
+  if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     return __bfloat162float(__float2bfloat16(p));
+  } else {
+    return p;
   }
+}
+
+template <typename T>
+__host__ __device__ constexpr bool is_i8() {
+  return std::is_same<T, int8_t>::value;
+}
+
+// p * s_v for a key's PV term; 0 where p is 0 (a masked key), whatever the
+// scale holds
+__device__ __forceinline__ float scale_p(float p, float sv) {
+  return p > 0.0f ? p * sv : 0.0f;
 }
 
 // The fp32 K4 body: the block of (kv head h, row b, queries
 // q0..q0+QB-1) whose first query sits at absolute position pos0; keys at
-// positions >= kvl are masked.
-template <typename T, int HD>
+// positions >= kvl are masked. Pages of type KV: T, or int8 with scales.
+template <typename T, typename KV, int HD>
 __device__ __forceinline__ void attend(
     const T* __restrict__ q,            // [B, Cs, Hkv * G, HD]
-    const T* __restrict__ k_pages,      // [NP, ps, Hkv, HD]
-    const T* __restrict__ v_pages,      // [NP, ps, Hkv, HD]
+    const KV* __restrict__ k_pages,     // [NP, ps, Hkv, HD]
+    const KV* __restrict__ v_pages,     // [NP, ps, Hkv, HD]
+    const float* __restrict__ k_scales, // [NP, Hkv] (int8 pages only)
+    const float* __restrict__ v_scales, // [NP, Hkv] (int8 pages only)
     const int32_t* __restrict__ bt,     // [B, P]
     float* __restrict__ out,            // [B, Cs, Hkv * G, HD]
     int h, int b, int q0, int pos0, int kvl, int Cs, int Hkv, int G, int QB,
     int ps, int P, int window, float softcap, float scale) {
   constexpr int KT = HD > 128 ? 8 : 16;      // keys per shared-memory tile
-  constexpr int CPR = HD * sizeof(T) / 16;   // 16-byte chunks per key row
+  constexpr int CPR = HD * sizeof(KV) / 16;  // 16-byte chunks per key row
   // Each key row is padded by 16 bytes, so the rows of a tile start 4
   // banks apart: the score loop reads one column of many rows at once,
   // which unpadded rows (a multiple of 128 bytes) serve from one bank.
-  constexpr int KPAD = 16 / sizeof(T);
+  constexpr int KPAD = 16 / sizeof(KV);
   constexpr int ACC = MAX_ROWS * HD / THREADS;
   static_assert(KT <= 32, "one warp lane per key in the softmax update");
   static_assert(ACC >= 1, "rows x head_dim must cover the block");
 
   __shared__ float sq[MAX_ROWS][HD];
-  __shared__ __align__(16) T sk[KT][HD + KPAD];
-  __shared__ __align__(16) T sv[KT][HD + KPAD];
+  __shared__ __align__(16) KV sk[KT][HD + KPAD];
+  __shared__ __align__(16) KV sv[KT][HD + KPAD];
   __shared__ float sp[MAX_ROWS][KT];         // scores, then rounded p
   __shared__ float sm[MAX_ROWS], sl[MAX_ROWS], sc[MAX_ROWS];
 
@@ -196,6 +237,13 @@ __device__ __forceinline__ void attend(
 
   for (int j = j_lo; j <= j_hi; ++j) {
     const int page = bt[(size_t)b * P + j];
+    // the page's scales: every page of [j_lo, j_hi] holds a key some query
+    // of the block may see
+    float ksc = 1.0f, vsc = 1.0f;
+    if constexpr (is_i8<KV>()) {
+      ksc = k_scales[(size_t)page * Hkv + h];
+      vsc = v_scales[(size_t)page * Hkv + h];
+    }
     for (int off = 0; off < ps; off += KT) {
       const int n = min(KT, ps - off);
       const int base = j * ps + off;           // position of the tile's key 0
@@ -222,7 +270,9 @@ __device__ __forceinline__ void attend(
         for (int o = tpd / 2; o > 0; o >>= 1)
           part += __shfl_xor_sync(0xffffffffu, part, o);
         if (ok && lane_in == 0) {
-          float s = part * scale;
+          float s = part;
+          if constexpr (is_i8<KV>()) s *= ksc;
+          s *= scale;
           if (softcap > 0.0f) s = softcap * tanhf(s / softcap);
           const int kpos = base + kk;
           const int qpos = pos0 + r / G;
@@ -245,7 +295,8 @@ __device__ __forceinline__ void attend(
         float ps_sum = p;
         for (int o = 16; o > 0; o >>= 1)
           ps_sum += __shfl_xor_sync(0xffffffffu, ps_sum, o);
-        if (lane < n) sp[r][lane] = round_to<T>(p);
+        if (lane < n)
+          sp[r][lane] = is_i8<KV>() ? scale_p(p, vsc) : round_to<KV>(p);
         if (lane == 0) {
           const float corr = expf(m_old - m_new);
           sl[r] = sl[r] * corr + ps_sum;
@@ -284,16 +335,17 @@ __device__ __forceinline__ void attend(
 
 // K4 in fp32: one block per (kv head, row, block of QB queries of the
 // chunk). The bf16 K4 runs paged_chunk_tc_kernel below.
-template <typename T, int HD>
+template <typename T, typename KV, int HD>
 __global__ void __launch_bounds__(THREADS) paged_chunk_kernel(
-    const T* __restrict__ q, const T* __restrict__ k_pages,
-    const T* __restrict__ v_pages, const int32_t* __restrict__ bt,
+    const T* __restrict__ q, const KV* __restrict__ k_pages,
+    const KV* __restrict__ v_pages, const float* __restrict__ k_scales,
+    const float* __restrict__ v_scales, const int32_t* __restrict__ bt,
     float* __restrict__ out, int Cs, int Hkv, int G, int QB, int ps, int P,
     int start, int kv_len, int window, float softcap, float scale) {
   const int q0 = blockIdx.z * QB;
-  attend<T, HD>(q, k_pages, v_pages, bt, out, blockIdx.x, blockIdx.y, q0,
-                start + q0, kv_len, Cs, Hkv, G, QB, ps, P, window, softcap,
-                scale);
+  attend<T, KV, HD>(q, k_pages, v_pages, k_scales, v_scales, bt, out,
+                    blockIdx.x, blockIdx.y, q0, start + q0, kv_len, Cs, Hkv,
+                    G, QB, ps, P, window, softcap, scale);
 }
 
 // ----------------------------------------------------------- bf16 chunk body
@@ -308,12 +360,19 @@ __host__ __device__ constexpr int chunk_stages() {  // K/V ring depth
   return HD > 128 ? 2 : 3;
 }
 
-template <int HD>
+// Q rows, then the K and V rings of KV rows; rows padded by 16 bytes so
+// ldmatrix's eight row reads of a matrix fall in distinct banks. int8
+// pages add the bf16 K and V tiles they widen into and the rings of the
+// keys' K and V scales.
+template <int HD, typename KV>
 __host__ __device__ constexpr int chunk_smem_bytes(int warps) {
-  // Q rows, then the K and V rings; rows padded by 16 bytes so ldmatrix's
-  // eight row reads of a matrix fall in distinct banks
-  return (16 * warps + 2 * chunk_stages<HD>() * chunk_kt<HD>()) * (HD + 8) *
-         2;
+  constexpr int KT = chunk_kt<HD>(), ST = chunk_stages<HD>();
+  if constexpr (is_i8<KV>()) {
+    return (16 * warps + 2 * KT) * (HD + 8) * 2 + 2 * ST * KT * (HD + 16) +
+           2 * ST * KT * 4;
+  } else {
+    return (16 * warps + 2 * ST * KT) * (HD + 8) * 2;
+  }
 }
 
 __device__ __forceinline__ unsigned smem_addr(const void* p) {
@@ -326,6 +385,37 @@ __device__ __forceinline__ void cp_async16(void* dst, const void* src,
   asm volatile("cp.async.cg.shared.global [%0], [%1], 16, %2;\n" ::"r"(
                    smem_addr(dst)),
                "l"(src), "r"(src_bytes));
+}
+
+// two floats rounded to bf16 (p.astype(v.dtype)), lo in the low half
+__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
+  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
+  return *reinterpret_cast<const unsigned*>(&h);
+}
+
+// 4 bytes global -> shared (a key's scale); src_bytes 0 zero-fills
+__device__ __forceinline__ void cp_async4(void* dst, const void* src,
+                                          int src_bytes) {
+  asm volatile("cp.async.ca.shared.global [%0], [%1], 4, %2;\n" ::"r"(
+                   smem_addr(dst)),
+               "l"(src), "r"(src_bytes));
+}
+
+// 16 int8 values (one 16-byte load) widened to 16 bf16 (two 16-byte
+// stores); every int8 value is exact in bf16
+__device__ __forceinline__ void widen16(const int8_t* src,
+                                        __nv_bfloat16* dst) {
+  const uint4 v = *reinterpret_cast<const uint4*>(src);
+  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+  unsigned o[8];
+#pragma unroll
+  for (int i = 0; i < 8; ++i) {
+    const unsigned x = w[i / 2] >> (16 * (i % 2));
+    o[i] = pack_bf16((float)(int8_t)(x & 0xff),
+                     (float)(int8_t)((x >> 8) & 0xff));
+  }
+  reinterpret_cast<uint4*>(dst)[0] = make_uint4(o[0], o[1], o[2], o[3]);
+  reinterpret_cast<uint4*>(dst)[1] = make_uint4(o[4], o[5], o[6], o[7]);
 }
 
 __device__ __forceinline__ void cp_async_commit() {
@@ -363,12 +453,6 @@ __device__ __forceinline__ void mma_bf16(float (&d)[4], const unsigned (&a)[4],
       : "r"(a[0]), "r"(a[1]), "r"(a[2]), "r"(a[3]), "r"(b0), "r"(b1));
 }
 
-// two floats rounded to bf16 (p.astype(v.dtype)), lo in the low half
-__device__ __forceinline__ unsigned pack_bf16(float lo, float hi) {
-  const __nv_bfloat162 h = __floats2bfloat162_rn(lo, hi);
-  return *reinterpret_cast<const unsigned*>(&h);
-}
-
 // Keys a block of rows [row0, row0 + nrows) may see: [first, last]
 // (empty when last < first). chunk_tiles in kernels/paged_attn.py.
 __device__ __forceinline__ void chunk_key_range(int row0, int nrows, int G,
@@ -380,28 +464,40 @@ __device__ __forceinline__ void chunk_key_range(int row0, int nrows, int G,
   first = window > 0 ? max(0, start + q_first - window + 1) : 0;
 }
 
-// K4, bf16: one CTA of W warps per (kv head h, row b, block of 16 W
-// (query, head) rows); see the header.
-template <int HD, int W>
+// K4, bf16 q: one CTA of W warps per (kv head h, row b, block of 16 W
+// (query, head) rows); see the header. Pages of type KV: bf16, or int8
+// with scales.
+template <int HD, int W, typename KV>
 __global__ void __launch_bounds__(32 * W) paged_chunk_tc_kernel(
     const __nv_bfloat16* __restrict__ q,       // [B, Cs, Hkv * G, HD]
-    const __nv_bfloat16* __restrict__ k_pages, // [NP, ps, Hkv, HD]
-    const __nv_bfloat16* __restrict__ v_pages, // [NP, ps, Hkv, HD]
+    const KV* __restrict__ k_pages,            // [NP, ps, Hkv, HD]
+    const KV* __restrict__ v_pages,            // [NP, ps, Hkv, HD]
+    const float* __restrict__ k_scales,        // [NP, Hkv] (int8 pages)
+    const float* __restrict__ v_scales,        // [NP, Hkv] (int8 pages)
     const int32_t* __restrict__ bt,            // [B, P]
     float* __restrict__ out,                   // [B, Cs, Hkv * G, HD]
     int Cs, int Hkv, int G, int ps, int P, int start, int kv_len, int window,
     float softcap, float scale) {
   using bf16 = __nv_bfloat16;
+  constexpr bool Q8 = is_i8<KV>();
   constexpr int KT = chunk_kt<HD>();
   constexpr int STAGES = chunk_stages<HD>();
-  constexpr int LD = HD + 8;                 // smem row stride (elements)
-  constexpr int CPR = HD / 8;                // 16-byte chunks per row
+  constexpr int LD = HD + 8;                 // bf16 smem row stride
+  constexpr int LDR = HD + 16 / (int)sizeof(KV);  // ring row stride
+  constexpr int QCPR = HD / 8;               // 16-byte chunks per Q row
+  constexpr int CPR = HD * (int)sizeof(KV) / 16;  // ... per ring row
+  constexpr int VE = 16 / (int)sizeof(KV);   // ring elements per chunk
   constexpr int NT = 32 * W;                 // threads
   constexpr int DN = HD / 8;                 // 8-wide output column tiles
   extern __shared__ __align__(16) unsigned char dsmem[];
   bf16* sq = reinterpret_cast<bf16*>(dsmem);           // [16 W][LD]
-  bf16* sk = sq + 16 * W * LD;                          // [STAGES][KT][LD]
-  bf16* sv = sk + STAGES * KT * LD;                     // [STAGES][KT][LD]
+  KV* sk = reinterpret_cast<KV*>(sq + 16 * W * LD);     // [STAGES][KT][LDR]
+  KV* sv = sk + STAGES * KT * LDR;                      // [STAGES][KT][LDR]
+  // int8 pages: the widened bf16 K and V tiles, the keys' scales
+  bf16* wk = reinterpret_cast<bf16*>(sv + STAGES * KT * LDR);  // [KT][LD]
+  bf16* wv = wk + KT * LD;                                     // [KT][LD]
+  float* sks = reinterpret_cast<float*>(wv + KT * LD);  // [STAGES][KT]
+  float* svs = sks + STAGES * KT;                       // [STAGES][KT]
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int Hq = Hkv * G;
@@ -426,8 +522,8 @@ __global__ void __launch_bounds__(32 * W) paged_chunk_tc_kernel(
                     w_last);
 
   // Q rows -> shared (zeros past R)
-  for (int c = tid; c < 16 * W * CPR; c += NT) {
-    const int r = c / CPR, cc = (c % CPR) * 8;
+  for (int c = tid; c < 16 * W * QCPR; c += NT) {
+    const int r = c / QCPR, cc = (c % QCPR) * 8;
     const int gr = row0 + r;
     const bool live = gr < R;
     const size_t src =
@@ -435,11 +531,11 @@ __global__ void __launch_bounds__(32 * W) paged_chunk_tc_kernel(
     cp_async16(sq + r * LD + cc, q + src, live ? 16 : 0);
   }
   auto load_tile = [&](int t, int slot) {
-    bf16* dk = sk + slot * KT * LD;
-    bf16* dv = sv + slot * KT * LD;
+    KV* dk = sk + slot * KT * LDR;
+    KV* dv = sv + slot * KT * LDR;
 #pragma unroll 4
     for (int c = tid; c < KT * CPR; c += NT) {
-      const int kk = c / CPR, cc = (c % CPR) * 8;
+      const int kk = c / CPR, cc = (c % CPR) * VE;
       const int pos = t * KT + kk;
       const bool live = pos >= first_key && pos <= last_key;
       size_t src = 0;
@@ -447,8 +543,19 @@ __global__ void __launch_bounds__(32 * W) paged_chunk_tc_kernel(
         const int page = bt[(size_t)b * P + pos / ps];
         src = (((size_t)page * ps + pos % ps) * Hkv + h) * HD + cc;
       }
-      cp_async16(dk + kk * LD + cc, k_pages + src, live ? 16 : 0);
-      cp_async16(dv + kk * LD + cc, v_pages + src, live ? 16 : 0);
+      cp_async16(dk + kk * LDR + cc, k_pages + src, live ? 16 : 0);
+      cp_async16(dv + kk * LDR + cc, v_pages + src, live ? 16 : 0);
+    }
+    if constexpr (Q8) {
+      // each key's scales, zero-filled (never read) for a dead key
+      for (int kk = tid; kk < KT; kk += NT) {
+        const int pos = t * KT + kk;
+        const bool live = pos >= first_key && pos <= last_key;
+        size_t src = 0;
+        if (live) src = (size_t)bt[(size_t)b * P + pos / ps] * Hkv + h;
+        cp_async4(sks + slot * KT + kk, k_scales + src, live ? 4 : 0);
+        cp_async4(svs + slot * KT + kk, v_scales + src, live ? 4 : 0);
+      }
     }
   };
   // groups: Q and the first tile, then one tile each
@@ -484,11 +591,30 @@ __global__ void __launch_bounds__(32 * W) paged_chunk_tc_kernel(
         ldmatrix_x4(qa[ks], sq + (warp * 16 + lane % 16) * LD + ks * 16 +
                                 (lane / 16) * 8);
     }
+    const bf16* tk;
+    const bf16* tvv;
+    if constexpr (Q8) {
+      // widen the landed int8 tile into the bf16 tiles; the top barrier
+      // above freed them (every warp has finished the previous tile)
+      const KV* rk = sk + (it % STAGES) * KT * LDR;
+      const KV* rv = sv + (it % STAGES) * KT * LDR;
+      for (int c = tid; c < KT * CPR; c += NT) {
+        const int kk = c / CPR, cc = (c % CPR) * VE;
+        widen16(rk + kk * LDR + cc, wk + kk * LD + cc);
+        widen16(rv + kk * LDR + cc, wv + kk * LD + cc);
+      }
+      __syncthreads();
+      tk = wk;
+      tvv = wv;
+    } else {
+      tk = sk + (it % STAGES) * KT * LD;
+      tvv = sv + (it % STAGES) * KT * LD;
+    }
+    const float* tks = sks + (it % STAGES) * KT;
+    const float* tvs = svs + (it % STAGES) * KT;
     const bool sees = wrows > 0 && t * KT <= w_last &&
                       (t + 1) * KT - 1 >= w_first;
     if (sees) {
-      const bf16* tk = sk + (it % STAGES) * KT * LD;
-      const bf16* tvv = sv + (it % STAGES) * KT * LD;
       // S = Q K^T: KT / 8 column tiles of 8 keys
       float s[KT / 8][4];
 #pragma unroll
@@ -512,7 +638,9 @@ __global__ void __launch_bounds__(32 * W) paged_chunk_tc_kernel(
       for (int n = 0; n < KT / 8; ++n)
 #pragma unroll
         for (int e = 0; e < 4; ++e) {
-          float v = s[n][e] * scale;
+          float v = s[n][e];
+          if constexpr (Q8) v *= tks[n * 8 + 2 * tig + (e % 2)];
+          v *= scale;
           if (softcap > 0.0f) v = softcap * tanhf(v / softcap);
           const int kpos = t * KT + n * 8 + 2 * tig + (e % 2);
           const int qp = qpos[e / 2];
@@ -541,6 +669,7 @@ __global__ void __launch_bounds__(32 * W) paged_chunk_tc_kernel(
         for (int e = 0; e < 4; ++e) {
           p[e] = expf(s[n][e] - m[e / 2]);
           l[e / 2] += p[e];
+          if constexpr (Q8) p[e] = scale_p(p[e], tvs[n * 8 + 2 * tig + (e % 2)]);
         }
         pa[n / 2][(n % 2) * 2] = pack_bf16(p[0], p[1]);
         pa[n / 2][(n % 2) * 2 + 1] = pack_bf16(p[2], p[3]);
@@ -613,10 +742,33 @@ __host__ __device__ constexpr int dec_smem_bytes(int G, int slots) {
 }
 
 // N consecutive elements of a shared-memory row, widened to fp32: one
-// aligned load of N * sizeof(T) bytes (two at 32 bytes)
+// aligned load of N * sizeof(T) bytes (two at 32 bytes); int8 in 16-byte
+// or 4-byte words, or bytes below 4
 template <typename T, int N>
 __device__ __forceinline__ void load_f32(const T* p, float (&f)[N]) {
-  if constexpr (std::is_same<T, float>::value) {
+  if constexpr (is_i8<T>()) {
+    if constexpr (N % 16 == 0) {
+#pragma unroll
+      for (int i = 0; i < N; i += 16) {
+        const uint4 v = *reinterpret_cast<const uint4*>(p + i);
+        const unsigned w[4] = {v.x, v.y, v.z, v.w};
+#pragma unroll
+        for (int k = 0; k < 16; ++k)
+          f[i + k] = (float)(int8_t)((w[k / 4] >> (8 * (k % 4))) & 0xff);
+      }
+    } else if constexpr (N % 4 == 0) {
+#pragma unroll
+      for (int i = 0; i < N; i += 4) {
+        const unsigned w = *reinterpret_cast<const unsigned*>(p + i);
+#pragma unroll
+        for (int k = 0; k < 4; ++k)
+          f[i + k] = (float)(int8_t)((w >> (8 * k)) & 0xff);
+      }
+    } else {
+#pragma unroll
+      for (int i = 0; i < N; ++i) f[i] = (float)p[i];
+    }
+  } else if constexpr (std::is_same<T, float>::value) {
     if constexpr (N % 4 == 0) {
 #pragma unroll
       for (int i = 0; i < N; i += 4) {
@@ -669,12 +821,15 @@ __device__ __forceinline__ void load_f32(const T* p, float (&f)[N]) {
 
 // K3: one CTA per (kv head h, row b, split s); see the header. GB >= G
 // bounds the per-head register arrays and loops at compile time (1, 4 or
-// 16), so a kernel for G = 1 issues no work for absent heads.
-template <typename T, int HD, int GB>
+// 16), so a kernel for G = 1 issues no work for absent heads. q of type T,
+// pages of type KV: T, or int8 with scales.
+template <typename T, typename KV, int HD, int GB>
 __global__ void __launch_bounds__(DEC_WARPS * 32) paged_decode_split_kernel(
     const T* __restrict__ q,            // [B, Hkv * G, HD]
-    const T* __restrict__ k_pages,      // [NP, ps, Hkv, HD]
-    const T* __restrict__ v_pages,      // [NP, ps, Hkv, HD]
+    const KV* __restrict__ k_pages,     // [NP, ps, Hkv, HD]
+    const KV* __restrict__ v_pages,     // [NP, ps, Hkv, HD]
+    const float* __restrict__ k_scales, // [NP, Hkv] (int8 pages only)
+    const float* __restrict__ v_scales, // [NP, Hkv] (int8 pages only)
     const int32_t* __restrict__ bt,     // [B, P]
     const int32_t* __restrict__ t_vec,  // [B]
     float* __restrict__ ws,             // [B, Hkv, splits, G, HD + 2]
@@ -682,8 +837,8 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) paged_decode_split_kernel(
     float* __restrict__ out,            // [B, Hkv * G, HD]
     int Hkv, int G, int ps, int P, int split_pages, int slots, int window,
     float softcap, float scale) {
-  constexpr int LD = dec_ld<T, HD>();
-  constexpr int VE = 16 / sizeof(T);          // elements per 16-byte chunk
+  constexpr int LD = dec_ld<KV, HD>();
+  constexpr int VE = 16 / sizeof(KV);         // elements per 16-byte chunk
   constexpr int CPR = HD / VE;                // chunks per key row
   constexpr int DPL = HD >= 32 ? HD / 32 : 1; // output columns per lane
   constexpr int GMAX = GB;                    // query heads per kv head
@@ -691,7 +846,7 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) paged_decode_split_kernel(
   extern __shared__ __align__(16) unsigned char dsmem[];
   __shared__ int s_last;
   __shared__ int s_page[DEC_MAX_PAGES];       // the split's physical pages
-  T* skv = reinterpret_cast<T*>(dsmem);       // [W][slots][K, V][TILE][LD]
+  KV* skv = reinterpret_cast<KV*>(dsmem);     // [W][slots][K, V][TILE][LD]
   float* sq = reinterpret_cast<float*>(skv + DEC_WARPS * slots * 2 *
                                                  DEC_TILE * LD);  // [G][HD]
   float* sp = sq + G * HD;                    // [W][G][TILE] rounded p
@@ -729,7 +884,7 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) paged_decode_split_kernel(
     const int j_lo = (klo - sb) / DEC_TILE, j_hi = (khi - sb) / DEC_TILE;
     const int j0 = j_lo + (warp - j_lo % DEC_WARPS + DEC_WARPS) % DEC_WARPS;
     const int ntiles = j0 > j_hi ? 0 : (j_hi - j0) / DEC_WARPS + 1;
-    T* wkv = skv + warp * slots * 2 * DEC_TILE * LD;
+    KV* wkv = skv + warp * slots * 2 * DEC_TILE * LD;
 
     // gather tile `it` into slot it % slots: lane r finds key r's row,
     // then the warp copies the rows 16 bytes a lane, zero-filling dead keys
@@ -741,8 +896,8 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) paged_decode_split_kernel(
         const int page = s_page[(pos - sb) / ps];
         row = (((long long)page * ps + pos % ps) * Hkv + h) * HD;
       }
-      T* dk = wkv + (it % slots) * 2 * DEC_TILE * LD;
-      T* dv = dk + DEC_TILE * LD;
+      KV* dk = wkv + (it % slots) * 2 * DEC_TILE * LD;
+      KV* dv = dk + DEC_TILE * LD;
 #pragma unroll 4
       for (int c = lane; c < DEC_TILE * CPR; c += 32) {
         const int r = c / CPR, cc = (c % CPR) * VE;
@@ -768,16 +923,25 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) paged_decode_split_kernel(
 
     float* wp = sp + warp * G * DEC_TILE;
     for (int it = 0; it < ntiles; ++it) {
+      const int pos = sb + (j0 + it * DEC_WARPS) * DEC_TILE + lane;
+      const bool live = pos >= klo && pos <= khi;
+      // int8 pages: this lane's key's scales, read only for a live key
+      float ksc = 0.0f, vsc = 0.0f;
+      if constexpr (is_i8<KV>()) {
+        if (live) {
+          const size_t at = (size_t)s_page[(pos - sb) / ps] * Hkv + h;
+          ksc = k_scales[at];
+          vsc = v_scales[at];
+        }
+      }
       if (issued > it + 1) {
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
       }
       __syncwarp();
-      const T* tk = wkv + (it % slots) * 2 * DEC_TILE * LD;
-      const T* tv = tk + DEC_TILE * LD;
-      const int pos = sb + (j0 + it * DEC_WARPS) * DEC_TILE + lane;
-      const bool live = pos >= klo && pos <= khi;
+      const KV* tk = wkv + (it % slots) * 2 * DEC_TILE * LD;
+      const KV* tv = tk + DEC_TILE * LD;
 
       // scores of this lane's key for the G heads, fp32
       float s[GMAX];
@@ -786,7 +950,7 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) paged_decode_split_kernel(
 #pragma unroll 2
       for (int d = 0; d < HD; d += VE) {
         float kf[VE];
-        load_f32<T, VE>(tk + lane * LD + d, kf);
+        load_f32<KV, VE>(tk + lane * LD + d, kf);
 #pragma unroll
         for (int g = 0; g < GMAX; ++g) {
           if (GB == 1 || g < G) {
@@ -801,7 +965,9 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) paged_decode_split_kernel(
 #pragma unroll
       for (int g = 0; g < GMAX; ++g) {
         if (GB == 1 || g < G) {
-          float v = s[g] * scale;
+          float v = s[g];
+          if constexpr (is_i8<KV>()) v *= ksc;
+          v *= scale;
           if (softcap > 0.0f) v = softcap * tanhf(v / softcap);
           v = live ? v : -INFINITY;
           float mx = v;
@@ -819,7 +985,8 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) paged_decode_split_kernel(
           m[g] = m_new;
 #pragma unroll
           for (int e = 0; e < DPL; ++e) acc[g][e] *= corr;
-          wp[g * DEC_TILE + lane] = round_to<T>(p);
+          wp[g * DEC_TILE + lane] =
+              is_i8<KV>() ? scale_p(p, vsc) : round_to<KV>(p);
         }
       }
       __syncwarp();
@@ -828,7 +995,7 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) paged_decode_split_kernel(
 #pragma unroll 4
         for (int k = 0; k < DEC_TILE; ++k) {
           float vf[DPL];
-          load_f32<T, DPL>(tv + k * LD + lane * DPL, vf);
+          load_f32<KV, DPL>(tv + k * LD + lane * DPL, vf);
 #pragma unroll
           for (int g = 0; g < GMAX; ++g) {
             if (GB == 1 || g < G) {
@@ -929,19 +1096,21 @@ cudaError_t set_smem(K kernel, int bytes) {
                               (int)cudaSharedmemCarveoutMaxShared);
 }
 
-template <int HD, int W>
+template <int HD, int W, typename KV>
 int launch_chunk_tc(const void* q, const void* kp, const void* vp,
-                    const void* bt, void* out, int B, int Cs, int Hkv, int G,
-                    int ps, int P, int start, int kv_len, int window,
-                    float softcap, float scale, cudaStream_t st) {
-  constexpr int smem = chunk_smem_bytes<HD>(W);
-  static const cudaError_t attr = set_smem(paged_chunk_tc_kernel<HD, W>, smem);
+                    const void* ks, const void* vs, const void* bt, void* out,
+                    int B, int Cs, int Hkv, int G, int ps, int P, int start,
+                    int kv_len, int window, float softcap, float scale,
+                    cudaStream_t st) {
+  constexpr int smem = chunk_smem_bytes<HD, KV>(W);
+  static const cudaError_t attr =
+      set_smem(paged_chunk_tc_kernel<HD, W, KV>, smem);
   if (attr != cudaSuccess) return (int)attr;
   const int ctas = (Cs * G + 16 * W - 1) / (16 * W);
-  paged_chunk_tc_kernel<HD, W><<<dim3(Hkv, B, ctas), 32 * W, smem, st>>>(
-      static_cast<const __nv_bfloat16*>(q),
-      static_cast<const __nv_bfloat16*>(kp),
-      static_cast<const __nv_bfloat16*>(vp), static_cast<const int32_t*>(bt),
+  paged_chunk_tc_kernel<HD, W, KV><<<dim3(Hkv, B, ctas), 32 * W, smem, st>>>(
+      static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(kp),
+      static_cast<const KV*>(vp), static_cast<const float*>(ks),
+      static_cast<const float*>(vs), static_cast<const int32_t*>(bt),
       static_cast<float*>(out), Cs, Hkv, G, ps, P, start, kv_len, window,
       softcap, scale);
   return (int)cudaGetLastError();
@@ -966,25 +1135,27 @@ int with_head_dim(int hd, F&& f) {
   }
 }
 
-template <typename T, int HD, int GB>
+template <typename T, typename KV, int HD, int GB>
 int launch_decode(const void* q, const void* kp, const void* vp,
-                  const void* bt, const void* t, void* ws, void* counters,
-                  void* out, int B, int Hkv, int G, int ps, int P,
-                  int split_pages, int splits, int window, float softcap,
-                  cudaStream_t st) {
-  constexpr int max_smem = dec_smem_bytes<T, HD>(GB, dec_max_slots<T, HD>());
+                  const void* ks, const void* vs, const void* bt,
+                  const void* t, void* ws, void* counters, void* out, int B,
+                  int Hkv, int G, int ps, int P, int split_pages, int splits,
+                  int window, float softcap, cudaStream_t st) {
+  constexpr int max_smem =
+      dec_smem_bytes<KV, HD>(GB, dec_max_slots<KV, HD>());
   static const cudaError_t attr =
-      set_smem(paged_decode_split_kernel<T, HD, GB>, max_smem);
+      set_smem(paged_decode_split_kernel<T, KV, HD, GB>, max_smem);
   if (attr != cudaSuccess) return (int)attr;
   const int split_keys = split_pages * ps;
   const int tiles = (split_keys + DEC_WARPS * DEC_TILE - 1) /
                     (DEC_WARPS * DEC_TILE);   // per warp, at most
-  const int slots = min(dec_max_slots<T, HD>(), tiles);
-  paged_decode_split_kernel<T, HD, GB>
+  const int slots = min(dec_max_slots<KV, HD>(), tiles);
+  paged_decode_split_kernel<T, KV, HD, GB>
       <<<dim3(Hkv, B, splits), DEC_WARPS * 32,
-         dec_smem_bytes<T, HD>(G, slots), st>>>(
-          static_cast<const T*>(q), static_cast<const T*>(kp),
-          static_cast<const T*>(vp), static_cast<const int32_t*>(bt),
+         dec_smem_bytes<KV, HD>(G, slots), st>>>(
+          static_cast<const T*>(q), static_cast<const KV*>(kp),
+          static_cast<const KV*>(vp), static_cast<const float*>(ks),
+          static_cast<const float*>(vs), static_cast<const int32_t*>(bt),
           static_cast<const int32_t*>(t), static_cast<float*>(ws),
           static_cast<int*>(counters), static_cast<float*>(out), Hkv, G, ps, P,
           split_pages, slots, window, softcap,
@@ -992,11 +1163,12 @@ int launch_decode(const void* q, const void* kp, const void* vp,
   return (int)cudaGetLastError();
 }
 
-template <typename T>
+template <typename T, typename KV>
 int decode(int hd, const void* q, const void* kp, const void* vp,
-           const void* bt, const void* t, void* ws, void* counters, void* out,
-           int B, int Hkv, int G, int ps, int P, int split_pages, int splits,
-           int window, float softcap, void* stream) {
+           const void* ks, const void* vs, const void* bt, const void* t,
+           void* ws, void* counters, void* out, int B, int Hkv, int G, int ps,
+           int P, int split_pages, int splits, int window, float softcap,
+           void* stream) {
   if (G < 1 || G > MAX_ROWS || split_pages < 1 ||
       split_pages > DEC_MAX_PAGES || splits < 1 || splits * split_pages < P)
     return (int)cudaErrorInvalidValue;
@@ -1004,64 +1176,69 @@ int decode(int hd, const void* q, const void* kp, const void* vp,
     constexpr int HD = decltype(c)::value;
     const auto st = (cudaStream_t)stream;
     if (G == 1)
-      return launch_decode<T, HD, 1>(q, kp, vp, bt, t, ws, counters, out, B,
-                                     Hkv, G, ps, P, split_pages, splits,
-                                     window, softcap, st);
+      return launch_decode<T, KV, HD, 1>(q, kp, vp, ks, vs, bt, t, ws,
+                                         counters, out, B, Hkv, G, ps, P,
+                                         split_pages, splits, window, softcap,
+                                         st);
     if (G <= 4)
-      return launch_decode<T, HD, 4>(q, kp, vp, bt, t, ws, counters, out, B,
-                                     Hkv, G, ps, P, split_pages, splits,
-                                     window, softcap, st);
-    return launch_decode<T, HD, MAX_ROWS>(q, kp, vp, bt, t, ws, counters, out,
-                                          B, Hkv, G, ps, P, split_pages,
-                                          splits, window, softcap, st);
+      return launch_decode<T, KV, HD, 4>(q, kp, vp, ks, vs, bt, t, ws,
+                                         counters, out, B, Hkv, G, ps, P,
+                                         split_pages, splits, window, softcap,
+                                         st);
+    return launch_decode<T, KV, HD, MAX_ROWS>(q, kp, vp, ks, vs, bt, t, ws,
+                                              counters, out, B, Hkv, G, ps, P,
+                                              split_pages, splits, window,
+                                              softcap, st);
   });
 }
 
-template <typename T, int HD>
+template <typename T, typename KV, int HD>
 int launch_chunk(const void* q, const void* kp, const void* vp,
-                 const void* bt, void* out, int B, int Cs, int Hkv, int G,
-                 int ps, int P, int start, int kv_len, int window,
-                 float softcap, int warps, cudaStream_t st) {
+                 const void* ks, const void* vs, const void* bt, void* out,
+                 int B, int Cs, int Hkv, int G, int ps, int P, int start,
+                 int kv_len, int window, float softcap, int warps,
+                 cudaStream_t st) {
   const float scale = (float)(1.0 / sqrt((double)HD));
   if constexpr (std::is_same<T, __nv_bfloat16>::value) {
     switch (warps) {
       case 1:
-        return launch_chunk_tc<HD, 1>(q, kp, vp, bt, out, B, Cs, Hkv, G, ps, P,
-                                      start, kv_len, window, softcap, scale,
-                                      st);
+        return launch_chunk_tc<HD, 1, KV>(q, kp, vp, ks, vs, bt, out, B, Cs,
+                                          Hkv, G, ps, P, start, kv_len, window,
+                                          softcap, scale, st);
       case 2:
-        return launch_chunk_tc<HD, 2>(q, kp, vp, bt, out, B, Cs, Hkv, G, ps, P,
-                                      start, kv_len, window, softcap, scale,
-                                      st);
+        return launch_chunk_tc<HD, 2, KV>(q, kp, vp, ks, vs, bt, out, B, Cs,
+                                          Hkv, G, ps, P, start, kv_len, window,
+                                          softcap, scale, st);
       case 4:
-        return launch_chunk_tc<HD, 4>(q, kp, vp, bt, out, B, Cs, Hkv, G, ps, P,
-                                      start, kv_len, window, softcap, scale,
-                                      st);
+        return launch_chunk_tc<HD, 4, KV>(q, kp, vp, ks, vs, bt, out, B, Cs,
+                                          Hkv, G, ps, P, start, kv_len, window,
+                                          softcap, scale, st);
       default:
         return (int)cudaErrorInvalidValue;
     }
   } else {
     const int QB = G >= MAX_ROWS ? 1 : MAX_ROWS / G;   // queries per block
-    paged_chunk_kernel<T, HD>
+    paged_chunk_kernel<T, KV, HD>
         <<<dim3(Hkv, B, (Cs + QB - 1) / QB), THREADS, 0, st>>>(
-            static_cast<const T*>(q), static_cast<const T*>(kp),
-            static_cast<const T*>(vp), static_cast<const int32_t*>(bt),
+            static_cast<const T*>(q), static_cast<const KV*>(kp),
+            static_cast<const KV*>(vp), static_cast<const float*>(ks),
+            static_cast<const float*>(vs), static_cast<const int32_t*>(bt),
             static_cast<float*>(out), Cs, Hkv, G, QB, ps, P, start, kv_len,
             window, softcap, scale);
     return (int)cudaGetLastError();
   }
 }
 
-template <typename T>
+template <typename T, typename KV>
 int chunk(int hd, const void* q, const void* kp, const void* vp,
-          const void* bt, void* out, int B, int Cs, int Hkv, int G, int ps,
-          int P, int start, int kv_len, int window, float softcap, int warps,
-          void* stream) {
+          const void* ks, const void* vs, const void* bt, void* out, int B,
+          int Cs, int Hkv, int G, int ps, int P, int start, int kv_len,
+          int window, float softcap, int warps, void* stream) {
   if (G < 1 || G > MAX_ROWS) return (int)cudaErrorInvalidValue;
   return with_head_dim(hd, [&](auto c) {
-    return launch_chunk<T, decltype(c)::value>(
-        q, kp, vp, bt, out, B, Cs, Hkv, G, ps, P, start, kv_len, window,
-        softcap, warps, (cudaStream_t)stream);
+    return launch_chunk<T, KV, decltype(c)::value>(
+        q, kp, vp, ks, vs, bt, out, B, Cs, Hkv, G, ps, P, start, kv_len,
+        window, softcap, warps, (cudaStream_t)stream);
   });
 }
 
@@ -1080,8 +1257,9 @@ int paged_attn_decode_f32(const void* q, const void* kp, const void* vp,
                           void* counters, void* out, int B, int Hkv, int G,
                           int hd, int ps, int P, int split_pages, int splits,
                           int window, float softcap, void* stream) {
-  return decode<float>(hd, q, kp, vp, bt, t, ws, counters, out, B, Hkv, G, ps,
-                       P, split_pages, splits, window, softcap, stream);
+  return decode<float, float>(hd, q, kp, vp, nullptr, nullptr, bt, t, ws,
+                              counters, out, B, Hkv, G, ps, P, split_pages,
+                              splits, window, softcap, stream);
 }
 
 int paged_attn_decode_bf16(const void* q, const void* kp, const void* vp,
@@ -1089,9 +1267,34 @@ int paged_attn_decode_bf16(const void* q, const void* kp, const void* vp,
                            void* counters, void* out, int B, int Hkv, int G,
                            int hd, int ps, int P, int split_pages, int splits,
                            int window, float softcap, void* stream) {
-  return decode<__nv_bfloat16>(hd, q, kp, vp, bt, t, ws, counters, out, B,
-                               Hkv, G, ps, P, split_pages, splits, window,
-                               softcap, stream);
+  return decode<__nv_bfloat16, __nv_bfloat16>(
+      hd, q, kp, vp, nullptr, nullptr, bt, t, ws, counters, out, B, Hkv, G,
+      ps, P, split_pages, splits, window, softcap, stream);
+}
+
+// K3 on int8 pages: as above, with k_scales / v_scales f32 [NP, Hkv]; q
+// fp32 or bf16
+int paged_attn_decode_i8_f32(const void* q, const void* kp, const void* vp,
+                             const void* ks, const void* vs, const void* bt,
+                             const void* t, void* ws, void* counters,
+                             void* out, int B, int Hkv, int G, int hd, int ps,
+                             int P, int split_pages, int splits, int window,
+                             float softcap, void* stream) {
+  return decode<float, int8_t>(hd, q, kp, vp, ks, vs, bt, t, ws, counters,
+                               out, B, Hkv, G, ps, P, split_pages, splits,
+                               window, softcap, stream);
+}
+
+int paged_attn_decode_i8_bf16(const void* q, const void* kp, const void* vp,
+                              const void* ks, const void* vs, const void* bt,
+                              const void* t, void* ws, void* counters,
+                              void* out, int B, int Hkv, int G, int hd,
+                              int ps, int P, int split_pages, int splits,
+                              int window, float softcap, void* stream) {
+  return decode<__nv_bfloat16, int8_t>(hd, q, kp, vp, ks, vs, bt, t, ws,
+                                       counters, out, B, Hkv, G, ps, P,
+                                       split_pages, splits, window, softcap,
+                                       stream);
 }
 
 // K4: q [B, Cs, Hq, hd], pages, bt as K3, start / kv_len scalars
@@ -1100,8 +1303,9 @@ int paged_attn_chunk_f32(const void* q, const void* kp, const void* vp,
                          const void* bt, void* out, int B, int Cs, int Hkv,
                          int G, int hd, int ps, int P, int start, int kv_len,
                          int window, float softcap, void* stream) {
-  return chunk<float>(hd, q, kp, vp, bt, out, B, Cs, Hkv, G, ps, P, start,
-                      kv_len, window, softcap, 0, stream);
+  return chunk<float, float>(hd, q, kp, vp, nullptr, nullptr, bt, out, B, Cs,
+                             Hkv, G, ps, P, start, kv_len, window, softcap, 0,
+                             stream);
 }
 
 // the bf16 body takes `warps` (1, 2 or 4) per CTA from the wrapper
@@ -1110,8 +1314,31 @@ int paged_attn_chunk_bf16(const void* q, const void* kp, const void* vp,
                           const void* bt, void* out, int B, int Cs, int Hkv,
                           int G, int hd, int ps, int P, int start, int kv_len,
                           int window, float softcap, int warps, void* stream) {
-  return chunk<__nv_bfloat16>(hd, q, kp, vp, bt, out, B, Cs, Hkv, G, ps, P,
-                              start, kv_len, window, softcap, warps, stream);
+  return chunk<__nv_bfloat16, __nv_bfloat16>(
+      hd, q, kp, vp, nullptr, nullptr, bt, out, B, Cs, Hkv, G, ps, P, start,
+      kv_len, window, softcap, warps, stream);
+}
+
+// K4 on int8 pages, with k_scales / v_scales f32 [NP, Hkv]: q fp32 (the
+// fp32 body) or bf16 (the tensor-core body, `warps` as above)
+int paged_attn_chunk_i8_f32(const void* q, const void* kp, const void* vp,
+                            const void* ks, const void* vs, const void* bt,
+                            void* out, int B, int Cs, int Hkv, int G, int hd,
+                            int ps, int P, int start, int kv_len, int window,
+                            float softcap, void* stream) {
+  return chunk<float, int8_t>(hd, q, kp, vp, ks, vs, bt, out, B, Cs, Hkv, G,
+                              ps, P, start, kv_len, window, softcap, 0,
+                              stream);
+}
+
+int paged_attn_chunk_i8_bf16(const void* q, const void* kp, const void* vp,
+                             const void* ks, const void* vs, const void* bt,
+                             void* out, int B, int Cs, int Hkv, int G, int hd,
+                             int ps, int P, int start, int kv_len, int window,
+                             float softcap, int warps, void* stream) {
+  return chunk<__nv_bfloat16, int8_t>(hd, q, kp, vp, ks, vs, bt, out, B, Cs,
+                                      Hkv, G, ps, P, start, kv_len, window,
+                                      softcap, warps, stream);
 }
 
 }  // extern "C"

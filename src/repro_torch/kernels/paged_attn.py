@@ -13,8 +13,12 @@ of fixed-size KV pages instead of a dense [B, max_tokens] cache:
 
 Pages are [NP, ps, Hkv, hd] (one layer's pool, the new keys already
 scattered in), the block table [B, P] int32 (0 = the null page). Outputs
-are fp32. Each wrapper dispatches on where its tensors lie: on the CPU it
-runs the plain version, the reference's gather realization (the block table
+are fp32. An int8 pool (cfg.kv_quant="int8", core/quant.py) passes
+`k_scales`/`v_scales` [NP, Hkv] f32, one per (page, kv head): the kernels
+read the int8 page and dequantize it in the kernel; the plain versions
+dequantize after the gather, as the reference's gather path does. Each
+wrapper dispatches on where its tensors lie: on the CPU it runs the plain
+version, the reference's gather realization (the block table
 gathered into the dense [B, P*ps] layout, then the masked single-query SDPA
 or `sdpa_chunked`, models/attention.py), which makes a paged pool on the
 CPU bit-identical to a dense one; on a CUDA device it launches the
@@ -32,9 +36,11 @@ from repro_torch.models import attention as ATT
 KERNEL_HEAD_DIMS = (16, 32, 64, 128, 256)
 KERNEL_MAX_GROUP = 16           # query heads per kv head the kernel holds
 
-# Launch counts, one per wrapper: raised by one at each kernel launch and
-# nowhere else (the plain versions do not count).
-LAUNCHES = {"paged_attn_decode": 0, "paged_attn_chunk": 0}
+# Launch counts, one per kernel: raised by one at each kernel launch and
+# nowhere else (the plain versions do not count). A launch on int8 pages
+# counts under the `_int8` name only.
+LAUNCHES = {"paged_attn_decode": 0, "paged_attn_chunk": 0,
+            "paged_attn_decode_int8": 0, "paged_attn_chunk_int8": 0}
 
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
@@ -44,18 +50,25 @@ def reset_launches() -> None:
         LAUNCHES[k] = 0
 
 
-def _gather(pages: torch.Tensor, block_table: torch.Tensor) -> torch.Tensor:
-    """[NP, ps, Hkv, hd] pages -> the dense [B, P*ps, Hkv, hd] layout."""
+def _gather(pages: torch.Tensor, block_table: torch.Tensor,
+            scales: torch.Tensor | None = None) -> torch.Tensor:
+    """[NP, ps, Hkv, hd] pages -> the dense [B, P*ps, Hkv, hd] layout; int8
+    pages with their [NP, Hkv] scales -> f32, dequantized after the gather
+    (repro/models/attention.py attn_decode's quantized gather)."""
     B, P = block_table.shape
     _, ps, Hkv, hd = pages.shape
-    return pages[block_table.long()].reshape(B, P * ps, Hkv, hd)
+    bt = block_table.long()
+    g = pages[bt]
+    if scales is not None:
+        g = g.float() * scales[bt][:, :, None, :, None]
+    return g.reshape(B, P * ps, Hkv, hd)
 
 
 # ------------------------------------------------------------ plain versions
 
 def paged_attn_decode_plain(q, k_pages, v_pages, block_table, t, *,
-                            window: int = 0,
-                            softcap: float = 0.0) -> torch.Tensor:
+                            window: int = 0, softcap: float = 0.0,
+                            k_scales=None, v_scales=None) -> torch.Tensor:
     """K3's function as the reference's gather path computes it
     (repro/models/attention.py attn_decode, paged branch). t [B] int."""
     P, ps = block_table.shape[1], k_pages.shape[1]
@@ -64,14 +77,16 @@ def paged_attn_decode_plain(q, k_pages, v_pages, block_table, t, *,
     mask = k_pos[None, :] <= t_vec                           # [B, P*ps]
     if window > 0:
         mask = mask & (k_pos[None, :] > t_vec - window)
-    out = ATT._decode_sdpa(q[:, None], _gather(k_pages, block_table),
-                           _gather(v_pages, block_table), mask, softcap)
+    out = ATT._decode_sdpa(q[:, None], _gather(k_pages, block_table, k_scales),
+                           _gather(v_pages, block_table, v_scales), mask,
+                           softcap)
     return out[:, 0]
 
 
 def paged_attn_chunk_plain(q, k_pages, v_pages, block_table, start: int,
                            kv_len: int, *, window: int = 0,
-                           softcap: float = 0.0) -> torch.Tensor:
+                           softcap: float = 0.0, k_scales=None,
+                           v_scales=None) -> torch.Tensor:
     """K4's function as the reference's gather path computes it
     (repro/models/attention.py attn_chunk, paged branch), before the cast
     to the activations' dtype."""
@@ -79,21 +94,23 @@ def paged_attn_chunk_plain(q, k_pages, v_pages, block_table, start: int,
     P, ps = block_table.shape[1], k_pages.shape[1]
     q_pos = start + torch.arange(Cs, dtype=torch.int32, device=q.device)
     k_pos = torch.arange(P * ps, dtype=torch.int32, device=q.device)
-    return ATT.sdpa_chunked_f32(q, _gather(k_pages, block_table),
-                                _gather(v_pages, block_table), q_pos, k_pos,
-                                window, kv_len, softcap=softcap)
+    return ATT.sdpa_chunked_f32(q, _gather(k_pages, block_table, k_scales),
+                                _gather(v_pages, block_table, v_scales),
+                                q_pos, k_pos, window, kv_len, softcap=softcap)
 
 
 # ------------------------------------------------------------------ wrappers
 
-def _check(name: str, q, k_pages, v_pages, block_table, k_scales, v_scales):
-    """Checks shared by both wrappers, on any device."""
-    if k_scales is not None or v_scales is not None:
-        raise NotImplementedError(
-            f"{name}: int8 pages (k_scales/v_scales) are not ported yet: "
-            "ROADMAP.md Queue 1 item 7 (int8 pages)")
+def _check(name: str, q, k_pages, v_pages, block_table, k_scales,
+           v_scales) -> bool:
+    """Checks shared by both wrappers, on any device; whether the pool is
+    int8 (scales passed)."""
+    if (k_scales is None) != (v_scales is None):
+        raise ValueError(f"{name}: pass both k_scales and v_scales or "
+                         "neither")
+    quant = k_scales is not None
     Hq, hd = q.shape[-2], q.shape[-1]
-    _, _, Hkv, hd_p = k_pages.shape
+    NP, _, Hkv, hd_p = k_pages.shape
     if v_pages.shape != k_pages.shape or hd_p != hd:
         raise ValueError(f"{name}: q {tuple(q.shape)}, k_pages "
                          f"{tuple(k_pages.shape)}, v_pages "
@@ -101,12 +118,22 @@ def _check(name: str, q, k_pages, v_pages, block_table, k_scales, v_scales):
     if Hq % Hkv:
         raise ValueError(f"{name}: num_heads={Hq} must be a multiple of "
                          f"num_kv_heads={Hkv}")
-    if not (q.dtype == k_pages.dtype == v_pages.dtype):
+    if quant:
+        if not (k_pages.dtype == v_pages.dtype == torch.int8):
+            raise TypeError(f"{name}: scales mark an int8 pool, but the "
+                            f"pages are {k_pages.dtype}, {v_pages.dtype}")
+        for sc in (k_scales, v_scales):
+            if sc.dtype != torch.float32 or tuple(sc.shape) != (NP, Hkv):
+                raise TypeError(f"{name}: scales must be float32 "
+                                f"[{NP}, {Hkv}], got {sc.dtype} "
+                                f"{tuple(sc.shape)}")
+    elif not (q.dtype == k_pages.dtype == v_pages.dtype):
         raise TypeError(f"{name}: q, k_pages and v_pages must share a dtype "
                         f"(got {q.dtype}, {k_pages.dtype}, {v_pages.dtype})")
     if block_table.dtype != torch.int32:
         raise TypeError(f"{name}: block_table must be int32, got "
                         f"{block_table.dtype}")
+    return quant
 
 
 def _check_cuda(name: str, q, *tensors) -> str:
@@ -138,13 +165,16 @@ def _lib():
     if not getattr(lib, "_typed", False):
         P, I, F = ctypes.c_void_p, ctypes.c_int, ctypes.c_float
         for dt in _KERNEL_DTYPES.values():
-            f = getattr(lib, f"paged_attn_decode_{dt}")
-            f.argtypes = [P] * 8 + [I] * 9 + [F, P]
-            f.restype = I
-            f = getattr(lib, f"paged_attn_chunk_{dt}")
-            f.argtypes = [P, P, P, P, P, I, I, I, I, I, I, I, I, I, I, F,
-                          *((I,) if dt == "bf16" else ()), P]
-            f.restype = I
+            # the int8 entries take k_scales, v_scales after the pages
+            for i8 in ("", "i8_"):
+                sc = [P, P] if i8 else []
+                f = getattr(lib, f"paged_attn_decode_{i8}{dt}")
+                f.argtypes = [P] * 3 + sc + [P] * 5 + [I] * 9 + [F, P]
+                f.restype = I
+                f = getattr(lib, f"paged_attn_chunk_{i8}{dt}")
+                f.argtypes = [P] * 3 + sc + [P, P] + [I] * 10 + [F] + \
+                    [I] * (dt == "bf16") + [P]
+                f.restype = I
         lib._typed = True
     return lib
 
@@ -160,19 +190,22 @@ def paged_attn_decode(q: torch.Tensor, k_pages: torch.Tensor,
                       window: int = 0, softcap: float = 0.0,
                       k_scales=None, v_scales=None) -> torch.Tensor:
     """K3. q [B, Hq, hd] (post-RoPE); pages [NP, ps, Hkv, hd]; block_table
-    [B, P] int32; t an int or [B] int (each row's position). Returns fp32
-    [B, Hq, hd], the attention output before `wo`."""
-    _check("paged_attn_decode", q, k_pages, v_pages, block_table, k_scales,
-           v_scales)
+    [B, P] int32; t an int or [B] int (each row's position); int8 pages
+    with `k_scales`/`v_scales` [NP, Hkv] f32. Returns fp32 [B, Hq, hd], the
+    attention output before `wo`."""
+    quant = _check("paged_attn_decode", q, k_pages, v_pages, block_table,
+                   k_scales, v_scales)
     B, Hq, hd = q.shape
     if isinstance(t, int):
         t = torch.full((B,), t, dtype=torch.int32, device=q.device)
     t = t.to(torch.int32).reshape(-1).expand(B).contiguous()
     if _where(q) == "cpu":
         return paged_attn_decode_plain(q, k_pages, v_pages, block_table, t,
-                                       window=window, softcap=softcap)
+                                       window=window, softcap=softcap,
+                                       k_scales=k_scales, v_scales=v_scales)
+    sc = (k_scales, v_scales) if quant else ()
     dt = _check_cuda("paged_attn_decode", q, k_pages, v_pages, block_table,
-                     t)
+                     t, *sc)
     _, ps, Hkv, _ = k_pages.shape
     P, G = block_table.shape[1], Hq // Hkv
     pages, splits = decode_splits(P, ps)
@@ -180,13 +213,15 @@ def paged_attn_decode(q: torch.Tensor, k_pages: torch.Tensor,
     ws = torch.empty(B * Hkv * splits * G * (hd + 2), dtype=torch.float32,
                      device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
-    rc = getattr(_lib(), f"paged_attn_decode_{dt}")(
+    name = "paged_attn_decode" + ("_int8" if quant else "")
+    rc = getattr(_lib(), f"paged_attn_decode_{'i8_' if quant else ''}{dt}")(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_table.data_ptr(), t.data_ptr(), ws.data_ptr(),
-        _counters(q.device, B * Hkv).data_ptr(), out.data_ptr(), B, Hkv, G,
-        hd, ps, P, pages, splits, int(window), float(softcap), stream)
-    build.check(rc, "paged_attn_decode")
-    LAUNCHES["paged_attn_decode"] += 1
+        *(x.data_ptr() for x in sc), block_table.data_ptr(), t.data_ptr(),
+        ws.data_ptr(), _counters(q.device, B * Hkv).data_ptr(),
+        out.data_ptr(), B, Hkv, G, hd, ps, P, pages, splits, int(window),
+        float(softcap), stream)
+    build.check(rc, name)
+    LAUNCHES[name] += 1
     return out
 
 
@@ -198,26 +233,31 @@ def paged_attn_chunk(q: torch.Tensor, k_pages: torch.Tensor,
     """K4. q [B, Cs, Hq, hd] (post-RoPE, the chunk's K/V already scattered
     into the pages); start / kv_len host ints (chunk-absolute start, total
     valid key count; pad queries at q_pos >= kv_len give finite values the
-    caller discards). Returns fp32 [B, Cs, Hq, hd]."""
-    _check("paged_attn_chunk", q, k_pages, v_pages, block_table, k_scales,
-           v_scales)
+    caller discards); int8 pages with `k_scales`/`v_scales` as in K3.
+    Returns fp32 [B, Cs, Hq, hd]."""
+    quant = _check("paged_attn_chunk", q, k_pages, v_pages, block_table,
+                   k_scales, v_scales)
     if _where(q) == "cpu":
         return paged_attn_chunk_plain(q, k_pages, v_pages, block_table,
                                       int(start), int(kv_len), window=window,
-                                      softcap=softcap)
-    dt = _check_cuda("paged_attn_chunk", q, k_pages, v_pages, block_table)
+                                      softcap=softcap, k_scales=k_scales,
+                                      v_scales=v_scales)
+    sc = (k_scales, v_scales) if quant else ()
+    dt = _check_cuda("paged_attn_chunk", q, k_pages, v_pages, block_table,
+                     *sc)
     B, Cs, Hq, hd = q.shape
     _, ps, Hkv, _ = k_pages.shape
     out = torch.empty((B, Cs, Hq, hd), dtype=torch.float32, device=q.device)
     stream = torch.cuda.current_stream(q.device).cuda_stream
     warps = (chunk_warps(Cs * (Hq // Hkv)),) if dt == "bf16" else ()
-    rc = getattr(_lib(), f"paged_attn_chunk_{dt}")(
+    name = "paged_attn_chunk" + ("_int8" if quant else "")
+    rc = getattr(_lib(), f"paged_attn_chunk_{'i8_' if quant else ''}{dt}")(
         q.data_ptr(), k_pages.data_ptr(), v_pages.data_ptr(),
-        block_table.data_ptr(), out.data_ptr(), B, Cs, Hkv, Hq // Hkv, hd, ps,
-        block_table.shape[1], int(start), int(kv_len), int(window),
-        float(softcap), *warps, stream)
-    build.check(rc, "paged_attn_chunk")
-    LAUNCHES["paged_attn_chunk"] += 1
+        *(x.data_ptr() for x in sc), block_table.data_ptr(), out.data_ptr(),
+        B, Cs, Hkv, Hq // Hkv, hd, ps, block_table.shape[1], int(start),
+        int(kv_len), int(window), float(softcap), *warps, stream)
+    build.check(rc, name)
+    LAUNCHES[name] += 1
     return out
 
 
@@ -318,9 +358,15 @@ def chunk_key_range(row_lo: int, row_hi: int, G: int, ps: int, P: int,
 # ------------------------------------------------------------ traffic model
 
 def page_bytes(cfg, page_size: int) -> int:
-    """Device bytes one physical page costs to stage (K + V), per layer."""
+    """Device bytes one physical page costs to stage (K + V), per layer.
+    An int8 pool pays int8 values plus one f32 scale per (page, kv head),
+    the scale operand the kernel reads beside the page."""
+    hd = cfg.resolved_head_dim()
+    if getattr(cfg, "kv_quant", "none") == "int8":
+        return 2 * (page_size * cfg.num_kv_heads * hd
+                    + cfg.num_kv_heads * 4)
     item = torch.empty((), dtype=getattr(torch, cfg.dtype)).element_size()
-    return 2 * page_size * cfg.num_kv_heads * cfg.resolved_head_dim() * item
+    return 2 * page_size * cfg.num_kv_heads * hd * item
 
 
 def decode_tick_pages(t_host, active, page_size: int, num_slots: int,

@@ -28,6 +28,8 @@ without a card, asking for CUDA raises.
       --paged --page-size 4 --chunk-prefill 8 --device cpu
   python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --smoke \
       --paged --page-size 4 --chunk-prefill 8 --device cpu
+  python -m repro_torch.launch.serve --arch llama_moe_4_16 --smoke \
+      --paged --page-size 8 --chunk-prefill 8 --kv-quant int8 --device cpu
   python -m repro_torch.launch.serve --arch xlstm-1.3b --smoke --static \
       --device cpu
 """
@@ -93,12 +95,14 @@ def serve_continuous(params, cfg, prompts: list, gen_tokens: int, *,
                      arrival_steps: list | None = None, paged: bool = False,
                      page_size: int = 16, num_pages: int | None = None,
                      prefill_chunk: int = 0, priorities: list | None = None,
-                     device=None) -> dict:
+                     kv_quant: str | None = None, device=None) -> dict:
     """Run a list of prompts through the continuous-batching engine, greedy.
     `paged` swaps the dense slot rows for the block-table page pool
     (`page_size`, `num_pages`: None keeps the dense token capacity);
     `prefill_chunk` admits long prompts one chunk per tick; `priorities`
-    orders admission (lower first, FIFO within a level). `max_tokens` 0
+    orders admission (lower first, FIFO within a level); `kv_quant`
+    "int8" stores the paged pool's KV pages and GO rows as int8 (None keeps
+    cfg's mode). `max_tokens` 0
     derives the pool's capacity from the longest prompt, rounded up to a
     multiple of the page size and the chunk. Returns the token stream of
     every request by id, the wall time and the engine's stats."""
@@ -110,7 +114,8 @@ def serve_continuous(params, cfg, prompts: list, gen_tokens: int, *,
     eng = ServingEngine(params, cfg, num_slots=num_slots,
                         max_tokens=max_tokens, paged=paged,
                         page_size=page_size, num_pages=num_pages,
-                        prefill_chunk=prefill_chunk, device=device)
+                        prefill_chunk=prefill_chunk, kv_quant=kv_quant,
+                        device=device)
     ids = [eng.submit(p, gen_tokens,
                       arrival_step=arrival_steps[i] if arrival_steps else 0,
                       priority=priorities[i] if priorities else 0)
@@ -154,12 +159,19 @@ def main(argv=None):
     ap.add_argument("--chunk-prefill", type=int, default=0,
                     help="admit prompts longer than this one chunk per tick "
                          "(0 = one-shot prefill)")
+    ap.add_argument("--kv-quant", default="none", choices=("none", "int8"),
+                    help="store the paged pool's KV pages and GO rows as "
+                         "int8 with per-page / per-row scales (needs "
+                         "--paged and a page size divisible by 8)")
     ap.add_argument("--priority", type=int, default=0,
                     help="admission priority of the submitted requests "
                          "(lower = admitted first; FIFO within a level)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.kv_quant != "none" and not args.paged:
+        ap.error("--kv-quant int8 needs --paged (scale granularity is page "
+                 "granularity)")
     cfg = get_config(args.arch, smoke=args.smoke)
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
@@ -185,13 +197,16 @@ def main(argv=None):
                            num_pages=args.num_pages or None,
                            prefill_chunk=args.chunk_prefill,
                            priorities=[args.priority] * len(prompts),
-                           device=dev)
+                           kv_quant=args.kv_quant, device=dev)
     s = res["stats"]
     print(f"{cfg.name} on {dev}: served {s['finished']} requests over "
           f"{s['steps']} ticks on {args.slots} slots in "
           f"{res['decode_s']:.2f}s ({res['tok_per_s']:.1f} tok/s)"
           + (f" [paged ps={s['page_size']} pages={s['num_pages']}]"
              if s["paged"] else "")
+          + (f" [{s['kv_quant_dtype']} pages, dequant max err "
+             f"{s['dequant_max_abs_err']:.3g}]" if s["kv_quant_dtype"]
+             else "")
           + (f" [chunk ticks {s['chunk_ticks']}]" if s["chunk_ticks"] else ""))
     print("sample:", res["tokens"][min(res["tokens"])][:16].tolist())
     return res

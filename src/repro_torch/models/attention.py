@@ -8,12 +8,16 @@ torch.matmul and softmax: scores and the value product take fp32 inputs,
 which is what JAX's preferred_element_type=float32 computes. The paged
 branches scatter the new keys into their pages, then attend through
 kernels/paged_attn.py (K3 at decode, K4 at a prefill chunk): the CUDA
-kernels on a card, the reference's gather realization on the CPU.
+kernels on a card, the reference's gather realization on the CPU. An int8
+pool (cfg.kv_quant="int8") arrives as (pages, scales) tuples: the new keys
+go in through core/quant.py's rescale-on-write scatters and the scales
+ride along to K3/K4.
 """
 from __future__ import annotations
 
 import torch
 
+from repro_torch.core import quant as Q
 from repro_torch.kernels import paged_attn as PAGED
 from repro_torch.models.layers import apply_rope, rope_angles
 
@@ -119,16 +123,26 @@ def _decode_sdpa(q, k, v, mask, softcap: float = 0.0):
     return out.reshape(B, 1, Hq, D)
 
 
-def attn_decode(params: dict, x_t: torch.Tensor, cache_k: torch.Tensor,
-                cache_v: torch.Tensor, t, *, cfg, window: int = 0,
+def _unpack(cache_k, cache_v):
+    """(k pages, v pages, k scales, v scales): an int8 pool arrives as
+    (pages, scales) tuples, a full-precision one as bare tensors."""
+    if isinstance(cache_k, tuple):
+        return cache_k[0], cache_v[0], cache_k[1], cache_v[1]
+    return cache_k, cache_v, None, None
+
+
+def attn_decode(params: dict, x_t: torch.Tensor, cache_k, cache_v, t, *,
+                cfg, window: int = 0,
                 block_table: torch.Tensor | None = None):
     """Single-token decode. `t` is the position: an int (static batch) or
     [B]. The new token's K/V are written IN PLACE (JAX returns updated
     caches): into a dense cache [B, Smax, Hkv, hd] at row t, or, with
     `block_table` [B, P] int32, into the shared page pool
     [NP, ps, Hkv, hd] at page bt[b, t // ps], offset t % ps (0 = the null
-    page: retired rows write there). Attention then runs over the dense
-    rows, or walks the block table through K3 (paged_attn_decode)."""
+    page: retired rows write there). An int8 pool comes as (pages,
+    scales) tuples, written through Q.scatter_token. Attention then runs
+    over the dense rows, or walks the block table through K3
+    (paged_attn_decode)."""
     B = x_t.shape[0]
     hd = cfg.resolved_head_dim()
     nq = cfg.num_heads
@@ -141,13 +155,19 @@ def attn_decode(params: dict, x_t: torch.Tensor, cache_k: torch.Tensor,
 
     rows = torch.arange(B, device=dev)
     tl = t_vec.long()
+    cache_k, cache_v, k_scales, v_scales = _unpack(cache_k, cache_v)
     if block_table is not None:
         ps = cache_k.shape[1]
         page = block_table[rows, tl // ps].long()                    # [B]
-        cache_k[page, tl % ps] = k[:, 0].to(cache_k.dtype)
-        cache_v[page, tl % ps] = v[:, 0].to(cache_v.dtype)
+        if k_scales is not None:
+            Q.scatter_token(cache_k, k_scales, page, tl % ps, k[:, 0])
+            Q.scatter_token(cache_v, v_scales, page, tl % ps, v[:, 0])
+        else:
+            cache_k[page, tl % ps] = k[:, 0].to(cache_k.dtype)
+            cache_v[page, tl % ps] = v[:, 0].to(cache_v.dtype)
         out = PAGED.paged_attn_decode(q[:, 0], cache_k, cache_v, block_table,
-                                      t_vec, window=window, softcap=0.0)
+                                      t_vec, window=window, softcap=0.0,
+                                      k_scales=k_scales, v_scales=v_scales)
         return out.to(x_t.dtype).reshape(B, 1, nq * hd) @ params["wo"]
     cache_k[rows, tl] = k[:, 0].to(cache_k.dtype)
     cache_v[rows, tl] = v[:, 0].to(cache_v.dtype)
@@ -160,9 +180,8 @@ def attn_decode(params: dict, x_t: torch.Tensor, cache_k: torch.Tensor,
     return out.to(x_t.dtype).reshape(B, 1, nq * hd) @ params["wo"]
 
 
-def attn_chunk(params: dict, x: torch.Tensor, cache_k: torch.Tensor,
-               cache_v: torch.Tensor, start: int, *, cfg, window: int = 0,
-               kv_len: int | None = None,
+def attn_chunk(params: dict, x: torch.Tensor, cache_k, cache_v, start: int,
+               *, cfg, window: int = 0, kv_len: int | None = None,
                block_table: torch.Tensor | None = None):
     """Chunked-prefill attention: append one prompt chunk (x [B, Cs, d] at
     absolute positions start..start+Cs-1; `start` a host int) to the KV
@@ -171,7 +190,8 @@ def attn_chunk(params: dict, x: torch.Tensor, cache_k: torch.Tensor,
     rides in with kv_len = start + valid). Dense caches take the chunk at
     rows start..; with `block_table` the chunk scatters into the pages
     backing its positions (pad positions past the row's allocation land on
-    the null page 0) and attention walks the block table through K4
+    the null page 0; an int8 pool's (pages, scales) tuples through
+    Q.scatter_chunk) and attention walks the block table through K4
     (paged_attn_chunk)."""
     B, Cs, _ = x.shape
     hd = cfg.resolved_head_dim()
@@ -179,17 +199,23 @@ def attn_chunk(params: dict, x: torch.Tensor, cache_k: torch.Tensor,
     dev = x.device
     positions = start + torch.arange(Cs, dtype=torch.int32, device=dev)
     q, k, v = _qkv(params, x, positions, cfg)
+    cache_k, cache_v, k_scales, v_scales = _unpack(cache_k, cache_v)
     if block_table is not None:
         ps = cache_k.shape[1]
         P = block_table.shape[1]
         pl = positions.long()
         pages = block_table[:, pl // ps].long()                      # [B, Cs]
         offs = (pl % ps)[None, :].expand(B, Cs)
-        cache_k[pages, offs] = k.to(cache_k.dtype)
-        cache_v[pages, offs] = v.to(cache_v.dtype)
+        if k_scales is not None:
+            Q.scatter_chunk(cache_k, k_scales, pages, offs, k)
+            Q.scatter_chunk(cache_v, v_scales, pages, offs, v)
+        else:
+            cache_k[pages, offs] = k.to(cache_k.dtype)
+            cache_v[pages, offs] = v.to(cache_v.dtype)
         kvl = P * ps if kv_len is None else kv_len
         out = PAGED.paged_attn_chunk(q, cache_k, cache_v, block_table, start,
-                                     kvl, window=window, softcap=0.0)
+                                     kvl, window=window, softcap=0.0,
+                                     k_scales=k_scales, v_scales=v_scales)
         return out.to(x.dtype).reshape(B, Cs, nq * hd) @ params["wo"]
     cache_k[:, start:start + Cs] = k.to(cache_k.dtype)
     cache_v[:, start:start + Cs] = v.to(cache_v.dtype)

@@ -23,6 +23,13 @@ each layer's slice of the decode state in place. The decode state holds GO
 rows only for expert choice with the GO cache; token choice keeps none, as
 in the reference. Recurrent families prefill by stepping serve_step, as
 the reference does.
+
+A paged state with cfg.kv_quant="int8" (core/quant.py) holds int8 pages
+with `k_scales`/`v_scales` [L, NP, Hkv] f32 and int8 GO outputs with
+`go_scales` [L, B, E, k] f32. Each decode layer dequantizes its GO rows to
+f32 before the block and requantizes them after it; a chunked prefill's
+own batch-1 GO cache stays full precision and quantizes once, at
+write_decode_slot.
 """
 from __future__ import annotations
 
@@ -32,6 +39,7 @@ import numpy as np
 import torch
 
 from repro_torch.core import moe as MOE
+from repro_torch.core import quant as Q
 from repro_torch.core.grouping import (default_groups,
                                        group_of_expert_from_groups)
 from repro_torch.core.go_cache import (GOCache, go_cache_init,
@@ -243,7 +251,10 @@ def init_decode_state(cfg, batch: int, max_len: int, device, *,
     `paged=(num_pages, page_size)`, a shared page pool `k_pages`/`v_pages`
     [L, num_pages, page_size, Hkv, hd] plus a per-slot `block_table`
     [B, max_len // page_size] int32 of physical page ids (0 = the reserved
-    null page). GO caches stay slot-resident either way.
+    null page). GO caches stay slot-resident either way. A paged state with
+    cfg.kv_quant="int8" stores int8 pages and GO outputs, with
+    `k_scales`/`v_scales` [L, num_pages, Hkv] and `go_scales` [L, B, E, k]
+    (f32, zero = empty).
 
     xlstm keeps the reference's nesting: `mlstm` {"mlstm": (C, n, M),
     "conv"} with leading axes [n_seg, n_m] and `slstm` c/n/m/h with a
@@ -264,23 +275,37 @@ def init_decode_state(cfg, batch: int, max_len: int, device, *,
     L = cfg.num_layers
     hd = cfg.resolved_head_dim()
     e = cfg.moe
+    quant = False
     if paged is not None:
         num_pages, ps = paged
         if max_len % ps:
             raise ValueError(f"max_len={max_len} must be a multiple of "
                              f"page_size={ps}")
+        Q.validate_kv_quant(cfg.kv_quant)
+        quant = cfg.kv_quant == "int8"
         st["block_table"] = torch.zeros((batch, max_len // ps),
                                         dtype=torch.int32, device=device)
         shp = (L, num_pages, ps, cfg.num_kv_heads, hd)
-        st["k_pages"] = torch.zeros(shp, dtype=dt, device=device)
-        st["v_pages"] = torch.zeros(shp, dtype=dt, device=device)
+        page_dt = torch.int8 if quant else dt
+        st["k_pages"] = torch.zeros(shp, dtype=page_dt, device=device)
+        st["v_pages"] = torch.zeros(shp, dtype=page_dt, device=device)
+        if quant:
+            # per-page, per-kv-head amax scales; zero = empty page
+            for key in ("k_scales", "v_scales"):
+                st[key] = torch.zeros((L, num_pages, cfg.num_kv_heads),
+                                      dtype=torch.float32, device=device)
     else:
         shp = (L, batch, max_len, cfg.num_kv_heads, hd)
         st["k"] = torch.zeros(shp, dtype=dt, device=device)
         st["v"] = torch.zeros(shp, dtype=dt, device=device)
     if e.routing == "expert_choice" and e.go_cache:
         st["go"] = go_cache_init(batch, e.num_experts, e.top_k, cfg.d_model,
-                                 dt, device, lead=(L,))
+                                 torch.int8 if quant else dt, device,
+                                 lead=(L,))
+        if quant:
+            # per-row GO scales (the outputs rows are [E, k, d] per slot)
+            st["go_scales"] = torch.zeros((L, batch, e.num_experts, e.top_k),
+                                          dtype=torch.float32, device=device)
     return st
 
 
@@ -288,7 +313,8 @@ def init_decode_slot(state: dict, slot: int) -> None:
     """Reset pool row `slot` to the empty decode state IN PLACE. A paged
     pool resets only the row's block table (to the null page): its
     physical pages go back to the host allocator and are rewritten before
-    any later occupant reads them. GO rows reset (scores to -inf)."""
+    any later occupant reads them. GO rows reset (scores to -inf, and an
+    int8 state's row scales to 0)."""
     state["t"][slot] = 0
     if "block_table" in state:
         state["block_table"][slot] = 0
@@ -297,6 +323,8 @@ def init_decode_slot(state: dict, slot: int) -> None:
             state[key][:, slot] = 0
     if "go" in state:
         go_cache_init_slot(state["go"], slot)
+    if "go_scales" in state:
+        state["go_scales"][:, slot] = 0
 
 
 def write_decode_slot(state: dict, slot: int, src: dict,
@@ -309,7 +337,11 @@ def write_decode_slot(state: dict, slot: int, src: dict,
     rows scattered to those pages; null (0) entries, the pages past the
     request's allocation, dump their rows onto the null page. A src without
     dense "k"/"v" (a paged chunked prefill, which wrote its KV straight
-    into the pool's pages) splats only its position and GO rows."""
+    into the pool's pages) splats only its position and GO rows.
+
+    An int8 state splat-quantizes each page against its own amax (a pure
+    function of the tokens, independent of the pool's history) and each
+    full-precision GO row once."""
     state["t"][slot] = int(src["t"])
     if "block_table" in state:
         if page_ids is None:
@@ -327,12 +359,22 @@ def write_decode_slot(state: dict, slot: int, src: dict,
                     f"{srck}: prefill length {src[srck].shape[2]} != pool "
                     f"max_tokens {P * ps} (prefill with the pool's max_len)")
             pages = src[srck][:, 0].reshape(L, P, ps, h, hd)
-            state[key][:, pid.long()] = pages.to(state[key].dtype)
+            if "k_scales" in state:
+                q, sc = Q.quantize_pages(pages)
+                state[key][:, pid.long()] = q
+                state[key[0] + "_scales"][:, pid.long()] = sc
+            else:
+                state[key][:, pid.long()] = pages.to(state[key].dtype)
     for key in ("k", "v"):
         if key in state:
             state[key][:, slot] = src[key][:, 0].to(state[key].dtype)
     if "go" in state:
-        go_cache_write_slot(state["go"], slot, src["go"])
+        src_go = src["go"]
+        if "go_scales" in state:
+            qout, qsc = Q.quantize_rows(src_go.outputs)
+            src_go = src_go._replace(outputs=qout)
+            state["go_scales"][:, slot] = qsc[:, 0]
+        go_cache_write_slot(state["go"], slot, src_go)
 
 
 def _layer_go(state: dict, l: int) -> GOCache | None:
@@ -382,7 +424,12 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, max_len: int = 0):
 # -------------------------------------------------------------- chunk prefill
 
 def _kv(state: dict, l: int):
-    """Layer l's KV views and the block table (None for dense rows)."""
+    """Layer l's KV views and the block table (None for dense rows); an
+    int8 pool's views come as (pages, scales) tuples."""
+    if "k_scales" in state:
+        return ((state["k_pages"][l], state["k_scales"][l]),
+                (state["v_pages"][l], state["v_scales"][l]),
+                state["block_table"])
     if "block_table" in state:
         return (state["k_pages"][l], state["v_pages"][l],
                 state["block_table"])
@@ -399,9 +446,11 @@ def prefill_chunk(params: dict, state: dict, tokens: torch.Tensor, cfg,
     routing masks pads out of the chunk's top-C, so the merged GO cache
     holds only real tokens (token choice routes the pads too; their
     outputs land on pad rows only). A paged state (block_table, k_pages, v_pages)
-    prefills straight into the pool's pages. Returns (state, logits
-    [B, V] fp32 at chunk position valid_len - 1); state["t"] lands on
-    start + valid_len."""
+    prefills straight into the pool's pages, an int8 one through the
+    rescale-on-write scatter; the state's GO cache stays full precision
+    (the engine's chunk job quantizes it once, at write_decode_slot).
+    Returns (state, logits [B, V] fp32 at chunk position valid_len - 1);
+    state["t"] lands on start + valid_len."""
     Cs = tokens.shape[1]
     vl = Cs if valid_len is None else valid_len
     groups = _groups(cfg, tokens.device)
@@ -423,7 +472,10 @@ def prefill_chunk(params: dict, state: dict, tokens: torch.Tensor, cfg,
 def serve_step(params: dict, state: dict, tokens_t: torch.Tensor, cfg):
     """One decode step. tokens_t [B] -> (logits [B, V] fp32, state); the
     state's caches are updated in place. `state["t"]` is an int or a
-    per-slot [B] tensor; a paged state walks its block table."""
+    per-slot [B] tensor; a paged state walks its block table. An int8
+    state's GO rows are dequantized to f32 at each layer boundary (f32, NOT
+    the compute dtype: an unchanged row then requantizes to its own int8
+    bits) and requantized after the block."""
     t = state["t"]
     x = params["embed"][tokens_t][:, None, :]                     # [B, 1, d]
     if cfg.block == "xlstm":
@@ -431,9 +483,18 @@ def serve_step(params: dict, state: dict, tokens_t: torch.Tensor, cfg):
     else:
         for l, w in enumerate(layer_windows(cfg)):
             ck, cv, bt = _kv(state, l)
+            go = _layer_go(state, l)
+            gsc = state["go_scales"][l] if "go_scales" in state else None
+            if gsc is not None:
+                stored = go.outputs
+                go = go._replace(outputs=Q.dequantize_rows(stored, gsc))
             x, _ = B.attn_block_decode(
                 layer_params(params["layers"], l), x, ck, cv, t, cfg=cfg,
-                go_cache=_layer_go(state, l), window=w, block_table=bt)
+                go_cache=go, window=w, block_table=bt)
+            if gsc is not None:
+                qout, qsc = Q.quantize_rows(go.outputs)
+                stored.copy_(qout)
+                gsc.copy_(qsc)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
     logits = logits_from_hidden(params, x[:, 0, :], cfg)
     state["t"] = t + 1

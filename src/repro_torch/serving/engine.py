@@ -35,10 +35,21 @@ deterministic per chunking but may differ from one-shot prefill. At most one chu
 in flight; it holds a claimed slot and reserved pages from its start, and
 on a paged pool it writes its KV straight into the pool's pages.
 
+INT8 DECODE STATE (`kv_quant="int8"`, an explicit kwarg only; paged pools
+with pages of a multiple of 8 tokens): KV pages and GO rows are stored as
+int8 with f32 scales (core/quant.py). New keys enter through the
+rescale-on-write scatters; K3 and K4 read the int8 pages and dequantize
+in the kernel; each decode layer dequantizes its GO rows to f32 and
+requantizes them after the block. A chunked prefill's batch-1 GO cache
+stays full precision and quantizes once when the request installs.
+Released pages return with zeroed scales. stats() reports
+`kv_quant_dtype`, `kv_bytes_per_token` and `dequant_max_abs_err`.
+
 Not in the port yet (ROADMAP.md Queue 1 item 7): sampling, prompt
 buckets, preemption, chaos and the supervisor, deadlines and cancel,
-prefix sharing and expert-aware admission, int8 pages, the journal and
-the mesh.
+prefix sharing and expert-aware admission, the journal and the mesh.
+The int8 branches of preemption snapshots, prefix-share forks, NaN
+poisoning of scales and the journal come with those features.
 """
 from __future__ import annotations
 
@@ -48,6 +59,7 @@ from dataclasses import dataclass
 import numpy as np
 import torch
 
+from repro_torch.core import quant as Q
 from repro_torch.models.layers import resolve_device
 from repro_torch.models.model import (init_decode_state, paged_supported,
                                       prefill, prefill_chunk, serve_step)
@@ -79,7 +91,7 @@ class ServingEngine:
                  max_tokens: int = 256, max_queue: int = 0,
                  paged: bool = False, page_size: int = 16,
                  num_pages: int | None = None, prefill_chunk: int = 0,
-                 device=None):
+                 kv_quant: str | None = None, device=None):
         if cfg.block != "attn":
             raise NotImplementedError(
                 f"{cfg.name}: the engine serves the attention family; a "
@@ -91,6 +103,10 @@ class ServingEngine:
             raise ValueError(f"params live on {params['embed'].device}, the "
                              f"engine runs on {self.device}")
         self.params = params
+        # kv_quant None keeps cfg's own mode; "none" or "int8" overrides it
+        # (SlotPool raises a typed error where the pool cannot honor it)
+        if kv_quant is not None:
+            cfg = cfg.with_overrides(kv_quant=kv_quant)
         self.cfg = cfg
         self.pool = SlotPool(cfg, num_slots, max_tokens, self.device,
                              paged=paged, page_size=page_size,
@@ -304,7 +320,12 @@ class ServingEngine:
         page_row = None
         if self.pool.paged:
             page_row = self.pool.claim_chunk_pages(req)
-            state = init_decode_state(self.cfg, 1, self.pool.max_tokens,
+            # an int8 pool's skeleton stays full precision: its GO rows
+            # accumulate across chunks (go_cache_merge) and quantize once,
+            # at the install; only the pool's pages and scales are lent
+            skel_cfg = (self.cfg.with_overrides(kv_quant="none")
+                        if self.pool.quant else self.cfg)
+            state = init_decode_state(skel_cfg, 1, self.pool.max_tokens,
                                       self.device,
                                       paged=(1, self.pool.page_size))
             del state["k_pages"], state["v_pages"]
@@ -335,14 +356,15 @@ class ServingEngine:
         chunk = torch.from_numpy(job.prompt[job.pos:job.pos + Cs].copy())
         valid = min(Cs, job.req.prompt_len - job.pos)
         paged = job.page_row is not None
-        if paged:
-            job.state["k_pages"] = self.pool.state["k_pages"]
-            job.state["v_pages"] = self.pool.state["v_pages"]
+        lent = [k for k in ("k_pages", "v_pages", "k_scales", "v_scales")
+                if paged and k in self.pool.state]
+        for k in lent:
+            job.state[k] = self.pool.state[k]
         job.state, job.logits = prefill_chunk(
             self.params, job.state, chunk.to(self.device)[None, :], self.cfg,
             job.pos, valid)
-        if paged:
-            del job.state["k_pages"], job.state["v_pages"]
+        for k in lent:
+            del job.state[k]
         job.pos += Cs
         self.chunk_ticks += 1
 
@@ -376,4 +398,11 @@ class ServingEngine:
             "page_waits": self.page_waits,
             "rejected": {"queue_full": self.rejected_full,
                          "oversized": self.rejected_oversized},
+            "kv_quant_dtype": (self.cfg.kv_quant
+                               if self.cfg.kv_quant != "none" else None),
+            "kv_bytes_per_token": (
+                Q.kv_bytes_per_token(self.cfg, self.pool.page_size)
+                if self.pool.paged else None),
+            "dequant_max_abs_err": (self.pool.dequant_max_abs_err
+                                    if self.pool.quant else None),
         }

@@ -1,8 +1,8 @@
 """Slot pool: owns the pooled per-request KV (+ GO) decode state.
 
 Counterpart of repro/serving/pool.py (`SlotPool`), cut to the engine core:
-dense and paged pools, admission, lazy page growth and retirement (no
-snapshots, poison, audit, int8 pages or mesh).
+dense and paged pools, int8 pages (cfg.kv_quant="int8"), admission, lazy
+page growth and retirement (no snapshots, poison, audit or mesh).
 
 One decode state of `num_slots` batch rows lives on the device for the
 engine's whole life; requests are admitted into free rows and retired out
@@ -20,6 +20,12 @@ a slot's sequence crosses a page boundary, right before the decode tick
 that writes it. GO rows (expert choice only) stay slot-resident
 ([E, k]-shaped, not sequence-shaped).
 
+INT8 mode (cfg.kv_quant="int8", paged pools only, page_size a multiple of
+8) stores the pages and GO rows as int8 with f32 scales (core/quant.py).
+Every released page returns with zeroed scales, so a reused page
+quantizes exactly as a fresh one; `dequant_max_abs_err` keeps the largest
+round-trip error of the admitted prefills' splats.
+
 Unlike the JAX pool, which threads a new state through jitted functions,
 this one writes the device tensors IN PLACE. The one exception is the
 block table: the host mirror is the truth, and a dirty mirror is pushed as
@@ -31,6 +37,7 @@ from __future__ import annotations
 import numpy as np
 import torch
 
+from repro_torch.core import quant as Q
 from repro_torch.models.model import (init_decode_slot, init_decode_state,
                                       paged_supported, write_decode_slot)
 from repro_torch.serving.paging import PageAllocator, pages_for_tokens
@@ -50,6 +57,16 @@ class SlotPool:
         self.paged = bool(paged)
         self.page_size = page_size
         self.num_pages = None
+        Q.validate_kv_quant(cfg.kv_quant)
+        self.quant = cfg.kv_quant != "none"
+        self.dequant_max_abs_err = 0.0
+        if self.quant and not self.paged:
+            # quantized decode state is page-granular by construction:
+            # there is no per-page scale to hang off a dense KV row
+            raise ValueError(
+                f"kv_quant={cfg.kv_quant!r} requires a paged pool (scale "
+                "granularity IS page granularity): pass paged=True or "
+                "kv_quant='none'")
         if self.paged:
             if not paged_supported(cfg):
                 raise ValueError("paged pool is attention-family only "
@@ -57,6 +74,11 @@ class SlotPool:
             if max_tokens % page_size:
                 raise ValueError(f"max_tokens={max_tokens} must be a "
                                  f"multiple of page_size={page_size}")
+            if self.quant and page_size % 8:
+                raise ValueError(
+                    f"kv_quant={cfg.kv_quant!r} needs page_size divisible "
+                    f"by 8 (the reference's int8 page granule); got "
+                    f"page_size={page_size}")
             # default: the dense pool's token capacity plus the null page; a
             # smaller num_pages stands for a tighter memory budget
             if num_pages is None:
@@ -148,6 +170,8 @@ class SlotPool:
             self.block_table[slot] = row
             write_decode_slot(self.state, slot, slot_state,
                               torch.from_numpy(row.copy()))
+            if self.quant:
+                self._note_dequant_err(slot_state)
         else:
             write_decode_slot(self.state, slot, slot_state)
         self.owner[slot] = req
@@ -156,6 +180,27 @@ class SlotPool:
         self.t_host[slot] = req.prompt_len
         self.admitted_total += 1
         req.slot = slot
+
+    def _note_dequant_err(self, slot_state: dict) -> None:
+        """Keep the largest quantize->dequantize round-trip error of an
+        admission's splat (engine stats()). Recomputes the splat's
+        quantization, a pure function of the prefill values, so the audit
+        needs no full-precision shadow pool."""
+        for srck in ("k", "v"):
+            if srck not in slot_state:
+                continue
+            src = slot_state[srck][:, 0].float()
+            pages = src.reshape(src.shape[0], -1, self.page_size,
+                                *src.shape[2:])
+            err = pages - Q.dequantize_pages(*Q.quantize_pages(pages))
+            self.dequant_max_abs_err = max(self.dequant_max_abs_err,
+                                           float(err.abs().max()))
+        go = slot_state.get("go")
+        if go is not None:
+            out = go.outputs.float()
+            err = out - Q.dequantize_rows(*Q.quantize_rows(out))
+            self.dequant_max_abs_err = max(self.dequant_max_abs_err,
+                                           float(err.abs().max()))
 
     def grow_active(self) -> None:
         """Paged pools: make sure every active slot owns the page its NEXT
@@ -185,9 +230,21 @@ class SlotPool:
                 self.t_host[slot] += 1
 
     def release_pages(self, rid: int) -> None:
-        """Drop every page `rid` holds and its reservation."""
-        if self.paged:
-            self.alloc.free(rid)
+        """Drop every page `rid` holds and its reservation. An int8 pool
+        zeroes the scales of every released page: the rescale-on-write
+        contract makes a page's contents a pure function of the tokens
+        written to it only if it starts from scale 0 (the first write then
+        rescales the stale int8 bytes by a factor of 0). The NaN scrub of
+        poisoned pages comes with the quarantine (ROADMAP.md Queue 1
+        item 7)."""
+        if not self.paged:
+            return
+        released = self.alloc.free(rid)
+        if self.quant and released:
+            ids = torch.tensor(sorted(released), dtype=torch.long,
+                               device=self.device)
+            self.state["k_scales"][:, ids] = 0
+            self.state["v_scales"][:, ids] = 0
 
     def retire(self, slot: int) -> Request:
         """Free a row: reset its caches (block table to the null page, GO

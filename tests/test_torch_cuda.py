@@ -827,3 +827,149 @@ def test_cuda_slstm_full_width_runs_on_a_16_cta_cluster(cuda_device):
     u, r = _slstm_inputs(B, 16, H, hd, cuda_device, torch.float32)
     torch.testing.assert_close(SC.slstm_seq(u, r), SC.slstm_seq_plain(u, r),
                                rtol=1e-4, atol=1e-4)
+
+
+# ---------------------------------------------------- int8 paged attention
+
+from repro_torch.core import quant as Q  # noqa: E402
+
+
+def _paged_int8(seed, nkv, live, device, ps=16, P=6, hq=4, hd=64):
+    """An int8 pool built as the engine builds one: pages quantized against
+    their own amax, then one token rewritten per live row through
+    scatter_token (a larger value: its page's scale grows and the page
+    rescales). Returns (k, v, k_scales, v_scales, bt, readable [NP, ps])
+    with NaN in the scales of every page no row may read (the null page
+    and the rows' unused pages) and +-127 at every unreadable position,
+    and the same pool with those scales 0 and those positions 0."""
+    kp, vp, bt, _, _ = _paged(seed, nkv, live, device, torch.float32, ps=ps,
+                              P=P, hq=hq, hd=hd)
+    k8, ks = Q.quantize_pages(kp)
+    v8, vs = Q.quantize_pages(vp)
+    rng = np.random.default_rng(seed + 100)
+    B = len(live)
+    rows = torch.arange(B, device=device)
+    pos = torch.tensor([int(n) - 1 for n in live], device=device)
+    page = bt[rows, pos // ps].long()
+    for c, s in ((k8, ks), (v8, vs)):
+        val = torch.from_numpy(3 * rng.standard_normal(
+            (B, nkv, hd)).astype(np.float32)).to(device)
+        Q.scatter_token(c, s, page, pos % ps, val)
+    NP = kp.shape[0]
+    readable = torch.zeros(NP, ps, dtype=torch.bool, device=device)
+    for b in range(B):
+        p = torch.arange(int(live[b]), device=device)
+        readable[bt[b, p // ps].long(), p % ps] = True
+    live_page = readable.any(dim=1)[:, None]
+    sel = readable[:, :, None, None]
+    clean = (torch.where(sel, k8, 0), torch.where(sel, v8, 0),
+             torch.where(live_page, ks, 0), torch.where(live_page, vs, 0))
+    dirty = (torch.where(sel, k8, 127).to(torch.int8),
+             torch.where(sel, v8, -127).to(torch.int8),
+             torch.where(live_page, ks, float("nan")),
+             torch.where(live_page, vs, float("nan")))
+    return clean, dirty, bt
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("qdtype,tol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("nkv,hq,hd", [(2, 8, 128), (2, 6, 64), (2, 2, 64)])
+def test_cuda_paged_attn_int8_matches_plain(cuda_device, qdtype, tol, nkv,
+                                            hq, hd):
+    """K3 and K4 on int8 pages (q fp32: K3's split body and K4's fp32
+    body; q bf16: K3 and K4's tensor-core body) against the plain versions
+    (gather, then dequantize): fp32 sums in another order (2e-5, as the
+    fp32 pages); bf16 rounds q * scale (chunk) and p * s_v (K4) to bf16
+    (2e-2, as the bf16 pages). Pages whose scale grew, a partly filled last
+    page, the null page; NaN scales and +-127 at every unreadable page and
+    position move no output bit, and a second launch repeats every bit."""
+    live = np.array([1, 17, 33, 64, 90], np.int32)
+    (clean, dirty, bt) = _paged_int8(21, nkv, live, cuda_device, hq=hq,
+                                     hd=hd)
+    k8, v8, ks, vs = clean
+    g = torch.Generator(device="cuda").manual_seed(22)
+    tt = torch.from_numpy(live - 1).to(cuda_device)
+    q = torch.randn(len(live), hq, hd, device="cuda", generator=g).to(qdtype)
+    before = dict(PA.LAUNCHES)
+    for window in (0, 20):
+        out = PA.paged_attn_decode(q, k8, v8, bt, tt, window=window,
+                                   k_scales=ks, v_scales=vs)
+        ref = PA.paged_attn_decode_plain(q, k8, v8, bt, tt, window=window,
+                                         k_scales=ks, v_scales=vs)
+        torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+        assert torch.equal(out, PA.paged_attn_decode(
+            q, dirty[0], dirty[1], bt, tt, window=window, k_scales=dirty[2],
+            v_scales=dirty[3]))
+        assert torch.equal(out, PA.paged_attn_decode(
+            q, k8, v8, bt, tt, window=window, k_scales=ks, v_scales=vs))
+    qc = torch.randn(len(live), 24, hq, hd, device="cuda",
+                     generator=g).to(qdtype)
+    for start, kv_len in ((0, 17), (40, 64), (66, 90)):
+        n = kv_len - start
+        kw = dict(window=0)
+        out = PA.paged_attn_chunk(qc, k8, v8, bt, start, kv_len,
+                                  k_scales=ks, v_scales=vs, **kw)
+        ref = PA.paged_attn_chunk_plain(qc, k8, v8, bt, start, kv_len,
+                                        k_scales=ks, v_scales=vs, **kw)
+        # rows whose block table ends before kv_len read the null page:
+        # compare the rows that own every page up to kv_len
+        full = [b for b in range(len(live)) if live[b] >= kv_len]
+        torch.testing.assert_close(out[full, :n], ref[full, :n], rtol=tol,
+                                   atol=tol)
+        again = PA.paged_attn_chunk(qc, k8, v8, bt, start, kv_len,
+                                    k_scales=ks, v_scales=vs, **kw)
+        assert torch.equal(out, again)
+        dirt = PA.paged_attn_chunk(qc, dirty[0], dirty[1], bt, start, kv_len,
+                                   k_scales=dirty[2], v_scales=dirty[3], **kw)
+        assert torch.equal(out[full], dirt[full])
+    torch.cuda.synchronize()
+    assert PA.LAUNCHES["paged_attn_decode_int8"] == \
+        before["paged_attn_decode_int8"] + 6
+    assert PA.LAUNCHES["paged_attn_chunk_int8"] == \
+        before["paged_attn_chunk_int8"] + 9
+    assert PA.LAUNCHES["paged_attn_decode"] == before["paged_attn_decode"]
+
+
+@pytest.mark.requires_cuda
+def test_cuda_paged_attn_int8_raises_instead_of_falling_back(cuda_device):
+    (k8, v8, ks, vs), _, bt = _paged_int8(23, 2, [9], cuda_device, hd=24)
+    t = torch.tensor([8], dtype=torch.int32, device=cuda_device)
+    q = torch.zeros(1, 4, 24, device="cuda")
+    with pytest.raises(ValueError, match="head_dim"):
+        PA.paged_attn_decode(q, k8, v8, bt, t, k_scales=ks, v_scales=vs)
+    with pytest.raises(ValueError, match="both"):
+        PA.paged_attn_decode(q, k8, v8, bt, t, k_scales=ks)
+    with pytest.raises(TypeError, match="scales"):
+        PA.paged_attn_chunk(q[:, None], k8, v8, bt, 0, 9,
+                            k_scales=ks.double(), v_scales=vs)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["llama_moe_4_16", "granite-moe-3b-a800m"])
+def test_cuda_int8_engine_streams_equal_cpu(cuda_device, arch):
+    """The smoke engine on an int8 paged pool (pages of 8) with chunked
+    prefill: the card (K3/K4 on int8 pages) streams what the CPU (plain
+    versions) streams, and launches only the int8 paged kernels."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch.serve import serve_continuous
+    from repro_torch.models.model import model_init
+    cfg = get_config(arch, smoke=True)
+    params = model_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+               for n in (5, 20, 8, 11, 3)]
+    kw = dict(num_slots=2, max_tokens=32, arrival_steps=[0, 0, 1, 4, 6],
+              paged=True, page_size=8, num_pages=7, prefill_chunk=8,
+              kv_quant="int8")
+    cpu = serve_continuous(params, cfg, prompts, 7, device="cpu", **kw)
+    before = dict(PA.LAUNCHES)
+    gpu = serve_continuous(_to(params, cuda_device), cfg, prompts, 7,
+                           device="cuda", **kw)
+    for rid, toks in cpu["tokens"].items():
+        np.testing.assert_array_equal(gpu["tokens"][rid], toks)
+    L, s = cfg.num_layers, gpu["stats"]
+    got = {k: PA.LAUNCHES[k] - before[k] for k in PA.LAUNCHES}
+    assert got == {"paged_attn_decode": 0, "paged_attn_chunk": 0,
+                   "paged_attn_decode_int8": L * s["decode_ticks"],
+                   "paged_attn_chunk_int8": L * s["chunk_ticks"]}

@@ -11,7 +11,10 @@ realization), which are held against
 
 Cases: ragged positions on and around page boundaries, shuffled physical
 page ids, null pages behind short rows, GQA ratios 4/2/1 and the window and
-softcap cases of tests/test_paged_attn.py. The CUDA kernels themselves are
+softcap cases of tests/test_paged_attn.py; the same on int8 pages with
+k_scales/v_scales (the JAX kernel's quantized operand, pages quantized by
+repro.core.quant), and K3's and K4's CUDA algorithms on int8 pages
+emulated on the CPU against the JAX kernel. The CUDA kernels themselves are
 held against these plain versions on the card (tests/test_torch_cuda.py,
 chip_smoke.py).
 """
@@ -179,15 +182,135 @@ def test_wrappers_raise_on_what_the_kernel_does_not_take():
 
 @pytest.mark.parametrize("which", ["decode", "chunk"])
 def test_int8_scales_wait_for_item_7(which):
+    """The int8 operand is ported; what the wrappers refuse of it: scales
+    beside full-precision pages, one scale tensor without the other (the
+    reference's ValueError), scales of another dtype or shape."""
     kp, vp, bt = (_t(a) for a in _pools(2, [9], seed=9))
+    k8, v8 = kp.to(torch.int8), vp.to(torch.int8)
     sc = torch.ones(kp.shape[0], 2)
-    with pytest.raises(NotImplementedError, match="item 7"):
+
+    def call(k, v, **kw):
         if which == "decode":
-            PA.paged_attn_decode(torch.zeros(1, HQ, HD), kp, vp, bt, 8,
-                                 k_scales=sc, v_scales=sc)
-        else:
-            PA.paged_attn_chunk(torch.zeros(1, 2, HQ, HD), kp, vp, bt, 0, 2,
-                                k_scales=sc, v_scales=sc)
+            return PA.paged_attn_decode(torch.zeros(1, HQ, HD), k, v, bt, 8,
+                                        **kw)
+        return PA.paged_attn_chunk(torch.zeros(1, 2, HQ, HD), k, v, bt, 0, 2,
+                                   **kw)
+    with pytest.raises(TypeError, match="int8 pool"):
+        call(kp, vp, k_scales=sc, v_scales=sc)
+    with pytest.raises(ValueError, match="both k_scales and v_scales"):
+        call(k8, v8, k_scales=sc)
+    with pytest.raises(TypeError, match="float32"):
+        call(k8, v8, k_scales=sc.double(), v_scales=sc)
+    with pytest.raises(TypeError, match="float32"):
+        call(k8, v8, k_scales=sc, v_scales=sc[:, :1])
+    with pytest.raises(TypeError, match="share a dtype"):
+        call(k8, v8)
+    assert call(k8, v8, k_scales=sc, v_scales=sc).dtype == torch.float32
+
+
+# ---------------------------------------------------------- int8 pages
+
+def _int8_pools(nkv, live_tokens, seed):
+    """_pools, each (page, kv head) scaled by its own factor in [0.2, 1]
+    (the values stay within the fp32 cases' magnitudes), quantized by the
+    reference (repro.core.quant): int8 pages and f32 [NP, Hkv] scales,
+    numpy."""
+    from repro.core import quant as JQ
+    kp, vp, bt = _pools(nkv, live_tokens, seed=seed)
+    scale = np.random.default_rng(seed).uniform(
+        0.2, 1.0, size=(kp.shape[0], 1, nkv, 1)).astype(np.float32)
+    (k8, ks), (v8, vs) = (JQ.quantize_pages(jnp.asarray(a * scale))
+                          for a in (kp, vp))
+    return (*(np.asarray(a) for a in (k8, v8, ks, vs)), bt)
+
+
+def _deq(pages, scales, bt):
+    B = bt.shape[0]
+    return (pages[bt].astype(np.float32) * scales[bt][:, :, None, :, None]
+            ).reshape(B, P * PS, *pages.shape[2:])
+
+
+@pytest.mark.parametrize("nkv", [1, 2, 4])
+@pytest.mark.parametrize("window,softcap", CASES)
+def test_decode_plain_int8_matches_jax_kernel_and_gather(nkv, window,
+                                                         softcap):
+    """K3's plain version on int8 pages (gather, then dequantize) against
+    the JAX kernel's int8 operand and the JAX gather of the dequantized
+    pages, at the fp32 tolerances above."""
+    rng = np.random.default_rng(11)
+    B = len(RAGGED_T)
+    q = rng.standard_normal((B, HQ, HD)).astype(np.float32)
+    k8, v8, ks, vs, bt = _int8_pools(nkv, RAGGED_T + 1, seed=12)
+    t = RAGGED_T.astype(np.int32)
+    got = PA.paged_attn_decode(_t(q), _t(k8), _t(v8), _t(bt), _t(t),
+                               window=window, softcap=softcap,
+                               k_scales=_t(ks), v_scales=_t(vs)).numpy()
+    kern = JPA.paged_attn_decode(
+        jnp.asarray(q), jnp.asarray(k8), jnp.asarray(v8), jnp.asarray(bt),
+        jnp.asarray(t), window=window, softcap=softcap,
+        k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs), interpret=True)
+    k_pos = np.arange(P * PS)
+    mask = k_pos[None, :] <= t[:, None]
+    if window:
+        mask &= k_pos[None, :] > t[:, None] - window
+    gath = JATT._decode_sdpa(jnp.asarray(q)[:, None],
+                             jnp.asarray(_deq(k8, ks, bt)),
+                             jnp.asarray(_deq(v8, vs, bt)),
+                             jnp.asarray(mask), softcap)[:, 0]
+    np.testing.assert_allclose(got, np.asarray(kern), **TOL_KERNEL)
+    np.testing.assert_allclose(got, np.asarray(gath), **TOL_GATHER)
+
+
+@pytest.mark.parametrize("nkv", [1, 2, 4])
+@pytest.mark.parametrize("window,softcap", CASES)
+def test_chunk_plain_int8_matches_jax_kernel_and_gather(nkv, window,
+                                                        softcap):
+    """K4's plain version on int8 pages, the right-padded chunk of
+    test_chunk_plain_matches_jax_kernel_and_gather."""
+    rng = np.random.default_rng(13)
+    B, Cs, start, kv_len = 3, 8, 16, 21
+    q = rng.standard_normal((B, Cs, HQ, HD)).astype(np.float32)
+    k8, v8, ks, vs, bt = _int8_pools(nkv, [start + Cs] * B, seed=14)
+    got = PA.paged_attn_chunk(_t(q), _t(k8), _t(v8), _t(bt), start, kv_len,
+                              window=window, softcap=softcap,
+                              k_scales=_t(ks), v_scales=_t(vs)).numpy()
+    kern = JPA.paged_attn_chunk(
+        jnp.asarray(q), jnp.asarray(k8), jnp.asarray(v8), jnp.asarray(bt),
+        start, kv_len, window=window, softcap=softcap,
+        k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs), interpret=True)
+    gath = JATT.sdpa_chunked(
+        jnp.asarray(q), jnp.asarray(_deq(k8, ks, bt)),
+        jnp.asarray(_deq(v8, vs, bt)),
+        jnp.arange(start, start + Cs, dtype=jnp.int32),
+        jnp.arange(P * PS, dtype=jnp.int32), jnp.asarray(window, jnp.int32),
+        jnp.asarray(kv_len, jnp.int32), causal=True, softcap=softcap)
+    np.testing.assert_allclose(got, np.asarray(kern), **TOL_KERNEL)
+    np.testing.assert_allclose(got, np.asarray(gath), **TOL_GATHER)
+
+
+def test_int8_unreachable_pages_and_nan_scales_never_leak():
+    """The kernels' contract for an int8 pool, held by the plain versions
+    where they can: +-127 at every unreadable position of a live page
+    changes no output bit. (NaN scales on dead pages reach the plain
+    versions' gather, 0 * NaN; the kernels read a dead key's scale as 0,
+    which chip_smoke.py and tests/test_torch_cuda.py check on the card.)"""
+    t = np.array([0, 3, 11, 20], np.int32)
+    k8, v8, ks, vs, bt = _int8_pools(2, t + 1, seed=15)
+    live = np.zeros(k8.shape[:2], bool)
+    for b in range(len(t)):
+        for pos in range(int(t[b]) + 1):
+            live[bt[b, pos // PS], pos % PS] = True
+    q = _t(np.random.default_rng(16).standard_normal(
+        (len(t), HQ, HD)).astype(np.float32))
+
+    def pools(fill):
+        sel = live[:, :, None, None]
+        return (_t(np.where(sel, k8, fill).astype(np.int8)),
+                _t(np.where(sel, v8, -fill).astype(np.int8)))
+    sc = dict(k_scales=_t(ks), v_scales=_t(vs))
+    (kc, vc), (kx, vx) = pools(0), pools(127)
+    assert torch.equal(PA.paged_attn_decode(q, kc, vc, _t(bt), _t(t), **sc),
+                       PA.paged_attn_decode(q, kx, vx, _t(bt), _t(t), **sc))
 
 
 def test_page_traffic_model_matches_reference():
@@ -203,6 +326,9 @@ def test_page_traffic_model_matches_reference():
                        num_heads=32, num_kv_heads=32, d_ff=0,
                        vocab_size=8, dtype="bfloat16")
     assert PA.page_bytes(Cfg(), 16) == JPA.page_bytes(jcfg, 16) == 262144
+    Cfg.kv_quant = "int8"
+    assert PA.page_bytes(Cfg(), 16) == JPA.page_bytes(
+        jcfg.with_overrides(kv_quant="int8"), 16) == 131072 + 256
     t_host = np.array([448, 0, 15, 16])
     active = np.array([True, False, True, True])
     assert PA.decode_tick_pages(t_host, active, 16, 4, 32) == \
@@ -257,12 +383,15 @@ def test_chunk_tiles_cover_exactly_the_visible_keys(case):
         assert ctas[0][2:] == (0, 5) and ctas[-1][2:] == (0, 6)
 
 
-def _chunk_tc_emulated(q, kp, vp, bt, start, kv_len, window, softcap):
+def _chunk_tc_emulated(q, kp, vp, bt, start, kv_len, window, softcap,
+                       k_scales=None, v_scales=None):
     """K4's bf16 body, step for step, in fp32 torch on the CPU (p is not
     rounded: fp32 pages): CTAs of chunk_tiles, warps of 16 rows skipping
     the tiles outside their own key range, tiles zero-filled outside the
     CTA's range, masked scores -inf against a running max from -1e30, l
-    summed from p, out = acc / max(l, 1e-20)."""
+    summed from p, out = acc / max(l, 1e-20). With int8 pages, each key's
+    scales (0 outside the CTA's range) multiply its scores and its p
+    before PV."""
     B, Cs, Hq, hd = q.shape
     _, ps, Hkv, _ = kp.shape
     G, P, R = Hq // Hkv, bt.shape[1], Cs * Hq // Hkv
@@ -292,9 +421,16 @@ def _chunk_tc_emulated(q, kp, vp, bt, start, kv_len, window, softcap):
                         k = torch.zeros(KT, hd)
                         v = torch.zeros(KT, hd)
                         page = bt[b, pos[load] // ps].long()
-                        k[load] = kp[page, pos[load] % ps, h]
-                        v[load] = vp[page, pos[load] % ps, h]
-                        s = (qr @ k.T) * hd ** -0.5
+                        k[load] = kp[page, pos[load] % ps, h].float()
+                        v[load] = vp[page, pos[load] % ps, h].float()
+                        ksc, vsc = torch.zeros(KT), torch.zeros(KT)
+                        if k_scales is not None:
+                            ksc[load] = k_scales[page, h]
+                            vsc[load] = v_scales[page, h]
+                        s = qr @ k.T
+                        if k_scales is not None:
+                            s = s * ksc[None]
+                        s = s * hd ** -0.5
                         if softcap > 0:
                             s = softcap * torch.tanh(s / softcap)
                         live = ((pos[None] <= last) & (pos[None] < kv_len)
@@ -306,6 +442,8 @@ def _chunk_tc_emulated(q, kp, vp, bt, start, kv_len, window, softcap):
                         corr = torch.exp(m - m_new)
                         p = torch.exp(s - m_new[:, None])
                         l = l * corr + p.sum(1)
+                        if v_scales is not None:
+                            p = torch.where(p > 0, p * vsc[None], 0.0)
                         o = o * corr[:, None] + p @ v
                         m = m_new
                     out[b, rows // G, h * G + rows % G] = \
@@ -375,7 +513,8 @@ def test_decode_splits_cover_exactly_the_visible_keys(P_, ps, window):
         np.testing.assert_array_equal(got, seen.astype(int), err_msg=f"t={t}")
 
 
-def _decode_split_emulated(q, kp, vp, bt, t, window, softcap):
+def _decode_split_emulated(q, kp, vp, bt, t, window, softcap,
+                           k_scales=None, v_scales=None):
     """K3's split-KV body step by step in fp32 torch on the CPU: per (row,
     kv head) a partial (m, l, acc) per split, the empty partial (-1e30, 0,
     0) where the split holds no visible key; inside a split, warps of
@@ -384,7 +523,9 @@ def _decode_split_emulated(q, kp, vp, bt, t, window, softcap):
     the page dtype only for PV, l summing it unrounded) and keys outside
     the split's range zero-filled; the warps merged in order; then the
     splits combined in index order, out = sum e^(m_s - M) acc_s /
-    max(sum e^(m_s - M) l_s, 1e-20)."""
+    max(sum e^(m_s - M) l_s, 1e-20). With int8 pages, each lane's key's
+    scales (0 for a dead key) multiply its scores and its unrounded p
+    before PV."""
     B, Hq, hd = q.shape
     _, ps, Hkv, _ = kp.shape
     G, P_ = Hq // Hkv, bt.shape[1]
@@ -414,7 +555,14 @@ def _decode_split_emulated(q, kp, vp, bt, t, window, softcap):
                     page = bt[b, pos[live] // ps].long()
                     k[live] = kp[page, pos[live] % ps, h]
                     v[live] = vp[page, pos[live] % ps, h]
-                    sc = (qg.float() @ k.float().T) * hd ** -0.5
+                    ksc, vsc = torch.zeros(TILE), torch.zeros(TILE)
+                    if k_scales is not None:
+                        ksc[live] = k_scales[page, h]
+                        vsc[live] = v_scales[page, h]
+                    sc = qg.float() @ k.float().T
+                    if k_scales is not None:
+                        sc = sc * ksc[None]
+                    sc = sc * hd ** -0.5
                     if softcap > 0:
                         sc = softcap * torch.tanh(sc / softcap)
                     sc = torch.where(live[None], sc, -torch.inf)
@@ -422,9 +570,10 @@ def _decode_split_emulated(q, kp, vp, bt, t, window, softcap):
                     m_new = torch.maximum(m, sc.max(1).values)
                     corr = torch.exp(m - m_new)
                     p = torch.exp(sc - m_new[:, None])
+                    pv = (torch.where(p > 0, p * vsc[None], 0.0)
+                          if v_scales is not None else p.to(v.dtype).float())
                     warps[j % W] = (m_new, l * corr + p.sum(1),
-                                    acc * corr[:, None]
-                                    + p.to(v.dtype).float() @ v.float())
+                                    acc * corr[:, None] + pv @ v.float())
                 M = torch.stack([w[0] for w in warps]).max(0).values
                 c = [torch.exp(w[0] - M) for w in warps]
                 parts.append((M, sum(ci * w[1] for ci, w in zip(c, warps)),
@@ -468,4 +617,73 @@ def test_decode_split_algorithm_matches_jax_kernel(G_, window, softcap):
                                  jnp.asarray(vp), jnp.asarray(bt),
                                  jnp.asarray(t), window=window,
                                  softcap=softcap, interpret=True)
+    np.testing.assert_allclose(got.numpy(), np.asarray(kern), **TOL_KERNEL)
+
+
+def _quantized(rng, shape, nkv):
+    """Random fp32 pages scaled per (page, kv head) into [0.2, 1], quantized
+    by the reference: (int8 pages, f32 scales), numpy."""
+    from repro.core import quant as JQ
+    x = rng.standard_normal(shape).astype(np.float32) * rng.uniform(
+        0.2, 1.0, size=(shape[0], 1, nkv, 1)).astype(np.float32)
+    q8, sc = JQ.quantize_pages(jnp.asarray(x))
+    return np.asarray(q8), np.array(sc)
+
+
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (50, 0.0), (70, 3.0)])
+def test_chunk_tc_int8_algorithm_matches_jax_kernel(window, softcap):
+    """K4's tensor-core body on int8 pages (the scale per key column of S,
+    p * s_v before PV), emulated on the CPU, against the JAX Pallas chunk
+    kernel's int8 operand in interpret mode on the real queries: 1e-5 (fp32,
+    sums in another order). NaN in the scales of the null page past kv_len
+    reaches no real query."""
+    rng = np.random.default_rng(40 + window)
+    B, Cs, nkv, G_, hd, ps, Pn, start, kv_len = 2, 40, 2, 3, 16, 16, 12, \
+        130, 165
+    q = rng.standard_normal((B, Cs, nkv * G_, hd)).astype(np.float32)
+    NP = B * Pn + 1
+    k8, ks = _quantized(rng, (NP, ps, nkv, hd), nkv)
+    v8, vs = _quantized(rng, (NP, ps, nkv, hd), nkv)
+    bt = (rng.permutation(np.arange(1, NP))[:B * Pn]
+          .reshape(B, Pn).astype(np.int32))
+    bt[:, -(-kv_len // ps):] = 0                  # the null page past kv_len
+    kern = JPA.paged_attn_chunk(
+        jnp.asarray(q), jnp.asarray(k8), jnp.asarray(v8), jnp.asarray(bt),
+        start, kv_len, window=window, softcap=softcap,
+        k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs), interpret=True)
+    ks[0] = vs[0] = np.nan
+    got = _chunk_tc_emulated(_t(q), _t(k8), _t(v8), _t(bt), start, kv_len,
+                             window, softcap, _t(ks), _t(vs))
+    n = kv_len - start
+    np.testing.assert_allclose(got.numpy()[:, :n], np.asarray(kern)[:, :n],
+                               **TOL_KERNEL)
+
+
+@pytest.mark.parametrize("G_,window,softcap", [(3, 0, 0.0), (1, 70, 3.0),
+                                               (4, 100, 0.0)])
+def test_decode_split_int8_algorithm_matches_jax_kernel(G_, window, softcap):
+    """K3's split-KV body on int8 pages (each lane's key's scales on its
+    scores and its p), emulated on the CPU at the cases of
+    test_decode_split_algorithm_matches_jax_kernel, against the JAX Pallas
+    decode kernel's int8 operand in interpret mode: 1e-5. NaN in the null
+    page's scales reaches no output."""
+    rng = np.random.default_rng(70 + G_ + window)
+    t = np.array([0, 63, 64, 100, 191], np.int32)
+    B, nkv, hd, ps, Pn = len(t), 2, 16, 8, 24
+    q = rng.standard_normal((B, nkv * G_, hd)).astype(np.float32)
+    NP = B * Pn + 1
+    k8, ks = _quantized(rng, (NP, ps, nkv, hd), nkv)
+    v8, vs = _quantized(rng, (NP, ps, nkv, hd), nkv)
+    ids = iter(rng.permutation(np.arange(1, NP)))
+    bt = np.zeros((B, Pn), np.int32)
+    for b in range(B):
+        for j in range(int(t[b]) // ps + 1):
+            bt[b, j] = next(ids)
+    kern = JPA.paged_attn_decode(
+        jnp.asarray(q), jnp.asarray(k8), jnp.asarray(v8), jnp.asarray(bt),
+        jnp.asarray(t), window=window, softcap=softcap,
+        k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs), interpret=True)
+    ks[0] = vs[0] = np.nan
+    got = _decode_split_emulated(_t(q), _t(k8), _t(v8), _t(bt), t, window,
+                                 softcap, _t(ks), _t(vs))
     np.testing.assert_allclose(got.numpy(), np.asarray(kern), **TOL_KERNEL)
