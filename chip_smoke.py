@@ -34,7 +34,21 @@ Phases (none catches an exception; any failure exits non-zero):
      version, bit for bit, at the reference's four shapes (empty rows, tied
      minima, new scores at the minimum; an int and a [B] token id;
      functional and in place); the in-place form must refuse a strided
-     view; times at llama's decode shape (4, 16, 4).
+     view; times at llama's decode shape (4, 16, 4). Then K5R go_router
+     (the GO decode's router: gate row, softmax, TopKUpdate and the
+     selected-pair lane plan in one launch) at K5's four shapes and the
+     llama smoke shape (d 256; x and gate_w in f32/bf16 pairs; an int, an
+     int32 and an int64 [B] token id; minima planted at the kernel's own g
+     and one ulp above) and at llama's full-width decode shape (B 4, E 16,
+     k 4, d 4096, x bf16, gate_w f32): g within GO_ROUTER_G_TOL of the plain
+     version's (a planted fault, x's last column dropped, must lie beyond),
+     everything after g bit for bit against the plain TopKUpdate and plan on
+     the kernel's own g and the cache from before the launch, in place,
+     functional and repeated; kernel, plain and bound times, and the
+     composition the decode ran before (GEMV, softmax, K5, the sort plan).
+     The path `go_cache_step_strided` drives K5 alone through
+     go_cache_step on a strided cache (a standalone prefill), the one
+     caller left it.
   1c. K6 gmm (the plain grouped GEMM) against its plain version: fp32 at
      the reference's sweep shapes re-tiled at 64 rows, with invalid tiles;
      then bf16 through expert_ffn_gmm (K1 then K6) at llama's full-width
@@ -80,8 +94,8 @@ Phases (none catches an exception; any failure exits non-zero):
      granite-moe-3b-a800m (token choice, C1 groups: K7/K8 at prefill);
      then xlstm-1.3b: model_forward (K9 once per sLSTM block) and
      generate(), and on the card the forward's last logits against a
-     stepwise prefill plus one serve_step. llama's decode runs K5 once
-     per layer and decode step. Each MoE model's engine also runs on an
+     stepwise prefill plus one serve_step. llama's decode runs K5R once
+     per layer and decode step, and K5 alone never. Each MoE model's engine also runs on an
      int8 pool (pages of 8): card streams equal the CPU's, a second card
      run repeats streams, pages, scales and GO rows bit for bit, and
      llama's streams equal each request alone on a 1-slot int8 engine.
@@ -105,9 +119,10 @@ Phases (none catches an exception; any failure exits non-zero):
         through serve_step and 16 new tokens, three runs, tokens and
         logits equal bit for bit; profiles of the forward, 8 steps of
         the stepwise prefill and one decode step.
-     Each path runs with the launch counts set to 0 just before it; K5
+     Each path runs with the launch counts set to 0 just before it; K5R
      must run once per layer and decode step on llama's paths and never
-     on granite's or xlstm's.
+     on granite's or xlstm's, K5 alone on no served path. The profiles
+     give device events per layer.
 Then one JSON line with every kernel's numbers, the card line again, and
 the final {"ok": true, ...} line.
 """
@@ -129,6 +144,16 @@ FP32_FLOPS = 67e12
 
 # K5's four shapes (B, E, k), tests/test_kernels.py::test_go_topk_sweep
 GO_TOPK_SHAPES = [(1, 4, 2), (4, 16, 4), (8, 64, 6), (3, 40, 8)]
+
+# K5R go_router, kernel vs plain version: g relative to the plain g. The
+# gate row sums in another order than cuBLAS's GEMV (fp32, d terms), so g
+# moves by ~1e-7..1e-6 relative; dropping x's last column (the planted
+# fault) moves it by ~1e-2. Everything after g is compared bit for bit on
+# the kernel's own g. Small shapes run at width GO_ROUTER_D.
+GO_ROUTER_G_TOL = 1e-5
+GO_ROUTER_D = 256
+GO_ROUTER_DTYPES = [("float32", "float32"), ("bfloat16", "bfloat16"),
+                    ("bfloat16", "float32"), ("float32", "bfloat16")]
 
 # K6 fp32: tests/test_kernels.py:SWEEP's (N, K, F, E), re-tiled at the
 # card's 64 rows, at the reference's fp32 tolerance (the order of the sums
@@ -588,6 +613,249 @@ def go_topk_phase(torch, GT):
     del flush
     print(f"[go_topk] {json.dumps(entry)}", flush=True)
     return entry
+
+
+def _router_inputs(torch, g, B, E, k, d, xdt, wdt):
+    """x, gate_w (s ~ N(0, 1)), cached scores in [0, 2/E) with empty rows
+    (-inf, id -1), and per-row token ids."""
+    x = torch.randn(B, d, device="cuda", generator=g).to(xdt)
+    w = (torch.randn(d, E, device="cuda", generator=g) / d ** 0.5).to(wdt)
+    sp = torch.rand(B, E, k, device="cuda", generator=g) * (2.0 / E)
+    tp = torch.randint(0, 1000, (B, E, k), device="cuda", generator=g,
+                       dtype=torch.int32)
+    empty = torch.randperm(B * E, device="cuda", generator=g)[
+        :max(1, B * E // 8)]
+    sp.view(-1, k)[empty] = float("-inf")
+    tp.view(-1, k)[empty] = -1
+    tid = torch.randint(1000, 2000, (B,), device="cuda", generator=g,
+                        dtype=torch.int32)
+    return x, w, sp, tp, tid
+
+
+def _plant_ties(torch, g, sp, gk):
+    """A copy of the cache whose rows, where a coin says so, hold their
+    minimum in slot 0 at the kernel's g (>= selects) or one ulp above it
+    (no selection); returns (cache, planted, tie)."""
+    B, E, k = sp.shape
+    planted = torch.rand(B, E, device="cuda", generator=g) < 0.5
+    tie = planted & (torch.rand(B, E, device="cuda", generator=g) < 0.5)
+    up = torch.nextafter(gk, torch.full_like(gk, float("inf")))
+    row = torch.where(tie, gk, up)[..., None] + torch.linspace(
+        0, 0.5, k, device="cuda")
+    return torch.where(planted[..., None], row, sp).contiguous(), planted, tie
+
+
+def _router_two_step(torch, GT, x, w, sp, tp, tid, bn):
+    """K5R in place, functional and in place again, against the plain
+    version: g's relative error (step 1), and whether everything after g
+    equals the plain TopKUpdate and lane plan on the kernel's own g and the
+    cache from before the launch, bit for bit, in all three (step 2)."""
+    s1, t1 = sp.clone(), tp.clone()
+    r1 = GT.go_router_(x, w, s1, t1, tid, bn)
+    s2, t2, r2 = GT.go_router(x, w, sp, tp, tid, bn)
+    s3, t3 = sp.clone(), tp.clone()
+    r3 = GT.go_router_(x, w, s3, t3, tid, bn)
+    _, _, rp = GT.go_router_plain(x, w, sp, tp, tid, bn)
+    ws, wt, wsel, wslot = GT.go_topk_update_plain(sp, tp, r1.g, tid)
+    plan = GT.go_lane_plan(wsel, r1.g, bn)
+    torch.cuda.synchronize()
+    want = [ws, wt, r1.g, wsel, wslot, *plan[:4]]
+    same = all(
+        all(a.dtype == b.dtype for a, b in zip(got, want))
+        and _same(torch, got, want)
+        for got in ([s, t, r.g, r.selected, r.slot, *r.plan[:4]]
+                    for s, t, r in ((s1, t1, r1), (s2, t2, r2), (s3, t3, r3))))
+    rel = ((r1.g - rp.g).abs() / rp.g).max().item()
+    return r1, rp, rel, same
+
+
+def _router_one_cta(torch, GT, x, w, s, t, tid, bn):
+    """(A closure launching K5R's C entry in place with the whole gate row
+    in ONE CTA, splits 1: the body's grid before the gate row was split,
+    timed beside it; its g as a tensor the closure fills.) tid: int32
+    [B]."""
+    import ctypes
+    B, E, k = s.shape
+    d = x.shape[1]
+    Cp = -(-B // bn) * bn
+    nt = E * Cp // bn
+    e = lambda shape, dt: torch.empty(shape, dtype=dt, device="cuda")  # noqa
+    outs = [e((B, E), torch.float32), e((B, E), torch.bool),
+            e((B, E), torch.int32), e((E, Cp), torch.int32),
+            e(E * Cp, torch.float32), e(nt, torch.bool), e(nt, torch.int32)]
+    fn = getattr(GT._lib(), f"go_router_{GT._ROUTER_DTYPES[x.dtype]}_"
+                            f"{GT._ROUTER_DTYPES[w.dtype]}")
+    stream = torch.cuda.current_stream().cuda_stream
+
+    def run():
+        rc = fn(x.data_ptr(), w.data_ptr(), s.data_ptr(), t.data_ptr(),
+                tid.data_ptr(), 4, 0, s.data_ptr(), t.data_ptr(),
+                *[o.data_ptr() for o in outs], None, None, B, E, k, d, d, 1,
+                Cp, bn, stream)
+        need(rc == 0, f"K5R on one CTA: cudaError {rc}")
+    return run, outs[0]
+
+
+def go_router_phase(torch, GT):
+    """K5R against its plain version in two steps (g within
+    GO_ROUTER_G_TOL, relative; everything after g bit for bit on the
+    kernel's own g), at K5's four shapes and the llama smoke shape, every
+    x/gate_w dtype pair, an int and [B] token ids of int32 and int64, then
+    with minima planted at the kernel's g and one ulp above; then at
+    llama's full-width decode shape with a planted fault (x's last column
+    dropped: its g error must lie beyond the tolerance) and times: the
+    kernel in place, the plain version (gate row, softmax, topk_update,
+    the cache's copies, the sort plan), and `before_ms`, the composition
+    the decode ran before K5R (the GEMV, softmax, K5 in place, the sort
+    plan), and `one_cta_ms`, the same body with the gate row in one CTA
+    (splits 1). Bound: x, gate_w, the cache read and written, g, selected,
+    slot, the plan and the token ids once each over HBM_BPS, against the
+    gate row's 2 B E d fp32 FLOPs; no single PyTorch call computes it."""
+    g = torch.Generator(device="cuda").manual_seed(24)
+    bn = 64
+    worst, calls, n = 0.0, 0, 0
+    before = GT.LAUNCHES["go_router"]
+    for B, E, k in GO_TOPK_SHAPES + [(4, 8, 2)]:
+        for xn, wn in GO_ROUTER_DTYPES:
+            xdt, wdt = getattr(torch, xn), getattr(torch, wn)
+            x, w, sp, tp, tid = _router_inputs(torch, g, B, E, k,
+                                               GO_ROUTER_D, xdt, wdt)
+            for token_id in (1001, tid, tid.long()):
+                r, _, rel, same = _router_two_step(torch, GT, x, w, sp, tp,
+                                                   token_id, bn)
+                need(same, f"K5R {(B, E, k)} {xn}/{wn}: an output after g "
+                     "differs from the plain TopKUpdate and plan on its g")
+                sp2, planted, tie = _plant_ties(torch, g, sp, r.g)
+                r2, _, rel2, same2 = _router_two_step(torch, GT, x, w, sp2,
+                                                      tp, token_id, bn)
+                need(same2 and torch.equal(r2.g, r.g) and torch.equal(
+                    r2.selected[planted], tie[planted]),
+                     f"K5R {(B, E, k)} {xn}/{wn}: planted near ties did "
+                     "not select on the kernel's own g")
+                worst = max(worst, rel, rel2)
+                calls += 6
+                n += 1
+    need(worst <= GO_ROUTER_G_TOL, f"K5R g differs from the plain version's "
+         f"by {worst} (relative; tol {GO_ROUTER_G_TOL:g})")
+    need(GT.LAUNCHES["go_router"] - before == calls,
+         f"K5R counted {GT.LAUNCHES['go_router'] - before} launches for "
+         f"{calls} calls")
+    print(f"[go_router] shapes {GO_TOPK_SHAPES + [(4, 8, 2)]} at d "
+          f"{GO_ROUTER_D}, x/gate_w {GO_ROUTER_DTYPES}, int and [B] int32/"
+          f"int64 token ids ({n} cases): g max relative err {worst:.3e} "
+          f"(tol {GO_ROUTER_G_TOL:g}); selected, slot, cache, idx_p, scale, "
+          "tile_valid, tile_expert bit-equal on the kernel's g, in place, "
+          "functional and repeated; planted ties select, one ulp above does "
+          "not", flush=True)
+
+    B, E, k, d = 4, 16, 4, 4096
+    x, w, sp, tp, tid = _router_inputs(torch, g, B, E, k, d, torch.bfloat16,
+                                       torch.float32)
+    r, rp, rel, same = _router_two_step(torch, GT, x, w, sp, tp, tid, bn)
+    sp2, planted, tie = _plant_ties(torch, g, sp, r.g)
+    r2, _, rel2, same2 = _router_two_step(torch, GT, x, w, sp2, tp, tid, bn)
+    xf = x.clone()
+    xf[:, -1] = 0
+    fault = ((GT.go_router_plain(xf, w, sp, tp, tid, bn)[2].g - rp.g).abs()
+             / rp.g).max().item()
+    abs_err = (r.g - rp.g).abs().max().item()
+    need(same and same2 and torch.equal(r2.selected[planted], tie[planted]),
+         "K5R full width: an output after g differs from the plain "
+         "TopKUpdate and plan on its g, or a planted tie did not select")
+    need(max(rel, rel2) <= GO_ROUTER_G_TOL < fault,
+         f"K5R full width: g relative err {max(rel, rel2)}, tol "
+         f"{GO_ROUTER_G_TOL}, planted fault {fault}")
+
+    s, t = sp.clone(), tp.clone()
+
+    def plain():
+        ns, nt, _ = GT.go_router_plain(x, w, s, t, tid, bn)
+        s.copy_(ns)
+        t.copy_(nt)
+
+    def before_path():
+        gg = torch.softmax(x.float() @ w.float(), dim=-1)
+        sel, _ = GT.go_topk_update_(s, t, gg, tid)
+        GT.go_lane_plan(sel, gg, bn)
+
+    one_cta, g1 = _router_one_cta(torch, GT, x, w, sp.clone(), tp.clone(),
+                                  tid, bn)
+    one_cta()
+    torch.cuda.synchronize()
+    rel1 = ((g1 - rp.g).abs() / rp.g).max().item()
+    need(rel1 <= GO_ROUTER_G_TOL, f"K5R on one CTA: g relative err {rel1}")
+    rows, splits = GT.router_splits(d, E, w.element_size())
+    Cp = -(-B // bn) * bn
+    nt = E * Cp // bn
+    nbytes = (x.numel() * x.element_size() + w.numel() * w.element_size()
+              + 2 * B * E * k * (4 + 4) + B * E * (4 + 1 + 4)
+              + E * Cp * (4 + 4) + nt * (1 + 4) + B * 4)
+    t_b = nbytes / HBM_BPS * 1e3
+    t_f = (2 * B * E * d) / FP32_FLOPS * 1e3
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    entry = {"shape": f"B={B} E={E} k={k} d={d}, x bf16, gate_w f32, in "
+                      f"place, [B] int32 token ids, bn {bn}",
+             "max_abs_err": abs_err, "g_rel_err": max(rel, rel2),
+             "small_g_rel_err": worst, "tol": GO_ROUTER_G_TOL,
+             "planted_fault_err": fault,
+             "ms": time_ms(torch, lambda: GT.go_router_(x, w, s, t, tid, bn),
+                           flush),
+             "plain_ms": time_ms(torch, plain, flush),
+             "before_ms": time_ms(torch, before_path, flush),
+             "splits": splits, "split_rows": rows,
+             "one_cta_ms": time_ms(torch, one_cta, flush),
+             "bound_ms": max(t_b, t_f),
+             "bound_by": "bytes" if t_b >= t_f else "operations",
+             "bound_note": f"{nbytes} bytes, {2 * B * E * d} fp32 FLOPs",
+             "library_ms": None,
+             "library_note": "no single PyTorch call"}
+    del flush
+    print(f"[go_router] {json.dumps(entry)}", flush=True)
+    return entry
+
+
+def go_topk_path(torch, GT, GO, OPS, counts, reset_counts):
+    """The path `go_cache_step_strided`: go_cache_step at llama's
+    full-width decode shape (B 4, E 16, k 4, d 4096, bf16 experts of 688)
+    on a standalone prefill cache (go_cache_prefill's strided top-k views
+    of 8 chosen tokens an expert), the one caller of K5 alone; the counts
+    set to 0 just before it and read just after: K5 once, K1 and K2 once,
+    K5R never."""
+    B, E, k, C, d, de = 4, 16, 4, 8, 4096, 688
+    g = torch.Generator(device="cuda").manual_seed(25)
+
+    def r(*shape, scale=1.0):
+        return (torch.randn(*shape, device="cuda", generator=g)
+                * scale).to(torch.bfloat16)
+
+    bank = {"wg": r(E, d, de, scale=d ** -0.5),
+            "wi": r(E, d, de, scale=d ** -0.5),
+            "wo": r(E, de, d, scale=de ** -0.5)}
+    gate = torch.randn(d, E, device="cuda", generator=g) * d ** -0.5
+    cache = GO.go_cache_prefill(
+        None, None, r(B, E, C, d),
+        torch.randint(0, 100, (B, E, C), device="cuda", generator=g,
+                      dtype=torch.int32),
+        torch.rand(B, E, C, device="cuda", generator=g) * (2.0 / E), k)
+    need(not cache.scores.is_contiguous(), "the prefill cache is contiguous")
+    x = r(B, d)
+    zero = {n: 0 for n in counts()}
+    reset_counts()
+    res = GO.go_cache_step(
+        cache, x, 128, gate, bn=OPS.default_block_rows("cuda"),
+        contrib_fn=lambda xt, sel, gg, plan: OPS.go_plan_ffn(xt, plan, bank))
+    torch.cuda.synchronize()
+    launches = counts()
+    need(launches == {**zero, "go_topk_update": 1, "gmm_swiglu": 1,
+                      "gmm_scaled": 1},
+         f"go_cache_step_strided launches {launches}")
+    need(res.y.shape == (B, d) and bool(torch.isfinite(res.y).all()) and
+         bool((cache.token_ids == 128).any() == res.selected.any()),
+         "go_cache_step on a strided cache: y not finite or the cache not "
+         "updated")
+    print(f"[go_topk path] go_cache_step on a strided cache: launches "
+          f"{launches}, {int(res.selected.sum())} pairs selected", flush=True)
+    return launches
 
 
 def gmm_phase_small(torch, G):
@@ -1524,18 +1792,20 @@ def gmm_launches(cfg, prefills, decodes):
 
 
 def go_topk_launches(cfg, decodes):
-    """K5's launches over `decodes` decode steps: one per layer and step
-    where the decode runs through the GO cache (expert choice), else 0."""
+    """K5R's launches over `decodes` decode steps: one per layer and step
+    where the decode runs through the GO cache (expert choice), else 0;
+    K5 alone runs on no served path."""
     go = cfg.block == "attn" and cfg.moe is not None and \
         cfg.moe.routing == "expert_choice" and cfg.moe.go_cache
-    return {"go_topk_update": cfg.num_layers * decodes if go else 0}
+    return {"go_topk_update": 0,
+            "go_router": cfg.num_layers * decodes if go else 0}
 
 
 def smoke_phase(torch, G, GT, cfg_smoke, TM, TS):
     """Smoke-size slice on the CPU (plain versions) and on the card
     (kernels), same fp32 weights. Greedy tokens equal; logits within
     SMOKE_LOGIT_TOL; one prefill and 8 decode steps' grouped GEMMs
-    launched, and K5 once per layer and decode step with a GO cache."""
+    launched, and K5R once per layer and decode step with a GO cache."""
     params = TM.model_init(cfg_smoke, torch.Generator().manual_seed(0), "cpu")
     params_cuda = _tree_to(params, "cuda")
     prompts = torch.randint(0, cfg_smoke.vocab_size, (4, 32),
@@ -1590,7 +1860,7 @@ def engine_smoke_phase(torch, G, PA, GT, cfg_smoke, TM, TS, kv_quant="none"):
     weights and trace on the CPU (plain versions) and on the card (K1-K4,
     K7/K8): greedy streams equal; K3/K4 launched once per layer per decode
     or chunk tick, the grouped GEMMs once per layer per prefill pass and
-    decode tick, K5 once per layer and decode tick with a GO cache. With
+    decode tick, K5R once per layer and decode tick with a GO cache. With
     kv_quant="int8" (pages of 8: int8 pages need a multiple of 8) the card
     runs K3/K4 on int8 pages, a second card run repeats the streams and the
     pool's pages, scales, GO rows and GO scales bit for bit (page 0 left
@@ -1830,7 +2100,7 @@ def full_phase(torch, G, PA, SC, GT, cfg, params, TM, TS):
     need(launches == {**expect, **paged_launches(cfg, 0, 0),
                       "slstm_seq": 0},
          f"launch counts {launches}, expected {expect} ({cfg.num_layers} "
-         f"layers x (1 prefill + {GEN} decode steps); K5 x {GEN} decode "
+         f"layers x (1 prefill + {GEN} decode steps); K5R x {GEN} decode "
          "steps with a GO cache) and no paged attention on the dense static "
          "path")
     repeat_equal = all(torch.equal(r["tokens"], res["tokens"]) and
@@ -2018,6 +2288,8 @@ def _kind(name):
         return "K4 paged_attn_chunk" + i8
     if "go_topk_kernel" in name:
         return "K5 go_topk_update"
+    if "go_router_kernel" in name:
+        return "K5R go_router"
     if "gmm_kernel" in name:
         # template arguments <T, SWIGLU, FUSED, OUT, TM, STAGES>, demangled
         # or mangled; OUT 2 scales the rows (K2, K8), K6 stores the sum (OUT
@@ -2067,6 +2339,7 @@ def profile_phase(torch, cfg, regions):
         out = {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
                "idle_share": 1 - busy / 1e3 / wall_ms if dev else None,
                "device_events": len(dev),
+               "device_events_per_layer": len(dev) / cfg.num_layers,
                "by_kind_ms": {k: round(v[1], 4) for k, v in by_kind.items()},
                "by_kind_count": {k: v[0] for k, v in by_kind.items()}}
         print(f"[profile] {cfg.name} {name}: {json.dumps(out)}", flush=True)
@@ -2095,6 +2368,7 @@ def main():
         return 2
     sys.path.insert(0, os.path.join(ROOT, "src"))
     from repro_torch.configs.registry import get_config
+    from repro_torch.core import go_cache as GO
     from repro_torch.core import moe as MOE
     from repro_torch.core import quant as Q
     from repro_torch.core import routing as R
@@ -2141,6 +2415,9 @@ def main():
     timings, llama_prefill = kernel_phase_full(torch, G, OPS, R,
                                                cfgs[granite])
     timings["go_topk_update"] = go_topk_phase(torch, GT)
+    timings["go_router"] = go_router_phase(torch, GT)
+    by_path["go_cache_step_strided"] = go_topk_path(torch, GT, GO, OPS,
+                                                    counts, reset_counts)
     gmm_phase_small(torch, G)
     timings["gmm"], by_path["llama_expert_ffn_gmm"] = gmm_phase_full(
         torch, G, OPS, llama_prefill, counts, reset_counts)
@@ -2209,9 +2486,10 @@ def main():
     # launches: each kernel's count on the path it was ported for (K1/K2
     # llama's static generate() of slice 1, K3/K4 llama's engine of slice 2,
     # K7/K8 granite's engine of slice 3, K9 xlstm's model_forward of slice
-    # 4, K5 llama's engine and K6 llama's expert_ffn_gmm of slice 5, K3/K4
-    # on int8 pages llama's int8 engine of slice 8); every path's count
-    # beside it
+    # 4, K6 llama's expert_ffn_gmm of slice 5, K3/K4 on int8 pages llama's
+    # int8 engine of slice 8, K5R llama's engine of slice 9, which took K5's
+    # place on the served paths: K5 alone runs on go_cache_step's strided
+    # cache); every path's count beside it
     meta = {
         "gmm_swiglu": ("moe_gmm.cu", "src/repro/kernels/moe_gmm.py:466",
                        "llama_static"),
@@ -2236,7 +2514,9 @@ def main():
         "slstm_seq": ("slstm_cell.cu", "src/repro/kernels/slstm_cell.py:62",
                       "xlstm_forward"),
         "go_topk_update": ("go_topk.cu", "src/repro/kernels/go_topk.py:43",
-                           "llama_engine"),
+                           "go_cache_step_strided"),
+        "go_router": ("go_topk.cu", "src/repro/kernels/go_topk.py:43",
+                      "llama_engine"),
         "gmm": ("moe_gmm.cu", "src/repro/kernels/moe_gmm.py:274",
                 "llama_expert_ffn_gmm"),
     }
@@ -2244,7 +2524,8 @@ def main():
     for name, (src, replaces, path) in meta.items():
         need(by_path[path][name] > 0 and
              (not name.endswith("_fused") or by_path["granite_static"][name])
-             and (name != "go_topk_update" or by_path["llama_static"][name]),
+             and (name != "go_router" or (by_path["llama_static"][name] and
+                                          by_path["llama_engine_int8"][name])),
              f"{name} was not launched on its path: {by_path}")
         main_t = timings[name].get("prefill", timings[name])
         entry = {
@@ -2263,7 +2544,9 @@ def main():
             "achieved_bytes_per_s", "bound_share", "tiles_per_block",
             "warps", "warps_ms", "pages_per_split", "splits", "ctas",
             "cluster", "cluster_capacity", "fp32_r",
-            "small_max_abs_err") if k in main_t})
+            "small_max_abs_err", "g_rel_err", "small_g_rel_err",
+            "before_ms", "splits", "split_rows", "one_cta_ms")
+            if k in main_t})
         if "decode" in timings[name]:
             entry["shape"] = "prefill " + main_t["shape"]
             entry["decode"] = timings[name]["decode"]

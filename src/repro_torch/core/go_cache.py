@@ -6,7 +6,9 @@ eq. 4-5). Counterpart of repro/core/go_cache.py.
   outputs   [B, E, k, d]   cached weighted expert outputs G[t,e] * E_e(x_t)
 
 Each decode step runs one gate row, a TopKUpdate against the cached minima,
-and expert FFNs only for the experts that selected the incoming token.
+and expert FFNs only for the experts that selected the incoming token; on
+a card the first two and the FFN's lane plan are one launch (the router
+K5R, kernels/go_topk.py).
 Unlike the JAX version, `go_cache_step` and the slot ops write the updated
 entries into the cache's tensors IN PLACE (they are views of the decode
 state's per-layer buffers), where JAX carries a new cache through its
@@ -19,7 +21,9 @@ from typing import NamedTuple
 import torch
 
 from repro_torch.core.routing import stable_topk
-from repro_torch.kernels.go_topk import go_topk_update, go_topk_update_
+from repro_torch.kernels.go_topk import (GORoute, go_lane_plan, go_router_,
+                                         go_topk_update)
+from repro_torch.kernels.ops import default_block_rows
 
 
 class GOCache(NamedTuple):
@@ -109,34 +113,43 @@ class GOStepResult(NamedTuple):
 
 
 def go_cache_step(cache: GOCache, x_t: torch.Tensor, token_id,
-                  gate_w: torch.Tensor, *, contrib_fn) -> GOStepResult:
+                  gate_w: torch.Tensor, *, contrib_fn,
+                  bn: int | None = None) -> GOStepResult:
     """One expert-choice decode step through the GO cache (eq. 4).
 
     x_t [B, d]; token_id an int (static batch) or [B]. `contrib_fn(x, sel,
     g)` returns the fp32 weighted contributions [B, E, d] of the SELECTED
-    pairs, zero elsewhere (kernels/ops.py:go_selected_ffn). The cache's
-    tensors are updated in place: the TopKUpdate (K5, one launch on a
-    card) writes the scores and ids, then the selected outputs land in the
-    slots it replaced."""
-    s_raw = x_t.float() @ gate_w.float()                           # [B, E]
-    g = torch.softmax(s_raw, dim=-1)
+    pairs, zero elsewhere (kernels/ops.py:go_selected_ffn). With `bn` (the
+    decode tile's rows) the step also hands it the lane plan of those
+    pairs at that tile, `contrib_fn(x, sel, g, plan=plan)`
+    (kernels/ops.py:go_plan_ffn); without, the reference's three-argument
+    contract holds. The cache's tensors are updated in place: the router
+    (K5R, one launch on a card: the gate row, its softmax, the TopKUpdate
+    and the plan) writes the scores and ids, then the selected outputs land
+    in the slots it replaced."""
     if cache.scores.is_contiguous() and cache.token_ids.is_contiguous():
-        selected, slot = go_topk_update_(cache.scores, cache.token_ids, g,
-                                         token_id)                 # [B, E]
+        r = go_router_(x_t, gate_w, cache.scores, cache.token_ids, token_id,
+                       bn or default_block_rows(x_t.device))
     else:
         # a cache of strided views (go_cache_prefill's top-k slices, used
-        # on their own); the decode state's per-layer views take the branch
-        # above, and making the slices contiguous would cost every prefill
-        # a copy per layer
+        # on their own) keeps the functional K5; the decode state's
+        # per-layer views take the branch above, and making the slices
+        # contiguous would cost every prefill a copy per layer
+        g = torch.softmax(x_t.float() @ gate_w.float(), dim=-1)     # [B, E]
         s, t, selected, slot = go_topk_update(cache.scores, cache.token_ids,
                                               g, token_id)
         cache.scores.copy_(s)
         cache.token_ids.copy_(t)
-    contrib = contrib_fn(x_t, selected, g)                         # [B, E, d]
+        r = GORoute(g, selected, slot,
+                    go_lane_plan(selected, g, bn) if bn else None)
+    if bn:
+        contrib = contrib_fn(x_t, r.selected, r.g, plan=r.plan)   # [B, E, d]
+    else:
+        contrib = contrib_fn(x_t, r.selected, r.g)
     y = contrib.sum(dim=1)
     k = cache.scores.shape[-1]
-    onehot = slot[..., None] == torch.arange(k, device=x_t.device)
-    write = (selected[..., None] & onehot)[..., None]              # [B,E,k,1]
+    onehot = r.slot[..., None] == torch.arange(k, device=x_t.device)
+    write = (r.selected[..., None] & onehot)[..., None]            # [B,E,k,1]
     cache.outputs.copy_(torch.where(
         write, contrib[:, :, None, :].to(cache.outputs.dtype), cache.outputs))
-    return GOStepResult(y.to(x_t.dtype), cache, selected)
+    return GOStepResult(y.to(x_t.dtype), cache, r.selected)

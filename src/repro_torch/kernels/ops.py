@@ -17,7 +17,9 @@ static; no step reads a value back to the host.
                     (`combine_pairs`: a reshape for token-major pairs, else
                     a sort and a gather, then one reduction; no float
                     atomics, so repeated runs on a card agree bit for bit).
-  go_selected_ffn   C4 decode: only the pairs the TopKUpdate selected.
+  go_selected_ffn   C4 decode: only the pairs the TopKUpdate selected
+                    (`go_plan_ffn` over a lane plan: the router's, or one
+                    built here with `go_topk.go_lane_plan`).
   expert_ffn_gmm    tile-aligned rows through each tile's expert FFN (K1
                     then K6), uncombined.
   moe_ffn_pallas    [T, k] routing -> [T, d] through moe_ffn_fused.
@@ -30,6 +32,7 @@ from typing import NamedTuple
 import numpy as np
 import torch
 
+from repro_torch.kernels.go_topk import GOPlan, go_lane_plan
 from repro_torch.kernels.moe_gmm import (KERNEL_BLOCK_ROWS, gmm,
                                          gmm_scaled, gmm_swiglu)
 
@@ -339,10 +342,11 @@ def go_selected_ffn(x: torch.Tensor, selected: torch.Tensor,
     """C4 decode FFN over ONLY the (token, expert) pairs the TopKUpdate
     selected. x [B, d]; selected [B, E] bool; g [B, E] affinities.
 
-    Lane e owns rows [e*Cp, (e+1)*Cp) and one sort per tick gathers its
-    selected rows in ascending batch order. Branch decision: the port
-    always runs the full plan (C = B rows per lane) with `tile_valid` taken
-    from the per-expert counts. A tile holding no selected row skips its
+    Lane e owns rows [e*Cp, (e+1)*Cp) and holds its selected rows in
+    ascending batch order (`go_lane_plan`; on the decode the router K5R
+    builds the same plan in its launch). Branch decision: the port always
+    runs the full plan (C = B rows per lane) with `tile_valid` taken from
+    the per-expert counts. A tile holding no selected row skips its
     multiply-adds and reads no weights, so the work tracks the selected
     pairs as the reference's fast plan does; it is exact, drops nothing,
     and needs no host sync, where the reference's `lax.cond` between the
@@ -352,32 +356,28 @@ def go_selected_ffn(x: torch.Tensor, selected: torch.Tensor,
 
     Returns contrib [B, E, d] fp32, zero where unselected.
     """
-    B, d = x.shape
-    E = num_experts
+    del num_experts                          # selected's E lanes
     bn = bn or default_block_rows(x.device)
+    return go_plan_ffn(x, go_lane_plan(selected, g, bn), bank)
+
+
+def go_plan_ffn(x: torch.Tensor, plan: GOPlan, bank: dict) -> torch.Tensor:
+    """The decode FFN over a lane plan: gather the lanes' rows, K1 then K2
+    (scaled by the plan's g), and scatter the selected rows back to
+    token-major order. x [B, d] -> contrib [B, E, d] fp32, zero where
+    unselected."""
+    B, d = x.shape
+    E, Cp = plan.idx_p.shape
     dev = x.device
-    selT = selected.T                                       # [E, B]
-    counts = selT.sum(dim=1).to(_I32)
-    ar = torch.arange(B, dtype=_I32, device=dev)
-    # selected rows get descending positive keys, unselected distinct
-    # negative ones: one sort yields each lane's selected rows in order
-    keys = torch.where(selT, B - ar[None, :], -1 - ar[None, :])
-    gsel = torch.where(selT, g.T, 0.0)                      # affinities > 0
-    C = B
-    idx = torch.sort(keys, dim=1, descending=True, stable=True)[1][:, :C]
-    w = torch.gather(gsel, 1, idx)                          # 0 off-selection
-    Cp = -(-C // bn) * bn
-    idx_p = torch.nn.functional.pad(idx, (0, Cp - C))
-    x_rows = x[idx_p].reshape(E * Cp, d)
-    scale = torch.nn.functional.pad(w, (0, Cp - C)).reshape(E * Cp, 1)
-    te = torch.arange(E, dtype=_I32, device=dev).repeat_interleave(Cp // bn)
-    slot = torch.arange(Cp // bn, dtype=_I32, device=dev) * bn
-    tv = (slot[None, :] < counts[:, None]).reshape(-1)
-    h = gmm_swiglu(x_rows, bank["wg"], bank["wi"], te, tv, bn=bn)
-    y_rows = gmm_scaled(h, bank["wo"], te, tv, scale, bn=bn)
-    y = y_rows.reshape(E, Cp, d)[:, :C]
+    x_rows = x[plan.idx_p].reshape(E * Cp, d)
+    te, tv = plan.tile_expert, plan.tile_valid
+    h = gmm_swiglu(x_rows, bank["wg"], bank["wi"], te, tv, bn=plan.bn)
+    y_rows = gmm_scaled(h, bank["wo"], te, tv, plan.scale.view(E * Cp, 1),
+                        bn=plan.bn)
+    y = y_rows.reshape(E, Cp, d)[:, :B]
+    w = plan.scale.view(E, Cp)[:, :B]
     # scatter into the token-major buffer; unselected slots hit sink row B
     z = torch.zeros((B + 1, E, d), dtype=torch.float32, device=dev)
-    eix = torch.arange(E, device=dev)[:, None].expand(E, C)
-    z[torch.where(w > 0, idx, B), eix] = y
+    eix = torch.arange(E, device=dev)[:, None].expand(E, B)
+    z[torch.where(w > 0, plan.idx_p[:, :B], B), eix] = y
     return z[:B]

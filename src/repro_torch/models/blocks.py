@@ -61,8 +61,9 @@ def attn_block_decode(params: dict, x_t: torch.Tensor, cache_k, cache_v, t,
     """One-token decode, x_t [B, 1, d] -> (x, aux). The KV cache (this
     layer's view of the decode state; with `block_table`, the layer's page
     pool) and the GO cache are updated in place. With a GO cache only the
-    experts that select the token run (go_selected_ffn); without one every
-    row routes by token choice through the unfused grouped GEMM."""
+    experts that select the token run (the router's lane plan through
+    go_plan_ffn); without one every row routes by token choice through the
+    unfused grouped GEMM."""
     h = rmsnorm(params["ln1"], x_t, cfg.norm_eps)
     a = ATT.attn_decode(params["attn"], h, cache_k, cache_v, t, cfg=cfg,
                         window=window, block_table=block_table)
@@ -74,10 +75,9 @@ def attn_block_decode(params: dict, x_t: torch.Tensor, cache_k, cache_v, t,
         return x + y[:, None, :], None
     MOE.reject_shared(moe_p)
     res = go_cache_step(
-        go_cache, h2, t, moe_p["gate"],
-        contrib_fn=lambda xt, sel, g: OPS.go_selected_ffn(
-            xt, sel, g, moe_p["experts"], cfg.moe.num_experts,
-            bn=MOE.block_rows(cfg.moe, xt.device)))
+        go_cache, h2, t, moe_p["gate"], bn=MOE.block_rows(cfg.moe, h2.device),
+        contrib_fn=lambda xt, sel, g, plan: OPS.go_plan_ffn(
+            xt, plan, moe_p["experts"]))
     return x + res.y[:, None, :], {"selected": res.selected}
 
 

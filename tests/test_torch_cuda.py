@@ -465,6 +465,120 @@ def test_cuda_go_topk_raises_instead_of_falling_back(cuda_device):
         GT.go_topk_update(sp, tp, sn, tid.cpu())
 
 
+# K5R go_router: g within ROUTER_G_TOL of the plain version's (relative;
+# the gate row sums in another order than cuBLAS), everything after g bit
+# for bit against the plain TopKUpdate and lane plan on the kernel's own g
+ROUTER_G_TOL = 1e-5
+
+
+def _router_inputs(seed, B, E, k, d, device, xdt, wdt):
+    rng = np.random.default_rng(seed)
+    t = lambda a: torch.from_numpy(a).to(device)      # noqa: E731
+    x = t(rng.standard_normal((B, d)).astype(np.float32)).to(xdt)
+    w = t((rng.standard_normal((d, E)) / np.sqrt(d)).astype(np.float32))
+    sp = (rng.random((B, E, k)) * 2.0 / E).astype(np.float32)
+    sp.reshape(-1, k)[rng.permutation(B * E)[:max(1, B * E // 8)]] = -np.inf
+    tp = rng.integers(0, 1000, (B, E, k)).astype(np.int32)
+    tid = rng.integers(1000, 2000, B).astype(np.int32)
+    return x, w.to(wdt), t(sp), t(tp), t(tid)
+
+
+def _router_check(x, w, sp, tp, token_id, bn):
+    """Launch K5R in place and functional; check g against the plain
+    version's, the rest bit for bit on the kernel's own g; returns the
+    in-place route and g's relative error."""
+    before = GT.LAUNCHES["go_router"]
+    s, t = sp.clone(), tp.clone()
+    r = GT.go_router_(x, w, s, t, token_id, bn)
+    s2, t2, r2 = GT.go_router(x, w, sp, tp, token_id, bn)
+    _, _, rp = GT.go_router_plain(x, w, sp, tp, token_id, bn)
+    torch.cuda.synchronize()
+    assert GT.LAUNCHES["go_router"] == before + 2
+    err = ((r.g - rp.g).abs() / rp.g).max().item()
+    assert err <= ROUTER_G_TOL
+    ws, wt, wsel, wslot = GT.go_topk_update_plain(sp, tp, r.g, token_id)
+    plan = GT.go_lane_plan(wsel, r.g, bn)
+    for got in ((s, t, r), (s2, t2, r2)):
+        gs, gt_, gr = got
+        assert torch.equal(gs, ws) and torch.equal(gt_, wt)
+        assert torch.equal(gr.g, r.g)
+        assert torch.equal(gr.selected, wsel) and torch.equal(gr.slot, wslot)
+        for a, b in zip(gr.plan[:4], plan[:4]):
+            assert a.dtype == b.dtype and torch.equal(a, b)
+    return r, err
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("xdt,wdt", [(torch.float32, torch.float32),
+                                     (torch.bfloat16, torch.bfloat16),
+                                     (torch.bfloat16, torch.float32)])
+@pytest.mark.parametrize("B,E,k,d", [(1, 4, 2, 16), (4, 16, 4, 32),
+                                     (8, 64, 6, 24), (3, 40, 8, 40),
+                                     (4, 8, 2, 64), (4, 16, 4, 4096),
+                                     (64, 64, 4, 4096), (3, 40, 8, 1000)])
+def test_cuda_go_router_two_step_check(cuda_device, B, E, k, d, xdt, wdt):
+    """K5R at K5's four shapes, the llama smoke and full-width decode
+    shapes, B and E at their bound of 64 over 128 CTAs of the gate row, a
+    ragged last span: every dtype pair, g within ROUTER_G_TOL, the rest
+    bit for bit; an int, an int32 and an int64 [B] token id; a repeat
+    gives the same bits."""
+    x, w, sp, tp, tid = _router_inputs(B + E + k + d, B, E, k, d,
+                                       cuda_device, xdt, wdt)
+    for token_id in (1001, tid, tid.long()):
+        r, _ = _router_check(x, w, sp, tp, token_id, 64)
+        s, t = sp.clone(), tp.clone()
+        again = GT.go_router_(x, w, s, t, token_id, 64)
+        for a, b in zip(again[:3], r[:3]):
+            assert torch.equal(a, b)
+        for a, b in zip(again.plan[:4], r.plan[:4]):
+            assert torch.equal(a, b)
+    assert bool(r.selected.any())
+
+
+@pytest.mark.requires_cuda
+def test_cuda_go_router_planted_near_tie(cuda_device):
+    """Cached minima planted at the kernel's own g (>= selects) and one ulp
+    above it (no selection), at llama's full-width shape in bf16: the
+    selection follows the kernel's g, and everything after g equals the
+    plain TopKUpdate and plan on that g."""
+    B, E, k, d = 4, 16, 4, 4096
+    x, w, sp, tp, tid = _router_inputs(3, B, E, k, d, cuda_device,
+                                       torch.bfloat16, torch.float32)
+    g = GT.go_router(x, w, sp, tp, tid, 64)[2].g
+    tie = torch.zeros(B, E, dtype=torch.bool, device=cuda_device)
+    tie[:, ::2] = True
+    up = torch.nextafter(g, torch.full_like(g, float("inf")))
+    sp = torch.where(tie, g, up)[..., None] + torch.tensor(
+        [0.0, 0.5, 0.25, 0.125], device=cuda_device)
+    r, _ = _router_check(x, w, sp.contiguous(), tp, tid, 64)
+    assert torch.equal(r.selected, tie) and bool((r.slot[tie] == 0).all())
+
+
+@pytest.mark.requires_cuda
+def test_cuda_go_router_raises_instead_of_falling_back(cuda_device):
+    x, w, sp, tp, tid = _router_inputs(0, 4, 16, 4, 32, cuda_device,
+                                       torch.float32, torch.float32)
+    z = lambda *s, **kw: torch.zeros(*s, device=cuda_device, **kw)  # noqa
+    with pytest.raises(ValueError, match="must lie in 1..64"):
+        GT.go_router_(z(65, 32), w, z(65, 16, 4), z(65, 16, 4,
+                                                    dtype=torch.int32), 3, 64)
+    with pytest.raises(ValueError, match="must lie in 1..64"):
+        GT.go_router_(x, z(32, 65), z(4, 65, 4), z(4, 65, 4,
+                                                   dtype=torch.int32), 3, 64)
+    with pytest.raises(TypeError, match="no kernel for x"):
+        GT.go_router_(x.half(), w, sp.clone(), tp.clone(), 3, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        GT.go_router_(x, w.T.contiguous().T, sp.clone(), tp.clone(), 3, 64)
+    with pytest.raises(ValueError, match="contiguous"):
+        GT.go_router_(x, w, z(4, 16, 8)[..., :4], tp.clone(), 3, 64)
+    with pytest.raises(TypeError, match="want int32 or int64"):
+        GT.go_router_(x, w, sp.clone(), tp.clone(), tid.short(), 64)
+    with pytest.raises(ValueError, match="operands on"):
+        GT.go_router_(x, w.cpu(), sp.clone(), tp.clone(), 3, 64)
+    with pytest.raises(ValueError, match="operands on"):
+        GT.go_router(x, w, sp, tp, tid.cpu(), 64)
+
+
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("N,K,F,E", [(128, 256, 128, 2), (128, 48, 96, 4),
                                      (64, 688, 172, 4)])
@@ -512,8 +626,9 @@ def test_cuda_gmm_raises_instead_of_falling_back(cuda_device):
 @pytest.mark.parametrize("engine", [False, True])
 def test_cuda_llama_decode_runs_k5_once_per_layer_and_step(cuda_device,
                                                             engine):
-    """The smoke llama decode on the card: K5 launched layers x decode
-    steps (static generate() and the engine), the tokens the CPU gives."""
+    """The smoke llama decode on the card: K5's router form (K5R) launched
+    layers x decode steps and K5 alone never (static generate() and the
+    engine), the tokens the CPU gives."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import generate, serve_continuous
     from repro_torch.models.model import model_init
@@ -543,7 +658,9 @@ def test_cuda_llama_decode_runs_k5_once_per_layer_and_step(cuda_device,
                        device="cuda")
         assert torch.equal(gpu["tokens"].cpu(), cpu["tokens"])
         steps = 6
-    assert steps > 0 and GT.LAUNCHES["go_topk_update"] == L * steps
+    # the decode runs K5's router form (K5R): one launch per layer and step
+    assert steps > 0 and GT.LAUNCHES["go_router"] == L * steps
+    assert GT.LAUNCHES["go_topk_update"] == 0
 
 
 # ------------------------------------- the bf16 bodies: K4 and the GEMM ring
