@@ -7,14 +7,18 @@ Run from the root of a checkout, on a machine with one CUDA card:
     python3 chip_smoke.py --parent DIR   # DIR: an older csrc/ (its
                                          # paged_attn.cu), timed in turns
 
-With --parent, every bf16 timing of K3 and K4 runs that older body and
-this checkout's in turns (parent, change, change, parent) in the same
-call, and the two must give the same bits; without it, each kernel is
-timed alone.
+With --parent, every timing of K3 and K4 at full width (bf16 and int8
+pages) runs that older body and this checkout's in turns (parent,
+change, change, parent) in the same call, and the two must give the same
+bits; without it, each kernel is timed alone.
 
 Phases (none catches an exception; any failure exits non-zero):
   0. the card's name and power limit; build the CUDA kernels from
-     src/repro_torch/kernels/csrc/ (timed, one nvcc per source in parallel).
+     src/repro_torch/kernels/csrc/ (timed, one nvcc per source in parallel);
+     the conversion instructions (I2F, F2F and their forms, in all and
+     inside loops) in the SASS of the served bf16-q paged-attention bodies
+     on int8 and on bf16 pages, this checkout's and, with --parent, the
+     parent's (cuobjdump).
   1. K1 gmm_swiglu and K2 gmm_scaled against their plain PyTorch versions:
      fp32 at small ragged shapes with invalid tiles, then bf16 at the main
      paths' full-width shapes (llama's prefill from a real expert-choice
@@ -80,7 +84,9 @@ Phases (none catches an exception; any failure exits non-zero):
      launch repeats every bit. Then both models' full-width engine shapes
      (the live pages of the bf16 rows above, quantized) with kernel, plain
      and library times (library: the gather, dequantization, then
-     scaled_dot_product_attention).
+     scaled_dot_product_attention), K3 at splits of 64 and 128 keys and
+     K4 at 1, 2 and 4 warps per CTA (each against the plain version and
+     its own repeat).
      K9 slstm_seq against its plain version: fp32 at the JAX test's three
      shapes, then xlstm-1.3b's full-width sLSTM (B 4, S 128, H 4, hd 512,
      fp32 u, bf16 r) on its cluster body (16 CTAs a head, r resident in
@@ -129,10 +135,12 @@ the final {"ok": true, ...} line.
 import json
 import os
 import re
+import shutil
 import statistics
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
 
@@ -287,6 +295,7 @@ def parent_call(torch, source, fn, *args):
     def run():
         rc = f(*(v for _, v in conv), torch.cuda.current_stream().cuda_stream)
         need(rc == 0, f"parent {fn}: cudaError {rc}")
+    run.operands = args          # the tensors live as long as the closure
     return run
 
 
@@ -306,6 +315,73 @@ def parent_gmm(torch, G, name, x, ws, te, tv, N, K, F, out_dtype,
                         name.startswith("gmm_swiglu"))
     return parent_call(torch, "moe_gmm", name, x, *ws, te, *fused, *rest,
                        *sc, out, N, K, F, G.KERNEL_BLOCK_ROWS, *ring)
+
+
+# Conversion instructions counted in the paged-attention kernels' SASS, by
+# opcode with its modifiers (I2F.S8, I2FP.F32.S32, F2FP.BF16.F32.PACK_AB,
+# ...), in all and inside loops, and the instantiations counted: the
+# served head_dims' bf16-q bodies on int8 pages beside the same bodies on
+# bf16 pages. I2F.RP is an integer division's reciprocal (the divisions by
+# the page size), not a value's conversion.
+SASS_OPS = ("I2F", "I2FP", "F2F", "F2FP")
+SASS_KERNELS = re.compile(
+    r"paged_(?:decode_split_kernel<__nv_bfloat16, (?:__nv_bfloat16|signed "
+    r"char), (?:64|128), \d+>|chunk_tc_kernel<(?:64|128), \d, "
+    r"(?:__nv_bfloat16|signed char)>)")
+
+
+def sass_conversions(build, src):
+    """{kernel: {opcode: count, opcode + " in loops": count}} of the
+    SASS_OPS opcodes (static counts; "in loops": between a backward
+    branch's target and the branch) in each of SASS_KERNELS in the library
+    built from `src`, read with the toolkit's cuobjdump -sass and named by
+    cu++filt (c++filt where that is missing)."""
+    bindir = os.path.dirname(build._nvcc())
+    sass = subprocess.run(
+        [os.path.join(bindir, "cuobjdump"), "-sass",
+         str(build._lib_path(Path(src)))], capture_output=True, text=True,
+        check=True).stdout
+    funcs, name = {}, None               # name -> [(address, opcode, args)]
+    for line in sass.splitlines():
+        m = re.search(r"Function : (\S+)", line)
+        if m:
+            name = m.group(1)
+            funcs[name] = []
+            continue
+        m = re.search(r"/\*([0-9a-f]{4,})\*/\s+(?:@!?U?P[T0-9]+\s+)?"
+                      r"([A-Z0-9]+(?:\.[A-Z0-9_]+)*)([^;]*);", line)
+        if name and m:
+            funcs[name].append((int(m.group(1), 16), m.group(2),
+                                m.group(3)))
+    filt = os.path.join(bindir, "cu++filt")
+    filt = filt if os.path.exists(filt) else shutil.which("c++filt")
+    names = list(funcs)
+    shown = subprocess.run([filt, *names], capture_output=True, text=True,
+                           check=True).stdout.splitlines()
+    need(len(shown) == len(names), f"{filt} named {len(shown)} of "
+         f"{len(names)} kernels")
+    out = {}
+    for mangled, readable in zip(names, shown):
+        m = SASS_KERNELS.search(readable.replace("(int)", ""))
+        if not m:
+            continue
+        ins = funcs[mangled]
+        loops = []
+        for addr, op, args in ins:
+            to = re.search(r"0x([0-9a-f]+)", args)
+            if op.startswith("BRA") and to and int(to.group(1), 16) < addr:
+                loops.append((int(to.group(1), 16), addr))
+        counts = {}
+        for addr, op, _ in ins:
+            if op.split(".")[0] in SASS_OPS:
+                counts[op] = counts.get(op, 0) + 1
+                if any(lo <= addr <= hi for lo, hi in loops):
+                    counts[op + " in loops"] = \
+                        counts.get(op + " in loops", 0) + 1
+        out[m.group(0)] = dict(sorted(counts.items()))
+    need(out, f"no paged-attention kernel in the SASS of {src}: "
+         f"{shown[:3]}")
+    return dict(sorted(out.items()))
 
 
 def rates(entry, nbytes):
@@ -1597,15 +1673,21 @@ def paged_int8_phase_full(torch, PA, Q, cfg, page_size, max_tokens):
     bit; kernel, plain and library times (the library: the block-table
     gather, dequantization, then scaled_dot_product_attention). bound_ms
     counts each live page's int8 K and V and its scales once, q and the
-    fp32 output."""
+    fp32 output. With --parent, the parent's int8 bodies run in turns with
+    this checkout's at the wrapper's split and warps, and the two must give
+    the same bits. Then K3 at splits of 64 and 128 keys and K4 at 1, 2 and
+    4 warps per CTA, through the C entries, each against the plain version
+    and its own repeat."""
     import torch.nn.functional as F
     bf = torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(4)
     Hq, Hkv, hd, ps = cfg.num_heads, cfg.num_kv_heads, \
         cfg.resolved_head_dim(), page_size
+    G_ = Hq // Hkv
     P, S = max_tokens // ps, max_tokens
     page_bytes = PA.page_bytes(cfg.with_overrides(kv_quant="int8"), ps)
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    lib, stream = PA._lib(), torch.cuda.current_stream().cuda_stream
     out = {}
 
     def deq(pool, bt, B):
@@ -1616,6 +1698,35 @@ def paged_int8_phase_full(torch, PA, Q, cfg, page_size, max_tokens):
              * pool["v_scales"][bt][:, :, None, :, None]).to(bf)
         return (k.reshape(B, S, Hkv, hd).transpose(1, 2),
                 v.reshape(B, S, Hkv, hd).transpose(1, 2))
+
+    def pool_args(pool):
+        return (pool["k_pages"], pool["v_pages"], pool["k_scales"],
+                pool["v_scales"])
+
+    def sweep(what, make, ref, settings):
+        """{setting: ms} of the C entry's launch `make(setting)()`, each
+        against the plain version and a second launch of itself."""
+        ms = {}
+        for x in settings:
+            run = make(x)
+            first = run().clone()
+            need(torch.allclose(first, ref, rtol=PAGED_TOL_BF16,
+                                atol=PAGED_TOL_BF16) and
+                 torch.equal(first, run()),
+                 f"{what} int8 {cfg.name} at {x}: off the plain version or "
+                 "not repeatable")
+            ms[x] = time_ms(torch, run, flush)
+        return ms
+
+    def against_parent(what, entry, o_par, got):
+        """With --parent: the parent's body at the same split and warps
+        must give this one's bits."""
+        if not PARENT:
+            return ""
+        entry["parent_bits_equal"] = torch.equal(o_par, got)
+        need(entry["parent_bits_equal"],
+             f"{what} int8 {cfg.name}: the parent's body gave other bits")
+        return "; the parent's body: bits equal"
 
     t = torch.tensor([64 + 31, 448 + 31, 128 + 31, 320 + 31],
                      dtype=torch.int32, device="cuda")
@@ -1632,17 +1743,50 @@ def paged_int8_phase_full(torch, PA, Q, cfg, page_size, max_tokens):
                                               attn_mask=mask[:, None, None],
                                               enable_gqa=Hq != Hkv)
 
+    def decode_at(split_pages):
+        """The output and the operands of K3's int8 C entry at
+        `split_pages` pages a split."""
+        splits = -(-P // split_pages)
+        o = torch.empty(B, Hq, hd, device="cuda")
+        ws = torch.empty(B * Hkv * splits * G_ * (hd + 2), device="cuda")
+        cnt = torch.zeros(B * Hkv, dtype=torch.int32, device="cuda")
+        return o, (q, *pool_args(clean), bt, t, ws, cnt, o, B, Hkv, G_, hd,
+                   ps, P, split_pages, splits, 0, 0.0)
+
+    def decode_c(keys):
+        o, args = decode_at(max(1, keys // ps))
+
+        def run():        # holds `args`: the workspace and the counters
+            rc = lib.paged_attn_decode_i8_bf16(*(
+                a.data_ptr() if isinstance(a, torch.Tensor) else a
+                for a in args), stream)
+            need(rc == 0, f"K3 int8 C entry: cudaError {rc}")
+            return o
+        return run
+
     live, _ = PA.decode_tick_pages(t.tolist(), [True] * B, ps, B, P)
     keys = sum(int(x) + 1 for x in t.tolist())
+    pages, splits = PA.decode_splits(P, ps)
+    o_par, par_args = decode_at(pages)
     entry = _paged_entry(
         torch, flush, lambda: _i8_call(PA.paged_attn_decode, q, clean, bt, t),
         lambda: _i8_call(PA.paged_attn_decode_plain, q, clean, bt, t),
         lib_decode, live * page_bytes + B * Hq * hd * (2 + 4),
         4 * Hq * hd * keys, f"int8 pages, B={B} t={t.tolist()} Hq={Hq} "
-        f"Hkv={Hkv} hd={hd} ps={ps} P={P}, {live} live pages")
-    need(torch.equal(_i8_call(PA.paged_attn_decode, q, clean, bt, t),
-                     _i8_call(PA.paged_attn_decode, q, dirty, bt, t)),
+        f"Hkv={Hkv} hd={hd} ps={ps} P={P}, {live} live pages",
+        parent_call(torch, "paged_attn", "paged_attn_decode_i8_bf16",
+                    *par_args))
+    got = _i8_call(PA.paged_attn_decode, q, clean, bt, t)
+    need(torch.equal(got, _i8_call(PA.paged_attn_decode, q, dirty, bt, t)),
          f"K3 int8 {cfg.name}: a dead page's NaN scale reached the output")
+    entry.update(pages_per_split=pages, splits=splits, ctas=Hkv * B * splits)
+    said = against_parent("K3", entry, o_par, got)
+    entry["split_keys_ms"] = sweep(
+        "K3", decode_c, _i8_call(PA.paged_attn_decode_plain, q, clean, bt, t),
+        (64, 128))
+    print(f"[paged int8] {cfg.name} K3: {pages} pages x {splits} splits, "
+          f"{Hkv * B * splits} CTAs; ms by keys a split "
+          f"{entry['split_keys_ms']}{said}", flush=True)
     out["paged_attn_decode_int8"] = entry
 
     start, kv_len, Cs = 320, 448, 128
@@ -1660,8 +1804,22 @@ def paged_int8_phase_full(torch, PA, Q, cfg, page_size, max_tokens):
                                               attn_mask=cmask[None, None],
                                               enable_gqa=Hq != Hkv)
 
+    def chunk_c(w):
+        o = torch.empty(1, Cs, Hq, hd, device="cuda")
+        args = (qc, *pool_args(clean), bt, o)
+
+        def run():
+            rc = lib.paged_attn_chunk_i8_bf16(
+                *(a.data_ptr() for a in args), 1, Cs, Hkv, G_, hd, ps, P,
+                start, kv_len, 0, 0.0, w, stream)
+            need(rc == 0, f"K4 int8 C entry at {w} warps: cudaError {rc}")
+            return o
+        return run
+
     live = -(-kv_len // ps)
     keys = sum(min(p + 1, kv_len) for p in range(start, start + Cs))
+    warps = PA.chunk_warps(Cs * G_)
+    o_par = torch.empty(1, Cs, Hq, hd, device="cuda")
     entry = _paged_entry(
         torch, flush,
         lambda: _i8_call(PA.paged_attn_chunk, qc, clean, bt, start, kv_len),
@@ -1670,12 +1828,21 @@ def paged_int8_phase_full(torch, PA, Q, cfg, page_size, max_tokens):
         lib_chunk, live * page_bytes + Cs * Hq * hd * (2 + 4),
         4 * Hq * hd * keys, f"int8 pages, B=1 Cs={Cs} start={start} "
         f"kv_len={kv_len} Hq={Hq} Hkv={Hkv} hd={hd} ps={ps}, {live} live "
-        "pages")
+        "pages",
+        parent_call(torch, "paged_attn", "paged_attn_chunk_i8_bf16", qc,
+                    *pool_args(clean), bt, o_par, 1, Cs, Hkv, G_, hd, ps, P,
+                    start, kv_len, 0, 0.0, warps))
+    got = _i8_call(PA.paged_attn_chunk, qc, clean, bt, start, kv_len)
     need(torch.equal(
-        _i8_call(PA.paged_attn_chunk, qc, clean, bt, start, kv_len),
-        _i8_call(PA.paged_attn_chunk, qc, dirty, bt, start, kv_len)),
+        got, _i8_call(PA.paged_attn_chunk, qc, dirty, bt, start, kv_len)),
         f"K4 int8 {cfg.name}: a dead page's NaN scale reached the output")
-    entry["warps"] = PA.chunk_warps(Cs * (Hq // Hkv))
+    entry["warps"] = warps
+    said = against_parent("K4", entry, o_par, got)
+    entry["warps_ms"] = sweep(
+        "K4", chunk_c, _i8_call(PA.paged_attn_chunk_plain, qc, clean, bt,
+                                start, kv_len), (1, 2, 4))
+    print(f"[paged int8] {cfg.name} K4: {entry['warps']} warps a CTA; ms by "
+          f"warps per CTA {entry['warps_ms']}{said}", flush=True)
     out["paged_attn_chunk_int8"] = entry
     print(f"[paged int8] {cfg.name} K3/K4 at full width: NaN dead-page "
           "scales and +-127 unreadable values move no bit", flush=True)
@@ -2396,6 +2563,15 @@ def main():
     for n, src in zip(PARENT_SOURCES, extra):
         PARENT[n] = build.load_path(src)
         print(f"[build] parent body {src}: timed in turns", flush=True)
+    # conversion instructions in the paged-attention bodies, this
+    # checkout's and the parent's
+    sass = {"change": sass_conversions(build, build.CSRC / "paged_attn.cu")}
+    if "paged_attn" in PARENT:
+        sass["parent"] = sass_conversions(
+            build, extra[PARENT_SOURCES.index("paged_attn")])
+    for side, by_kernel in sass.items():
+        for k, c in by_kernel.items():
+            print(f"[sass] {side} {k}: {json.dumps(c)}", flush=True)
     for name, log in build.BUILD_LOG.items():
         for line in log.splitlines():
             if "registers" in line or "Compiling entry" in line:
@@ -2437,10 +2613,14 @@ def main():
                                       ENGINE_POOL["page_size"],
                                       ENGINE_POOL["max_tokens"]) for m in cfgs}
     for name, entry in paged[llama].items():
+        body = "decode_split" if "decode" in name else "chunk_tc"
         timings[name] = {**entry, "granite": paged[granite][name],
                          "small_max_abs_err": int8_small,
                          "tol": {"fp32_q": PAGED_TOL_I8_F32,
-                                 "bf16_q": PAGED_TOL_BF16}}
+                                 "bf16_q": PAGED_TOL_BF16},
+                         "sass": {side: {k: c for k, c in by_kernel.items()
+                                         if body in k}
+                                  for side, by_kernel in sass.items()}}
     del paged
     timings["slstm_seq"] = slstm_phase(torch, SC)
     torch.cuda.empty_cache()
@@ -2545,7 +2725,8 @@ def main():
             "warps", "warps_ms", "pages_per_split", "splits", "ctas",
             "cluster", "cluster_capacity", "fp32_r",
             "small_max_abs_err", "g_rel_err", "small_g_rel_err",
-            "before_ms", "splits", "split_rows", "one_cta_ms")
+            "before_ms", "splits", "split_rows", "one_cta_ms",
+            "split_keys_ms", "parent_bits_equal", "sass")
             if k in main_t})
         if "decode" in timings[name]:
             entry["shape"] = "prefill " + main_t["shape"]

@@ -79,9 +79,10 @@
 // CTAs at both served chunk shapes) walks key tiles of chunk_kt keys (64,
 // or 32 at head_dim 256: several pages of 16), each gathered through the
 // block table with 16-byte cp.async copies into a ring of chunk_stages
-// (3, or 2 at head_dim 256), so later tiles' loads overlap this tile's
-// math under one __syncthreads per tile; keys outside the block's live
-// range are zero-filled by the copy (src-size 0) and never read.
+// (3, or 2 at head_dim 256 and on int8 pages), so later tiles' loads
+// overlap this tile's math under one __syncthreads per tile; keys outside
+// the block's live range are zero-filled by the copy (src-size 0) and
+// never read.
 // S = Q K^T runs on mma.sync m16n8k16 (bf16 in, fp32 accumulate; K by
 // ldmatrix), then the scale, the softcap and the masks in fp32 registers;
 // a masked score is -inf against a running max that starts at the
@@ -101,22 +102,38 @@
 // the reference the dequantized V is fp32, so p is not rounded to the page
 // dtype before PV. A key's scales are read only where the key is live
 // (else 0), so a NaN scale on a dead page or the null page never reaches an
-// output. K3: a lane loads the K and V scale of its own key's page through
-// the staged block-table entries; the K scale multiplies its fp32 scores,
-// the V scale its p before the PV sum (p * s_v, with l summing p). fp32
+// output. No body converts an int8 value with a conversion instruction
+// (I2F runs at an eighth of the FP32 rate on Hopper): i8_f32 flips the
+// sign bits of four bytes with one LOP3, puts each byte into the low
+// mantissa of 2^23 with one PRMT and subtracts 2^23 + 128 with one FADD,
+// which gives exactly (float)x; bf16_pair_exact packs two such floats'
+// high halves, their exact bf16, with one PRMT. K3: each warp copies the
+// split's per-page K and V scales into shared memory in its first tile's
+// cp.async group, after the tile's rows (0 for a page that holds no key
+// the row may see), and a lane reads its own key's there; the K scale
+// multiplies its fp32 scores, the V scale its p before the PV sum (p *
+// s_v, with l summing p). The split is the bf16 pages' (128 keys were no
+// faster at llama's decode and ~30% slower at granite's; PERF.md). fp32
 // K4: one page per key tile, its two scales loaded once per tile, the same
-// two multiplies. bf16 K4: the cp.async ring stages int8 tiles and each
-// key's two scales (4-byte cp.async, zero-filled for dead keys); after a
-// tile lands the CTA widens it into one bf16 K and one bf16 V tile (every
-// int8 value is an integer of magnitude <= 127, exact in bf16) that
-// ldmatrix reads as before. Widening once per CTA, not in each warp's
-// fragment loads, converts each value once instead of once per warp, and
-// keeps V's transposed fragments on ldmatrix.trans (an int8 fragment would
-// need byte gathers from two rows per register); it costs one more
-// __syncthreads per tile and 2 x KT bf16 rows of shared memory. The K
-// scale multiplies S per key column in fp32 registers before the softcap
-// and masks; the V scale is folded into P before P is rounded to bf16,
-// with l summing the unscaled p.
+// two multiplies. bf16 K4: the cp.async ring stages int8 tiles (half the
+// bytes of bf16 ones) and each key's two scales (4-byte cp.async,
+// zero-filled for dead keys), and each landed tile is widened, with a copy
+// of its scales, into one of two bf16 K and V tile pairs that ldmatrix
+// reads as before. Widening once per CTA, not in each warp's fragment
+// loads, converts each value once instead of once per warp and keeps V's
+// transposed fragments on ldmatrix.trans. The CTA has W producer warps
+// beside its W attending warps: in the step of tile t the producers load
+// tile t + STAGES into the ring slot of tile t (widened a step earlier)
+// and widen tile t + 1 into the other bf16 pair while the W warps run S
+// and PV on tile t, and one __syncthreads ends the step, freeing the ring
+// slot and the bf16 pair. Widening so overlaps the tensor-core work
+// instead of preceding it behind a second barrier, at the cost of 4 x KT
+// bf16 rows of shared memory (with a 2-slot int8 ring, 123 KiB a CTA at
+// head_dim 128) and twice the threads a CTA (an SM holds one such CTA at
+// the served chunks either way). The K scale multiplies S
+// per key column in fp32 registers before the softcap and masks; the V
+// scale is folded into P before P is rounded to bf16, with l summing the
+// unscaled p.
 //
 // C interface: each entry point launches on the given stream and returns
 // cudaGetLastError() as an int (0 = launched); an unsupported head_dim
@@ -135,12 +152,33 @@ constexpr int THREADS = 128;       // 4 warps
 constexpr int MAX_ROWS = 16;       // (query, head) rows per block
 constexpr float NEG_INF = -1e30f;  // the reference's finite mask value
 
+// int8 -> fp32 without a conversion instruction (Hopper issues I2F at 16 a
+// clock per SM, FADD at 128). A word's four bytes x flip to x + 128 in
+// 0..255 (one LOP3, i8_flip); byte k of the flipped word becomes the low
+// mantissa byte of 2^23 (one PRMT), and one FADD takes 2^23 + 128 off
+// (i8_f32). Exact for every byte, the float (float)x gives.
+__device__ __forceinline__ unsigned i8_flip(unsigned w) {
+  return w ^ 0x80808080u;
+}
+
+__device__ __forceinline__ float i8_f32(unsigned flipped, int k) {
+  return __uint_as_float(__byte_perm(flipped, 0x4B000000u, 0x7540 | k)) -
+         8388736.0f;
+}
+
+// two i8_f32 values as a bf16 pair, lo in the low half (one PRMT): an
+// integer of magnitude <= 128 has at most 8 significant bits, so the high
+// half of its float is its exact bf16
+__device__ __forceinline__ unsigned bf16_pair_exact(float lo, float hi) {
+  return __byte_perm(__float_as_uint(lo), __float_as_uint(hi), 0x7632);
+}
+
 template <typename T>
 __device__ __forceinline__ float to_float(T v) {
   if constexpr (std::is_same<T, float>::value) {
     return v;
   } else if constexpr (std::is_same<T, int8_t>::value) {
-    return (float)v;
+    return i8_f32(i8_flip((unsigned)(uint8_t)v), 0);
   } else {
     return __bfloat162float(v);
   }
@@ -355,21 +393,25 @@ __host__ __device__ constexpr int chunk_kt() {  // keys per K/V tile
   return HD > 128 ? 32 : 64;
 }
 
-template <int HD>
-__host__ __device__ constexpr int chunk_stages() {  // K/V ring depth
-  return HD > 128 ? 2 : 3;
+// K/V ring depth: 3, or 2 at head_dim 256 and on int8 pages, whose two
+// bf16 tile pairs hold the tile ahead (a third int8 slot made the CTA's
+// shared memory 141 KiB at head_dim 128, slower inside the engine's chunk
+// tick though faster alone; PERF.md)
+template <int HD, typename KV>
+__host__ __device__ constexpr int chunk_stages() {
+  return HD > 128 || is_i8<KV>() ? 2 : 3;
 }
 
 // Q rows, then the K and V rings of KV rows; rows padded by 16 bytes so
 // ldmatrix's eight row reads of a matrix fall in distinct banks. int8
-// pages add the bf16 K and V tiles they widen into and the rings of the
-// keys' K and V scales.
+// pages add two bf16 K and two bf16 V tiles they widen into, the rings of
+// the keys' K and V scales and the two tiles' copies of them.
 template <int HD, typename KV>
 __host__ __device__ constexpr int chunk_smem_bytes(int warps) {
-  constexpr int KT = chunk_kt<HD>(), ST = chunk_stages<HD>();
+  constexpr int KT = chunk_kt<HD>(), ST = chunk_stages<HD, KV>();
   if constexpr (is_i8<KV>()) {
-    return (16 * warps + 2 * KT) * (HD + 8) * 2 + 2 * ST * KT * (HD + 16) +
-           2 * ST * KT * 4;
+    return (16 * warps + 4 * KT) * (HD + 8) * 2 + 2 * ST * KT * (HD + 16) +
+           2 * (ST + 2) * KT * 4;
   } else {
     return (16 * warps + 2 * ST * KT) * (HD + 8) * 2;
   }
@@ -402,17 +444,18 @@ __device__ __forceinline__ void cp_async4(void* dst, const void* src,
 }
 
 // 16 int8 values (one 16-byte load) widened to 16 bf16 (two 16-byte
-// stores); every int8 value is exact in bf16
+// stores) by i8_f32 and bf16_pair_exact: no conversion instruction, and
+// every int8 value is exact in bf16
 __device__ __forceinline__ void widen16(const int8_t* src,
                                         __nv_bfloat16* dst) {
   const uint4 v = *reinterpret_cast<const uint4*>(src);
-  const unsigned w[4] = {v.x, v.y, v.z, v.w};
+  const unsigned w[4] = {i8_flip(v.x), i8_flip(v.y), i8_flip(v.z),
+                         i8_flip(v.w)};
   unsigned o[8];
 #pragma unroll
   for (int i = 0; i < 8; ++i) {
-    const unsigned x = w[i / 2] >> (16 * (i % 2));
-    o[i] = pack_bf16((float)(int8_t)(x & 0xff),
-                     (float)(int8_t)((x >> 8) & 0xff));
+    const int k = 2 * (i % 2);
+    o[i] = bf16_pair_exact(i8_f32(w[i / 2], k), i8_f32(w[i / 2], k + 1));
   }
   reinterpret_cast<uint4*>(dst)[0] = make_uint4(o[0], o[1], o[2], o[3]);
   reinterpret_cast<uint4*>(dst)[1] = make_uint4(o[4], o[5], o[6], o[7]);
@@ -464,11 +507,19 @@ __device__ __forceinline__ void chunk_key_range(int row0, int nrows, int G,
   first = window > 0 ? max(0, start + q_first - window + 1) : 0;
 }
 
+// threads of K4's tensor-core CTA: W warps, and on int8 pages as many
+// producer warps beside them
+template <int W, typename KV>
+__host__ __device__ constexpr int chunk_threads() {
+  return 32 * W * (is_i8<KV>() ? 2 : 1);
+}
+
 // K4, bf16 q: one CTA of W warps per (kv head h, row b, block of 16 W
-// (query, head) rows); see the header. Pages of type KV: bf16, or int8
-// with scales.
+// (query, head) rows), and on int8 pages W producer warps; see the
+// header. Pages of type KV: bf16, or int8 with scales.
 template <int HD, int W, typename KV>
-__global__ void __launch_bounds__(32 * W) paged_chunk_tc_kernel(
+__global__ void __launch_bounds__(chunk_threads<W, KV>())
+    paged_chunk_tc_kernel(
     const __nv_bfloat16* __restrict__ q,       // [B, Cs, Hkv * G, HD]
     const KV* __restrict__ k_pages,            // [NP, ps, Hkv, HD]
     const KV* __restrict__ v_pages,            // [NP, ps, Hkv, HD]
@@ -481,23 +532,26 @@ __global__ void __launch_bounds__(32 * W) paged_chunk_tc_kernel(
   using bf16 = __nv_bfloat16;
   constexpr bool Q8 = is_i8<KV>();
   constexpr int KT = chunk_kt<HD>();
-  constexpr int STAGES = chunk_stages<HD>();
+  constexpr int STAGES = chunk_stages<HD, KV>();
   constexpr int LD = HD + 8;                 // bf16 smem row stride
   constexpr int LDR = HD + 16 / (int)sizeof(KV);  // ring row stride
   constexpr int QCPR = HD / 8;               // 16-byte chunks per Q row
   constexpr int CPR = HD * (int)sizeof(KV) / 16;  // ... per ring row
   constexpr int VE = 16 / (int)sizeof(KV);   // ring elements per chunk
-  constexpr int NT = 32 * W;                 // threads
+  constexpr int NT = 32 * W;                 // threads of the W warps
   constexpr int DN = HD / 8;                 // 8-wide output column tiles
   extern __shared__ __align__(16) unsigned char dsmem[];
   bf16* sq = reinterpret_cast<bf16*>(dsmem);           // [16 W][LD]
   KV* sk = reinterpret_cast<KV*>(sq + 16 * W * LD);     // [STAGES][KT][LDR]
   KV* sv = sk + STAGES * KT * LDR;                      // [STAGES][KT][LDR]
-  // int8 pages: the widened bf16 K and V tiles, the keys' scales
-  bf16* wk = reinterpret_cast<bf16*>(sv + STAGES * KT * LDR);  // [KT][LD]
-  bf16* wv = wk + KT * LD;                                     // [KT][LD]
-  float* sks = reinterpret_cast<float*>(wv + KT * LD);  // [STAGES][KT]
-  float* svs = sks + STAGES * KT;                       // [STAGES][KT]
+  // int8 pages: two widened bf16 K and V tiles, the keys' scale rings and
+  // the two tiles' copies of their scales
+  bf16* wk = reinterpret_cast<bf16*>(sv + STAGES * KT * LDR);  // [2][KT][LD]
+  bf16* wv = wk + 2 * KT * LD;                                 // [2][KT][LD]
+  float* sks = reinterpret_cast<float*>(wv + 2 * KT * LD);  // [STAGES][KT]
+  float* svs = sks + STAGES * KT;                           // [STAGES][KT]
+  float* wks = svs + STAGES * KT;                           // [2][KT]
+  float* wvs = wks + 2 * KT;                                // [2][KT]
 
   const int h = blockIdx.x, b = blockIdx.y;
   const int Hq = Hkv * G;
@@ -506,6 +560,10 @@ __global__ void __launch_bounds__(32 * W) paged_chunk_tc_kernel(
   const int nrows = min(16 * W, R - row0);
   const int tid = threadIdx.x, warp = tid / 32, lane = tid % 32;
   const int g8 = lane / 4, tig = lane % 4;
+  // int8 pages: warps W.. load and widen the tiles (thread ltid of NT),
+  // warps 0..W-1 attend; bf16 pages: every warp does both
+  const bool producer = Q8 && warp >= W;
+  const int ltid = Q8 ? tid - NT : tid;
 
   int first_key, last_key;
   chunk_key_range(row0, nrows, G, start, kv_len, window, ps, P, first_key,
@@ -522,7 +580,7 @@ __global__ void __launch_bounds__(32 * W) paged_chunk_tc_kernel(
                     w_last);
 
   // Q rows -> shared (zeros past R)
-  for (int c = tid; c < 16 * W * QCPR; c += NT) {
+  for (int c = ltid; c < 16 * W * QCPR && (!Q8 || producer); c += NT) {
     const int r = c / QCPR, cc = (c % QCPR) * 8;
     const int gr = row0 + r;
     const bool live = gr < R;
@@ -534,7 +592,7 @@ __global__ void __launch_bounds__(32 * W) paged_chunk_tc_kernel(
     KV* dk = sk + slot * KT * LDR;
     KV* dv = sv + slot * KT * LDR;
 #pragma unroll 4
-    for (int c = tid; c < KT * CPR; c += NT) {
+    for (int c = ltid; c < KT * CPR; c += NT) {
       const int kk = c / CPR, cc = (c % CPR) * VE;
       const int pos = t * KT + kk;
       const bool live = pos >= first_key && pos <= last_key;
@@ -548,7 +606,7 @@ __global__ void __launch_bounds__(32 * W) paged_chunk_tc_kernel(
     }
     if constexpr (Q8) {
       // each key's scales, zero-filled (never read) for a dead key
-      for (int kk = tid; kk < KT; kk += NT) {
+      for (int kk = ltid; kk < KT; kk += NT) {
         const int pos = t * KT + kk;
         const bool live = pos >= first_key && pos <= last_key;
         size_t src = 0;
@@ -558,11 +616,44 @@ __global__ void __launch_bounds__(32 * W) paged_chunk_tc_kernel(
       }
     }
   };
-  // groups: Q and the first tile, then one tile each
+  // int8 pages: the landed int8 tile of loop step `it` (ring slot it %
+  // STAGES) and its keys' scales, widened into bf16 tile `buf`
+  auto widen = [&](int it, int buf) {
+    const KV* rk = sk + (it % STAGES) * KT * LDR;
+    const KV* rv = sv + (it % STAGES) * KT * LDR;
+    bf16* dk = wk + buf * KT * LD;
+    bf16* dv = wv + buf * KT * LD;
+    for (int c = ltid; c < KT * CPR; c += NT) {
+      const int kk = c / CPR, cc = (c % CPR) * VE;
+      widen16(reinterpret_cast<const int8_t*>(rk) + kk * LDR + cc,
+              dk + kk * LD + cc);
+      widen16(reinterpret_cast<const int8_t*>(rv) + kk * LDR + cc,
+              dv + kk * LD + cc);
+    }
+    for (int kk = ltid; kk < KT; kk += NT) {
+      wks[buf * KT + kk] = sks[(it % STAGES) * KT + kk];
+      wvs[buf * KT + kk] = svs[(it % STAGES) * KT + kk];
+    }
+  };
+  // groups: Q and the first tile, then one tile each. int8 pages: the
+  // producers fill every slot of the ring and widen the first tile
+  if constexpr (Q8) {
+    if (producer) {
 #pragma unroll
-  for (int j = 0; j < STAGES - 1; ++j) {
-    if (t_lo + j <= t_hi) load_tile(t_lo + j, j);
-    cp_async_commit();
+      for (int j = 0; j < STAGES; ++j) {
+        if (t_lo + j <= t_hi) load_tile(t_lo + j, j);
+        cp_async_commit();
+      }
+      cp_async_wait<STAGES - 1>();           // Q and the first tile landed
+      if (t_lo <= t_hi) widen(0, 0);
+    }
+    __syncthreads();
+  } else {
+#pragma unroll
+    for (int j = 0; j < STAGES - 1; ++j) {
+      if (t_lo + j <= t_hi) load_tile(t_lo + j, j);
+      cp_async_commit();
+    }
   }
 
   // per-thread rows: g8 and g8 + 8 of the warp's 16
@@ -580,39 +671,39 @@ __global__ void __launch_bounds__(32 * W) paged_chunk_tc_kernel(
 
   for (int t = t_lo; t <= t_hi; ++t) {
     const int it = t - t_lo;
-    cp_async_wait<STAGES - 2>();             // tile t (and Q) have landed
-    __syncthreads();     // ... for every thread; slot (it - 1) is free again
-    if (t + STAGES - 1 <= t_hi)
-      load_tile(t + STAGES - 1, (it + STAGES - 1) % STAGES);
-    cp_async_commit();
-    if (it == 0) {
+    const bf16* tk;
+    const bf16* tvv;
+    if constexpr (Q8) {
+      // the barrier that ended the previous step: tile t is widened in bf16
+      // tile it % 2, its ring slot it % STAGES and bf16 tile (it + 1) % 2
+      // are free. The producers load tile t + STAGES and widen tile t + 1
+      // while the W warps attend to tile t
+      if (producer) {
+        if (t + STAGES <= t_hi) load_tile(t + STAGES, it % STAGES);
+        cp_async_commit();
+        cp_async_wait<STAGES - 1>();         // tile t + 1 has landed
+        if (t + 1 <= t_hi) widen(it + 1, (it + 1) % 2);
+      }
+      tk = wk + (it % 2) * KT * LD;
+      tvv = wv + (it % 2) * KT * LD;
+    } else {
+      cp_async_wait<STAGES - 2>();           // tile t (and Q) have landed
+      __syncthreads();   // ... for every thread; slot (it - 1) is free again
+      if (t + STAGES - 1 <= t_hi)
+        load_tile(t + STAGES - 1, (it + STAGES - 1) % STAGES);
+      cp_async_commit();
+      tk = sk + (it % STAGES) * KT * LD;
+      tvv = sv + (it % STAGES) * KT * LD;
+    }
+    if (it == 0 && !producer) {
 #pragma unroll
       for (int ks = 0; ks < HD / 16; ++ks)
         ldmatrix_x4(qa[ks], sq + (warp * 16 + lane % 16) * LD + ks * 16 +
                                 (lane / 16) * 8);
     }
-    const bf16* tk;
-    const bf16* tvv;
-    if constexpr (Q8) {
-      // widen the landed int8 tile into the bf16 tiles; the top barrier
-      // above freed them (every warp has finished the previous tile)
-      const KV* rk = sk + (it % STAGES) * KT * LDR;
-      const KV* rv = sv + (it % STAGES) * KT * LDR;
-      for (int c = tid; c < KT * CPR; c += NT) {
-        const int kk = c / CPR, cc = (c % CPR) * VE;
-        widen16(rk + kk * LDR + cc, wk + kk * LD + cc);
-        widen16(rv + kk * LDR + cc, wv + kk * LD + cc);
-      }
-      __syncthreads();
-      tk = wk;
-      tvv = wv;
-    } else {
-      tk = sk + (it % STAGES) * KT * LD;
-      tvv = sv + (it % STAGES) * KT * LD;
-    }
-    const float* tks = sks + (it % STAGES) * KT;
-    const float* tvs = svs + (it % STAGES) * KT;
-    const bool sees = wrows > 0 && t * KT <= w_last &&
+    const float* tks = wks + (it % 2) * KT;
+    const float* tvs = wvs + (it % 2) * KT;
+    const bool sees = !producer && wrows > 0 && t * KT <= w_last &&
                       (t + 1) * KT - 1 >= w_first;
     if (sees) {
       // S = Q K^T: KT / 8 column tiles of 8 keys
@@ -695,8 +786,10 @@ __global__ void __launch_bounds__(32 * W) paged_chunk_tc_kernel(
         }
       }
     }
+    if constexpr (Q8) __syncthreads();      // the step's one barrier
   }
   cp_async_wait<0>();
+  if (producer) return;
 
 #pragma unroll
   for (int i = 0; i < 2; ++i) {
@@ -742,8 +835,8 @@ __host__ __device__ constexpr int dec_smem_bytes(int G, int slots) {
 }
 
 // N consecutive elements of a shared-memory row, widened to fp32: one
-// aligned load of N * sizeof(T) bytes (two at 32 bytes); int8 in 16-byte
-// or 4-byte words, or bytes below 4
+// aligned load of N * sizeof(T) bytes (two at 32 bytes); int8 in 16-byte,
+// 4-byte, 2-byte or 1-byte words, widened by i8_f32
 template <typename T, int N>
 __device__ __forceinline__ void load_f32(const T* p, float (&f)[N]) {
   if constexpr (is_i8<T>()) {
@@ -751,22 +844,29 @@ __device__ __forceinline__ void load_f32(const T* p, float (&f)[N]) {
 #pragma unroll
       for (int i = 0; i < N; i += 16) {
         const uint4 v = *reinterpret_cast<const uint4*>(p + i);
-        const unsigned w[4] = {v.x, v.y, v.z, v.w};
+        const unsigned w[4] = {i8_flip(v.x), i8_flip(v.y), i8_flip(v.z),
+                               i8_flip(v.w)};
 #pragma unroll
-        for (int k = 0; k < 16; ++k)
-          f[i + k] = (float)(int8_t)((w[k / 4] >> (8 * (k % 4))) & 0xff);
+        for (int k = 0; k < 16; ++k) f[i + k] = i8_f32(w[k / 4], k % 4);
       }
     } else if constexpr (N % 4 == 0) {
 #pragma unroll
       for (int i = 0; i < N; i += 4) {
-        const unsigned w = *reinterpret_cast<const unsigned*>(p + i);
+        const unsigned w =
+            i8_flip(*reinterpret_cast<const unsigned*>(p + i));
 #pragma unroll
-        for (int k = 0; k < 4; ++k)
-          f[i + k] = (float)(int8_t)((w >> (8 * k)) & 0xff);
+        for (int k = 0; k < 4; ++k) f[i + k] = i8_f32(w, k);
       }
     } else {
+      static_assert(N <= 2, "int8 loads of 1, 2 or a multiple of 4");
+      unsigned w;
+      if constexpr (N == 2) {
+        w = i8_flip(*reinterpret_cast<const unsigned short*>(p));
+      } else {
+        w = i8_flip(*reinterpret_cast<const uint8_t*>(p));
+      }
 #pragma unroll
-      for (int i = 0; i < N; ++i) f[i] = (float)p[i];
+      for (int k = 0; k < N; ++k) f[k] = i8_f32(w, k);
     }
   } else if constexpr (std::is_same<T, float>::value) {
     if constexpr (N % 4 == 0) {
@@ -846,6 +946,8 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) paged_decode_split_kernel(
   extern __shared__ __align__(16) unsigned char dsmem[];
   __shared__ int s_last;
   __shared__ int s_page[DEC_MAX_PAGES];       // the split's physical pages
+  // int8 pages: each warp's copy of the split's K and V scales, by page
+  __shared__ float s_scale[is_i8<KV>() ? DEC_WARPS * 2 * DEC_MAX_PAGES : 1];
   KV* skv = reinterpret_cast<KV*>(dsmem);     // [W][slots][K, V][TILE][LD]
   float* sq = reinterpret_cast<float*>(skv + DEC_WARPS * slots * 2 *
                                                  DEC_TILE * LD);  // [G][HD]
@@ -887,7 +989,13 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) paged_decode_split_kernel(
     KV* wkv = skv + warp * slots * 2 * DEC_TILE * LD;
 
     // gather tile `it` into slot it % slots: lane r finds key r's row,
-    // then the warp copies the rows 16 bytes a lane, zero-filling dead keys
+    // then the warp copies the rows 16 bytes a lane, zero-filling dead keys.
+    // int8 pages: the first tile's group also copies the split's per-page
+    // K and V scales into the warp's own slice of s_scale, after the rows
+    // (copied before them, they made the launch slower than the parent's
+    // per-lane global loads; PERF.md); a page that holds no key the row may
+    // see gets 0, its scale never read, so a NaN there reaches nothing
+    float* wsc = s_scale + (is_i8<KV>() ? warp * 2 * DEC_MAX_PAGES : 0);
     auto issue = [&](int it) {
       const int pos = sb + (j0 + it * DEC_WARPS) * DEC_TILE + lane;
       const bool live = pos >= klo && pos <= khi;
@@ -905,6 +1013,15 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) paged_decode_split_kernel(
         const int ok = __shfl_sync(0xffffffffu, (int)live, r);
         cp_async16(dk + r * LD + cc, k_pages + src + cc, ok ? 16 : 0);
         cp_async16(dv + r * LD + cc, v_pages + src + cc, ok ? 16 : 0);
+      }
+      if constexpr (is_i8<KV>()) {
+        for (int i = lane; i < split_pages && it == 0; i += 32) {
+          const int k0 = sb + i * ps;         // the page's first key
+          const bool used = k0 <= khi && k0 + ps - 1 >= klo;
+          const size_t at = used ? (size_t)s_page[i] * Hkv + h : 0;
+          cp_async4(wsc + i, k_scales + at, used ? 4 : 0);
+          cp_async4(wsc + DEC_MAX_PAGES + i, v_scales + at, used ? 4 : 0);
+        }
       }
       cp_async_commit();
     };
@@ -925,21 +1042,21 @@ __global__ void __launch_bounds__(DEC_WARPS * 32) paged_decode_split_kernel(
     for (int it = 0; it < ntiles; ++it) {
       const int pos = sb + (j0 + it * DEC_WARPS) * DEC_TILE + lane;
       const bool live = pos >= klo && pos <= khi;
-      // int8 pages: this lane's key's scales, read only for a live key
-      float ksc = 0.0f, vsc = 0.0f;
-      if constexpr (is_i8<KV>()) {
-        if (live) {
-          const size_t at = (size_t)s_page[(pos - sb) / ps] * Hkv + h;
-          ksc = k_scales[at];
-          vsc = v_scales[at];
-        }
-      }
       if (issued > it + 1) {
         cp_async_wait<1>();
       } else {
         cp_async_wait<0>();
       }
       __syncwarp();
+      // int8 pages: this lane's key's scales, read only for a live key
+      float ksc = 0.0f, vsc = 0.0f;
+      if constexpr (is_i8<KV>()) {
+        if (live) {
+          const int i = (pos - sb) / ps;
+          ksc = wsc[i];
+          vsc = wsc[DEC_MAX_PAGES + i];
+        }
+      }
       const KV* tk = wkv + (it % slots) * 2 * DEC_TILE * LD;
       const KV* tv = tk + DEC_TILE * LD;
 
@@ -1107,7 +1224,8 @@ int launch_chunk_tc(const void* q, const void* kp, const void* vp,
       set_smem(paged_chunk_tc_kernel<HD, W, KV>, smem);
   if (attr != cudaSuccess) return (int)attr;
   const int ctas = (Cs * G + 16 * W - 1) / (16 * W);
-  paged_chunk_tc_kernel<HD, W, KV><<<dim3(Hkv, B, ctas), 32 * W, smem, st>>>(
+  paged_chunk_tc_kernel<HD, W, KV>
+      <<<dim3(Hkv, B, ctas), chunk_threads<W, KV>(), smem, st>>>(
       static_cast<const __nv_bfloat16*>(q), static_cast<const KV*>(kp),
       static_cast<const KV*>(vp), static_cast<const float*>(ks),
       static_cast<const float*>(vs), static_cast<const int32_t*>(bt),

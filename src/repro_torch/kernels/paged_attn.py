@@ -284,7 +284,9 @@ def decode_splits(P: int, ps: int) -> tuple[int, int]:
     span of whole pages, about DECODE_SPLIT_KEYS keys and at least one
     page, and `splits` of them cover a row's P pages: the grid is (kv head,
     row, split). Shapes only, so the split a key falls in never depends on
-    the batch, the positions or the device."""
+    the batch, the positions or the device. int8 pages take the same
+    split: at 128 keys their body was no faster at llama's decode and
+    ~30% slower at granite's (`chip_smoke.py`'s K3 int8 split sweep)."""
     pages = max(1, DECODE_SPLIT_KEYS // ps)
     return pages, -(-P // pages)
 
@@ -315,9 +317,9 @@ def chunk_warps(rows: int) -> int:
     fewer where a chunk has at most 32 rows per kv head. Each K/V tile a
     CTA gathers feeds all its warps, so more warps per CTA move fewer
     bytes from L2; at both served chunk shapes 4 warps beat 1 and 2,
-    although they leave SMs idle (llama: 64 CTAs, granite: 48): see
-    `chip_smoke.py`'s K4 warps sweep. Shapes only, so the choice never
-    waits on the device."""
+    on bf16 pages and on int8 ones, although they leave SMs idle (llama:
+    64 CTAs, granite: 48): see `chip_smoke.py`'s K4 warps sweeps. Shapes
+    only, so the choice never waits on the device."""
     return 4 if rows > 32 else 2 if rows > 16 else 1
 
 

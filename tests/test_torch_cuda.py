@@ -1090,3 +1090,94 @@ def test_cuda_int8_engine_streams_equal_cpu(cuda_device, arch):
     assert got == {"paged_attn_decode": 0, "paged_attn_chunk": 0,
                    "paged_attn_decode_int8": L * s["decode_ticks"],
                    "paged_attn_chunk_int8": L * s["chunk_ticks"]}
+
+
+def _paged_every_byte(seed, nkv, live, device, unit, ps=16, P=6, hq=4,
+                      hd=64):
+    """int8 pages whose readable positions hold every byte from -128 to 127
+    (a shuffled cycle of them), with unit scales or scales in [0.5, 1] /
+    128 per (page, kv head). Returns (clean, dirty, bt) as _paged_int8:
+    dirty holds NaN in the scales of every page no row may read and +-127
+    at every unreadable position."""
+    _, _, bt, _, _ = _paged(seed, nkv, live, device, torch.float32, ps=ps,
+                            P=P, hq=hq, hd=hd)
+    g = torch.Generator().manual_seed(seed)
+    B = len(live)
+    NP = B * P + 2                  # as _paged
+    n = NP * ps * nkv * hd
+    vals = [(torch.arange(n) % 256 - 128)[torch.randperm(n, generator=g)]
+            .to(torch.int8).reshape(NP, ps, nkv, hd).to(device)
+            for _ in range(2)]
+    scales = [torch.ones(NP, nkv) if unit else
+              (0.5 + 0.5 * torch.rand(NP, nkv, generator=g)) / 128
+              for _ in range(2)]
+    readable = torch.zeros(NP, ps, dtype=torch.bool, device=device)
+    for b in range(B):
+        p = torch.arange(int(live[b]), device=device)
+        readable[bt[b, p // ps].long(), p % ps] = True
+    sel, used = readable[:, :, None, None], readable.any(dim=1)[:, None]
+    clean = [torch.where(sel, x, 0).to(torch.int8) for x in vals] + \
+        [torch.where(used, s.to(device), 0.0) for s in scales]
+    dirty = [torch.where(sel, x, c).to(torch.int8)
+             for x, c in zip(vals, (127, -127))] + \
+        [torch.where(used, s.to(device), float("nan")) for s in scales]
+    for x in clean[:2]:
+        assert torch.unique(x[readable]).numel() == 256
+    return clean, dirty, bt
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("unit", [True, False])
+@pytest.mark.parametrize("qdtype,tol", [(torch.float32, 2e-5),
+                                        (torch.bfloat16, 2e-2)])
+@pytest.mark.parametrize("nkv,hq,hd", [(2, 8, 128), (2, 6, 64)])
+def test_cuda_paged_attn_int8_every_byte(cuda_device, unit, qdtype, tol,
+                                         nkv, hq, hd):
+    """K3 and K4 on int8 pages that hold every byte from -128 to 127 (the
+    bodies' dequantization without conversion instructions). Scales in
+    [0.5, 1] / 128 keep the values near 1: against the plain versions at
+    the tolerances of test_cuda_paged_attn_int8_matches_plain. Unit scales
+    leave the values at +-128, where those tolerances would not cover
+    the fp32 sums' rounding, so the check is exact: bit for bit the same
+    kernel on pages of q's dtype that hold the same integers (every int8
+    value is exact in fp32 and bf16, the bodies keep one order and a unit
+    scale multiplies exactly); K3 with bf16 q, whose bf16-page body rounds
+    p to bf16 and whose int8 body does not, against the plain version at
+    its tolerance. A second launch repeats every bit, and NaN scales on
+    dead and null pages and +-127 at unreadable positions move no bit."""
+    live = np.array([1, 17, 33, 64, 90], np.int32)
+    clean, dirty, bt = _paged_every_byte(31, nkv, live, cuda_device, unit,
+                                         hq=hq, hd=hd)
+    k8, v8, ks, vs = clean
+    kf, vf = k8.to(qdtype), v8.to(qdtype)
+    g = torch.Generator(device="cuda").manual_seed(32)
+    tt = torch.from_numpy(live - 1).to(cuda_device)
+    q = torch.randn(len(live), hq, hd, device="cuda", generator=g)
+    q = (q / 64 if unit else q).to(qdtype)
+    qc = torch.randn(len(live), 24, hq, hd, device="cuda", generator=g)
+    qc = (qc / 64 if unit else qc).to(qdtype)
+    calls = [(PA.paged_attn_decode, PA.paged_attn_decode_plain, q, (tt,),
+              [slice(None)], w) for w in (0, 20)]
+    calls += [(PA.paged_attn_chunk, PA.paged_attn_chunk_plain, qc,
+               (start, kv_len),
+               # rows that own every page up to kv_len, real queries
+               [[b for b in range(len(live)) if live[b] >= kv_len],
+                slice(0, kv_len - start)], 0)
+              for start, kv_len in ((0, 17), (40, 64), (66, 90))]
+    for kern, plain, qq, pos, rows, window in calls:
+        out = kern(qq, k8, v8, bt, *pos, window=window, k_scales=ks,
+                   v_scales=vs)
+        assert torch.equal(out, kern(qq, k8, v8, bt, *pos, window=window,
+                                     k_scales=ks, v_scales=vs))
+        dirt = kern(qq, dirty[0], dirty[1], bt, *pos, window=window,
+                    k_scales=dirty[2], v_scales=dirty[3])
+        assert torch.equal(out[rows[0]], dirt[rows[0]])
+        out = out[tuple(rows)]
+        if unit and not (kern is PA.paged_attn_decode and
+                         qdtype == torch.bfloat16):
+            same = kern(qq, kf, vf, bt, *pos, window=window)[tuple(rows)]
+            assert torch.equal(out, same)
+        else:
+            ref = plain(qq, k8, v8, bt, *pos, window=window, k_scales=ks,
+                        v_scales=vs)[tuple(rows)]
+            torch.testing.assert_close(out, ref, rtol=tol, atol=tol)

@@ -59,6 +59,80 @@ def _t(a):
     return torch.from_numpy(np.array(a))
 
 
+# ------------------------------- int8 dequantization of the CUDA bodies
+
+def _prmt(x, y, sel: int):
+    """PRMT (CUDA's __byte_perm) on int64 tensors of 32-bit words: byte n of
+    the result is byte (sel >> 4n) & 7 of the eight bytes y:x."""
+    both = (y << 32) | x
+    out = torch.zeros_like(x)
+    for n in range(4):
+        out |= ((both >> (8 * ((sel >> (4 * n)) & 7))) & 0xFF) << (8 * n)
+    return out
+
+
+def _f32(bits):
+    """int64 tensor of 32-bit patterns -> float32 of those bits."""
+    return torch.where(bits >= 2 ** 31, bits - 2 ** 32, bits) \
+        .to(torch.int32).view(torch.float32)
+
+
+def _i8_f32(x8, word_bytes: int = 4):
+    """csrc/paged_attn.cu `i8_flip` and `i8_f32` bit for bit: the int8 values
+    x8 [..., n] packed little-endian `word_bytes` to a 32-bit word (as
+    load_f32 loads them: 16- and 4-byte loads fill words, 2- and 1-byte
+    loads their low bytes), the sign bits flipped (x ^ 0x80), each byte
+    moved into the low mantissa of 2^23 by PRMT 0x754k, and 2^23 + 128
+    subtracted in fp32."""
+    b = (x8.to(torch.int64) & 0xFF).reshape(*x8.shape[:-1], -1, word_bytes)
+    w = sum(b[..., k] << (8 * k) for k in range(word_bytes)) ^ 0x80808080
+    f = torch.stack([_f32(_prmt(w, torch.full_like(w, 0x4B000000),
+                                0x7540 | k)) for k in range(word_bytes)], -1)
+    return (f - 8388736.0).reshape(x8.shape)
+
+
+def _widen16(x8):
+    """csrc `widen16`: int8 [..., n] (n even) -> bf16, each pair of
+    `_i8_f32` floats packed by `bf16_pair_exact` (PRMT 0x7632: the high
+    halves, lo first)."""
+    bits = _i8_f32(x8).view(torch.int32).to(torch.int64) & 0xFFFFFFFF
+    bits = bits.reshape(*x8.shape[:-1], -1, 2)
+    w = _prmt(bits[..., 0], bits[..., 1], 0x7632)
+    half = torch.stack([w & 0xFFFF, w >> 16], -1).reshape(x8.shape)
+    return torch.where(half >= 2 ** 15, half - 2 ** 16, half) \
+        .to(torch.int16).view(torch.bfloat16)
+
+
+def test_prmt_emulation_follows_byte_perm():
+    """CUDA's __byte_perm examples: selector 0x3210 returns x, 0x7654 y,
+    and 0x7540 takes x's byte 0 under y's bytes 0, 1 and 3."""
+    x, y = torch.tensor([0x33221100]), torch.tensor([0x77665544])
+    assert _prmt(x, y, 0x3210).item() == 0x33221100
+    assert _prmt(x, y, 0x7654).item() == 0x77665544
+    assert _prmt(x, y, 0x7540).item() == 0x77554400
+
+
+@pytest.mark.parametrize("word_bytes", [1, 2, 4])
+def test_int8_dequant_is_exact_for_every_byte(word_bytes):
+    """The kernels' conversion-free int8 -> fp32 (LOP3, PRMT, FADD) gives
+    float(x) bit for bit for all 256 bytes, from every load width of
+    load_f32."""
+    x8 = torch.arange(-128, 128, dtype=torch.int64).to(torch.int8)
+    got = _i8_f32(x8, word_bytes)
+    assert got.dtype == torch.float32
+    assert torch.equal(got.view(torch.int32),
+                       x8.float().view(torch.int32))
+
+
+def test_int8_widen_to_bf16_is_exact_for_every_byte():
+    """widen16's bf16 pairs hold torch's int8 -> bf16 cast bit for bit for
+    all 256 bytes, in both halves of a pair (bytes in both orders)."""
+    x8 = torch.arange(-128, 128, dtype=torch.int64).to(torch.int8)
+    for x in (x8, x8.flip(0), x8.reshape(2, 128).T.reshape(-1)):
+        assert torch.equal(_widen16(x).view(torch.int16),
+                           x.to(torch.bfloat16).view(torch.int16))
+
+
 @pytest.mark.parametrize("nkv", [1, 2, 4])
 @pytest.mark.parametrize("window,softcap", CASES)
 def test_decode_plain_matches_jax_kernel_and_gather(nkv, window, softcap):
@@ -383,15 +457,21 @@ def test_chunk_tiles_cover_exactly_the_visible_keys(case):
         assert ctas[0][2:] == (0, 5) and ctas[-1][2:] == (0, 6)
 
 
+def _widened(x):
+    """Page rows as K4's bf16 body reads them, in fp32: int8 through
+    `widen16` (emulated bit for bit), other dtypes as they are."""
+    return _widen16(x).float() if x.dtype == torch.int8 else x.float()
+
+
 def _chunk_tc_emulated(q, kp, vp, bt, start, kv_len, window, softcap,
                        k_scales=None, v_scales=None):
     """K4's bf16 body, step for step, in fp32 torch on the CPU (p is not
     rounded: fp32 pages): CTAs of chunk_tiles, warps of 16 rows skipping
     the tiles outside their own key range, tiles zero-filled outside the
     CTA's range, masked scores -inf against a running max from -1e30, l
-    summed from p, out = acc / max(l, 1e-20). With int8 pages, each key's
-    scales (0 outside the CTA's range) multiply its scores and its p
-    before PV."""
+    summed from p, out = acc / max(l, 1e-20). With int8 pages, each tile
+    widened to bf16 by the kernel's bit arithmetic, and each key's scales
+    (0 outside the CTA's range) multiply its scores and its p before PV."""
     B, Cs, Hq, hd = q.shape
     _, ps, Hkv, _ = kp.shape
     G, P, R = Hq // Hkv, bt.shape[1], Cs * Hq // Hkv
@@ -421,8 +501,8 @@ def _chunk_tc_emulated(q, kp, vp, bt, start, kv_len, window, softcap,
                         k = torch.zeros(KT, hd)
                         v = torch.zeros(KT, hd)
                         page = bt[b, pos[load] // ps].long()
-                        k[load] = kp[page, pos[load] % ps, h].float()
-                        v[load] = vp[page, pos[load] % ps, h].float()
+                        k[load] = _widened(kp[page, pos[load] % ps, h])
+                        v[load] = _widened(vp[page, pos[load] % ps, h])
                         ksc, vsc = torch.zeros(KT), torch.zeros(KT)
                         if k_scales is not None:
                             ksc[load] = k_scales[page, h]
@@ -523,13 +603,14 @@ def _decode_split_emulated(q, kp, vp, bt, t, window, softcap,
     the page dtype only for PV, l summing it unrounded) and keys outside
     the split's range zero-filled; the warps merged in order; then the
     splits combined in index order, out = sum e^(m_s - M) acc_s /
-    max(sum e^(m_s - M) l_s, 1e-20). With int8 pages, each lane's key's
-    scales (0 for a dead key) multiply its scores and its unrounded p
-    before PV."""
+    max(sum e^(m_s - M) l_s, 1e-20). With int8 pages, K and V widened to
+    fp32 by the kernel's bit arithmetic, and each lane's key's scales (0
+    for a dead key) multiply its scores and its unrounded p before PV."""
     B, Hq, hd = q.shape
     _, ps, Hkv, _ = kp.shape
     G, P_ = Hq // Hkv, bt.shape[1]
     pages, splits = PA.decode_splits(P_, ps)
+    f32 = _i8_f32 if kp.dtype == torch.int8 else (lambda x: x.float())
     SK, W, TILE = pages * ps, 2, 32
     out = torch.zeros(B, Hq, hd)
     for b in range(B):
@@ -559,7 +640,7 @@ def _decode_split_emulated(q, kp, vp, bt, t, window, softcap,
                     if k_scales is not None:
                         ksc[live] = k_scales[page, h]
                         vsc[live] = v_scales[page, h]
-                    sc = qg.float() @ k.float().T
+                    sc = qg.float() @ f32(k).T
                     if k_scales is not None:
                         sc = sc * ksc[None]
                     sc = sc * hd ** -0.5
@@ -573,7 +654,7 @@ def _decode_split_emulated(q, kp, vp, bt, t, window, softcap,
                     pv = (torch.where(p > 0, p * vsc[None], 0.0)
                           if v_scales is not None else p.to(v.dtype).float())
                     warps[j % W] = (m_new, l * corr + p.sum(1),
-                                    acc * corr[:, None] + pv @ v.float())
+                                    acc * corr[:, None] + pv @ f32(v))
                 M = torch.stack([w[0] for w in warps]).max(0).values
                 c = [torch.exp(w[0] - M) for w in warps]
                 parts.append((M, sum(ci * w[1] for ci, w in zip(c, warps)),
