@@ -23,6 +23,8 @@ Phases (none catches an exception; any failure exits non-zero):
      fp32 at small ragged shapes with invalid tiles, then bf16 at the main
      paths' full-width shapes (llama's prefill from a real expert-choice
      tile plan and its decode on the [16*bn, 4096] selected-pair layout;
+     go_wide's decode at B 72, the lane plan of K5's selection with two
+     64-row tiles a lane, run two a block, some lanes with both valid;
      granite's decode on a real token-choice dispatch plan, 4 rows top-8
      of 40), with median times of kernel, plain version and one library
      call (`library_ms`), achieved bytes/s and share of the bound; a
@@ -50,9 +52,12 @@ Phases (none catches an exception; any failure exits non-zero):
      the kernel's own g and the cache from before the launch, in place,
      functional and repeated; kernel, plain and bound times, and the
      composition the decode ran before (GEMV, softmax, K5, the sort plan).
-     The path `go_cache_step_strided` drives K5 alone through
-     go_cache_step on a strided cache (a standalone prefill), the one
-     caller left it.
+     Then go_cache_step past K5R's bound, at (B 65, E 16) and (B 4, E 72),
+     on the card (K5 in place once, K5R never) against the CPU: selection,
+     scores and ids bit-equal to the plain TopKUpdate on the card's own g,
+     g and y within GO_ROUTER_G_TOL. The path `go_cache_step_strided`
+     drives K5 alone through go_cache_step on a strided cache (a
+     standalone prefill).
   1c. K6 gmm (the plain grouped GEMM) against its plain version: fp32 at
      the reference's sweep shapes re-tiled at 64 rows, with invalid tiles;
      then bf16 through expert_ffn_gmm (K1 then K6) at llama's full-width
@@ -105,6 +110,11 @@ Phases (none catches an exception; any failure exits non-zero):
      int8 pool (pages of 8): card streams equal the CPU's, a second card
      run repeats streams, pages, scales and GO rows bit for bit, and
      llama's streams equal each request alone on a 1-slot int8 engine.
+     Each MoE model's smoke engine also runs 66 slots of 66 short
+     requests (the GO decode past K5R's bound: K5 per layer and tick),
+     and the trace again with prompt buckets and requests alternating
+     greedy and sampled (temperature 0.8, top_p 0.9, seed = the request
+     id): card streams equal the CPU's, sampled ones included.
   5. full width, bf16, one set of random weights per model, first
      llama_moe_4_16, then granite-moe-3b-a800m:
      a. static generate(): 4 requests x 128 prompt tokens, 16 new tokens,
@@ -117,7 +127,16 @@ Phases (none catches an exception; any failure exits non-zero):
         the same trace on int8 KV pages and GO rows (`llama_engine_int8`:
         K3/K4 on the int8 operand): the same checks, scales included,
         its pool's page bytes beside the bf16 pool's (about half), and
-        its own profile.
+        its own profile. Then `llama_engine_sampled`: the same trace with
+        prompt buckets, requests alternating greedy and sampled
+        (temperature 0.8, top_p 0.9, seed = the request id) and a ninth at
+        top_p 1e-9 that must stream request 0's greedy tokens; a fresh
+        engine repeats every stream; prefill lengths, tok/s, the decode
+        ticks' median and p95, and profiles of a sampled chunk and decode
+        tick. Then `go_wide`: static generate() at batch 72 (32 prompt
+        tokens, 8 new), past K5R's 64 rows: K5 once per layer and decode
+        step, K5R never, a second run's tokens equal; K5 timed alone at
+        (72, 16, 4).
      Then xlstm-1.3b (48 layers: 6 segments of 7 mLSTM + 1 sLSTM):
      c. `xlstm_forward`: model_forward on 4 x 128 tokens, three runs, K9
         launched 6 times per call, hidden states equal bit for bit;
@@ -126,8 +145,9 @@ Phases (none catches an exception; any failure exits non-zero):
         logits equal bit for bit; profiles of the forward, 8 steps of
         the stepwise prefill and one decode step.
      Each path runs with the launch counts set to 0 just before it; K5R
-     must run once per layer and decode step on llama's paths and never
-     on granite's or xlstm's, K5 alone on no served path. The profiles
+     must run once per layer and decode step on llama's paths up to 64
+     rows and never on granite's, xlstm's or `go_wide`, where K5 runs
+     instead. The profiles
      give device events per layer.
 Then one JSON line with every kernel's numbers, the card line again, and
 the final {"ok": true, ...} line.
@@ -443,9 +463,10 @@ def kernel_phase_small(torch, G):
               "zero", flush=True)
 
 
-def kernel_phase_full(torch, G, OPS, R, cfg_granite):
+def kernel_phase_full(torch, G, OPS, R, GT, cfg_granite):
     """bf16 at the main paths' full-width shapes: llama's expert-choice
-    prefill plan and its GO decode layout, and granite's token-choice
+    prefill plan, its GO decode layout at B 4 and at go_wide's B 72 (two
+    tiles a lane, a block a lane), and granite's token-choice
     decode plan (4 tokens top-8 of 40 through one dispatch plan: 32 pairs
     in 2624 rows, nearly every tile invalid). Tolerances: K1 rounds its
     output to bf16, so rtol=atol=1e-2 (over one bf16 ulp, 2^-7 relative);
@@ -512,6 +533,42 @@ def kernel_phase_full(torch, G, OPS, R, cfg_granite):
                              shape=f"[{E}*{bn}, {K}], {int(counts.sum())} "
                                    f"selected pairs on {int(sel_e.numel())} "
                                    "experts")
+
+    # the GO decode past K5R's 64 rows (go_wide): B = 72 rows, the lane
+    # plan go_cache_step builds from K5's selection, Cp = 128 rows a lane,
+    # so two 64-row tiles a lane and a block. Each row's cache holds the top
+    # k of 32 earlier tokens' g, as after go_wide's prompt, so a lane selects
+    # about k/33 of the rows and its second tile is invalid; lanes 0-1 are
+    # empty in every row (a lane that more than 64 rows select), so both
+    # their tiles are valid
+    Bw = GO_WIDE[0]
+    hist = torch.softmax(torch.randn(Bw, GO_WIDE[1], E, device="cuda",
+                                     generator=g), -1)
+    sp = hist.topk(k, dim=1).values.transpose(1, 2).contiguous()
+    sp[:, :2] = float("-inf")
+    tp = torch.zeros(Bw, E, k, dtype=torch.int32, device="cuda")
+    gw = torch.softmax(torch.randn(Bw, E, device="cuda", generator=g), -1)
+    selw = GT.go_topk_update_plain(sp, tp, gw, GO_WIDE[1])[2]
+    wplan = GT.go_lane_plan(selw, gw, bn)
+    Cp = wplan.idx_p.shape[1]
+    xt = torch.randn(Bw, K, device="cuda", generator=g).to(bf)
+    tvw = wplan.tile_valid.view(E, Cp // bn)
+    need(Cp == 2 * bn and bool(tvw.all(1).any()) and
+         bool((tvw[:, 0] & ~tvw[:, 1]).any()),
+         f"wide decode plan: Cp {Cp}, tiles valid {tvw.tolist()}: want two "
+         "tiles a lane, some lanes with both valid and some with one")
+    sel_e = tvw[:, 0].nonzero()[:, 0]
+    results["wide_decode"] = dict(
+        te=wplan.tile_expert, tv=wplan.tile_valid,
+        x=xt[wplan.idx_p.long()].reshape(E * Cp, K),
+        sc=wplan.scale.view(E * Cp, 1), rows=int(selw.sum()),
+        experts=int(sel_e.numel()), n_rows=E * Cp,
+        lib_x=xt[None].expand(sel_e.numel(), Bw, K).contiguous(),
+        lib_w=w_cat[sel_e].contiguous(), lib_wo=wo[sel_e].contiguous(),
+        w=llama_w, K=K, F=F,
+        shape=f"[{E}*{Cp}, {K}] (B {Bw}, go_lane_plan), {int(selw.sum())} "
+              f"selected pairs, {int(tvw.all(1).sum())} lanes with both "
+              f"tiles valid, {int(tvw[:, 0].sum())} with one or more")
 
     # granite decode: 4 rows routed top-8 of 40 by a random gate, through
     # the dispatch plan token_choice_decode builds, operands gathered as
@@ -593,6 +650,11 @@ def kernel_phase_full(torch, G, OPS, R, cfg_granite):
                             swiglu))
             print(f"[kernels bf16 {phase}] {name} {r['shape']}: "
                   f"{json.dumps(out[name][phase])}", flush=True)
+    for name in out:
+        need(out[name]["wide_decode"]["tiles_per_block"] == 2,
+             f"{name} at the wide decode plan runs "
+             f"{out[name]['wide_decode']['tiles_per_block']} tiles a block, "
+             "not a lane's two")
     return out, results["prefill"]
 
 
@@ -664,7 +726,17 @@ def go_topk_phase(torch, GT):
           "functional and in place: bit-equal to the plain version; empty "
           "rows select at slot 0; a strided view raises", flush=True)
 
-    B, E, k = 4, 16, 4
+    entry = k5_timing(torch, GT, sp, tp, sn, tid, err)
+    print(f"[go_topk] {json.dumps(entry)}", flush=True)
+    return entry
+
+
+def k5_timing(torch, GT, sp, tp, sn, tid, err):
+    """K5 in place with [B] token ids, timed: the kernel, and the plain
+    version the decode ran before K5 (topk_update, then the cache's two
+    copies). Bound: every input read once and output written once,
+    against one fp32 comparison per cached score."""
+    B, E, k = sp.shape
     s, t = sp.clone(), tp.clone()
 
     def plain():
@@ -687,7 +759,6 @@ def go_topk_phase(torch, GT):
              "library_ms": None,
              "library_note": "no single PyTorch call"}
     del flush
-    print(f"[go_topk] {json.dumps(entry)}", flush=True)
     return entry
 
 
@@ -772,7 +843,7 @@ def _router_one_cta(torch, GT, x, w, s, t, tid, bn):
     return run, outs[0]
 
 
-def go_router_phase(torch, GT):
+def go_router_phase(torch, GT, GO, OPS):
     """K5R against its plain version in two steps (g within
     GO_ROUTER_G_TOL, relative; everything after g bit for bit on the
     kernel's own g), at K5's four shapes and the llama smoke shape, every
@@ -886,8 +957,72 @@ def go_router_phase(torch, GT):
              "library_ms": None,
              "library_note": "no single PyTorch call"}
     del flush
+    entry["wide_steps"] = go_step_wide(torch, GT, GO, OPS, g)
     print(f"[go_router] {json.dumps(entry)}", flush=True)
     return entry
+
+
+def go_step_wide(torch, GT, GO, OPS, g):
+    """go_cache_step past K5R's bound, at (B 65, E 16) and (B 4, E 72), k 4,
+    d GO_ROUTER_D, fp32, experts of 64 through K1/K2 at the card's tile
+    (two tiles a lane at B 65): the card runs K5 in place once and K5R
+    never. Held against the CPU's plain route: the selection, scores and
+    ids bit-equal to the plain TopKUpdate on the card's own g (the card's
+    gate row and softmax, the same ops as the step's, so the same bits;
+    the CPU's own g differs in the last bits), g within GO_ROUTER_G_TOL
+    relative of the CPU's, and y within GO_ROUTER_G_TOL of the CPU step's
+    y, relative to its largest element."""
+    out = []
+    for B, E in ((65, 16), (4, 72)):
+        k, d, de = 4, GO_ROUTER_D, 64
+        x, w, sp, tp, tid = _router_inputs(torch, g, B, E, k, d,
+                                           torch.float32, torch.float32)
+        bank = {n: torch.randn(*shp, device="cuda", generator=g) / 8
+                for n, shp in (("wg", (E, d, de)), ("wi", (E, d, de)),
+                               ("wo", (E, de, d)))}
+        o = torch.randn(B, E, k, d, device="cuda", generator=g)
+
+        def step(dev):
+            # the cache as the decode state holds it: contiguous views
+            cache = GO.GOCache(*(a.to(dev).clone() for a in (sp, tp, o)))
+            tb = {n: a.to(dev) for n, a in bank.items()}
+            res = GO.go_cache_step(
+                cache, x.to(dev), tid.to(dev), w.to(dev),
+                bn=OPS.default_block_rows(dev),
+                contrib_fn=lambda xt, sel, gg, plan: OPS.go_plan_ffn(
+                    xt, plan, tb))
+            return res, cache
+
+        before = dict(GT.LAUNCHES)
+        res, cache = step("cuda")
+        torch.cuda.synchronize()
+        k5 = GT.LAUNCHES["go_topk_update"] - before["go_topk_update"]
+        k5r = GT.LAUNCHES["go_router"] - before["go_router"]
+        need((k5, k5r) == (1, 0), f"go_cache_step at B {B} E {E}: K5 "
+             f"{k5} launches, K5R {k5r}")
+        gk = torch.softmax(x @ w, dim=-1)
+        ws, wt, wsel, _ = GT.go_topk_update_plain(sp.cpu(), tp.cpu(),
+                                                  gk.cpu(), tid.cpu())
+        need(torch.equal(res.selected.cpu(), wsel) and
+             torch.equal(cache.scores.cpu(), ws) and
+             torch.equal(cache.token_ids.cpu(), wt),
+             f"go_cache_step at B {B} E {E}: selection, scores or ids "
+             "differ from the plain TopKUpdate on the card's g")
+        cpu, _ = step("cpu")
+        gc = torch.softmax(x.cpu() @ w.cpu(), dim=-1)
+        g_rel = ((gk.cpu() - gc).abs() / gc).max().item()
+        y_rel = ((res.y.cpu() - cpu.y).abs().max()
+                 / cpu.y.abs().max()).item()
+        need(g_rel <= GO_ROUTER_G_TOL and y_rel <= GO_ROUTER_G_TOL,
+             f"go_cache_step at B {B} E {E}: g relative err {g_rel}, y "
+             f"{y_rel} (tol {GO_ROUTER_G_TOL:g})")
+        out.append({"B": B, "E": E, "k": k, "d": d, "g_rel_err": g_rel,
+                    "y_rel_err": y_rel, "k5_launches": k5,
+                    "k5r_launches": k5r,
+                    "selected": int(res.selected.sum())})
+    print(f"[go_router] past the router's bound: {json.dumps(out)}",
+          flush=True)
+    return out
 
 
 def go_topk_path(torch, GT, GO, OPS, counts, reset_counts):
@@ -2090,6 +2225,94 @@ def engine_smoke_phase(torch, G, PA, GT, cfg_smoke, TM, TS, kv_quant="none"):
           f"cuda greedy streams equal for {len(prompts)} requests "
           f"({s['decode_ticks']} decode ticks, {s['chunk_ticks']} chunk "
           f"ticks), cuda launches {launches}{extra}", flush=True)
+    if kv_quant == "none":
+        engine_smoke_wide(torch, G, PA, GT, cfg_smoke, params, params_cuda,
+                          TS)
+        engine_smoke_sampled(torch, G, PA, GT, cfg_smoke, params,
+                             params_cuda, TS, prompts, kw)
+
+
+def _submit_mixed(eng, prompts, gen, arrivals=None, top_p_of=None):
+    """Submit `prompts` with requests alternating greedy (even ids) and
+    sampled (odd ids: temperature 0.8, top_p 0.9, seed = the request id);
+    `top_p_of` overrides a request's top_p by id. Returns the ids."""
+    return [eng.submit(p, gen, arrival_step=arrivals[i] if arrivals else 0,
+                       temperature=0.8 * (i % 2),
+                       top_p=(top_p_of or {}).get(i, 0.9), seed=i)
+            for i, p in enumerate(prompts)]
+
+
+def engine_smoke_wide(torch, G, PA, GT, cfg, params, params_cuda, TS):
+    """A 66-slot paged engine of 66 short requests (3 to 6 prompt tokens,
+    3 new tokens, all at tick 0), greedy, on the CPU and the card: the
+    streams equal; the GO decode runs past K5R's bound, so K5 once per
+    layer and decode tick with a GO cache, K5R never."""
+    import numpy as np
+    rng = np.random.default_rng(66)
+    prompts = [rng.integers(0, cfg.vocab_size, size=3 + i % 4,
+                            dtype=np.int32) for i in range(66)]
+    kw = dict(num_slots=66, max_tokens=12, paged=True, page_size=4)
+    r_cpu = TS.serve_continuous(params, cfg, prompts, 3, device="cpu", **kw)
+    for mod in (G, PA, GT):
+        mod.reset_launches()
+    r_gpu = TS.serve_continuous(params_cuda, cfg, prompts, 3, device="cuda",
+                                **kw)
+    launches = {**G.LAUNCHES, **PA.LAUNCHES, **GT.LAUNCHES}
+    s = r_gpu["stats"]
+    need(all(np.array_equal(r_gpu["tokens"][r], t)
+             for r, t in r_cpu["tokens"].items()),
+         f"{cfg.name} 66-slot engine: cuda streams differ from the cpu's")
+    go = go_topk_launches(cfg, s["decode_ticks"])
+    expect = {**gmm_launches(cfg, len(prompts), s["decode_ticks"]),
+              "go_topk_update": go["go_router"], "go_router": 0,
+              **paged_launches(cfg, s["decode_ticks"], 0)}
+    need(launches == expect and s["peak_active"] == 66,
+         f"66-slot engine launches {launches}, expected {expect}; stats {s}")
+    print(f"[smoke engine] {cfg.name} 66 slots: cpu and cuda greedy streams "
+          f"equal for 66 requests ({s['decode_ticks']} decode ticks), cuda "
+          f"launches {launches}", flush=True)
+
+
+def engine_smoke_sampled(torch, G, PA, GT, cfg, params, params_cuda, TS,
+                         prompts, kw):
+    """The smoke engine trace again with prompt buckets, requests
+    alternating greedy and sampled (temperature 0.8, top_p 0.9, seed = the
+    request id), on the CPU and the card: both draw the same uniforms, so
+    every stream, sampled ones included, must be equal; prefill_lengths
+    equal; the launches those of the greedy trace's formula (sampling runs
+    no kernel of the port)."""
+    import numpy as np
+    streams, stats = {}, {}
+    for side, dev, p in (("cpu", "cpu", params),
+                         ("card", "cuda", params_cuda)):
+        for mod in (G, PA, GT):
+            mod.reset_launches()
+        eng = TS.ServingEngine(p, cfg, device=dev, prompt_buckets=True,
+                               **{k: v for k, v in kw.items()
+                                  if k != "arrival_steps"})
+        rids = _submit_mixed(eng, prompts, 7, kw["arrival_steps"])
+        fin = eng.run()
+        streams[side] = [fin[r].tokens for r in rids]
+        stats[side] = eng.stats()
+    launches = {**G.LAUNCHES, **PA.LAUNCHES, **GT.LAUNCHES}
+    s = stats["card"]
+    one_shot = sum(len(q) <= kw["prefill_chunk"] for q in prompts)
+    expect = {**gmm_launches(cfg, s["chunk_ticks"] + one_shot,
+                             s["decode_ticks"]),
+              **go_topk_launches(cfg, s["decode_ticks"]),
+              **paged_launches(cfg, s["decode_ticks"], s["chunk_ticks"])}
+    need(launches == expect, f"sampled smoke engine launches {launches}, "
+         f"expected {expect}")
+    for rid, (a, b) in enumerate(zip(streams["cpu"], streams["card"])):
+        need(a == b, f"{cfg.name} bucketed sampled engine request {rid} "
+             f"({'sampled' if rid % 2 else 'greedy'}): cuda {b} != cpu {a}")
+    need(s["prefill_lengths"] == stats["cpu"]["prefill_lengths"],
+         f"prefill_lengths cuda {s['prefill_lengths']}, cpu "
+         f"{stats['cpu']['prefill_lengths']}")
+    print(f"[smoke engine] {cfg.name} buckets {s['prefill_lengths']}, "
+          "greedy and sampled (0.8, 0.9, seed = id) requests alternating: "
+          f"cpu and cuda streams equal {streams['card']}, cuda launches "
+          f"{launches}", flush=True)
 
 
 def xlstm_smoke_phase(torch, SC, cfg, TM, TS):
@@ -2296,6 +2519,65 @@ def full_phase(torch, G, PA, SC, GT, cfg, params, TM, TS):
     return launches
 
 
+# The static batch past K5R's bound: rows, prompt tokens, new tokens.
+GO_WIDE = (72, 32, 8)
+
+
+def go_wide_phase(torch, G, PA, SC, GT, cfg, params, TS, counts,
+                  reset_counts):
+    """`go_wide`: static generate() of the full-width model in bf16 at
+    batch 72 (past K5R's 64 rows), 32 prompt tokens, 8 new tokens: the GO
+    decode runs K5 in place once per layer and decode step and K5R never,
+    K1/K2 over plans of two 64-row tiles a lane; a second run must give
+    the same tokens. Then K5 alone at the decode's shape (72, E, k)."""
+    B, P, GEN = GO_WIDE
+    g = torch.Generator(device="cuda").manual_seed(72)
+    prompts = torch.randint(0, cfg.vocab_size, (B, P), generator=g,
+                            device="cuda")
+    TS.generate(params, cfg, prompts, 2, device="cuda")          # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = TS.generate(params, cfg, prompts, GEN, device="cuda")
+    launches = counts()
+    again = TS.generate(params, cfg, prompts, GEN, device="cuda")
+    L = cfg.num_layers
+    expect = {**gmm_launches(cfg, 1, GEN), "go_topk_update": L * GEN,
+              "go_router": 0, **paged_launches(cfg, 0, 0), "slstm_seq": 0}
+    need(launches == expect, f"go_wide launches {launches}, expected "
+         f"{expect}")
+    need(res["tokens"].shape == (B, GEN) and
+         bool(torch.isfinite(res["logits"]).all()),
+         "go_wide: token shape or non-finite logits")
+    repeat_equal = torch.equal(again["tokens"], res["tokens"])
+    e = cfg.moe
+    sp, tp, sn, tid = _go_topk_inputs(torch, g, B, e.num_experts, e.top_k)
+    err = max(_diff(a, b) for a, b in zip(
+        GT.go_topk_update(sp, tp, sn, tid),
+        GT.go_topk_update_plain(sp, tp, sn, tid)))
+    need(err == 0.0, f"K5 at ({B}, {e.num_experts}, {e.top_k}) differs from "
+         f"its plain version by {err}")
+    k5 = k5_timing(torch, GT, sp, tp, sn, tid, err)
+    stats = {"batch": B, "prompt": P, "gen": GEN,
+             "prefill_ms": res["prefill_s"] * 1e3,
+             "decode_ms_per_token": res["decode_s"] * 1e3 / GEN,
+             "decode_ms_per_token_runs": [r["decode_s"] * 1e3 / GEN
+                                          for r in (res, again)],
+             "tok_per_s": res["tok_per_s"],
+             "repeat_tokens_equal": repeat_equal,
+             "max_memory_allocated_gb":
+                 torch.cuda.max_memory_allocated() / 1e9,
+             "launches": launches, "k5": k5}
+    print(f"[go_wide] {cfg.name} bf16: {json.dumps(stats)}", flush=True)
+    need(repeat_equal, "go_wide: a second run gave other tokens")
+    # one more decode step on the run's state (position P + GEN < max_len)
+    state, tok = res["state"], res["tokens"][:, -1].long()
+    profile_phase(torch, cfg, {
+        "go_wide_decode_step": lambda: TS.serve_step(params, state, tok,
+                                                     cfg)})
+    return launches, k5
+
+
 # The full-width engine trace: prompt lengths, arrival ticks, new tokens.
 ENGINE_LENS = [64, 448, 128, 320, 96, 384, 192, 256]
 ENGINE_ARRIVALS = [0, 0, 0, 0, 8, 8, 16, 16]
@@ -2426,21 +2708,125 @@ def engine_phase(torch, G, PA, SC, GT, cfg, params, ServingEngine,
     return launches, stats
 
 
-def engine_profile_phase(torch, cfg, params, prompts, ServingEngine, pool):
+def engine_profile_phase(torch, cfg, params, prompts, ServingEngine, pool,
+                         sampled=False):
     """One chunk tick (3 slots decoding beside a chunk of 128) and one
     decode tick with 4 active slots, on a fresh engine of the same pool:
-    three one-shot 64/128/96-token prompts and the 384-token one."""
+    three one-shot 64/128/96-token prompts and the 384-token one. With
+    `sampled`, the second and fourth sample (temperature 0.8, top_p 0.9),
+    so the ticks run the sampling path."""
     eng = ServingEngine(params, cfg, device="cuda", **pool)
-    for i in (0, 2, 4, 5):
-        eng.submit(prompts[i], 16)
+    for n, i in enumerate((0, 2, 4, 5)):
+        eng.submit(prompts[i], 16, temperature=0.8 * (n % 2) * sampled,
+                   top_p=0.9, seed=n)
     eng.step()                       # 3 one-shot admissions, chunk 1 of 3
-    tag = "" if pool["kv_quant"] == "none" else f"_{pool['kv_quant']}"
+    tag = ("" if pool["kv_quant"] == "none" else f"_{pool['kv_quant']}") \
+        + ("_sampled" if sampled else "")
     profile_phase(torch, cfg, {f"engine{tag}_chunk_tick": eng.step})
     eng.step()                       # chunk 3 of 3, the 4th slot installs
     need(eng.pool.num_active() == 4, "profile engine: 4 slots not active")
     profile_phase(torch, cfg,
                   {f"engine{tag}_decode_tick_4_active": eng.step})
     eng.run()
+
+
+def sampled_engine_phase(torch, G, PA, SC, GT, cfg, params,
+                         ServingEngine):
+    """`llama_engine_sampled`: the full-width engine trace (ENGINE_LENS,
+    ENGINE_ARRIVALS, ENGINE_POOL) with prompt buckets, requests
+    alternating greedy and sampled (temperature 0.8, top_p 0.9, seed = the
+    request id), plus a ninth request, request 0's prompt at temperature
+    0.8 and top_p 1e-9 arriving at tick 16, whose stream must be request
+    0's greedy one. Timed one synchronised step at a time; a fresh second
+    engine must give the same streams. The launches follow the greedy
+    engine's formula (sampling runs no kernel of the port); prefill
+    lengths, tok/s and the pure decode ticks' median and p95 are recorded,
+    and a profile of a chunk tick and a decode tick with two of four rows
+    sampling gives the events a layer of a sampled tick."""
+    import numpy as np
+    pool = dict(ENGINE_POOL, kv_quant="none", prompt_buckets=True)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+               for n in ENGINE_LENS]
+    prompts.append(prompts[0])
+    arrivals = ENGINE_ARRIVALS + [16]
+    near_zero = {len(prompts) - 1: 1e-9}
+
+    def trace():
+        eng = ServingEngine(params, cfg, device="cuda", **pool)
+        rids = _submit_mixed(eng, prompts, ENGINE_GEN, arrivals, near_zero)
+        return eng, rids
+
+    warm, _ = trace()
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+    eng, rids = trace()
+    for mod in (G, PA, SC, GT):
+        mod.reset_launches()
+    ticks = []                      # (ms, decoded, chunked, admitted)
+    t_all = time.perf_counter()
+    while eng.has_work():
+        d0, c0, a0 = eng.decode_ticks, eng.chunk_ticks, \
+            eng.pool.admitted_total
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        ticks.append(((time.perf_counter() - t0) * 1e3,
+                      eng.decode_ticks - d0, eng.chunk_ticks - c0,
+                      eng.pool.admitted_total - a0))
+    wall_s = time.perf_counter() - t_all
+    launches = {**G.LAUNCHES, **PA.LAUNCHES, **SC.LAUNCHES, **GT.LAUNCHES}
+    s = eng.stats()
+    fin = eng.finished
+    for rid in rids:
+        r = fin[rid]
+        need(r.status == "DONE" and len(r.tokens) == ENGINE_GEN and
+             all(0 <= x < cfg.vocab_size for x in r.tokens),
+             f"sampled request {rid}: status {r.status}, {len(r.tokens)} "
+             "tokens")
+    one_shot = sum(len(q) <= ENGINE_POOL["prefill_chunk"] for q in prompts)
+    expect = {**gmm_launches(cfg, s["chunk_ticks"] + one_shot,
+                             s["decode_ticks"]),
+              **go_topk_launches(cfg, s["decode_ticks"]),
+              **paged_launches(cfg, s["decode_ticks"], s["chunk_ticks"]),
+              "slstm_seq": 0}
+    need(launches == expect, f"llama_engine_sampled launches {launches}, "
+         f"expected {expect}")
+    again, rids2 = trace()
+    fin2 = again.run()
+    streams = [fin[r].tokens for r in rids]
+    repeat_equal = streams == [fin2[r].tokens for r in rids2]
+    near_zero_greedy = streams[-1] == streams[0]
+    sampled_differ = any(streams[i] != streams[i - 1]
+                         for i in range(1, len(ENGINE_LENS), 2))
+    pure = sorted(ms for ms, dd, dc, da in ticks if dd and not dc and not da)
+    tokens = sum(len(t) for t in streams)
+    stats = {"requests": len(rids), "tokens": tokens, "wall_s": wall_s,
+             "tok_per_s": tokens / wall_s,
+             "decode_ticks": s["decode_ticks"],
+             "chunk_ticks": s["chunk_ticks"],
+             "pure_decode_ticks": len(pure),
+             "decode_tick_ms_median": statistics.median(pure),
+             "decode_tick_ms_p95": pure[min(len(pure) - 1,
+                                            int(0.95 * len(pure)))],
+             "prefill_lengths": s["prefill_lengths"],
+             "peak_active": eng.peak_active, "launches": launches,
+             "repeat_streams_equal": repeat_equal,
+             "top_p_1e-9_equals_greedy": near_zero_greedy,
+             "sampled_streams_differ_from_greedy": sampled_differ}
+    print(f"[full engine sampled] {cfg.name} bf16 {pool}, prompts "
+          f"{[len(q) for q in prompts]}, arrivals {arrivals}, gen "
+          f"{ENGINE_GEN}: {json.dumps(stats)}", flush=True)
+    need(repeat_equal, "llama_engine_sampled: a fresh engine streamed "
+         "other tokens")
+    need(near_zero_greedy, "llama_engine_sampled: the top_p=1e-9 request "
+         "did not stream its greedy tokens")
+    need(s["prefill_lengths"] == [64, 128], f"prefill lengths "
+         f"{s['prefill_lengths']}")
+    engine_profile_phase(torch, cfg, params, prompts, ServingEngine, pool,
+                         sampled=True)
+    return launches, stats
 
 
 def _kind(name):
@@ -2588,10 +2974,10 @@ def main():
     cfgs = {m: get_config(m) for m in (llama, granite)}
     by_path = {}
     kernel_phase_small(torch, G)
-    timings, llama_prefill = kernel_phase_full(torch, G, OPS, R,
+    timings, llama_prefill = kernel_phase_full(torch, G, OPS, R, GT,
                                                cfgs[granite])
-    timings["go_topk_update"] = go_topk_phase(torch, GT)
-    timings["go_router"] = go_router_phase(torch, GT)
+    k5_small = go_topk_phase(torch, GT)
+    timings["go_router"] = go_router_phase(torch, GT, GO, OPS)
     by_path["go_cache_step_strided"] = go_topk_path(torch, GT, GO, OPS,
                                                     counts, reset_counts)
     gmm_phase_small(torch, G)
@@ -2657,6 +3043,13 @@ def main():
                   f"{bf16_stats['tok_per_s']:.2f}", flush=True)
             need(0.45 < ratio < 0.55, f"int8 pool pages are {ratio:.3f} of "
                  "the bf16 pool's, not about half")
+            # slice 11: the engine trace with prompt buckets and sampling,
+            # and the static batch past K5R's 64 rows
+            by_path["llama_engine_sampled"], _ = sampled_engine_phase(
+                torch, G, PA, SC, GT, cfg, params, ServingEngine)
+            by_path["go_wide"], timings["go_topk_update"] = go_wide_phase(
+                torch, G, PA, SC, GT, cfg, params, TS, counts, reset_counts)
+            timings["go_topk_update"]["b4"] = k5_small
         del params
         torch.cuda.empty_cache()
 
@@ -2694,7 +3087,7 @@ def main():
         "slstm_seq": ("slstm_cell.cu", "src/repro/kernels/slstm_cell.py:62",
                       "xlstm_forward"),
         "go_topk_update": ("go_topk.cu", "src/repro/kernels/go_topk.py:43",
-                           "go_cache_step_strided"),
+                           "go_wide"),
         "go_router": ("go_topk.cu", "src/repro/kernels/go_topk.py:43",
                       "llama_engine"),
         "gmm": ("moe_gmm.cu", "src/repro/kernels/moe_gmm.py:274",
@@ -2726,12 +3119,14 @@ def main():
             "cluster", "cluster_capacity", "fp32_r",
             "small_max_abs_err", "g_rel_err", "small_g_rel_err",
             "before_ms", "splits", "split_rows", "one_cta_ms",
-            "split_keys_ms", "parent_bits_equal", "sass")
+            "split_keys_ms", "parent_bits_equal", "sass", "b4",
+            "wide_steps")
             if k in main_t})
         if "decode" in timings[name]:
             entry["shape"] = "prefill " + main_t["shape"]
             entry["decode"] = timings[name]["decode"]
             entry["granite_decode"] = timings[name]["granite_decode"]
+            entry["wide_decode"] = timings[name]["wide_decode"]
         if "granite" in timings[name]:
             entry["granite"] = timings[name]["granite"]
         kernels.append(entry)

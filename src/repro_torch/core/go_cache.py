@@ -8,7 +8,8 @@ eq. 4-5). Counterpart of repro/core/go_cache.py.
 Each decode step runs one gate row, a TopKUpdate against the cached minima,
 and expert FFNs only for the experts that selected the incoming token; on
 a card the first two and the FFN's lane plan are one launch (the router
-K5R, kernels/go_topk.py).
+K5R, kernels/go_topk.py) up to 64 rows and 64 experts, and past that the
+TopKUpdate is K5's launch.
 Unlike the JAX version, `go_cache_step` and the slot ops write the updated
 entries into the cache's tensors IN PLACE (they are views of the decode
 state's per-layer buffers), where JAX carries a new cache through its
@@ -22,7 +23,8 @@ import torch
 
 from repro_torch.core.routing import stable_topk
 from repro_torch.kernels.go_topk import (GORoute, go_lane_plan, go_router_,
-                                         go_topk_update)
+                                         go_topk_update, go_topk_update_,
+                                         router_fits)
 from repro_torch.kernels.ops import default_block_rows
 
 
@@ -123,23 +125,36 @@ def go_cache_step(cache: GOCache, x_t: torch.Tensor, token_id,
     decode tile's rows) the step also hands it the lane plan of those
     pairs at that tile, `contrib_fn(x, sel, g, plan=plan)`
     (kernels/ops.py:go_plan_ffn); without, the reference's three-argument
-    contract holds. The cache's tensors are updated in place: the router
-    (K5R, one launch on a card: the gate row, its softmax, the TopKUpdate
-    and the plan) writes the scores and ids, then the selected outputs land
-    in the slots it replaced."""
-    if cache.scores.is_contiguous() and cache.token_ids.is_contiguous():
+    contract holds. The cache's tensors are updated in place, then the
+    selected outputs land in the slots the update replaced.
+
+    The route is a rule of shapes and layout, chosen before any launch:
+    a contiguous cache of B and E within the router's bound
+    (`router_fits`) takes the router (K5R, one launch on a card: the gate
+    row, its softmax, the TopKUpdate and the plan); a wider one runs the
+    gate row and its softmax in fp32, K5 in place and `go_lane_plan`,
+    which leave the cache's tensors as K5R would; a cache of strided views
+    runs the same steps through K5's functional form and two copies."""
+    B, E = x_t.shape[0], gate_w.shape[1]
+    contiguous = cache.scores.is_contiguous() and \
+        cache.token_ids.is_contiguous()
+    if contiguous and router_fits(B, E):
         r = go_router_(x_t, gate_w, cache.scores, cache.token_ids, token_id,
                        bn or default_block_rows(x_t.device))
     else:
-        # a cache of strided views (go_cache_prefill's top-k slices, used
-        # on their own) keeps the functional K5; the decode state's
-        # per-layer views take the branch above, and making the slices
-        # contiguous would cost every prefill a copy per layer
         g = torch.softmax(x_t.float() @ gate_w.float(), dim=-1)     # [B, E]
-        s, t, selected, slot = go_topk_update(cache.scores, cache.token_ids,
-                                              g, token_id)
-        cache.scores.copy_(s)
-        cache.token_ids.copy_(t)
+        if contiguous:
+            # the decode state's per-layer views past the router's bound
+            selected, slot = go_topk_update_(cache.scores, cache.token_ids,
+                                             g, token_id)
+        else:
+            # a cache of strided views (go_cache_prefill's top-k slices,
+            # used on their own); making the slices contiguous would cost
+            # every prefill a copy per layer
+            s, t, selected, slot = go_topk_update(
+                cache.scores, cache.token_ids, g, token_id)
+            cache.scores.copy_(s)
+            cache.token_ids.copy_(t)
         r = GORoute(g, selected, slot,
                     go_lane_plan(selected, g, bn) if bn else None)
     if bn:

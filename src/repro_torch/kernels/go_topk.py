@@ -32,7 +32,10 @@ pairs that the decode FFN runs (`GOPlan`, built on the CPU by the sort of
 On a card the gate row is read by several CTAs (`router_splits`) and the
 last of them to finish does the rest. B and E are at most 64 (ROUTER_MAX:
 that CTA keeps the [B, E] selection in shared memory); both forms raise
-beyond, on every device.
+beyond, on every device. `router_fits(B, E)` is that bound as a rule of
+shapes: the GO decode (core/go_cache.py:go_cache_step) asks it before any
+launch and runs a wider step as the gate row and softmax, K5 in place and
+`go_lane_plan`.
 """
 from __future__ import annotations
 
@@ -171,6 +174,13 @@ _COUNTERS: dict = {}              # device -> the last-CTA counter (0 between
                                   # launches)
 
 
+def router_fits(B: int, E: int) -> bool:
+    """Whether K5R takes a decode of B rows over E experts: both within
+    1..ROUTER_MAX (its last CTA keeps the [B, E] selection in shared
+    memory). Shapes only."""
+    return 1 <= B <= ROUTER_MAX and 1 <= E <= ROUTER_MAX
+
+
 def router_splits(d: int, E: int, w_bytes: int) -> tuple[int, int]:
     """K5R's grid: (rows of gate_w per CTA, CTAs). One SM streams gate_w
     too slowly, so the gate row is split into spans of about
@@ -258,7 +268,7 @@ def _check_router(name, x, gate_w, s_prev, tok_prev, token_id, bn):
     if torch.is_tensor(token_id) and tuple(token_id.shape) != (B,):
         raise ValueError(f"{name}: token_id {tuple(token_id.shape)}, want an "
                          f"int or [{B}]")
-    if not (1 <= B <= ROUTER_MAX and 1 <= E <= ROUTER_MAX):
+    if not router_fits(B, E):
         raise ValueError(f"{name}: B {B} and E {E} must lie in 1.."
                          f"{ROUTER_MAX} (the router keeps the [B, E] "
                          "selection in one CTA)")

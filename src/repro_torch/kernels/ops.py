@@ -20,6 +20,8 @@ static; no step reads a value back to the host.
   go_selected_ffn   C4 decode: only the pairs the TopKUpdate selected
                     (`go_plan_ffn` over a lane plan: the router's, or one
                     built here with `go_topk.go_lane_plan`).
+  go_decode_budget  the reference's fast-plan row budget a lane, a rule
+                    of shapes; the port's decode keeps the full plan.
   expert_ffn_gmm    tile-aligned rows through each tile's expert FFN (K1
                     then K6), uncombined.
   moe_ffn_pallas    [T, k] routing -> [T, d] through moe_ffn_fused.
@@ -336,6 +338,21 @@ def moe_ffn_pallas(x: torch.Tensor, expert_idx: torch.Tensor,
 
 # ------------------------------------------------------------ GO decode
 
+def go_decode_budget(batch: int, num_experts: int, topk_hint: int,
+                     bn: int) -> int:
+    """The reference's per-lane row budget of its fast decode plan
+    (repro/kernels/ops.py:go_decode_budget, copied): with a warm GO cache
+    each tick selects ~B*k pairs, so 2*B*k/E rows per expert plus two rows
+    of headroom, rounded up to the row tile and capped at B. A pure
+    function of shapes. The port's decode does not run that plan: it
+    keeps the full one (`go_selected_ffn`), whose invalid tiles cost no
+    weight reads, and needs no branch on the counts."""
+    if topk_hint <= 0:
+        return batch
+    c = -(-2 * batch * topk_hint // num_experts) + 2
+    return min(-(-c // bn) * bn, batch)
+
+
 def go_selected_ffn(x: torch.Tensor, selected: torch.Tensor,
                     g: torch.Tensor, bank: dict, num_experts: int, *,
                     bn: int = 0) -> torch.Tensor:
@@ -344,15 +361,17 @@ def go_selected_ffn(x: torch.Tensor, selected: torch.Tensor,
 
     Lane e owns rows [e*Cp, (e+1)*Cp) and holds its selected rows in
     ascending batch order (`go_lane_plan`; on the decode the router K5R
-    builds the same plan in its launch). Branch decision: the port always
-    runs the full plan (C = B rows per lane) with `tile_valid` taken from
-    the per-expert counts. A tile holding no selected row skips its
-    multiply-adds and reads no weights, so the work tracks the selected
-    pairs as the reference's fast plan does; it is exact, drops nothing,
-    and needs no host sync, where the reference's `lax.cond` between the
-    C_fast and C_full plans would cost one sync per layer per tick on a
-    GPU. At bn >= B (the CUDA tile of 64 rows at batch <= 64) the two plans
-    are the same plan, so the reference's fast-plan budget is not kept.
+    builds the same plan in its launch up to 64 rows). Branch decision:
+    the port always runs the full plan (C = B rows per lane, Cp = B
+    rounded up to bn) with `tile_valid` taken from the per-expert counts,
+    and never the fast plan that `go_decode_budget` sizes. Past 64 rows a
+    lane spans ceil(B/bn) tiles of the CUDA kernels' 64 rows; a tile
+    holding no selected row is invalid, skips its multiply-adds and reads
+    no weights, so the work tracks the selected pairs as the reference's
+    fast plan does. It is exact, drops nothing and needs no host sync,
+    where the reference's `lax.cond` between the C_fast and C_full plans
+    branches on the counts: on a card that branch is one host read per
+    layer and tick. At bn >= B the two plans are the same plan.
 
     Returns contrib [B, E, d] fp32, zero where unselected.
     """

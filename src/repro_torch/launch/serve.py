@@ -5,7 +5,8 @@ Counterpart of repro/launch/serve.py. Two modes:
   generate()          static batch: a fixed batch of requests moves
                       lock-step from prefill to completion (prefill() fills
                       the KV caches and, for expert choice, the per-layer
-                      GO caches, then one serve_step() per generated token).
+                      GO caches, then one serve_step() per generated token);
+                      greedy, or sampled at temperature 1 (greedy=False).
   serve_continuous()  continuous batching through serving.ServingEngine:
                       requests join mid-flight into free slots of a pooled
                       KV (+ GO) cache (dense rows or a paged pool, optionally
@@ -32,6 +33,11 @@ without a card, asking for CUDA raises.
       --paged --page-size 8 --chunk-prefill 8 --kv-quant int8 --device cpu
   python -m repro_torch.launch.serve --arch xlstm-1.3b --smoke --static \
       --device cpu
+  # sampled requests (temperature, top-p; each seeded by its id) and
+  # prompts padded to power-of-two buckets:
+  python -m repro_torch.launch.serve --arch llama_moe_4_16 --smoke \
+      --paged --page-size 4 --temperature 0.8 --top-p 0.9 --buckets \
+      --device cpu
 """
 from __future__ import annotations
 
@@ -45,7 +51,7 @@ import torch
 from repro_torch.configs.registry import get_config
 from repro_torch.models.layers import resolve_device
 from repro_torch.models.model import model_init, prefill, serve_step
-from repro_torch.serving.engine import ServingEngine
+from repro_torch.serving.engine import ServingEngine, _sample_tokens
 
 
 def _sync(dev: torch.device) -> None:
@@ -54,30 +60,48 @@ def _sync(dev: torch.device) -> None:
 
 
 def generate(params, cfg, prompts, gen_tokens: int, *, device=None,
-             max_len: int = 0) -> dict:
-    """Greedy decoding. prompts [B, T] -> tokens [B, gen_tokens], plus the
-    logits that chose each token ([gen_tokens, B, V] fp32) and wall times.
-    `max_len` sizes the KV cache (0 -> T + gen_tokens + 1). `params` must
-    already live on `device` (CUDA unless named)."""
+             max_len: int = 0, greedy: bool = True,
+             generator: torch.Generator | None = None) -> dict:
+    """Static-batch decoding. prompts [B, T] -> tokens [B, gen_tokens], plus
+    the logits that chose each token ([gen_tokens, B, V] fp32) and wall
+    times. `max_len` sizes the KV cache (0 -> T + gen_tokens + 1). Greedy
+    by default; `greedy=False` samples every token, the first included, at
+    temperature 1 over the whole vocabulary through the engine's
+    `_sample_tokens`, from B uniforms a token drawn from `generator` (a
+    CPU torch.Generator; required). At batch 1 that is the engine's
+    request at temperature 1.0, top_p 1.0, whose generator was seeded the
+    same. `params` must already live on `device` (CUDA unless named)."""
     dev = resolve_device(device)
     if params["embed"].device.type != dev.type:
         raise ValueError(f"params live on {params['embed'].device}, "
                          f"generate() runs on {dev}")
+    if not greedy and generator is None:
+        raise ValueError("generate(greedy=False) draws its uniforms from "
+                         "`generator`: pass a CPU torch.Generator")
     prompts = torch.as_tensor(prompts).to(dev)
     B, T = prompts.shape
+    ones = torch.ones(B, dtype=torch.float32, device=dev)
+
+    def pick(logits):
+        if greedy:
+            return torch.argmax(logits, dim=-1)
+        u = torch.rand(B, generator=generator).to(dev)
+        return _sample_tokens(logits, u, ones, ones)
+
     _sync(dev)
     t0 = time.perf_counter()
     state, logits = prefill(params, prompts, cfg,
                             max_len=max_len or (T + gen_tokens + 1))
-    tok = torch.argmax(logits, dim=-1)
+    tok = pick(logits)
     _sync(dev)
     t1 = time.perf_counter()
     out, chose = [], []
-    for _ in range(gen_tokens):
+    for i in range(gen_tokens):
         out.append(tok)
         chose.append(logits)
         logits, state = serve_step(params, state, tok, cfg)
-        tok = torch.argmax(logits, dim=-1)
+        if i + 1 < gen_tokens:        # pick only the tokens that are emitted
+            tok = pick(logits)
     _sync(dev)
     t2 = time.perf_counter()
     return {
@@ -95,14 +119,18 @@ def serve_continuous(params, cfg, prompts: list, gen_tokens: int, *,
                      arrival_steps: list | None = None, paged: bool = False,
                      page_size: int = 16, num_pages: int | None = None,
                      prefill_chunk: int = 0, priorities: list | None = None,
-                     kv_quant: str | None = None, device=None) -> dict:
-    """Run a list of prompts through the continuous-batching engine, greedy.
+                     kv_quant: str | None = None, temperature: float = 0.0,
+                     top_p: float = 1.0, prompt_buckets: bool = False,
+                     device=None) -> dict:
+    """Run a list of prompts through the continuous-batching engine.
     `paged` swaps the dense slot rows for the block-table page pool
     (`page_size`, `num_pages`: None keeps the dense token capacity);
     `prefill_chunk` admits long prompts one chunk per tick; `priorities`
     orders admission (lower first, FIFO within a level); `kv_quant`
     "int8" stores the paged pool's KV pages and GO rows as int8 (None keeps
-    cfg's mode). `max_tokens` 0
+    cfg's mode). `temperature` > 0 samples with top-p nucleus filtering
+    (each request seeded by its id); `prompt_buckets` pads one-shot
+    prompts to power-of-two buckets. `max_tokens` 0
     derives the pool's capacity from the longest prompt, rounded up to a
     multiple of the page size and the chunk. Returns the token stream of
     every request by id, the wall time and the engine's stats."""
@@ -115,10 +143,11 @@ def serve_continuous(params, cfg, prompts: list, gen_tokens: int, *,
                         max_tokens=max_tokens, paged=paged,
                         page_size=page_size, num_pages=num_pages,
                         prefill_chunk=prefill_chunk, kv_quant=kv_quant,
-                        device=device)
+                        prompt_buckets=prompt_buckets, device=device)
     ids = [eng.submit(p, gen_tokens,
                       arrival_step=arrival_steps[i] if arrival_steps else 0,
-                      priority=priorities[i] if priorities else 0)
+                      priority=priorities[i] if priorities else 0,
+                      temperature=temperature, top_p=top_p)
            for i, p in enumerate(prompts)]
     _sync(eng.device)
     t0 = time.perf_counter()
@@ -163,12 +192,23 @@ def main(argv=None):
                     help="store the paged pool's KV pages and GO rows as "
                          "int8 with per-page / per-row scales (needs "
                          "--paged and a page size divisible by 8)")
+    ap.add_argument("--temperature", type=float, default=0.0,
+                    help="sampling temperature of the engine's requests "
+                         "(0 = greedy, the default)")
+    ap.add_argument("--top-p", type=float, default=1.0,
+                    help="nucleus sampling mass (with --temperature > 0)")
+    ap.add_argument("--buckets", action="store_true",
+                    help="pad one-shot prompts to power-of-two buckets "
+                         "(prefill with the real length as valid_len)")
     ap.add_argument("--priority", type=int, default=0,
                     help="admission priority of the submitted requests "
                          "(lower = admitted first; FIFO within a level)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
+    if args.static and (args.temperature > 0 or args.buckets):
+        ap.error("--temperature and --buckets drive the engine; the static "
+                 "path decodes greedily (drop --static)")
     if args.kv_quant != "none" and not args.paged:
         ap.error("--kv-quant int8 needs --paged (scale granularity is page "
                  "granularity)")
@@ -197,7 +237,9 @@ def main(argv=None):
                            num_pages=args.num_pages or None,
                            prefill_chunk=args.chunk_prefill,
                            priorities=[args.priority] * len(prompts),
-                           kv_quant=args.kv_quant, device=dev)
+                           kv_quant=args.kv_quant,
+                           temperature=args.temperature, top_p=args.top_p,
+                           prompt_buckets=args.buckets, device=dev)
     s = res["stats"]
     print(f"{cfg.name} on {dev}: served {s['finished']} requests over "
           f"{s['steps']} ticks on {args.slots} slots in "
@@ -207,7 +249,11 @@ def main(argv=None):
           + (f" [{s['kv_quant_dtype']} pages, dequant max err "
              f"{s['dequant_max_abs_err']:.3g}]" if s["kv_quant_dtype"]
              else "")
-          + (f" [chunk ticks {s['chunk_ticks']}]" if s["chunk_ticks"] else ""))
+          + (f" [chunk ticks {s['chunk_ticks']}]" if s["chunk_ticks"] else "")
+          + (f" [temperature {args.temperature:g}, top_p {args.top_p:g}]"
+             if args.temperature > 0 else "")
+          + (f" [prefill lengths {s['prefill_lengths']}]" if args.buckets
+             else ""))
     print("sample:", res["tokens"][min(res["tokens"])][:16].tolist())
     return res
 

@@ -41,14 +41,17 @@ def _ffn_apply(params: dict, x: torch.Tensor, cfg, group_of_expert=None,
 def attn_block(params: dict, x: torch.Tensor, *, cfg,
                positions: torch.Tensor, window: int = 0,
                group_of_expert=None, group_members=None,
-               return_kv: bool = False):
-    """Full-sequence block, x [B, S, d] -> (x, aux[, k, v])."""
+               return_kv: bool = False, valid_len: int | None = None):
+    """Full-sequence block, x [B, S, d] -> (x, aux[, k, v]). `valid_len`
+    (a bucketed prefill's real length) masks the right pads out of
+    expert-choice routing (_ffn_apply)."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     a = ATT.attn_forward(params["attn"], h, cfg=cfg, positions=positions,
                          window=window, return_kv=return_kv)
     if return_kv:
         a, k, v = a
-    x, aux = _ffn_apply(params, x + a, cfg, group_of_expert, group_members)
+    x, aux = _ffn_apply(params, x + a, cfg, group_of_expert, group_members,
+                        valid_len)
     if return_kv:
         return x, aux, k, v
     return x, aux

@@ -7,7 +7,8 @@ Counterpart of repro/models/model.py for the serving paths:
   init_decode_state(cfg, batch, max_len, device, per_slot_t=, paged=)
                                                 -> dense or paged state
   init_decode_slot / write_decode_slot          -> reset / fill one pool row
-  prefill(params, tokens, cfg, max_len)         -> (state, last_logits)
+  prefill(params, tokens, cfg, max_len, valid_len=)
+                                                -> (state, last_logits)
   prefill_chunk(params, state, tokens, cfg, start, valid_len)
                                                 -> (state, chunk logits)
   serve_step(params, state, tokens_t, cfg)      -> (logits, state)
@@ -385,27 +386,46 @@ def _layer_go(state: dict, l: int) -> GOCache | None:
 
 # -------------------------------------------------------------------- prefill
 
-def prefill(params: dict, tokens: torch.Tensor, cfg, max_len: int = 0):
+def prefill(params: dict, tokens: torch.Tensor, cfg, max_len: int = 0,
+            valid_len: int | None = None):
     """Full-sequence forward that fills the decode state: KV caches and,
     for expert choice, each layer's GO cache from its routing; a recurrent
     family steps serve_step over the prompt instead (max_len unused).
-    tokens [B, S] -> (state, last-position logits [B, V] fp32)."""
+    tokens [B, S] -> (state, last-position logits [B, V] fp32).
+
+    `valid_len` (a host int) is a BUCKETED prefill: tokens are right-padded
+    to a bucket length and only the first valid_len positions are real.
+    Causal attention keeps real positions off the pads; expert-choice
+    routing masks the pads out of its top-C, so the GO cache holds only
+    real tokens (token choice routes the pads too; their outputs land on
+    pad rows only). The logits come from position valid_len - 1 and the
+    decode starts there: the pads' KV rows are overwritten by decode steps
+    before anything attends to them. Attention family only, as in the
+    reference."""
     Bsz, S = tokens.shape
     dev = tokens.device
     state = init_decode_state(cfg, Bsz, max_len or 2 * S, dev)
     if cfg.block != "attn":
+        if valid_len is not None:
+            raise ValueError(
+                f"{cfg.name}: bucketed prefill (valid_len) is attention-"
+                "family only; a recurrent family prefills step by step")
         # step-by-step prefill, exact for a recurrent family
         logits = None
         for i in range(S):
             logits, state = serve_step(params, state, tokens[:, i], cfg)
         return state, logits
+    vl = S if valid_len is None else int(valid_len)
+    if not 1 <= vl <= S:
+        raise ValueError(f"valid_len={valid_len} must lie in 1..{S}")
     positions = torch.arange(S, dtype=torch.int32, device=dev)
     groups = _groups(cfg, dev)
     x = params["embed"][tokens]
     for l, w in enumerate(layer_windows(cfg)):
         x, aux, k, v = B.attn_block(layer_params(params["layers"], l), x,
                                     cfg=cfg, positions=positions, window=w,
-                                    return_kv=True, **groups)
+                                    return_kv=True, valid_len=valid_len,
+                                    **groups)
         state["k"][l, :, :S] = k
         state["v"][l, :, :S] = v
         go_l = _layer_go(state, l)
@@ -416,8 +436,8 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, max_len: int = 0):
             for dst, src in zip(go_l, go):
                 dst.copy_(src)
     x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = logits_from_hidden(params, x[:, -1, :], cfg)
-    state["t"] = S
+    logits = logits_from_hidden(params, x[:, vl - 1, :], cfg)
+    state["t"] = vl
     return state, logits
 
 

@@ -15,10 +15,30 @@ Counterpart of repro/serving/engine.py (`ServingEngine`), the engine's core:
   retire   a slot frees on EOS or length; its caches reset
            (init_decode_slot) and the row is reusable at once.
 
-Greedy decoding only: the engine reads each tick's tokens back to the host
-once. Greedy streams equal the static `launch.serve.generate()`'s for the
-same cache capacity, and a paged pool's streams equal a dense pool's (on
-the CPU the paged attention runs the reference's gather realization).
+The engine reads each tick's tokens back to the host once. Greedy
+streams equal the static `launch.serve.generate()`'s for the same cache
+capacity, and a paged pool's streams equal a dense pool's (on the CPU the
+paged attention runs the reference's gather realization).
+
+SAMPLING (`submit(temperature=, top_p=, seed=)`): a request with
+temperature > 0 samples each token from its logits scaled by
+1/temperature, cut to the top-p nucleus (`_sample_tokens`, on the
+device), by inverse CDF from one uniform. The uniforms come from a CPU
+`torch.Generator` a request owns, seeded with `seed` (the request id when
+None): one per emitted token, its first included; greedy rows draw none.
+So a request draws the same numbers on the CPU and on a card, and its
+stream does not depend on its cohabitants. A tick samples only when an
+active row has temperature > 0; a greedy-only tick is the greedy tick,
+launch for launch, and greedy rows in a sampling tick take the argmax.
+The JAX package's PRNG streams are not reproduced.
+
+PROMPT BUCKETS (`prompt_buckets=True`): a one-shot admission pads its
+prompt to a power of two from 8 up (capped at max_tokens) and prefills
+with the real length as `valid_len` (models/model.py:prefill).
+`stats()["prefill_lengths"]` lists the padded lengths seen. Expert-choice
+capacity derives from the bucket length, so MoE streams are
+deterministic per bucket but may differ from unbucketed ones; chunked
+prompts keep their chunks.
 
 PAGED POOL (`paged=True`): the KV rows become a shared page pool with
 per-slot block tables (serving/pool.py, serving/paging.py); admission asks
@@ -45,9 +65,9 @@ stays full precision and quantizes once when the request installs.
 Released pages return with zeroed scales. stats() reports
 `kv_quant_dtype`, `kv_bytes_per_token` and `dequant_max_abs_err`.
 
-Not in the port yet (ROADMAP.md Queue 1 item 7): sampling, prompt
-buckets, preemption, chaos and the supervisor, deadlines and cancel,
-prefix sharing and expert-aware admission, the journal and the mesh.
+Not in the port yet (ROADMAP.md Queue 1 item 7): preemption, chaos and
+the supervisor, deadlines and cancel, prefix sharing and expert-aware
+admission, the journal and the mesh.
 The int8 branches of preemption snapshots, prefix-share forks, NaN
 poisoning of scales and the journal come with those features.
 """
@@ -66,6 +86,36 @@ from repro_torch.models.model import (init_decode_state, paged_supported,
 from repro_torch.serving.pool import SlotPool
 from repro_torch.serving.scheduler import (FIFOScheduler, QueueFull, Request,
                                            RequestStatus, RequestTooLarge)
+
+
+def _sample_tokens(logits: torch.Tensor, u: torch.Tensor,
+                   temps: torch.Tensor, top_ps: torch.Tensor) -> torch.Tensor:
+    """Per-row temperature / top-p sampling over logits [B, V], on their
+    device: u [B] uniforms in [0, 1), temps [B], top_ps [B] (f32). A row
+    scales its logits by 1/max(temp, 1e-6), sorts them descending (stable,
+    so ties keep the lower index first, as `lax.top_k` does), keeps the
+    tokens where cumsum(p) - p < top_p (the first always), and takes the
+    first kept token whose cumulative renormalised probability exceeds
+    its u. Rows with temp <= 0 take the argmax. Returns [B] int64."""
+    greedy = torch.argmax(logits, dim=-1)
+    lg = logits.float() / temps.clamp_min(1e-6)[:, None]
+    srt, idx = torch.sort(lg, dim=-1, descending=True, stable=True)
+    p = torch.softmax(srt, dim=-1)
+    keep = (torch.cumsum(p, dim=-1) - p) < top_ps[:, None]
+    q = torch.softmax(srt.masked_fill(~keep, float("-inf")), dim=-1)
+    j = torch.searchsorted(torch.cumsum(q, dim=-1), u[:, None].float(),
+                           right=True)
+    # u at or past the last kept token's rounded cumulative sum
+    j = torch.minimum(j, keep.sum(dim=-1, keepdim=True) - 1)
+    sampled = torch.gather(idx, 1, j)[:, 0]
+    return torch.where(temps > 0, sampled, greedy)
+
+
+def _sample_rows(logits: torch.Tensor, u, temps, top_ps) -> torch.Tensor:
+    """`_sample_tokens` with the rows' uniforms, temperatures and top-ps
+    given as host arrays [B], moved to the logits' device in one copy."""
+    host = torch.from_numpy(np.stack([u, temps, top_ps]).astype(np.float32))
+    return _sample_tokens(logits, *host.to(logits.device))
 
 
 @dataclass
@@ -91,7 +141,8 @@ class ServingEngine:
                  max_tokens: int = 256, max_queue: int = 0,
                  paged: bool = False, page_size: int = 16,
                  num_pages: int | None = None, prefill_chunk: int = 0,
-                 kv_quant: str | None = None, device=None):
+                 kv_quant: str | None = None, prompt_buckets: bool = False,
+                 device=None):
         if cfg.block != "attn":
             raise NotImplementedError(
                 f"{cfg.name}: the engine serves the attention family; a "
@@ -122,6 +173,8 @@ class ServingEngine:
                 raise ValueError(f"prefill_chunk={prefill_chunk} must be "
                                  f"page-granular (page_size={page_size})")
         self.prefill_chunk = int(prefill_chunk)
+        self.prompt_buckets = bool(prompt_buckets)
+        self.prefill_lengths: set[int] = set()
         self._chunk_job: _ChunkJob | None = None
         self._next_id = 0
         self.step_count = 0
@@ -139,25 +192,27 @@ class ServingEngine:
 
     def submit(self, prompt, max_new_tokens: int, *, eos_id: int | None = None,
                arrival_step: int = 0, priority: int = 0,
-               request_id: int | None = None,
-               temperature: float = 0.0) -> int:
+               request_id: int | None = None, temperature: float = 0.0,
+               top_p: float = 1.0, seed: int | None = None) -> int:
         """Queue a request and return its id. `arrival_step` later than the
         current tick defers its arrival to that tick (trace replay);
         `priority` orders admission (lower first, FIFO within a level).
+        `temperature` > 0 samples the request's tokens with top-p nucleus
+        filtering from uniforms seeded by `seed` (None: the request id).
         Raises RequestTooLarge for a request that could never fit the pool
         and QueueFull at max_queue."""
-        if temperature > 0:
-            raise NotImplementedError(
-                "sampling (temperature > 0) is not ported yet: ROADMAP.md "
-                "Queue 1 item 7; the port's engine decodes greedily")
         rid = request_id if request_id is not None else self._next_id
         self._next_id = max(self._next_id, rid + 1)
         req = Request(request_id=rid,
                       prompt=np.asarray(prompt, np.int32).reshape(-1),
                       max_new_tokens=int(max_new_tokens), eos_id=eos_id,
-                      arrival_step=arrival_step, priority=int(priority))
+                      arrival_step=arrival_step, priority=int(priority),
+                      temperature=float(temperature), top_p=float(top_p),
+                      seed=seed)
         if req.max_new_tokens < 1:
             raise ValueError("max_new_tokens must be >= 1")
+        if not 0.0 < req.top_p <= 1.0:
+            raise ValueError("top_p must be in (0, 1]")
         if self.pool.paged:
             # a worst case over the whole page pool could never reserve, so
             # its admission would stall the queue forever
@@ -256,14 +311,23 @@ class ServingEngine:
     def _decode_step(self) -> np.ndarray:
         """One batched decode tick over every row (the reference's
         `_decode_step`): retired rows' positions are pinned back to 0.
-        Returns the greedy tokens [num_slots], read back to the host."""
+        Returns the tokens [num_slots], read back to the host: the argmax,
+        or, when an active row samples, `_sample_tokens` with one uniform
+        from each sampling row's generator (the uniforms, temperatures and
+        top-ps go to the device in one copy)."""
         dev = self.device
         st = self.pool.state
         tokens = torch.from_numpy(self.pool.pending.astype(np.int64)).to(dev)
         active = torch.from_numpy(self.pool.active_mask()).to(dev)
         logits, st = serve_step(self.params, st, tokens, self.cfg)
         st["t"] = torch.where(active, st["t"], 0).to(torch.int32)
-        return torch.argmax(logits, dim=-1).cpu().numpy()
+        temps = self.pool.temps                 # 0 on free rows
+        if not (temps > 0).any():
+            return torch.argmax(logits, dim=-1).cpu().numpy()
+        u, gens = np.zeros_like(temps), self.pool.generators
+        for slot in np.flatnonzero(temps > 0):
+            u[slot] = torch.rand(1, generator=gens[slot]).item()
+        return _sample_rows(logits, u, temps, self.pool.top_ps).cpu().numpy()
 
     def _note_occupancy(self) -> None:
         self.peak_active = max(
@@ -283,12 +347,43 @@ class ServingEngine:
         self.page_waits += 1
         return False
 
+    def _bucketed(self, prompt: np.ndarray):
+        """Pad the prompt up to its power-of-two bucket (from 8, capped at
+        the pool's max_tokens); returns (padded [S_b], valid_len or None
+        when no pad is needed)."""
+        n = int(prompt.shape[0])
+        b = 8
+        while b < n:
+            b *= 2
+        b = min(b, self.pool.max_tokens)
+        if b <= n:
+            return prompt, None
+        return np.pad(prompt, (0, b - n)), n
+
+    def _first_token(self, req: Request, logits):
+        """The request's first output token from its prefill logits [1, V]:
+        the argmax, or sampled from the first uniform of the request's new
+        generator when it asks for temperature > 0. Returns (token, the
+        generator or None)."""
+        if req.temperature <= 0:
+            return int(torch.argmax(logits, dim=-1)[0]), None
+        seed = req.seed if req.seed is not None else req.request_id
+        gen = torch.Generator().manual_seed(int(seed))
+        u = torch.rand(1, generator=gen).item()
+        tok = _sample_rows(logits, [u], [req.temperature], [req.top_p])
+        return int(tok[0]), gen
+
     def _admit(self, slot: int, req: Request, done: list[Request]) -> None:
-        """One-shot batch-1 prefill at the pool's max_tokens into `slot`;
-        emits the request's first token from the prefill logits."""
-        prompt = torch.from_numpy(req.prompt.copy()).to(self.device)
-        slot_state, logits = prefill(self.params, prompt[None, :], self.cfg,
-                                     max_len=self.pool.max_tokens)
+        """One-shot batch-1 prefill at the pool's max_tokens into `slot`
+        (padded to its bucket with prompt_buckets); emits the request's
+        first token from the prefill logits."""
+        prompt, valid_len = (self._bucketed(req.prompt) if self.prompt_buckets
+                             else (req.prompt, None))
+        self.prefill_lengths.add(int(prompt.shape[0]))
+        tokens = torch.from_numpy(np.ascontiguousarray(prompt)).to(self.device)
+        slot_state, logits = prefill(self.params, tokens[None, :], self.cfg,
+                                     max_len=self.pool.max_tokens,
+                                     valid_len=valid_len)
         self._install(slot, req, slot_state, logits, done)
 
     def _install(self, slot: int, req: Request, slot_state: dict, logits,
@@ -296,12 +391,13 @@ class ServingEngine:
         """Shared tail of one-shot and chunked admission: emit the first
         token, splat the prefilled state into the pool row, and retire at
         once on EOS or a one-token request."""
-        first = int(torch.argmax(logits, dim=-1)[0])
+        first, gen = self._first_token(req, logits)
         req.admit_step = self.step_count
         req.admit_time = time.monotonic()
         req.status = RequestStatus.ACTIVE
         req.tokens.append(first)
-        self.pool.admit(slot, req, slot_state, first, page_row=page_row)
+        self.pool.admit(slot, req, slot_state, first, page_row=page_row,
+                        generator=gen)
         self._note_occupancy()       # before a possible instant retirement
         if self.pool.remaining[slot] <= 0 or \
                 (req.eos_id is not None and first == req.eos_id):
@@ -405,4 +501,5 @@ class ServingEngine:
                 if self.pool.paged else None),
             "dequant_max_abs_err": (self.pool.dequant_max_abs_err
                                     if self.pool.quant else None),
+            "prefill_lengths": sorted(self.prefill_lengths),
         }

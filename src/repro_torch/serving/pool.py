@@ -9,7 +9,9 @@ engine's whole life; requests are admitted into free rows and retired out
 of them without reshaping anything. Per-slot positions (`state["t"]`, an
 int32 tensor [num_slots]) let rows sit at different sequence offsets.
 Host-side metadata (which request owns which row, its next input token,
-how many tokens it still owes, its next decode position) stays in numpy.
+how many tokens it still owes, its next decode position, its temperature
+and top_p) stays in numpy, beside each sampling row's CPU
+`torch.Generator`.
 
 PAGED mode (`paged=True`) replaces the dense per-slot KV rows with a
 shared page pool (`k_pages`/`v_pages` [L, num_pages, page_size, Hkv, hd])
@@ -98,6 +100,11 @@ class SlotPool:
         self.pending = np.zeros(num_slots, np.int32)    # next input token
         self.remaining = np.zeros(num_slots, np.int64)  # tokens still owed
         self.t_host = np.zeros(num_slots, np.int64)     # next decode position
+        # sampling: a row with temperature > 0 samples (top-p) from one
+        # uniform a token, drawn from its request's CPU generator
+        self.temps = np.zeros(num_slots, np.float32)
+        self.top_ps = np.ones(num_slots, np.float32)
+        self.generators: list[torch.Generator | None] = [None] * num_slots
         self.admitted_total = 0
 
     # ---------------------------------------------------------------- queries
@@ -155,13 +162,19 @@ class SlotPool:
         return self._first_pages(req)
 
     def admit(self, slot: int, req: Request, slot_state: dict,
-              first_token: int, *, page_row=None) -> None:
+              first_token: int, *, page_row=None,
+              generator: torch.Generator | None = None) -> None:
         """Install a prefilled request into a free row: write its KV (and GO)
-        entries and its position in place, and arm its first decode input.
+        entries and its position in place, and arm its first decode input
+        and its sampling (temperature, top_p and `generator`, the request's
+        uniforms, already advanced past its first token's draw).
         A paged pool allocates the pages covering the prompt and the first
         decode write here (later pages come through grow_active); a chunked
         run that already claimed its pages passes its row as `page_row`,
-        and its KV already sits in the pool's pages."""
+        and its KV already sits in the pool's pages. A bucketed prefill's
+        state is max_tokens long like any other: its pad rows land in the
+        request's own pages past its prompt (or on the null page), and
+        decode overwrites each before anything attends to it."""
         if self.owner[slot] is not None:
             raise RuntimeError(f"slot {slot} is occupied")
         if self.paged:
@@ -178,6 +191,9 @@ class SlotPool:
         self.pending[slot] = first_token
         self.remaining[slot] = req.max_new_tokens - 1   # first token emitted
         self.t_host[slot] = req.prompt_len
+        self.temps[slot] = req.temperature
+        self.top_ps[slot] = req.top_p
+        self.generators[slot] = generator
         self.admitted_total += 1
         req.slot = slot
 
@@ -262,4 +278,7 @@ class SlotPool:
         self.pending[slot] = 0
         self.remaining[slot] = 0
         self.t_host[slot] = 0
+        self.temps[slot] = 0.0
+        self.top_ps[slot] = 1.0
+        self.generators[slot] = None
         return req

@@ -63,6 +63,9 @@ class Request:
     eos_id: int | None = None
     arrival_step: int = 0            # engine step at which the request arrives
     priority: int = 0                # admission class: lower = admitted first
+    temperature: float = 0.0         # > 0 samples; 0 decodes greedily
+    top_p: float = 1.0               # nucleus mass kept when sampling
+    seed: int | None = None          # sampling seed (None: the request id)
 
     # --- filled in by the engine ---
     status: RequestStatus = RequestStatus.QUEUED

@@ -580,6 +580,57 @@ def test_cuda_go_router_raises_instead_of_falling_back(cuda_device):
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("B,E,k", [(65, 16, 4), (96, 8, 2), (4, 72, 4)])
+def test_cuda_go_cache_step_past_the_router_runs_k5(cuda_device, B, E, k):
+    """go_cache_step past K5R's bound on the card: K5 in place once and
+    K1/K2 once over a plan of several 64-row tiles a lane (B > 64), K5R
+    never; against the same step on the CPU (plain versions): selected,
+    scores and ids bit-equal to the CPU's TopKUpdate on the card's own g
+    (the same ops on the card), g within the router's 1e-5 relative, y
+    within 1e-4."""
+    from repro_torch.core import go_cache as GO
+    d, de = 128, 64
+    x, w, sp, tp, tid = _router_inputs(B + E, B, E, k, d, cuda_device,
+                                       torch.float32, torch.float32)
+    rng = np.random.default_rng(B * E)
+    bank = {n: torch.from_numpy((rng.standard_normal(s) / 8).astype(
+        np.float32)).to(cuda_device)
+        for n, s in (("wg", (E, d, de)), ("wi", (E, d, de)),
+                     ("wo", (E, de, d)))}
+    out = torch.zeros(B, E, k, d, device=cuda_device)
+
+    def step(dev):
+        cache = GO.GOCache(sp.to(dev).clone(), tp.to(dev).clone(),
+                           out.to(dev).clone())
+        tb = {n: a.to(dev) for n, a in bank.items()}
+        res = GO.go_cache_step(
+            cache, x.to(dev), tid.to(dev), w.to(dev),
+            bn=OPS.default_block_rows(dev),
+            contrib_fn=lambda xt, sel, g, plan: OPS.go_plan_ffn(xt, plan,
+                                                                tb))
+        return res, cache
+
+    before = {**GT.LAUNCHES, **G.LAUNCHES}
+    res, cache = step(cuda_device)
+    torch.cuda.synchronize()
+    after = {**GT.LAUNCHES, **G.LAUNCHES}
+    assert {n: after[n] - before[n] for n in after} == {
+        "go_topk_update": 1, "go_router": 0, "gmm_swiglu": 1,
+        "gmm_scaled": 1, "gmm_swiglu_fused": 0, "gmm_scaled_fused": 0,
+        "gmm": 0}
+    g = torch.softmax(x @ w, dim=-1)
+    s_ref, t_ref, sel_ref, _ = GT.go_topk_update_plain(
+        sp.cpu(), tp.cpu(), g.cpu(), tid.cpu())
+    assert torch.equal(res.selected.cpu(), sel_ref)
+    assert torch.equal(cache.scores.cpu(), s_ref)
+    assert torch.equal(cache.token_ids.cpu(), t_ref)
+    cpu, _ = step("cpu")
+    g_cpu = torch.softmax(x.cpu() @ w.cpu(), dim=-1)
+    assert ((g.cpu() - g_cpu).abs() / g_cpu).max() <= 1e-5
+    torch.testing.assert_close(res.y.cpu(), cpu.y, rtol=1e-4, atol=1e-4)
+
+
+@pytest.mark.requires_cuda
 @pytest.mark.parametrize("N,K,F,E", [(128, 256, 128, 2), (128, 48, 96, 4),
                                      (64, 688, 172, 4)])
 def test_cuda_gmm_matches_plain_and_k2_at_unit_scale(cuda_device, N, K, F, E):

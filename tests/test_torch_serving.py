@@ -271,8 +271,8 @@ def test_oversized_and_unsupported_requests_raise(port_params):
     with pytest.raises(QueueFull):
         paged.submit(np.zeros(4, np.int32), 2)
     assert paged.stats()["rejected"] == {"queue_full": 1, "oversized": 1}
-    with pytest.raises(NotImplementedError, match="item 7"):
-        paged.submit(np.zeros(4, np.int32), 2, temperature=0.7)
+    with pytest.raises(ValueError, match="top_p"):
+        paged.submit(np.zeros(4, np.int32), 2, temperature=0.7, top_p=0.0)
 
 
 def test_engine_without_a_device_never_runs_on_the_cpu(port_params,
