@@ -114,7 +114,11 @@ Phases (none catches an exception; any failure exits non-zero):
      requests (the GO decode past K5R's bound: K5 per layer and tick),
      and the trace again with prompt buckets and requests alternating
      greedy and sampled (temperature 0.8, top_p 0.9, seed = the request
-     id): card streams equal the CPU's, sampled ones included.
+     id): card streams equal the CPU's, sampled ones included. Then the
+     chaos churn of tests/test_torch_chaos.py (llama smoke, paged, seeded
+     tick faults, admission pressure and forced preemptions, the audit
+     every tick) on the CPU and the card: the same streams, statuses,
+     injected counts, preemptions, tick retries and finish steps.
   5. full width, bf16, one set of random weights per model, first
      llama_moe_4_16, then granite-moe-3b-a800m:
      a. static generate(): 4 requests x 128 prompt tokens, 16 new tokens,
@@ -127,7 +131,19 @@ Phases (none catches an exception; any failure exits non-zero):
         the same trace on int8 KV pages and GO rows (`llama_engine_int8`:
         K3/K4 on the int8 operand): the same checks, scales included,
         its pool's page bytes beside the bf16 pool's (about half), and
-        its own profile. Then `llama_engine_sampled`: the same trace with
+        its own profile. Then `fault_domain` (bf16, then
+        `fault_domain_int8` on int8 pages; the audit on every tick):
+        FAULT_TRACE on FAULT_PAGES pages, where a high-priority arrival
+        evicts a low-priority stream to a host snapshot and it resumes into
+        other physical pages, every stream bit-equal to the trace on a pool
+        that never evicts (snapshot pages, bytes and ms, restore ms);
+        FAULT_CHAOS on the engine trace, streams bit-equal to the
+        chaos-free run above; a NaN-poisoned slot of 4 retires FAILED with
+        a prefix of its clean stream, the others equal, and a request
+        admitted next maps the scrubbed pages and streams as on a fresh
+        pool; (bf16) max_wall_s=0 retires TIMEOUT with a prefix, and a
+        prefill cancelled after one chunk hands its pages back. Then
+        `llama_engine_sampled`: the same trace with
         prompt buckets, requests alternating greedy and sampled
         (temperature 0.8, top_p 0.9, seed = the request id) and a ninth at
         top_p 1e-9 that must stream request 0's greedy tokens; a fresh
@@ -2705,6 +2721,7 @@ def engine_phase(torch, G, PA, SC, GT, cfg, params, ServingEngine,
     need(repeat_state_equal, f"{cfg.name}: the engine trace left other KV "
          "pages, scales or GO rows when run again")
     engine_profile_phase(torch, cfg, params, prompts, ServingEngine, pool)
+    stats["streams"] = [fin[r].tokens for r in rids]   # fault_domain's oracle
     return launches, stats
 
 
@@ -2829,6 +2846,270 @@ def sampled_engine_phase(torch, G, PA, SC, GT, cfg, params,
     return launches, stats
 
 
+# The fault domain's page-pressure trace at full width: (prompt tokens, new
+# tokens, priority, arrival tick). Two long low-priority streams (chunked)
+# reserve 56 of FAULT_PAGES - 1 usable pages; the high-priority request
+# arriving at tick 8 needs 10 more, so one of them is evicted for it.
+FAULT_TRACE = [(384, 64, 5, 0), (384, 64, 5, 0), (128, 32, 0, 8)]
+FAULT_PAGES = 61
+# the chaos of the CPU churn test, on the full-width engine trace
+FAULT_CHAOS = dict(seed=3, tick_fail=0.3, pressure=0.2, preempt=0.4)
+# the quarantine run: 4 one-shot prompts decoding (lengths, new tokens),
+# then one more admitted onto the scrubbed pages (length, new tokens)
+FAULT_QUARANTINE = ((64, 128, 96, 112), 24, (96, 16))
+
+
+def _timed_pool(torch, pool, log):
+    """Time each snapshot and restore of `pool` (synchronised, host clock)
+    and record each snapshot's pages and bytes into `log`."""
+    snapshot, restore = pool.snapshot, pool.restore
+
+    def snap(slot):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = snapshot(slot)
+        torch.cuda.synchronize()
+        log["snapshot_ms"].append((time.perf_counter() - t0) * 1e3)
+        log["snapshot_pages"].append(out["n_pages"])
+        log["snapshot_bytes"].append(sum(
+            t.numel() * t.element_size() for t in _tensors(out)))
+        return out
+
+    def rest(slot, req, snap_):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        restore(slot, req, snap_)
+        torch.cuda.synchronize()
+        log["restore_ms"].append((time.perf_counter() - t0) * 1e3)
+
+    pool.snapshot, pool.restore = snap, rest
+
+
+def _drained(eng):
+    """The engine's pool is empty and its audit (the pool's too) green."""
+    eng._audit()
+    return eng.pool.alloc.pages_in_use == 0 and not eng.pool.any_active()
+
+
+def fault_domain_phase(torch, cfg, params, ServingEngine, Chaos, counts,
+                       reset_counts, kv_quant, clean):
+    """`fault_domain`: the engine's fault domain at full width, bf16 or on
+    int8 pages, every run with the audit on every tick.
+    1. Preemption under page pressure (FAULT_TRACE on FAULT_PAGES pages):
+       at least one eviction, as many resumes, every stream equal to the
+       trace on a pool large enough never to evict (same call), the pool
+       drained; the launches those of the formulas with one one-shot
+       prefill (a resume prefills nothing); each snapshot's pages, bytes
+       and ms, and each restore's ms.
+    2. Seeded chaos (FAULT_CHAOS) on the engine trace: streams equal to
+       `clean`, the chaos-free run of engine_phase in this call.
+    3. NaN quarantine: after 4 tokens one of 4 decoding slots is poisoned;
+       it must retire FAILED with a prefix of its clean stream, the others
+       equal theirs; a request admitted right after must map a scrubbed
+       page and stream as on a fresh pool.
+    4. (bf16) A request with max_wall_s=0 retires TIMEOUT with a prefix of
+       its clean stream, and one cancelled mid-chunk-prefill (one K4 chunk
+       a layer) hands its pages back.
+    Returns the launches of run 1."""
+    import numpy as np
+    t_phase = time.perf_counter()
+    L = cfg.num_layers
+    pool = dict(ENGINE_POOL, kv_quant=kv_quant)
+    rng = np.random.default_rng(27)
+    out = {"kv_quant": kv_quant}
+
+    # 1. preemption under page pressure
+    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+               for n, *_ in FAULT_TRACE]
+
+    def pressure(num_pages, preemption, log=None):
+        eng = ServingEngine(params, cfg, device="cuda",
+                            **dict(pool, num_pages=num_pages),
+                            preemption=preemption)
+        eng.audit_every_tick = True
+        if log is not None:
+            _timed_pool(torch, eng.pool, log)
+        rids = [eng.submit(p, g, priority=pr, arrival_step=a)
+                for p, (_, g, pr, a) in zip(prompts, FAULT_TRACE)]
+        fin = eng.run()
+        return eng, [fin[r] for r in rids]
+
+    _, roomy = pressure(None, False)
+    log = {k: [] for k in ("snapshot_ms", "snapshot_pages", "snapshot_bytes",
+                           "restore_ms")}
+    reset_counts()
+    eng, fin = pressure(FAULT_PAGES, True, log)
+    launches = counts()
+    s = eng.stats()
+    one_shot = sum(n <= ENGINE_POOL["prefill_chunk"] for n, *_ in FAULT_TRACE)
+    expect = {**gmm_launches(cfg, s["chunk_ticks"] + one_shot,
+                             s["decode_ticks"]),
+              **go_topk_launches(cfg, s["decode_ticks"]),
+              **paged_launches(cfg, s["decode_ticks"], s["chunk_ticks"],
+                               kv_quant), "slstm_seq": 0}
+    need(launches == expect, f"fault_domain {kv_quant} launches {launches}, "
+         f"expected {expect}")
+    need(s["preemptions"] >= 1 and s["resumes"] == s["preemptions"],
+         f"fault_domain {kv_quant}: preemptions {s['preemptions']}, resumes "
+         f"{s['resumes']}")
+    need(all(r.status == "DONE" for r in fin) and
+         [r.tokens for r in fin] == [r.tokens for r in roomy],
+         f"fault_domain {kv_quant}: a preempted trace streamed other tokens "
+         "than the same trace that never evicts")
+    need(_drained(eng), "fault_domain: pages left after the pressure run")
+    out["pressure"] = {
+        "preemptions": s["preemptions"], "resumes": s["resumes"],
+        "page_waits": s["page_waits"], "decode_ticks": s["decode_ticks"],
+        "chunk_ticks": s["chunk_ticks"],
+        "finish_steps": [r.finish_step for r in fin],
+        "roomy_finish_steps": [r.finish_step for r in roomy], **log}
+
+    # 2. seeded chaos on the engine trace
+    rng2 = np.random.default_rng(2)
+    eprompts = [rng2.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+                for n in ENGINE_LENS]
+    eng = ServingEngine(params, cfg, device="cuda", chaos=Chaos(**FAULT_CHAOS),
+                        **pool)
+    eng.audit_every_tick = True
+    log2 = {k: [] for k in log}
+    _timed_pool(torch, eng.pool, log2)
+    rids = [eng.submit(p, ENGINE_GEN, arrival_step=a)
+            for p, a in zip(eprompts, ENGINE_ARRIVALS)]
+    t0 = time.perf_counter()
+    fin = eng.run()
+    wall = time.perf_counter() - t0
+    s = eng.stats()
+    need([fin[r].tokens for r in rids] == clean,
+         f"fault_domain {kv_quant}: the chaos run streamed other tokens than "
+         "the chaos-free run")
+    need(s["statuses"] == {"DONE": len(rids)} and _drained(eng) and
+         s["resumes"] == s["preemptions"],
+         f"fault_domain {kv_quant} chaos: stats {s}")
+    out["chaos"] = {"injected": s["chaos"], "tick_retries": s["tick_retries"],
+                    "preemptions": s["preemptions"], "resumes": s["resumes"],
+                    "steps": s["steps"], "wall_s": wall,
+                    "snapshot_ms_median": statistics.median(
+                        log2["snapshot_ms"]) if log2["snapshot_ms"] else None,
+                    "restore_ms_median": statistics.median(
+                        log2["restore_ms"]) if log2["restore_ms"] else None}
+
+    # 3. NaN quarantine and the reuse of its scrubbed pages
+    qlens, qgen, (nlen, ngen) = FAULT_QUARANTINE
+    qprompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+                for n in qlens]
+    newp = rng.integers(0, cfg.vocab_size, size=nlen, dtype=np.int32)
+
+    def quarantine_run(poison):
+        eng = ServingEngine(params, cfg, device="cuda", **pool)
+        eng.audit_every_tick = True
+        rids = [eng.submit(p, qgen) for p in qprompts]
+        if not poison:
+            fin = eng.run()
+            return [fin[r].tokens for r in rids], None
+        while len(eng.pool.owner[0].tokens if eng.pool.owner[0] else []) < 4:
+            eng.step()
+        victim = eng.pool.owner[0].request_id
+        scrubbed = set(eng.pool.alloc.owned(victim))
+        eng.pool.poison_slot(0)
+        done = eng.step()
+        need([r.request_id for r in done] == [victim] and
+             done[0].status == "FAILED", f"quarantine: finished {done}")
+        rnew = eng.submit(newp, ngen)
+        eng.step()
+        slot = next(s_ for s_, o in enumerate(eng.pool.owner)
+                    if o is not None and o.request_id == rnew)
+        reused = scrubbed & set(eng.pool.block_table[slot].tolist())
+        fin = eng.run()
+        need(_drained(eng), "quarantine run: pages left")
+        return [fin[r].tokens for r in rids + [rnew]], (
+            victim, fin[victim], sorted(reused))
+
+    clean_q, _ = quarantine_run(False)
+    got, (victim, vreq, reused) = quarantine_run(True)
+    fresh = ServingEngine(params, cfg, device="cuda", **pool)
+    rf = fresh.submit(newp, ngen)
+    fresh_stream = fresh.run()[rf].tokens
+    need(vreq.fail_reason == "non-finite logits" and
+         4 <= len(vreq.tokens) < qgen and
+         vreq.tokens == clean_q[victim][:len(vreq.tokens)],
+         f"quarantine: the poisoned stream {vreq.tokens} is no prefix of "
+         f"{clean_q[victim]}")
+    need(all(got[i] == clean_q[i] for i in range(4) if i != victim),
+         "quarantine: a cohabitant of the poisoned slot streamed other tokens")
+    need(reused, "quarantine: the new request mapped no scrubbed page")
+    need(got[4] == fresh_stream, "quarantine: the request on scrubbed pages "
+         "streamed other tokens than on a fresh pool")
+    out["quarantine"] = {"failed_tokens": len(vreq.tokens),
+                         "reused_scrubbed_pages": reused}
+
+    # 4. deadlines and cancel (bf16 only)
+    if kv_quant == "none":
+        eng = ServingEngine(params, cfg, device="cuda", **pool)
+        eng.audit_every_tick = True
+        r0 = eng.submit(eprompts[0], ENGINE_GEN, max_wall_s=0.0)
+        fin = eng.run()
+        need(fin[r0].status == "TIMEOUT" and
+             0 < len(fin[r0].tokens) < ENGINE_GEN and
+             fin[r0].tokens == clean[0][:len(fin[r0].tokens)],
+             f"max_wall_s=0: {fin[r0].status}, {fin[r0].tokens}")
+        r1 = eng.submit(eprompts[1], ENGINE_GEN)
+        reset_counts()
+        eng.step()
+        chunk_launches = counts()
+        need(eng._chunk_job is not None and eng.pool.alloc.pages_in_use > 0,
+             "cancel: no chunk prefill in flight")
+        need(eng.cancel(r1) and eng.finished[r1].status == "CANCELLED" and
+             eng.pool.alloc.pages_in_use == 0 and _drained(eng),
+             "cancel mid-chunk-prefill: pages not handed back")
+        need(chunk_launches["paged_attn_chunk"] == L,
+             f"cancelled chunk launches {chunk_launches}")
+        out["deadline_cancel"] = {
+            "timeout_tokens": len(fin[r0].tokens),
+            "timeout_reason": fin[r0].fail_reason,
+            "cancelled_chunk_k4_launches": chunk_launches["paged_attn_chunk"]}
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[fault_domain] {cfg.name} {json.dumps(out)}", flush=True)
+    return launches
+
+
+def fault_smoke_phase(torch, cfg, TM, ServingEngine, Chaos, counts,
+                      reset_counts):
+    """The chaos churn of tests/test_torch_chaos.py (smoke llama, fp32, the
+    same weights and seeds) on the CPU (plain versions) and on the card
+    (kernels): the same streams, statuses, injected counts, preemptions,
+    tick retries and finish steps."""
+    import numpy as np
+    params = TM.model_init(cfg, torch.Generator().manual_seed(5), "cpu")
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=12, dtype=np.int32)
+               for _ in range(6)]
+    res = {}
+    for side, dev, p in (("cpu", "cpu", params),
+                         ("card", "cuda", _tree_to(params, "cuda"))):
+        reset_counts()
+        eng = ServingEngine(p, cfg, device=dev, chaos=Chaos(**FAULT_CHAOS),
+                            num_slots=3, max_tokens=48, paged=True,
+                            page_size=8)
+        eng.audit_every_tick = True
+        rids = [eng.submit(q, 16) for q in prompts]
+        fin = eng.run()
+        s = eng.stats()
+        res[side] = {"streams": [fin[r].tokens for r in rids],
+                     "finish_steps": [fin[r].finish_step for r in rids],
+                     **{k: s[k] for k in ("statuses", "chaos", "preemptions",
+                                          "resumes", "tick_retries")}}
+    launches = counts()
+    need(set(res["card"]["statuses"]) == {"DONE"},
+         f"smoke chaos churn statuses {res['card']['statuses']}")
+    need(res["card"] == res["cpu"], f"smoke chaos churn: card {res['card']} "
+         f"!= cpu {res['cpu']}")
+    need(launches["go_router"] > 0 and launches["paged_attn_decode"] > 0,
+         f"smoke chaos churn launches {launches}")
+    print(f"[fault_domain smoke] {cfg.name}: cpu and cuda equal under chaos "
+          f"{FAULT_CHAOS}: {json.dumps(res['card'])}, cuda launches "
+          f"{launches}", flush=True)
+
+
 def _kind(name):
     """Profile bucket of a device kernel's name."""
     # the paged kernels' int8-page instantiations (KV = int8_t: "signed
@@ -2933,7 +3214,7 @@ def main():
     from repro_torch.kernels import slstm_cell as SC
     from repro_torch.launch import serve as TS
     from repro_torch.models import model as TM
-    from repro_torch.serving import ServingEngine
+    from repro_torch.serving import Chaos, ServingEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3015,6 +3296,8 @@ def main():
         for kv_quant in ("none", "int8"):
             engine_smoke_phase(torch, G, PA, GT, get_config(m, smoke=True),
                                TM, TS, kv_quant)
+    fault_smoke_phase(torch, get_config(llama, smoke=True), TM,
+                      ServingEngine, Chaos, counts, reset_counts)
     xlstm = "xlstm-1.3b"
     xlstm_smoke_phase(torch, SC, get_config(xlstm, smoke=True), TM, TS)
 
@@ -3043,6 +3326,12 @@ def main():
                   f"{bf16_stats['tok_per_s']:.2f}", flush=True)
             need(0.45 < ratio < 0.55, f"int8 pool pages are {ratio:.3f} of "
                  "the bf16 pool's, not about half")
+            # slice 12: the engine's fault domain, bf16 then int8 pages
+            for kvq, st_ in (("none", bf16_stats), ("int8", i8_stats)):
+                tag = "" if kvq == "none" else "_int8"
+                by_path[f"fault_domain{tag}"] = fault_domain_phase(
+                    torch, cfg, params, ServingEngine, Chaos, counts,
+                    reset_counts, kvq, st_["streams"])
             # slice 11: the engine trace with prompt buckets and sampling,
             # and the static batch past K5R's 64 rows
             by_path["llama_engine_sampled"], _ = sampled_engine_phase(

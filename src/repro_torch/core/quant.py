@@ -94,7 +94,11 @@ def _scatter(cache, scales, pages, offs, vals):
     hkv = scales.shape[-1]
     scales.scatter_reduce_(0, idx.reshape(-1, 1).expand(-1, hkv),
                            (amax / QMAX).reshape(-1, hkv), "amax")
-    new_s = scales[idx]                                       # post-update
+    # a NaN scale stays NaN, as under the reference's scatter max: CUDA's
+    # atomic max (fmaxf) drops a NaN operand, torch.maximum keeps it, and
+    # for finite scales it is the identity (the scatter never shrinks)
+    new_s = torch.maximum(old_s, scales[idx])                 # post-update
+    scales[idx] = new_s
     factor = torch.where(new_s > 0, old_s / _safe(new_s), 1.0)
     # every duplicate index re-writes IDENTICAL values (old and new scales
     # and the page are read outside the scatter), so the write is

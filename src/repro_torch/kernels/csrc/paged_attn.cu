@@ -201,9 +201,10 @@ __host__ __device__ constexpr bool is_i8() {
 }
 
 // p * s_v for a key's PV term; 0 where p is 0 (a masked key), whatever the
-// scale holds
+// scale holds. A NaN p (a live key whose K scale is NaN) stays NaN, as the
+// reference's dequantized attention gives it
 __device__ __forceinline__ float scale_p(float p, float sv) {
-  return p > 0.0f ? p * sv : 0.0f;
+  return p != 0.0f ? p * sv : 0.0f;
 }
 
 // The fp32 K4 body: the block of (kv head h, row b, queries

@@ -10,7 +10,8 @@ Counterpart of repro/launch/serve.py. Two modes:
   serve_continuous()  continuous batching through serving.ServingEngine:
                       requests join mid-flight into free slots of a pooled
                       KV (+ GO) cache (dense rows or a paged pool, optionally
-                      with chunked prefill) and retire on EOS or length.
+                      with chunked prefill) and retire on EOS or length,
+                      or on a deadline, a cancel or a quarantine.
                       The CLI's default mode.
 
 `--arch` takes llama_moe_4_16 (expert choice, GO cache),
@@ -38,6 +39,10 @@ without a card, asking for CUDA raises.
   python -m repro_torch.launch.serve --arch llama_moe_4_16 --smoke \
       --paged --page-size 4 --temperature 0.8 --top-p 0.9 --buckets \
       --device cpu
+  # the fault domain: priority preemption, wall budgets, seeded chaos
+  python -m repro_torch.launch.serve --arch llama_moe_4_16 --smoke \
+      --paged --page-size 4 --num-pages 30 --preemption --chaos \
+      --chaos-seed 3 --max-wall-s 30 --device cpu
 """
 from __future__ import annotations
 
@@ -51,6 +56,7 @@ import torch
 from repro_torch.configs.registry import get_config
 from repro_torch.models.layers import resolve_device
 from repro_torch.models.model import model_init, prefill, serve_step
+from repro_torch.serving.chaos import Chaos
 from repro_torch.serving.engine import ServingEngine, _sample_tokens
 
 
@@ -121,6 +127,9 @@ def serve_continuous(params, cfg, prompts: list, gen_tokens: int, *,
                      prefill_chunk: int = 0, priorities: list | None = None,
                      kv_quant: str | None = None, temperature: float = 0.0,
                      top_p: float = 1.0, prompt_buckets: bool = False,
+                     preemption: bool = False, chaos=None,
+                     deadline_s: float | None = None,
+                     max_wall_s: float | None = None,
                      device=None) -> dict:
     """Run a list of prompts through the continuous-batching engine.
     `paged` swaps the dense slot rows for the block-table page pool
@@ -130,10 +139,15 @@ def serve_continuous(params, cfg, prompts: list, gen_tokens: int, *,
     "int8" stores the paged pool's KV pages and GO rows as int8 (None keeps
     cfg's mode). `temperature` > 0 samples with top-p nucleus filtering
     (each request seeded by its id); `prompt_buckets` pads one-shot
-    prompts to power-of-two buckets. `max_tokens` 0
-    derives the pool's capacity from the longest prompt, rounded up to a
-    multiple of the page size and the chunk. Returns the token stream of
-    every request by id, the wall time and the engine's stats."""
+    prompts to power-of-two buckets. `preemption` lets a blocked
+    higher-priority admission evict lower-priority streams (paged pools;
+    they resume bit-identically); `chaos` injects seeded faults
+    (serving/chaos.py); `deadline_s` / `max_wall_s` bound every request's
+    wall clock (TIMEOUT past them). `max_tokens` 0 derives the pool's
+    capacity from the longest prompt, rounded up to a multiple of the page
+    size and the chunk. Returns the token stream of every request by id
+    (a request that ends in another status than DONE keeps its partial
+    stream), the wall time and the engine's stats."""
     max_tokens = max_tokens or (
         max(len(p) for p in prompts) + gen_tokens + 1)
     grain = math.lcm(page_size if paged else 1,
@@ -143,11 +157,13 @@ def serve_continuous(params, cfg, prompts: list, gen_tokens: int, *,
                         max_tokens=max_tokens, paged=paged,
                         page_size=page_size, num_pages=num_pages,
                         prefill_chunk=prefill_chunk, kv_quant=kv_quant,
-                        prompt_buckets=prompt_buckets, device=device)
+                        prompt_buckets=prompt_buckets,
+                        preemption=preemption, chaos=chaos, device=device)
     ids = [eng.submit(p, gen_tokens,
                       arrival_step=arrival_steps[i] if arrival_steps else 0,
                       priority=priorities[i] if priorities else 0,
-                      temperature=temperature, top_p=top_p)
+                      temperature=temperature, top_p=top_p,
+                      deadline_s=deadline_s, max_wall_s=max_wall_s)
            for i, p in enumerate(prompts)]
     _sync(eng.device)
     t0 = time.perf_counter()
@@ -203,12 +219,35 @@ def main(argv=None):
     ap.add_argument("--priority", type=int, default=0,
                     help="admission priority of the submitted requests "
                          "(lower = admitted first; FIFO within a level)")
+    ap.add_argument("--preemption", action="store_true",
+                    help="let blocked higher-priority admissions evict "
+                         "lower-priority streams (paged pools; evicted "
+                         "streams resume bit-identically)")
+    ap.add_argument("--deadline-s", type=float, default=0.0,
+                    help="per-request wall budget from submission "
+                         "(0 = unbounded; exceeded -> status TIMEOUT)")
+    ap.add_argument("--max-wall-s", type=float, default=0.0,
+                    help="per-request wall budget from first admission "
+                         "(0 = unbounded; exceeded -> status TIMEOUT)")
+    ap.add_argument("--chaos", action="store_true",
+                    help="seeded fault injection: transient tick failures, "
+                         "admission pressure, forced preemptions "
+                         "(serving/chaos.py)")
+    ap.add_argument("--chaos-seed", type=int, default=0)
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
     if args.static and (args.temperature > 0 or args.buckets):
         ap.error("--temperature and --buckets drive the engine; the static "
                  "path decodes greedily (drop --static)")
+    engine_only = (args.preemption or args.chaos or args.deadline_s
+                   or args.max_wall_s)
+    if args.static and engine_only:
+        ap.error("--preemption, --chaos, --deadline-s and --max-wall-s "
+                 "drive the engine (drop --static)")
+    if args.preemption and not args.paged:
+        ap.error("--preemption needs --paged (eviction snapshots are "
+                 "block-table surgery)")
     if args.kv_quant != "none" and not args.paged:
         ap.error("--kv-quant int8 needs --paged (scale granularity is page "
                  "granularity)")
@@ -226,6 +265,10 @@ def main(argv=None):
         print("sample:", res["tokens"][0, :16].tolist())
         return res
 
+    chaos = None
+    if args.chaos:
+        chaos = Chaos(seed=args.chaos_seed, tick_fail=0.05, pressure=0.05,
+                      preempt=0.05)
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, size=args.prompt,
                             dtype=np.int32) for _ in range(args.requests)]
@@ -239,7 +282,10 @@ def main(argv=None):
                            priorities=[args.priority] * len(prompts),
                            kv_quant=args.kv_quant,
                            temperature=args.temperature, top_p=args.top_p,
-                           prompt_buckets=args.buckets, device=dev)
+                           prompt_buckets=args.buckets,
+                           preemption=args.preemption, chaos=chaos,
+                           deadline_s=args.deadline_s or None,
+                           max_wall_s=args.max_wall_s or None, device=dev)
     s = res["stats"]
     print(f"{cfg.name} on {dev}: served {s['finished']} requests over "
           f"{s['steps']} ticks on {args.slots} slots in "
@@ -253,6 +299,10 @@ def main(argv=None):
           + (f" [temperature {args.temperature:g}, top_p {args.top_p:g}]"
              if args.temperature > 0 else "")
           + (f" [prefill lengths {s['prefill_lengths']}]" if args.buckets
+             else ""))
+    print(f"statuses: {s['statuses']}  preemptions: {s['preemptions']} "
+          f"(resumes {s['resumes']})  tick retries: {s['tick_retries']}"
+          + (f"  chaos: {s['chaos']} ({chaos.describe()})" if chaos
              else ""))
     print("sample:", res["tokens"][min(res["tokens"])][:16].tolist())
     return res

@@ -1,10 +1,11 @@
 """Host-side page allocator for the paged KV pool.
 
 A copy of the reference package's allocator (repro/serving/paging.py
-`PageAllocator`, `pages_for_tokens`), cut to private pages: no refcounted
-sharing, no scrub marks, no prefix index. Pure host bookkeeping (no torch):
-the engine calls it at admission, growth and retirement and mirrors the
-resulting block tables into the device state.
+`PageAllocator`, `pages_for_tokens`), cut to private pages: page refcounts
+(each 1 until prefix sharing brings `share` and `fork`) and the deferred
+scrub marks of the NaN quarantine, no prefix index. Pure host bookkeeping
+(no torch): the engine calls it at admission, growth and retirement and
+mirrors the resulting block tables into the device state.
 
 Page 0 is the reserved NULL page: it backs every unallocated block-table
 entry and absorbs the decode-step writes of retired slots, so its contents
@@ -42,6 +43,8 @@ class PageAllocator:
         self._free: list[int] = list(range(num_pages - 1, 0, -1))
         self._owned: dict[int, list[int]] = {}     # request id -> pages held
         self._reserved: dict[int, int] = {}        # request id -> max pages
+        self._refcnt: dict[int, int] = {}          # page -> live references
+        self._dirty: set[int] = set()              # scrub due at last free
 
     # ---------------------------------------------------------------- queries
 
@@ -56,6 +59,14 @@ class PageAllocator:
 
     def owned(self, rid: int) -> list[int]:
         return list(self._owned.get(rid, ()))
+
+    def refcount(self, page: int) -> int:
+        return self._refcnt.get(page, 0)
+
+    def refcounts(self) -> dict[int, int]:
+        """Copy of the page -> reference-count map (the engine's audit
+        cross-checks it against the live block-table references)."""
+        return dict(self._refcnt)
 
     def _outstanding(self) -> int:
         """Pages promised to admitted requests but not yet handed out."""
@@ -94,6 +105,8 @@ class PageAllocator:
                 f"page pool exhausted: request {rid} asked {n}, "
                 f"{len(self._free)} free")
         pages = [self._free.pop() for _ in range(n)]
+        for p in pages:
+            self._refcnt[p] = 1
         self._owned.setdefault(rid, []).extend(pages)
         return pages
 
@@ -116,22 +129,48 @@ class PageAllocator:
             raise RuntimeError("page pool exhausted on grow — admission "
                                "reservations make this unreachable")
         page = self._free.pop()
+        self._refcnt[page] = 1
         self._owned[rid].append(page)
         return page
 
     def free(self, rid: int) -> list[int]:
-        """Retirement: drop every page `rid` holds and its reservation.
-        Returns the released pages."""
+        """Retirement: drop every reference `rid` holds and its reservation.
+        Returns the pages actually RELEASED (those whose last reference
+        this was). Callers owning device state route them through
+        `pop_dirty` and zero the marked ones (deferred NaN scrub)."""
         pages = self._owned.pop(rid, [])
         self._reserved.pop(rid, None)
-        self._free.extend(reversed(pages))
-        return pages
+        released = []
+        for p in pages:
+            self._refcnt[p] -= 1
+            if self._refcnt[p] == 0:
+                del self._refcnt[p]
+                released.append(p)
+        self._free.extend(reversed(released))
+        return released
+
+    # ------------------------------------------------------- deferred scrub
+
+    def mark_scrub(self, rid: int) -> None:
+        """Flag every page `rid` maps for a zero-on-last-free scrub (the NaN
+        quarantine): a page is zeroed when its LAST reference drops, never
+        while someone may still read it."""
+        self._dirty.update(self._owned.get(rid, ()))
+
+    def pop_dirty(self, pages: list[int]) -> list[int]:
+        """Consume the scrub marks among just-released `pages`; the caller
+        zeroes exactly these on the device. Marks on live pages stay."""
+        out = [p for p in pages if p in self._dirty]
+        self._dirty.difference_update(out)
+        return out
 
     # ------------------------------------------------------------- invariants
 
     def check(self) -> None:
         """Internal-consistency assertions: every page is either free or
-        owned by exactly one request, none leaks, page 0 is never used."""
+        owned by exactly one request, an owned page's refcount equals its
+        owners, none leaks, scrub marks sit only on live pages, page 0 is
+        never used."""
         owners: Counter[int] = Counter()
         for rid, pages in self._owned.items():
             assert len(set(pages)) == len(pages), \
@@ -142,11 +181,17 @@ class PageAllocator:
         for p in free_set:
             assert 0 < p < self.num_pages, f"bad page id {p}"
             assert p not in owners, f"page {p} both free and owned"
+            assert p not in self._refcnt, f"freed page {p} keeps a refcount"
         for p, n in owners.items():
             assert 0 < p < self.num_pages, f"bad page id {p}"
             assert n == 1, f"page {p} owned by {n} requests"
+            assert self._refcnt.get(p) == n, \
+                f"page {p}: refcount {self._refcnt.get(p)} != {n} owners"
+        assert set(self._refcnt) == set(owners), "refcount on unowned page"
         assert len(free_set) + len(owners) == self.num_pages - 1, \
             f"leaked {self.num_pages - 1 - len(free_set) - len(owners)} pages"
+        assert self._dirty <= set(owners), \
+            "scrub mark on a released page (scrub must fire ON last free)"
 
 
 def pages_for_tokens(num_tokens: int, page_size: int) -> int:

@@ -1,9 +1,10 @@
 """Admission scheduling for the continuous-batching engine.
 
 A copy of the reference package's host-side scheduler
-(repro/serving/scheduler.py), cut to what the port's engine core uses: the
-request record, its lifecycle status, the typed submit-time rejections and
-the priority-heap FIFO scheduler. Host-only: numpy, no torch.
+(repro/serving/scheduler.py), cut to what the port's engine uses: the request
+record with its wall budgets, its lifecycle status, the typed submit-time
+rejections and the priority-heap FIFO scheduler with requeue (preemption),
+remove (cancel) and expire (deadlines). Host-only: numpy, no torch.
 
   max_slots   pool width: at most this many requests in flight at once
   max_tokens  pool sequence capacity: prompt + generation of every request
@@ -33,7 +34,17 @@ class RequestStatus(str, enum.Enum):
 
     QUEUED = "QUEUED"          # waiting for admission (incl. trace-deferred)
     ACTIVE = "ACTIVE"          # occupying a slot (prefilling or decoding)
+    PREEMPTED = "PREEMPTED"    # evicted under page pressure, awaiting resume
     DONE = "DONE"              # terminal: EOS or length
+    TIMEOUT = "TIMEOUT"        # terminal: deadline_s / max_wall_s exceeded
+    CANCELLED = "CANCELLED"    # terminal: engine.cancel(rid)
+    FAILED = "FAILED"          # terminal: quarantined (non-finite logits)
+
+
+TERMINAL_STATUSES = frozenset({
+    RequestStatus.DONE, RequestStatus.TIMEOUT,
+    RequestStatus.CANCELLED, RequestStatus.FAILED,
+})
 
 
 class QueueFull(RuntimeError):
@@ -66,17 +77,21 @@ class Request:
     temperature: float = 0.0         # > 0 samples; 0 decodes greedily
     top_p: float = 1.0               # nucleus mass kept when sampling
     seed: int | None = None          # sampling seed (None: the request id)
+    deadline_s: float | None = None  # wall budget from submission
+    max_wall_s: float | None = None  # wall budget from FIRST admission
 
     # --- filled in by the engine ---
     status: RequestStatus = RequestStatus.QUEUED
+    fail_reason: str | None = None   # set on FAILED/TIMEOUT/CANCELLED
     arrival_time: float = 0.0        # wall-clock when it joined the queue
-    submit_time: float = 0.0         # wall-clock at submit
-    admit_time: float = 0.0          # wall-clock at admission
+    submit_time: float = 0.0         # wall-clock at submit (deadline_s anchor)
+    admit_time: float = 0.0          # wall-clock at FIRST admission
     admit_step: int = -1
     finish_step: int = -1
     finish_time: float = 0.0
     slot: int = -1                   # slot it was admitted into
     seq: int = -1                    # scheduler submit order (heap tie-break)
+    preemptions: int = 0             # times evicted under page pressure
     tokens: list[int] = field(default_factory=list)
 
     @property
@@ -86,6 +101,19 @@ class Request:
     @property
     def prompt_len(self) -> int:
         return int(self.prompt.shape[0])
+
+    def expired(self, now: float) -> bool:
+        """Has either wall budget run out? deadline_s counts from submit
+        (queue wait included); max_wall_s counts from first admission and
+        keeps counting across preemptions (a parked request still holds a
+        snapshot)."""
+        if self.deadline_s is not None and \
+                now - self.submit_time > self.deadline_s:
+            return True
+        if self.max_wall_s is not None and self.admit_time > 0 and \
+                now - self.admit_time > self.max_wall_s:
+            return True
+        return False
 
 
 class FIFOScheduler:
@@ -120,6 +148,15 @@ class FIFOScheduler:
             return
         heapq.heappush(self.queue, (req.priority, req.seq, req))
 
+    def requeue(self, req: Request) -> None:
+        """Put a PREEMPTED request back in the admission heap under its
+        ORIGINAL submit order, so it resumes ahead of everything submitted
+        after it in its priority class. Bypasses max_queue: the request was
+        admitted once already."""
+        if req.seq < 0:
+            raise ValueError("requeue() is for previously submitted requests")
+        heapq.heappush(self.queue, (req.priority, req.seq, req))
+
     def poll(self, step: int) -> list[Request]:
         """Move trace-replay requests whose arrival step has come into the
         admission heap; returns the newly arrived requests."""
@@ -140,6 +177,34 @@ class FIFOScheduler:
         if can_admit is not None and not can_admit(head):
             return None
         return heapq.heappop(self.queue)[2]
+
+    def remove(self, rid: int) -> Request | None:
+        """Pull a request out of the admission heap or the pending trace
+        heap by id (cancellation before admission). Returns it, or None if
+        it is not queued here."""
+        for heap in (self.queue, self._pending):
+            for i, (_, _, req) in enumerate(heap):
+                if req.request_id == rid:
+                    heap.pop(i)
+                    heapq.heapify(heap)
+                    return req
+        return None
+
+    def expire(self, now: float) -> list[Request]:
+        """Drop every queued or pending request whose wall budget has run
+        out (Request.expired) and return them; the engine marks them
+        TIMEOUT. Covers PREEMPTED requests parked here awaiting resume."""
+        out = [req for _, _, req in self.queue if req.expired(now)]
+        out += [req for _, _, req in self._pending if req.expired(now)]
+        if out:
+            gone = {r.request_id for r in out}
+            self.queue = [e for e in self.queue
+                          if e[2].request_id not in gone]
+            heapq.heapify(self.queue)
+            self._pending = [e for e in self._pending
+                             if e[2].request_id not in gone]
+            heapq.heapify(self._pending)
+        return out
 
     def has_pending(self) -> bool:
         return bool(self.queue) or bool(self._pending)

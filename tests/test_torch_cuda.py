@@ -1100,6 +1100,38 @@ def test_cuda_paged_attn_int8_matches_plain(cuda_device, qdtype, tol, nkv,
 
 
 @pytest.mark.requires_cuda
+@pytest.mark.parametrize("qdtype", [torch.float32, torch.bfloat16])
+def test_cuda_paged_attn_int8_live_nan_scale_propagates(cuda_device, qdtype):
+    """A NaN in a LIVE page's K scale (the quarantine's poison) makes the
+    reading row's output NaN, as the plain versions (and the reference)
+    give it, and moves no bit of the other rows: K3, and K4 on the fp32
+    and tensor-core bodies."""
+    live = np.array([17, 33, 64], np.int32)
+    (k8, v8, ks, vs), _, bt = _paged_int8(24, 2, live, cuda_device, hq=8,
+                                          hd=128)
+    g = torch.Generator(device="cuda").manual_seed(25)
+    tt = torch.from_numpy(live - 1).to(cuda_device)
+    q = torch.randn(3, 8, 128, device="cuda", generator=g).to(qdtype)
+    clean = PA.paged_attn_decode(q, k8, v8, bt, tt, k_scales=ks, v_scales=vs)
+    ks_nan = ks.clone()
+    ks_nan[int(bt[1, (live[1] - 1) // 16])] = float("nan")
+    out = PA.paged_attn_decode(q, k8, v8, bt, tt, k_scales=ks_nan,
+                               v_scales=vs)
+    ref = PA.paged_attn_decode_plain(q, k8, v8, bt, tt, k_scales=ks_nan,
+                                     v_scales=vs)
+    assert bool(torch.isnan(out[1]).all() and torch.isnan(ref[1]).all())
+    assert torch.equal(out[[0, 2]], clean[[0, 2]])
+    qc = torch.randn(3, 24, 8, 128, device="cuda", generator=g).to(qdtype)
+    ks_nan = ks.clone()
+    ks_nan[int(bt[2, 0])] = float("nan")       # row 2's first page
+    kw = dict(window=0, v_scales=vs)
+    out = PA.paged_attn_chunk(qc, k8, v8, bt, 40, 64, k_scales=ks_nan, **kw)
+    ref = PA.paged_attn_chunk_plain(qc, k8, v8, bt, 40, 64, k_scales=ks_nan,
+                                    **kw)
+    assert bool(torch.isnan(out[2]).all() and torch.isnan(ref[2]).all())
+
+
+@pytest.mark.requires_cuda
 def test_cuda_paged_attn_int8_raises_instead_of_falling_back(cuda_device):
     (k8, v8, ks, vs), _, bt = _paged_int8(23, 2, [9], cuda_device, hd=24)
     t = torch.tensor([8], dtype=torch.int32, device=cuda_device)
@@ -1232,3 +1264,119 @@ def test_cuda_paged_attn_int8_every_byte(cuda_device, unit, qdtype, tol,
             ref = plain(qq, k8, v8, bt, *pos, window=window, k_scales=ks,
                         v_scales=vs)[tuple(rows)]
             torch.testing.assert_close(out, ref, rtol=tol, atol=tol)
+
+
+# ------------------------------------------------- the engine's fault domain
+
+def _smoke_engine(dtype="float32"):
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import model_init
+    cfg = get_config("llama_moe_4_16", smoke=True).with_overrides(dtype=dtype)
+    return cfg, model_init(cfg, torch.Generator().manual_seed(5), "cpu")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype,kv_quant", [("bfloat16", "none"),
+                                            ("float32", "int8")])
+def test_cuda_preemption_resumes_bit_equal(cuda_device, dtype, kv_quant):
+    """The page-pressure trace on the card (K1-K4 and K5R; bf16 pages, or
+    int8 pages and scales): a low-priority stream is evicted, snapshotted
+    to the host and restored into other physical pages, and every stream
+    equals the same trace on a pool that never evicts and each request
+    alone on a 1-slot engine, bit for bit."""
+    from repro_torch.serving import ServingEngine
+    cfg, params = _smoke_engine(dtype)
+    params = _to(params, cuda_device)
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, size=8, dtype=np.int32)
+               for _ in range(3)]
+    trace = list(zip(prompts, (24, 24, 8), (5, 5, 0), (0, 0, 6)))
+    kw = dict(max_tokens=48, paged=True, page_size=8, kv_quant=kv_quant)
+
+    def run(**more):
+        eng = ServingEngine(params, cfg, device="cuda", **kw, **more)
+        eng.audit_every_tick = True
+        rids = [eng.submit(p, g, priority=pr, arrival_step=a)
+                for p, g, pr, a in trace]
+        fin = eng.run()
+        return eng, [fin[r].tokens for r in rids]
+
+    eng, got = run(num_slots=3, num_pages=9, preemption=True)
+    _, roomy = run(num_slots=3)
+    s = eng.stats()
+    assert s["preemptions"] >= 1 and s["resumes"] == s["preemptions"]
+    assert got == roomy
+    for (p, g, _, _), toks in zip(trace, got):
+        solo = ServingEngine(params, cfg, device="cuda", num_slots=1, **kw)
+        rid = solo.submit(p, g)
+        assert solo.run()[rid].tokens == toks
+    assert eng.pool.alloc.pages_in_use == 0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_cuda_quarantine_and_scrubbed_page_reuse(cuda_device, kv_quant):
+    """A poisoned slot on the card retires FAILED with a prefix of its
+    clean stream while its cohabitant streams on; a request admitted right
+    after maps the scrubbed pages. The card and the CPU (whose plain
+    attention gathers every page) give the same streams, and the reused
+    pages give a fresh pool's stream."""
+    from repro_torch.serving import ServingEngine
+    cfg, params = _smoke_engine()
+    rng = np.random.default_rng(28)
+    p0, p1, p2 = (rng.integers(0, cfg.vocab_size, size=12, dtype=np.int32)
+                  for _ in range(3))
+    kw = dict(num_slots=2, max_tokens=48, paged=True, page_size=8,
+              kv_quant=kv_quant)
+
+    def run(dev, prm):
+        eng = ServingEngine(prm, cfg, device=dev, **kw)
+        eng.audit_every_tick = True
+        r0, r1 = eng.submit(p0, 16), eng.submit(p1, 16)
+        eng.step()                       # both admitted, r0 in slot 0
+        while len(eng.pool.owner[0].tokens) < 4:
+            eng.step()
+        poisoned = set(eng.pool.alloc.owned(r0))
+        eng.pool.poison_slot(0)
+        eng.step()
+        r2 = eng.submit(p2, 12)
+        eng.step()
+        reused = poisoned & set(eng.pool.block_table[0].tolist())
+        fin = eng.run()
+        fresh = ServingEngine(prm, cfg, device=dev, **kw)
+        rf = fresh.submit(p2, 12)
+        return ([fin[r].tokens for r in (r0, r1, r2)],
+                [fin[r].status.value for r in (r0, r1, r2)], reused,
+                fresh.run()[rf].tokens)
+
+    card = run("cuda", _to(params, cuda_device))
+    cpu = run("cpu", params)
+    toks, statuses, reused, fresh = card
+    assert statuses == ["FAILED", "DONE", "DONE"]
+    assert 4 <= len(toks[0]) < 16 and reused
+    assert toks[2] == fresh
+    assert card == cpu
+
+
+@pytest.mark.requires_cuda
+def test_cuda_int8_scatter_keeps_a_nan_scale(cuda_device):
+    """A page whose scale is NaN (the quarantine's poison) keeps it
+    through a token write on the card, as on the CPU and under the
+    reference's scatter max (CUDA's atomic max alone drops it); finite
+    pages are written bit for bit as on the CPU."""
+    g = torch.Generator().manual_seed(3)
+    cache = torch.randint(-127, 128, (6, 8, 2, 64), generator=g,
+                          dtype=torch.int8)
+    scales = torch.rand(6, 2, generator=g) * 0.05
+    scales[2, 1] = float("nan")
+    page, off = torch.tensor([2, 4, 0, 0]), torch.tensor([3, 5, 1, 1])
+    val = torch.randn(4, 2, 64, generator=g)
+    cpu = Q.scatter_token(cache.clone(), scales.clone(), page, off, val)
+    card = Q.scatter_token(*(t.to(cuda_device) for t in
+                             (cache, scales, page, off, val)))
+    assert torch.isnan(card[1][2, 1]) and torch.isnan(cpu[1][2, 1])
+    keep = torch.ones(6, dtype=torch.bool)
+    keep[0] = False                          # the null page: duplicate rows
+    torch.testing.assert_close(card[1].cpu()[keep], cpu[1][keep],
+                               rtol=0, atol=0, equal_nan=True)
+    assert torch.equal(card[0].cpu()[4], cpu[0][4])
