@@ -118,7 +118,12 @@ Phases (none catches an exception; any failure exits non-zero):
      chaos churn of tests/test_torch_chaos.py (llama smoke, paged, seeded
      tick faults, admission pressure and forced preemptions, the audit
      every tick) on the CPU and the card: the same streams, statuses,
-     injected counts, preemptions, tick retries and finish steps.
+     injected counts, preemptions, tick retries and finish steps. Then
+     PREFIX_SMOKE_TRACE for each MoE model (a prompt sent three times,
+     sampled consumers among them, and once more after its donor retired;
+     a prompt of whole pages sent twice; a cold one), prefix sharing and
+     expert-aware admission on, fp32 and int8 pages, on the CPU and the
+     card: the same streams, statuses and sharing counters.
   5. full width, bf16, one set of random weights per model, first
      llama_moe_4_16, then granite-moe-3b-a800m:
      a. static generate(): 4 requests x 128 prompt tokens, 16 new tokens,
@@ -127,7 +132,11 @@ Phases (none catches an exception; any failure exits non-zero):
         16, 97 pages, chunks of 128): 8 staggered requests, 32 new tokens
         each, with its profile of one decode tick and one chunk tick; the
         trace runs twice and both runs must stream the same tokens and
-        leave the same KV pages and GO rows, bit for bit. llama then runs
+        leave the same KV pages and GO rows, bit for bit. Then
+        `<model>_expert_aware`: a trace of short prompts (EXPERT_LENS),
+        whose signatures leave experts out, FIFO and with expert-aware
+        admission: another admission order, the same streams (orders,
+        admit steps and the decode ticks' median printed). llama then runs
         the same trace on int8 KV pages and GO rows (`llama_engine_int8`:
         K3/K4 on the int8 operand): the same checks, scales included,
         its pool's page bytes beside the bf16 pool's (about half), and
@@ -143,10 +152,19 @@ Phases (none catches an exception; any failure exits non-zero):
         admitted next maps the scrubbed pages and streams as on a fresh
         pool; (bf16) max_wall_s=0 retires TIMEOUT with a prefix, and a
         prefill cancelled after one chunk hands its pages back. Then
-        `llama_engine_sampled`: the same trace with
-        prompt buckets, requests alternating greedy and sampled
-        (temperature 0.8, top_p 0.9, seed = the request id) and a ninth at
-        top_p 1e-9 that must stream request 0's greedy tokens; a fresh
+        `prefix_share` (bf16, then `prefix_share_int8`; the audit on every
+        tick): PREFIX_TRACE without and with copy-on-write prefix sharing,
+        streams bit-equal, 6 cache admissions (728 prefill tokens skipped,
+        43 pages shared), K1/K2 launched 6 x 32 times fewer, no page in
+        use after the drain; POISON_TRACE (Q three times), its first
+        repeat poisoned on its cache admission, which must fork the shared
+        page and fail that request alone; cold and cache admission ms,
+        peak pages with and without sharing, peak memory, and the device
+        operations of one cache admission (kernel launches and copies).
+        Then `llama_engine_sampled`: the same trace with prompt buckets,
+        requests alternating greedy and sampled (temperature 0.8, top_p
+        0.9, seed = the request id) and a ninth at top_p 1e-9 that must
+        stream request 0's greedy tokens; a fresh
         engine repeats every stream; prefill lengths, tok/s, the decode
         ticks' median and p95, and profiles of a sampled chunk and decode
         tick. Then `go_wide`: static generate() at batch 72 (32 prompt
@@ -176,6 +194,7 @@ import statistics
 import subprocess
 import sys
 import time
+from collections import Counter
 from pathlib import Path
 
 ROOT = os.path.dirname(os.path.abspath(__file__))
@@ -3110,6 +3129,364 @@ def fault_smoke_phase(torch, cfg, TM, ServingEngine, Chaos, counts,
           f"{launches}", flush=True)
 
 
+# The prefix-share trace at full width: (prompt, temperature, seed, arrival
+# tick); every request asks PREFIX_GEN new tokens, top_p 0.9 where it
+# samples. P (120 tokens: 7 full pages and an 8-token tail) is sent six
+# times: a greedy donor, four sampled consumers (n parallel samples) and a
+# greedy repeat after the donor retired; Q (128 tokens: 8 full pages, no
+# tail) twice; D64 and D96 once each (cold admissions).
+PREFIX_GEN = 32
+PREFIX_LENS = {"P": 120, "Q": 128, "D64": 64, "D96": 96}
+PREFIX_TRACE = [("P", 0.0, None, 0), ("P", 0.8, 1, 0), ("P", 0.8, 2, 2),
+                ("P", 0.8, 3, 4), ("P", 0.8, 4, 8), ("P", 0.0, None, 48),
+                ("D64", 0.0, None, 0), ("D96", 0.0, None, 8),
+                ("Q", 0.0, None, 16), ("Q", 0.0, None, 20)]
+# the poison of a shared page: Q's donor and two repeats; the first repeat
+# (request 1, no tail) is poisoned on its cache admission
+POISON_TRACE = [("Q", 0.0, None, 0), ("Q", 0.0, None, 2),
+                ("Q", 0.0, None, 4)]
+# the smoke trace (pages of 8): P 20 tokens (2 full pages and a tail), Q 16
+# (2 full pages), D 12; 8 new tokens each
+PREFIX_SMOKE_LENS = {"P": 20, "Q": 16, "D": 12}
+PREFIX_SMOKE_TRACE = [("P", 0.0, None, 0), ("P", 0.8, 1, 0),
+                      ("P", 0.8, 2, 2), ("D", 0.0, None, 0),
+                      ("Q", 0.0, None, 4), ("Q", 0.0, None, 6),
+                      ("P", 0.0, None, 14)]
+
+
+def _prefix_prompts(cfg, lens, seed):
+    import numpy as np
+    rng = np.random.default_rng(seed)
+    return {k: rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+            for k, n in lens.items()}
+
+
+def _submit_prefix(eng, trace, prompts, gen):
+    return [eng.submit(prompts[p], gen, temperature=temp, top_p=0.9,
+                       seed=seed, arrival_step=a)
+            for p, temp, seed, a in trace]
+
+
+def _prefix_counters(s):
+    return {k: s[k] for k in ("prefix_hits", "pages_shared",
+                              "prefill_tokens_skipped")}
+
+
+def _timed_admissions(torch, eng, log):
+    """Time each cold one-shot admission (`_admit`: the prefill, the install
+    and, with sharing, the deposit's clones) and each cache admission
+    (`_admit_from_cache`), synchronised, on the host clock."""
+    def wrap(fn, key):
+        def run(*a):
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            fn(*a)
+            torch.cuda.synchronize()
+            log[key].append((time.perf_counter() - t0) * 1e3)
+        return run
+    eng._admit = wrap(eng._admit, "cold_ms")
+    eng._admit_from_cache = wrap(eng._admit_from_cache, "cache_ms")
+
+
+def _poison_at_cache_admission(torch, eng, rid, log):
+    """Replace the engine's chaos injection point (the engine needs a
+    `chaos` for it to run) with one NaN poison of request `rid`'s slot on
+    the tick it was admitted from the cache, when its last written
+    position lies in a SHARED page. Records the page, its fork, whether
+    the fork copied K, V (and scales) and left the shared page alone, and
+    the poison's ms."""
+    pool = eng.pool
+
+    def inject():
+        slot = next((s for s, o in enumerate(pool.owner) if o is not None
+                     and o.request_id == rid and len(o.tokens) == 1), None)
+        if slot is None or log:
+            return
+        t = int(pool.t_host[slot]) - 1
+        idx, off = divmod(t, pool.page_size)
+        page = int(pool.block_table[slot, idx])
+        names = [k for k in ("k_pages", "v_pages", "k_scales", "v_scales")
+                 if k in pool.state]
+        before = {k: pool.state[k][:, page].clone() for k in names}
+        refcount = pool.alloc.refcount(page)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        pool.poison_slot(slot)
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        new = int(pool.block_table[slot, idx])
+        poisoned = "k_scales" if pool.quant else "k_pages"
+        got = {k: pool.state[k][:, new].clone() for k in names}
+        nan = bool(torch.isnan(got[poisoned][:, off] if not pool.quant
+                               else got[poisoned]).all())
+        if not pool.quant:
+            got[poisoned][:, off] = before[poisoned][:, off]
+        same = [k for k in names if not (pool.quant and k == poisoned)]
+        copied = all(torch.equal(got[k], before[k]) for k in same)
+        kept = all(torch.equal(pool.state[k][:, page], before[k])
+                   for k in names)
+        log.update(slot=slot, position=t, page=page, refcount=refcount,
+                   fork=new, copied=copied, shared_page_kept=kept,
+                   poisoned_nan=nan, poison_ms=ms)
+
+    eng._inject_state_faults = inject
+
+
+def prefix_share_phase(torch, cfg, params, ServingEngine, Chaos, counts,
+                       reset_counts, kv_quant, profile):
+    """`prefix_share` / `prefix_share_int8`: PREFIX_TRACE on llama's engine
+    pool (ENGINE_POOL; bf16 or int8 pages), the audit on every tick, run
+    without sharing and with sharing (the counted run); then POISON_TRACE
+    with sharing, its request 1 (Q's first repeat, no tail) poisoned with
+    NaN on its cache admission, when its last written position lies in a
+    shared page.
+    Requires: the sharing run's streams equal the plain run's (the sampled
+    consumers draw their first token from the cached logits under their
+    own generators); 6 hits, 5 x 120 + 128 = 728 prefill tokens skipped,
+    5 x 7 + 8 = 43 pages shared; K1 and K2 launched 6 x L times fewer
+    (6 one-shot prefills fewer), everything else as the plain run; every
+    request DONE and no page in use after the drain. The poisoned run must
+    fork the page (K, V and scales copied, the shared page untouched),
+    retire request 1 FAILED with a prefix of its stream, and stream the
+    donor and the other repeat as the sharing run's Q requests (greedy,
+    one prompt: one stream), no page in use after the drain. Prints the
+    cold one-shot and cache admissions' ms (medians), each index entry's
+    bytes, the peak pages in use with and without sharing and the peak
+    device memory; with `profile`, the device operations of one cache
+    admission (from the runtime calls) and the device events of one cold
+    one-shot admission (deposit included). Returns the counted run's
+    launches."""
+    t_phase = time.perf_counter()
+    L = cfg.num_layers
+    pool = dict(ENGINE_POOL, kv_quant=kv_quant)
+    prompts = _prefix_prompts(cfg, PREFIX_LENS, 29)
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def run(share, poison=None, trace=PREFIX_TRACE):
+        eng = ServingEngine(params, cfg, device="cuda", prefix_share=share,
+                            chaos=Chaos(seed=0) if poison else None, **pool)
+        eng.audit_every_tick = True
+        log = {"cold_ms": [], "cache_ms": []}
+        _timed_admissions(torch, eng, log)
+        rids = _submit_prefix(eng, trace, prompts, PREFIX_GEN)
+        fork = {}
+        if poison is not None:
+            _poison_at_cache_admission(torch, eng, rids[poison], fork)
+        reset_counts()
+        peak = 0
+        while eng.has_work():
+            eng.step()
+            peak = max(peak, eng.pool.alloc.pages_in_use)
+        launches = counts()
+        # the index's device clones, entry by entry, before the drain
+        log["entry_bytes"] = [
+            sum(t.numel() * t.element_size() for t in _tensors(e))
+            for e in (eng.prefix_index._entries.values() if share else ())]
+        fin = eng.run()                   # the drain: flushes the index
+        return eng, [fin[r] for r in rids], launches, log, peak, fork
+
+    plain, pfin, plaunch, plog, ppeak, _ = run(False)
+    eng, fin, launches, log, peak, _ = run(True)
+    ps, s = plain.stats(), eng.stats()
+    need([r.tokens for r in fin] == [r.tokens for r in pfin],
+         f"prefix_share {kv_quant}: the sharing run streamed other tokens "
+         "than the plain run")
+    need(_prefix_counters(s) == {"prefix_hits": 6, "pages_shared": 43,
+                                 "prefill_tokens_skipped": 728},
+         f"prefix_share {kv_quant}: counters {_prefix_counters(s)}")
+    for e, f_ in ((plain, pfin), (eng, fin)):
+        need(all(r.status == "DONE" and len(r.tokens) == PREFIX_GEN
+                 for r in f_) and _drained(e),
+             f"prefix_share {kv_quant}: statuses or pages after the drain")
+    n = len(PREFIX_TRACE)
+    for lc, st_, cold in ((plaunch, ps, n), (launches, s, n - 6)):
+        expect = {**gmm_launches(cfg, cold, st_["decode_ticks"]),
+                  **go_topk_launches(cfg, st_["decode_ticks"]),
+                  **paged_launches(cfg, st_["decode_ticks"], 0, kv_quant),
+                  "slstm_seq": 0}
+        need(lc == expect, f"prefix_share {kv_quant} launches {lc}, "
+             f"expected {expect}")
+    need(s["decode_ticks"] == ps["decode_ticks"] and
+         plaunch["gmm_swiglu"] - launches["gmm_swiglu"] == 6 * L and
+         plaunch["gmm_scaled"] - launches["gmm_scaled"] == 6 * L,
+         f"prefix_share {kv_quant}: K1/K2 {launches} vs plain {plaunch}")
+    need(len(log["cache_ms"]) == 6 and len(log["cold_ms"]) == 4,
+         f"prefix_share {kv_quant}: admissions {log}")
+
+    # the poison of a shared page (POISON_TRACE's request 1: no tail)
+    qeng, qfin, _, _, _, fork = run(True, poison=1, trace=POISON_TRACE)
+    need(fork and fork["fork"] != fork["page"] and fork["refcount"] >= 3
+         and fork["copied"] and fork["shared_page_kept"]
+         and fork["poisoned_nan"],
+         f"prefix_share {kv_quant}: the poison did not fork: {fork}")
+    q_stream = fin[8].tokens                      # Q's donor, greedy
+    need(fin[9].tokens == q_stream and qfin[1].status == "FAILED" and
+         qfin[1].tokens == q_stream[:len(qfin[1].tokens)] and
+         all(qfin[i].tokens == q_stream and qfin[i].status == "DONE"
+             for i in (0, 2)) and _drained(qeng),
+         f"prefix_share {kv_quant}: the poisoned run's statuses "
+         f"{[q.status.value for q in qfin]}, streams or pages differ")
+    out = {"kv_quant": kv_quant, **_prefix_counters(s),
+           "cold_admission_ms_median": statistics.median(plog["cold_ms"]),
+           "cold_admission_ms": plog["cold_ms"],
+           "cold_admission_with_deposit_ms_median":
+               statistics.median(log["cold_ms"]),
+           "cache_admission_ms_median": statistics.median(log["cache_ms"]),
+           "cache_admission_ms": log["cache_ms"],
+           "entry_bytes": log["entry_bytes"],
+           "peak_pages_in_use": peak, "peak_pages_in_use_plain": ppeak,
+           "page_waits": s["page_waits"], "decode_ticks": s["decode_ticks"],
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9,
+           "launches": launches, "launches_plain": plaunch,
+           "admit_steps": [r.admit_step for r in fin],
+           "fork": fork, "failed_tokens": len(qfin[1].tokens)}
+    print(f"[prefix_share] {cfg.name} {json.dumps(out)}", flush=True)
+    if profile:
+        eng = ServingEngine(params, cfg, device="cuda", prefix_share=True,
+                            **pool)
+        eng.submit(prompts["P"], 4)
+        eng.step()                        # the donor prefills and deposits
+        fresh = _prefix_prompts(cfg, {"R": PREFIX_LENS["P"]}, 30)["R"]
+        reqs = [eng.scheduler.remove(eng.submit(p, 4))
+                for p in (prompts["P"], fresh)]
+        entry = eng._full_hit(reqs[0])
+        slots = eng.pool.free_slots()
+        tag = "" if kv_quant == "none" else "_int8"
+        profile_short(torch, cfg, f"cache_admission{tag}",
+                      lambda: eng._admit_from_cache(slots[0], reqs[0],
+                                                    entry, []))
+        profile_phase(torch, cfg, {
+            f"cold_admission_with_deposit{tag}":
+                lambda: eng._admit(slots[1], reqs[1], [])})
+        eng.run()
+        need(_drained(eng), "prefix_share profile engine: pages left")
+    print(f"[prefix_share] {cfg.name} {kv_quant}: phase "
+          f"{time.perf_counter() - t_phase:.1f} s", flush=True)
+    return launches
+
+
+# The expert-aware trace at full width: on ENGINE_POOL, 8 requests at tick
+# 0, EXPERT_GEN new tokens each; requests 0-3 have EXPERT_LENS[0] prompt
+# tokens, 4-7 EXPERT_LENS[1]. The gate probe reads a prompt's first 64
+# tokens, which on the engine trace's prompts cover every expert of both
+# models (all tie, so the scheduler admits in FIFO order there); prompts
+# this short leave most experts out, and a short prompt's signature (at
+# most 2 x top-k experts) is smaller than a long one's.
+EXPERT_LENS = (8, 2)
+EXPERT_GEN = 8
+
+
+def expert_aware_phase(torch, cfg, params, ServingEngine, counts,
+                       reset_counts):
+    """`<model>_expert_aware`: the expert trace (EXPERT_LENS) FIFO, then
+    with expert-aware admission, one synchronised step at a time. The
+    aware run must admit in another order than FIFO (its first pick, onto
+    an empty batch, is the prompt with the fewest experts: a short one)
+    and stream the FIFO run's tokens; its launches are those of the
+    formulas. Prints both runs' admission orders, admit steps, signatures
+    and pure decode ticks' median ms. Returns the aware run's launches."""
+    import numpy as np
+    t_phase = time.perf_counter()
+    rng = np.random.default_rng(31)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+               for n in (EXPERT_LENS[0],) * 4 + (EXPERT_LENS[1],) * 4]
+
+    def run(aware):
+        eng = ServingEngine(params, cfg, device="cuda", expert_aware=aware,
+                            **ENGINE_POOL)
+        rids = [eng.submit(p, EXPERT_GEN) for p in prompts]
+        order, admit = [], eng._admit_any
+
+        def logged(slot, req, done):
+            order.append(rids.index(req.request_id))
+            admit(slot, req, done)
+        eng._admit_any = logged
+        reset_counts()
+        pure = []
+        while eng.has_work():
+            d0, a0 = eng.decode_ticks, eng.pool.admitted_total
+            t0 = time.perf_counter()
+            eng.step()
+            torch.cuda.synchronize()
+            if eng.decode_ticks > d0 and eng.pool.admitted_total == a0:
+                pure.append((time.perf_counter() - t0) * 1e3)
+        launches = counts()
+        fin = eng.run()
+        s = eng.stats()
+        need(s["statuses"] == {"DONE": len(rids)} and _drained(eng),
+             f"{cfg.name} expert_aware={aware}: stats {s}")
+        return [fin[r] for r in rids], order, pure, launches, s
+
+    fifo, forder, fpure, _, _ = run(False)
+    fin, order, pure, launches, s = run(True)
+    sizes = [int(r.expert_sig.sum()) for r in fin]
+    need([r.tokens for r in fin] == [r.tokens for r in fifo],
+         f"{cfg.name} expert_aware: streams differ from the FIFO run's")
+    need(forder == list(range(len(prompts))) and order != forder,
+         f"{cfg.name} expert_aware: admission order {order}, FIFO {forder} "
+         f"(signature sizes {sizes})")
+    expect = {**gmm_launches(cfg, len(prompts), s["decode_ticks"]),
+              **go_topk_launches(cfg, s["decode_ticks"]),
+              **paged_launches(cfg, s["decode_ticks"], 0),
+              "slstm_seq": 0}
+    need(launches == expect, f"{cfg.name} expert_aware launches {launches}, "
+         f"expected {expect}")
+    out = {"admission_order": order, "fifo_admission_order": forder,
+           "admit_steps": [r.admit_step for r in fin],
+           "fifo_admit_steps": [r.admit_step for r in fifo],
+           "signature_sizes": sizes,
+           "num_experts": cfg.moe.num_experts,
+           "decode_ticks": s["decode_ticks"],
+           "decode_tick_ms_median": statistics.median(pure),
+           "fifo_decode_tick_ms_median": statistics.median(fpure),
+           "launches": launches,
+           "phase_s": time.perf_counter() - t_phase}
+    print(f"[expert_aware] {cfg.name} {json.dumps(out)}", flush=True)
+    return launches
+
+
+def prefix_smoke_phase(torch, cfg, TM, ServingEngine, counts, reset_counts):
+    """PREFIX_SMOKE_TRACE on the smoke model (fp32, pages of 8), sharing
+    and expert-aware admission on, the audit every tick, fp32 and int8
+    pages, on the CPU (plain versions) and on the card (kernels): the same
+    streams, statuses and the three counters; the card launched K3."""
+    params = TM.model_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    prompts = _prefix_prompts(cfg, PREFIX_SMOKE_LENS, 40)
+    out = {}
+    for kv_quant in ("none", "int8"):
+        res = {}
+        for side, dev, p in (("cpu", "cpu", params),
+                             ("card", "cuda", _tree_to(params, "cuda"))):
+            reset_counts()
+            eng = ServingEngine(p, cfg, device=dev, num_slots=3,
+                                max_tokens=48, paged=True, page_size=8,
+                                kv_quant=kv_quant, prefix_share=True,
+                                expert_aware=True)
+            eng.audit_every_tick = True
+            rids = _submit_prefix(eng, PREFIX_SMOKE_TRACE, prompts, 8)
+            fin = eng.run()
+            s = eng.stats()
+            res[side] = {"streams": [fin[r].tokens for r in rids],
+                         "statuses": s["statuses"], **_prefix_counters(s),
+                         "pages_in_use": s["pages_in_use"]}
+        launches = counts()
+        need(res["card"] == res["cpu"], f"{cfg.name} {kv_quant} prefix "
+             f"smoke: card {res['card']} != cpu {res['cpu']}")
+        need(res["card"]["prefix_hits"] == 4 and
+             res["card"]["statuses"] == {"DONE": len(PREFIX_SMOKE_TRACE)}
+             and res["card"]["pages_in_use"] == 0,
+             f"{cfg.name} {kv_quant} prefix smoke: {res['card']}")
+        need(launches["paged_attn_decode" + (
+            "_int8" if kv_quant == "int8" else "")] > 0,
+             f"prefix smoke launches {launches}")
+        out[kv_quant] = {k: v for k, v in res["card"].items()
+                         if k != "streams"}
+    print(f"[prefix_share smoke] {cfg.name}: cpu and cuda equal "
+          f"{json.dumps(out)}", flush=True)
+
+
 def _kind(name):
     """Profile bucket of a device kernel's name."""
     # the paged kernels' int8-page instantiations (KV = int8_t: "signed
@@ -3177,6 +3554,29 @@ def profile_phase(torch, cfg, regions):
                "by_kind_ms": {k: round(v[1], 4) for k, v in by_kind.items()},
                "by_kind_count": {k: v[0] for k, v in by_kind.items()}}
         print(f"[profile] {cfg.name} {name}: {json.dumps(out)}", flush=True)
+
+
+def profile_short(torch, cfg, name, fn):
+    """The device operations of a region of a few ms (a cache admission),
+    counted from the CUDA runtime calls the host made in it: kernel
+    launches and copies. torch.profiler's device trace of a region that
+    short, this late in the script, keeps 0-2 of its events, with or
+    without spin kernels around it (a fresh process keeps them all), so no
+    device time or event list is read from it."""
+    from torch.profiler import ProfilerActivity, profile
+    cuda = torch.autograd.DeviceType.CUDA
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        fn()
+        torch.cuda.synchronize()
+    calls = Counter(e.name for e in prof.events()
+                    if e.device_type != cuda and e.name.startswith("cu"))
+    out = {"kernel_launches": sum(v for k, v in calls.items()
+                                  if "LaunchKernel" in k),
+           "copies": calls["cudaMemcpyAsync"] + calls["cudaMemsetAsync"],
+           "runtime_calls": dict(calls)}
+    print(f"[profile] {cfg.name} {name}: {json.dumps(out)}", flush=True)
 
 
 def _tensors(tree):
@@ -3298,6 +3698,9 @@ def main():
                                TM, TS, kv_quant)
     fault_smoke_phase(torch, get_config(llama, smoke=True), TM,
                       ServingEngine, Chaos, counts, reset_counts)
+    for m in cfgs:
+        prefix_smoke_phase(torch, get_config(m, smoke=True), TM,
+                           ServingEngine, counts, reset_counts)
     xlstm = "xlstm-1.3b"
     xlstm_smoke_phase(torch, SC, get_config(xlstm, smoke=True), TM, TS)
 
@@ -3314,6 +3717,9 @@ def main():
                                                 params, TM, TS)
         by_path[f"{short}_engine"], bf16_stats = engine_phase(
             torch, G, PA, SC, GT, cfg, params, ServingEngine)
+        # slice 13: expert-aware admission on a trace it reorders
+        by_path[f"{short}_expert_aware"] = expert_aware_phase(
+            torch, cfg, params, ServingEngine, counts, reset_counts)
         if m == llama:
             # the same trace on int8 KV pages and GO rows (slice 8)
             by_path["llama_engine_int8"], i8_stats = engine_phase(
@@ -3332,6 +3738,12 @@ def main():
                 by_path[f"fault_domain{tag}"] = fault_domain_phase(
                     torch, cfg, params, ServingEngine, Chaos, counts,
                     reset_counts, kvq, st_["streams"])
+            # slice 13: copy-on-write prefix sharing, bf16 then int8 pages
+            for kvq in ("none", "int8"):
+                tag = "" if kvq == "none" else "_int8"
+                by_path[f"prefix_share{tag}"] = prefix_share_phase(
+                    torch, cfg, params, ServingEngine, Chaos, counts,
+                    reset_counts, kvq, profile=True)
             # slice 11: the engine trace with prompt buckets and sampling,
             # and the static batch past K5R's 64 rows
             by_path["llama_engine_sampled"], _ = sampled_engine_phase(

@@ -130,6 +130,7 @@ def serve_continuous(params, cfg, prompts: list, gen_tokens: int, *,
                      preemption: bool = False, chaos=None,
                      deadline_s: float | None = None,
                      max_wall_s: float | None = None,
+                     prefix_share: bool = False, expert_aware: bool = False,
                      device=None) -> dict:
     """Run a list of prompts through the continuous-batching engine.
     `paged` swaps the dense slot rows for the block-table page pool
@@ -143,11 +144,15 @@ def serve_continuous(params, cfg, prompts: list, gen_tokens: int, *,
     higher-priority admission evict lower-priority streams (paged pools;
     they resume bit-identically); `chaos` injects seeded faults
     (serving/chaos.py); `deadline_s` / `max_wall_s` bound every request's
-    wall clock (TIMEOUT past them). `max_tokens` 0 derives the pool's
-    capacity from the longest prompt, rounded up to a multiple of the page
-    size and the chunk. Returns the token stream of every request by id
-    (a request that ends in another status than DONE keeps its partial
-    stream), the wall time and the engine's stats."""
+    wall clock (TIMEOUT past them). `prefix_share` admits a repeated
+    prompt from the prefix index: its full pages map the donor's
+    copy-on-write and it skips its prefill (paged pools); `expert_aware`
+    orders admissions by routing overlap with the active batch (MoE
+    configs). `max_tokens` 0 derives the pool's capacity from the longest
+    prompt, rounded up to a multiple of the page size and the chunk.
+    Returns the token stream of every request by id (a request that ends
+    in another status than DONE keeps its partial stream), the wall time
+    and the engine's stats."""
     max_tokens = max_tokens or (
         max(len(p) for p in prompts) + gen_tokens + 1)
     grain = math.lcm(page_size if paged else 1,
@@ -158,7 +163,9 @@ def serve_continuous(params, cfg, prompts: list, gen_tokens: int, *,
                         page_size=page_size, num_pages=num_pages,
                         prefill_chunk=prefill_chunk, kv_quant=kv_quant,
                         prompt_buckets=prompt_buckets,
-                        preemption=preemption, chaos=chaos, device=device)
+                        preemption=preemption, chaos=chaos,
+                        prefix_share=prefix_share, expert_aware=expert_aware,
+                        device=device)
     ids = [eng.submit(p, gen_tokens,
                       arrival_step=arrival_steps[i] if arrival_steps else 0,
                       priority=priorities[i] if priorities else 0,
@@ -234,6 +241,14 @@ def main(argv=None):
                          "admission pressure, forced preemptions "
                          "(serving/chaos.py)")
     ap.add_argument("--chaos-seed", type=int, default=0)
+    ap.add_argument("--prefix-share", action="store_true",
+                    help="copy-on-write prefix page sharing: a repeated "
+                         "prompt maps its donor's physical pages and skips "
+                         "its prefill (needs --paged)")
+    ap.add_argument("--expert-aware", action="store_true",
+                    help="expert-aware admission: order admissions by "
+                         "routing overlap with the active batch (MoE "
+                         "configs)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -241,10 +256,15 @@ def main(argv=None):
         ap.error("--temperature and --buckets drive the engine; the static "
                  "path decodes greedily (drop --static)")
     engine_only = (args.preemption or args.chaos or args.deadline_s
-                   or args.max_wall_s)
+                   or args.max_wall_s or args.prefix_share
+                   or args.expert_aware)
     if args.static and engine_only:
-        ap.error("--preemption, --chaos, --deadline-s and --max-wall-s "
-                 "drive the engine (drop --static)")
+        ap.error("--preemption, --chaos, --deadline-s, --max-wall-s, "
+                 "--prefix-share and --expert-aware drive the engine (drop "
+                 "--static)")
+    if args.prefix_share and not args.paged:
+        ap.error("--prefix-share needs --paged (copy-on-write block-table "
+                 "surgery)")
     if args.preemption and not args.paged:
         ap.error("--preemption needs --paged (eviction snapshots are "
                  "block-table surgery)")
@@ -285,7 +305,9 @@ def main(argv=None):
                            prompt_buckets=args.buckets,
                            preemption=args.preemption, chaos=chaos,
                            deadline_s=args.deadline_s or None,
-                           max_wall_s=args.max_wall_s or None, device=dev)
+                           max_wall_s=args.max_wall_s or None,
+                           prefix_share=args.prefix_share,
+                           expert_aware=args.expert_aware, device=dev)
     s = res["stats"]
     print(f"{cfg.name} on {dev}: served {s['finished']} requests over "
           f"{s['steps']} ticks on {args.slots} slots in "
@@ -299,7 +321,12 @@ def main(argv=None):
           + (f" [temperature {args.temperature:g}, top_p {args.top_p:g}]"
              if args.temperature > 0 else "")
           + (f" [prefill lengths {s['prefill_lengths']}]" if args.buckets
-             else ""))
+             else "")
+          + (f" [prefix hits {s['prefix_hits']} shared pages "
+             f"{s['pages_shared']} prefill skipped "
+             f"{s['prefill_tokens_skipped']} tok]"
+             if s["prefix_share"] else "")
+          + (" [expert-aware]" if s["expert_aware"] else ""))
     print(f"statuses: {s['statuses']}  preemptions: {s['preemptions']} "
           f"(resumes {s['resumes']})  tick retries: {s['tick_retries']}"
           + (f"  chaos: {s['chaos']} ({chaos.describe()})" if chaos

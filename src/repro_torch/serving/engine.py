@@ -99,10 +99,36 @@ called first as in the reference); any exception from inside the decode
 step or the sampler surfaces at once as `RestartRequired`, its cause
 chained, with no retry.
 
-Not in the port yet (ROADMAP.md Queue 1 item 7): prefix sharing (and the
-copy-on-write fork a poison of a shared page needs), expert-aware
-admission (the victim rank is 0 under FIFOScheduler), the journal with
-its crash classes, and the mesh.
+PREFIX SHARING (`prefix_share=True`, paged pools): every one-shot
+admission deposits its prompt into a `PrefixIndex` (serving/paging.py):
+its full pages are pinned as radix nodes (refcounts; nothing moves), and
+its tail KV past the last full page, its GO rows and its prefill logits
+are kept as device clones (the donor's decode rewrites its GO rows and,
+on int8 pages, its tail page's scale, and a retired donor's private pages
+go to other requests). A later request with the same prompt admits from
+the entry without a prefill: its full pages map the donor's copy-on-write,
+the tail and GO rows are copied in, and its first token comes from the
+cached logits under its own temperature and generator, so its stream is
+the cold admission's bit for bit. It reserves only its non-shared pages.
+A chunked prefill deposits nothing (its expert-choice routing ran at
+chunk capacities). Under page pressure the index gives up its LRU
+entries before an admission waits; `run()` flushes it on drain. Only the
+exact full-prompt match is served: an MoE prefill routes with
+whole-sequence competition, so a shared prefix's KV under a longer prompt
+is not that prompt's; the dense prefix extension waits for a dense family
+(ROADMAP.md Queue 1 item 9).
+
+EXPERT-AWARE ADMISSION (`expert_aware=True`, MoE configs): submit
+fingerprints each prompt with `expert_signature` (the layer-0 gate over
+the first `_PROBE_TOKENS` embedded tokens, top-k, one host read), refined
+at admission from the GO rows an expert-choice prefill kept; the
+`ExpertAwareScheduler` orders admissions within a priority class by
+overlap with the active batch's experts, and preemption picks, within a
+priority class, the victim with the most experts no other stream needs.
+Admission order is the only thing it changes.
+
+Not in the port yet (ROADMAP.md Queue 1 item 7): the journal with its
+crash classes (and the prefix index's snapshot), and the mesh.
 """
 from __future__ import annotations
 
@@ -114,14 +140,42 @@ import numpy as np
 import torch
 
 from repro_torch.core import quant as Q
+from repro_torch.core.routing import stable_topk
 from repro_torch.models.layers import resolve_device
 from repro_torch.models.model import (init_decode_state, paged_supported,
                                       prefill, prefill_chunk, serve_step)
 from repro_torch.runtime.fault import RestartRequired, StepSupervisor
 from repro_torch.serving.chaos import Chaos
+from repro_torch.serving.paging import PrefixIndex
 from repro_torch.serving.pool import SlotPool
-from repro_torch.serving.scheduler import (FIFOScheduler, QueueFull, Request,
+from repro_torch.serving.scheduler import (ExpertAwareScheduler,
+                                           FIFOScheduler, QueueFull, Request,
                                            RequestStatus, RequestTooLarge)
+
+# the submit-time gate probe reads at most this many leading prompt tokens,
+# zero-padded to exactly this length (one shape for every prompt)
+_PROBE_TOKENS = 64
+
+
+def expert_signature(params, prompt, cfg) -> np.ndarray:
+    """Predicted expert footprint of a prompt, bool [num_experts]: the
+    experts each of its first _PROBE_TOKENS tokens would pick (top_k) if
+    the layer-0 gate saw the token's embedding directly, on the params'
+    device with one host read. A heuristic (the real gate input is the
+    post-attention hidden state, deeper layers route on their own, tokens
+    past the window are unseen) that steers admission order only."""
+    prompt = np.asarray(prompt, np.int32).reshape(-1)[:_PROBE_TOKENS]
+    valid = int(prompt.shape[0])
+    embed = params["embed"]
+    tokens = torch.zeros(_PROBE_TOKENS, dtype=torch.long)
+    tokens[:valid] = torch.from_numpy(prompt.astype(np.int64))
+    x = embed[tokens.to(embed.device)].float()                # [P, d]
+    gate = params["layers"]["moe"]["gate"][0].float()         # [d, E]
+    _, idx = stable_topk(x @ gate, cfg.moe.top_k)
+    sig = torch.zeros(cfg.moe.num_experts, dtype=torch.bool,
+                      device=embed.device)
+    sig[idx[:valid].reshape(-1)] = True                       # pad rows out
+    return sig.cpu().numpy()
 
 
 def _sample_tokens(logits: torch.Tensor, u: torch.Tensor,
@@ -181,6 +235,7 @@ class ServingEngine:
                  num_pages: int | None = None, prefill_chunk: int = 0,
                  kv_quant: str | None = None, prompt_buckets: bool = False,
                  preemption: bool = False, chaos: Chaos | None = None,
+                 prefix_share: bool = False, expert_aware: bool = False,
                  device=None):
         if cfg.block != "attn":
             raise NotImplementedError(
@@ -198,10 +253,28 @@ class ServingEngine:
         if kv_quant is not None:
             cfg = cfg.with_overrides(kv_quant=kv_quant)
         self.cfg = cfg
+        if prefix_share and not paged:
+            raise ValueError("prefix sharing needs a paged pool (it is "
+                             "copy-on-write block-table surgery)")
+        if expert_aware and cfg.moe is None:
+            raise ValueError("expert-aware admission needs a plain-attention "
+                             "MoE config (it scores routing overlap)")
         self.pool = SlotPool(cfg, num_slots, max_tokens, self.device,
                              paged=paged, page_size=page_size,
                              num_pages=num_pages)
-        self.scheduler = FIFOScheduler(num_slots, max_tokens, max_queue)
+        self.prefix_share = bool(prefix_share)
+        self.expert_aware = bool(expert_aware)
+        self.scheduler = (
+            ExpertAwareScheduler(num_slots, max_tokens, max_queue,
+                                 num_experts=cfg.moe.num_experts)
+            if self.expert_aware
+            else FIFOScheduler(num_slots, max_tokens, max_queue))
+        self.prefix_index = (
+            PrefixIndex(self.pool.alloc, self.pool.page_size)
+            if self.prefix_share else None)
+        self.prefix_hits = 0
+        self.pages_shared = 0
+        self.prefill_tokens_skipped = 0
         if prefill_chunk:
             if not paged_supported(cfg):
                 raise ValueError("chunked prefill is attention-family only")
@@ -255,9 +328,10 @@ class ServingEngine:
         `temperature` > 0 samples the request's tokens with top-p nucleus
         filtering from uniforms seeded by `seed` (None: the request id).
         `deadline_s` / `max_wall_s` bound the request's wall clock from
-        submission / first admission: past either it retires TIMEOUT.
-        Raises RequestTooLarge for a request that could never fit the pool
-        and QueueFull at max_queue."""
+        submission / first admission: past either it retires TIMEOUT. An
+        expert-aware engine fingerprints the prompt here. Raises
+        RequestTooLarge for a request that could never fit the pool and
+        QueueFull at max_queue."""
         rid = request_id if request_id is not None else self._next_id
         self._next_id = max(self._next_id, rid + 1)
         req = Request(request_id=rid,
@@ -283,6 +357,9 @@ class ServingEngine:
                     f"max_new_tokens({req.max_new_tokens}) needs {need} "
                     f"pages of {self.pool.page_size} tokens, but the pool "
                     f"only has {usable} usable pages")
+        if self.expert_aware:
+            req.expert_sig = expert_signature(self.params, req.prompt,
+                                              self.cfg)
         req.arrival_time = req.submit_time = time.monotonic()
         try:
             self.scheduler.submit(req, now_step=self.step_count)
@@ -349,6 +426,11 @@ class ServingEngine:
                     free.remove(self._chunk_job.slot)
                 busy = self.pool.num_active() + \
                     (1 if self._chunk_job is not None else 0)
+                if self.expert_aware:
+                    # each admission changes the active batch: re-note it
+                    self.scheduler.note_active(
+                        [o.expert_sig for o in self.pool.owner
+                         if o is not None])
                 req = self.scheduler.next_admission(
                     busy, can_admit=self._can_admit)
                 if req is None:
@@ -360,10 +442,14 @@ class ServingEngine:
                 if req.request_id in self._preempted:
                     self._resume(free[0], req)
                 elif self.prefill_chunk and \
-                        req.prompt_len > self.prefill_chunk:
+                        req.prompt_len > self.prefill_chunk and \
+                        self._full_hit(req) is None:
+                    # a long prompt with no cached prefix: chunked prefill
+                    # (a hit skips the prefill, so it does not wait for the
+                    # chunk lane)
                     self._start_chunk_job(free[0], req)
                 else:
-                    self._admit(free[0], req, done)
+                    self._admit_any(free[0], req, done)
 
         self._note_occupancy()
 
@@ -413,9 +499,13 @@ class ServingEngine:
     def run(self) -> dict[int, Request]:
         """Tick until the queue, the trace, the chunk run and the pool
         drain; returns the finished requests by id (token streams in
-        Request.tokens)."""
+        Request.tokens). The drain also flushes the prefix index (its
+        released pages scrubbed), so a drained pool holds zero pages; an
+        open-ended `while has_work(): step()` loop keeps it warm."""
         while self.has_work():
             self.step()
+        if self.prefix_index is not None:
+            self.pool.scrub_released(self.prefix_index.flush())
         return self.finished
 
     # -------------------------------------------------------------- internals
@@ -467,47 +557,81 @@ class ServingEngine:
             self.pool.num_active() + (1 if self._chunk_job is not None else 0))
 
     def _can_admit(self, req: Request) -> bool:
-        """Admission gate: a to-be-chunked prompt waits for the single
-        chunk lane, and a paged pool must be able to reserve the request's
-        worst-case pages. A PREEMPTED head resumes from its snapshot: it
-        needs only its remaining worst case and never re-prefills, so the
-        chunk lane does not concern it. A blocked head blocks the queue (no
+        """Admission gate with page-pressure reclaim: the prefix index's
+        node pins are opportunistic, a blocked admission is not, so while
+        the request's pages are not reservable the index gives up its LRU
+        entries (their released pages scrubbed). A refusal for pages counts
+        one page wait."""
+        ok = self._can_admit_now(req)
+        while not ok and self.prefix_index is not None \
+                and len(self.prefix_index) and not self.pool.can_admit(req):
+            self.pool.scrub_released(self.prefix_index.reclaim_one())
+            ok = self._can_admit_now(req)
+        if ok is False:
+            self.page_waits += 1
+        return bool(ok)
+
+    def _can_admit_now(self, req: Request) -> bool | None:
+        """One evaluation of the gate: a paged pool must be able to reserve
+        the request's worst-case pages, less the pages a prefix-index hit
+        shares (a copy-on-write reference takes nothing from the free
+        list); a to-be-chunked prompt without a hit waits for the single
+        chunk lane (None: blocked by the lane, not by pages). A PREEMPTED
+        head resumes from its snapshot: it needs only its remaining worst
+        case and never re-prefills. A blocked head blocks the queue (no
         overtaking, so no starvation)."""
         snap = self._preempted.get(req.request_id)
         if snap is not None:
-            ok = self.pool.can_resume(snap)
-        elif self.prefill_chunk and req.prompt_len > self.prefill_chunk \
+            return self.pool.can_resume(snap)
+        if self.prefix_share:
+            entry = self._full_hit(req)
+            if entry is not None:
+                return self.pool.alloc.can_reserve(
+                    self.pool.pages_needed(req) - len(entry["nodes"]))
+        if self.prefill_chunk and req.prompt_len > self.prefill_chunk \
                 and self._chunk_job is not None:
-            return False
-        else:
-            ok = self.pool.can_admit(req)
-        if not ok:
-            self.page_waits += 1
-        return ok
+            return None
+        return self.pool.can_admit(req)
 
     # -------------------------------------------------------------- preemption
 
     def _preempt_for_head(self) -> bool:
         """The head of the admission heap is blocked on slots or pages:
         evict ONE active stream of strictly lower priority (the greatest
-        priority value; ties go to the latest admission, the least work
-        lost) and report whether one fell. The admission loop retries after
-        each eviction, so as many fall as the head needs. The victim rank
-        between priority and admission is 0 (FIFOScheduler only)."""
+        priority value; then, expert-aware, the most experts no other
+        stream needs; then the latest admission, the least work lost) and
+        report whether one fell. The admission loop retries after each
+        eviction, so as many fall as the head needs. An
+        ExpertAwareScheduler's head is the candidate its cost model chose
+        before the gate refused it (`last_blocked`)."""
         if not (self.pool.paged and self.scheduler.queue):
             return False
-        head = self.scheduler.queue[0][2]
+        head = getattr(self.scheduler, "last_blocked", None) or \
+            self.scheduler.queue[0][2]
         if head.request_id not in self._preempted and self.prefill_chunk \
                 and head.prompt_len > self.prefill_chunk \
+                and self._full_hit(head) is None \
                 and self._chunk_job is not None:
             return False     # blocked on the chunk LANE: eviction can't help
-        victims = [(owner.priority, 0, owner.admit_step, slot)
+        victims = [(owner.priority, self._victim_rank(slot),
+                    owner.admit_step, slot)
                    for slot, owner in enumerate(self.pool.owner)
                    if owner is not None and owner.priority > head.priority]
         if not victims:
             return False
         self._preempt(max(victims)[3])
         return True
+
+    def _victim_rank(self, slot: int) -> int:
+        """Preemption cost model of an expert-aware engine: a victim
+        touching more experts nobody else needs ranks higher. 0 under the
+        FIFOScheduler, so the (priority, admit_step) order stands."""
+        if not self.expert_aware:
+            return 0
+        others = [o.expert_sig for s, o in enumerate(self.pool.owner)
+                  if o is not None and s != slot]
+        return self.scheduler.victim_bonus(
+            self.pool.owner[slot].expert_sig, others)
 
     def _preempt(self, slot: int) -> None:
         """Evict the stream in `slot`: snapshot it to the host, free its
@@ -613,12 +737,17 @@ class ServingEngine:
         self._install(slot, req, slot_state, logits, done)
 
     def _install(self, slot: int, req: Request, slot_state: dict, logits,
-                 done: list[Request], page_row=None) -> None:
+                 done: list[Request], page_row=None, *,
+                 deposit: bool = True) -> None:
         """Shared tail of one-shot and chunked admission: emit the first
         token, splat the prefilled state into the pool row, and retire at
         once on EOS or a one-token request. Non-finite prefill logits
         quarantine the request to FAILED before it occupies the slot (a
-        chunk run's claimed pages are scrubbed and freed)."""
+        chunk run's claimed pages are scrubbed and freed). An expert-aware
+        engine refines the signature and feeds the load EWMAs; with prefix
+        sharing the prompt deposits its artifacts (`deposit=False` for a
+        chunk run: its routing ran at chunk capacities, so its GO rows and
+        logits are not the one-shot ones an entry promises)."""
         first, gen = self._first_token(req, logits)
         if first < 0:
             if page_row is not None:
@@ -633,10 +762,110 @@ class ServingEngine:
         req.tokens.append(first)
         self.pool.admit(slot, req, slot_state, first, page_row=page_row,
                         generator=gen)
+        if self.expert_aware:
+            self._refine_sig(slot, req)
+            self.scheduler.observe(req.expert_sig)
+        if deposit:
+            self._deposit(slot, req, logits)
         self._note_occupancy()       # before a possible instant retirement
         if self.pool.remaining[slot] <= 0 or \
                 (req.eos_id is not None and first == req.eos_id):
             self._retire_slot(slot, RequestStatus.DONE, done)
+
+    def _refine_sig(self, slot: int, req: Request) -> None:
+        """Replace the submit-time probe with the routing the prefill
+        OBSERVED, where it is observable: an expert-choice GO cache records
+        which (layer, expert, token) pairs were kept (one host read).
+        Unless that union covers every expert (expert choice fills every
+        expert once the prompt is long enough): an all-experts signature
+        carries no grouping signal, so the probe stays."""
+        if "go" not in self.pool.state:
+            return
+        tid = self.pool.state["go"].token_ids[:, slot]          # [L, E, k]
+        sig = (tid >= 0).any(dim=2).any(dim=0).cpu().numpy()
+        if not sig.all():
+            req.expert_sig = sig
+
+    # --------------------------------------------------------- prefix sharing
+
+    def _full_hit(self, req: Request):
+        """The exact full-prompt prefix-index entry for `req`, or None."""
+        if self.prefix_index is None:
+            return None
+        return self.prefix_index.lookup_full(req.prompt)
+
+    def _admit_any(self, slot: int, req: Request,
+                   done: list[Request]) -> None:
+        """Admission dispatch: a full-prompt cache hit (no prefill), or a
+        cold one-shot prefill."""
+        entry = self._full_hit(req)
+        if entry is not None:
+            self._admit_from_cache(slot, req, entry, done)
+            return
+        self._admit(slot, req, done)
+
+    def _admit_from_cache(self, slot: int, req: Request, entry: dict,
+                          done: list[Request]) -> None:
+        """Zero-prefill admission from a full-prompt entry: block-table
+        surgery (SlotPool.admit_from_prefix) instead of a prefill. The first
+        token comes from the entry's cached prefill logits, the donor's own
+        (already checked finite), so a greedy stream equals a cold
+        admission's and a sampling request draws under its own temperature
+        and generator."""
+        shared = self.prefix_index.entry_pages(entry)
+        first, gen = self._first_token(req, entry["logits"])
+        req.admit_step = self.step_count
+        req.admit_time = time.monotonic()
+        req.status = RequestStatus.ACTIVE
+        req.tokens.append(first)
+        self.pool.admit_from_prefix(slot, req, shared, entry, first,
+                                    generator=gen)
+        if req.expert_sig is None and entry["sig"] is not None:
+            req.expert_sig = entry["sig"]
+        if self.expert_aware:
+            self.scheduler.observe(req.expert_sig)
+        self.prefix_hits += 1
+        self.pages_shared += len(shared)
+        self.prefill_tokens_skipped += req.prompt_len
+        self._note_occupancy()
+        if self.pool.remaining[slot] <= 0 or \
+                (req.eos_id is not None and first == req.eos_id):
+            self._retire_slot(slot, RequestStatus.DONE, done)
+
+    def _deposit(self, slot: int, req: Request, logits) -> None:
+        """Record a freshly admitted prompt in the prefix index: pin its
+        full pages as radix nodes (a refcount each; nothing moves) and keep
+        device clones of what pages alone cannot give a consumer: the tail
+        KV past the last full page (and its page's scales on int8 pages),
+        the GO rows (and scales) and the prefill logits. Clones, not views:
+        the donor's decode rewrites its GO rows and its tail page (and
+        rescales it on int8 pages), and its private pages go to other
+        requests once it retires. Device to device: no host copy."""
+        idx = self.prefix_index
+        if idx is None:
+            return
+        ps = self.pool.page_size
+        st = self.pool.state
+        row = self.pool.block_table[slot]
+        n_full = req.prompt_len // ps
+        tail = req.prompt_len - n_full * ps
+        tail_k = tail_v = tail_ks = tail_vs = None
+        if tail:
+            pid = int(row[n_full])
+            tail_k = st["k_pages"][:, pid, :tail].clone()
+            tail_v = st["v_pages"][:, pid, :tail].clone()
+            if self.pool.quant:
+                tail_ks = st["k_scales"][:, pid].clone()
+                tail_vs = st["v_scales"][:, pid].clone()
+        go = (tuple(a[:, slot].clone() for a in st["go"])
+              if "go" in st else None)
+        go_scales = (st["go_scales"][:, slot].clone()
+                     if "go_scales" in st else None)
+        released = idx.deposit(
+            req.prompt, row[:n_full], tail_k=tail_k, tail_v=tail_v, go=go,
+            logits=logits.reshape(1, -1).clone(), sig=req.expert_sig,
+            tail_ks=tail_ks, tail_vs=tail_vs, go_scales=go_scales)
+        self.pool.scrub_released(released)
 
     # ---------------------------------------------------------- chunk prefill
 
@@ -676,7 +905,7 @@ class ServingEngine:
         if job is not None and job.pos >= len(job.prompt):
             self._chunk_job = None
             self._install(job.slot, job.req, job.state, job.logits, done,
-                          page_row=job.page_row)
+                          page_row=job.page_row, deposit=False)
 
     def _advance_chunk_job_once(self) -> None:
         """Prefill the job's next chunk. A paged job lends the pool's page
@@ -719,9 +948,10 @@ class ServingEngine:
     def _audit(self) -> None:
         """The invariant sweep of `audit_every_tick`: the pool's
         (SlotPool.audit), then the engine's cross-checks: page refcounts
-        equal the live references (slot block tables and the chunk run's
-        claimed row), the chunk lane's slot stays unoccupied, and parked
-        preempted requests are neither active nor finished."""
+        equal the live references (slot block tables, the chunk run's
+        claimed row and the prefix index's node pins), the chunk lane's
+        slot stays unoccupied, and parked preempted requests are neither
+        active nor finished."""
         self.pool.audit()
         job = self._chunk_job
         if self.pool.paged:
@@ -733,6 +963,8 @@ class ServingEngine:
             if job is not None and job.page_row is not None:
                 r = job.page_row
                 refs.update(int(p) for p in r[r != 0])
+            if self.prefix_index is not None:
+                refs.update(self.prefix_index.node_pages())
             rc = Counter(self.pool.alloc.refcounts())
             assert refs == rc, \
                 f"page refcounts != live references: {rc - refs} over, " \
@@ -775,6 +1007,12 @@ class ServingEngine:
             "dequant_max_abs_err": (self.pool.dequant_max_abs_err
                                     if self.pool.quant else None),
             "prefill_lengths": sorted(self.prefill_lengths),
+            # --- prefix sharing, expert-aware admission ---
+            "prefix_share": self.prefix_share,
+            "expert_aware": self.expert_aware,
+            "prefix_hits": self.prefix_hits,
+            "pages_shared": self.pages_shared,
+            "prefill_tokens_skipped": self.prefill_tokens_skipped,
             # --- fault domain ---
             "statuses": dict(Counter(r.status.value for r in reqs)),
             "preemptions": self.preempted_total,

@@ -1,11 +1,14 @@
-"""Host-side page allocator for the paged KV pool.
+"""Host-side page allocator and prefix index for the paged KV pool.
 
-A copy of the reference package's allocator (repro/serving/paging.py
-`PageAllocator`, `pages_for_tokens`), cut to private pages: page refcounts
-(each 1 until prefix sharing brings `share` and `fork`) and the deferred
-scrub marks of the NaN quarantine, no prefix index. Pure host bookkeeping
-(no torch): the engine calls it at admission, growth and retirement and
-mirrors the resulting block tables into the device state.
+A copy of the reference package's allocator and prefix index
+(repro/serving/paging.py `PageAllocator`, `pages_for_tokens`,
+`PrefixIndex`): reservations, lazy growth, refcounted copy-on-write
+sharing (`share`, `fork`), the deferred scrub marks of the NaN quarantine,
+and the page-aligned radix index over prompts that lets a repeated prompt
+map its donor's pages. Pure host bookkeeping (no torch): the engine calls
+it at admission, growth and retirement and mirrors the resulting block
+tables into the device state. The index holds the entries' device tensors
+(tail KV, GO rows, logits) without reading them.
 
 Page 0 is the reserved NULL page: it backs every unallocated block-table
 entry and absorbs the decode-step writes of retired slots, so its contents
@@ -17,14 +20,25 @@ while physical pages are handed out lazily (`grow` as the sequence crosses
 page boundaries). A reserved-but-unused page cannot be promised twice, so
 an admitted request can always grow to its declared maximum, and
 `can_reserve` is the scheduler's "pages available?" question.
+
+SHARING: several owners may map the SAME physical page (`share`: a request
+admitted from the prefix index, and the index's own node pins, which keep
+a retired donor's pages alive). A shared page counts as owned by each
+sharer but takes nothing from the free list; `free` releases a page only
+when its last reference drops. A divergent write goes through `fork`: the
+writer swaps its reference for a fresh private page (the caller copies
+the contents). A scrub mark fires on the page's LAST free, so a
+quarantined request never zeroes a page someone else still reads.
 """
 from __future__ import annotations
 
-from collections import Counter
+import itertools
+from collections import Counter, OrderedDict
 
 
 class PageAllocator:
-    """Fixed-pool free-list allocator with worst-case reservations."""
+    """Fixed-pool free-list allocator with worst-case reservations and
+    refcounted (copy-on-write) page sharing."""
 
     def __init__(self, num_pages: int, page_size: int,
                  max_tokens: int | None = None):
@@ -69,7 +83,9 @@ class PageAllocator:
         return dict(self._refcnt)
 
     def _outstanding(self) -> int:
-        """Pages promised to admitted requests but not yet handed out."""
+        """Pages promised to admitted requests but not yet handed out.
+        Shared pages count as handed out: a sharer's remaining free-list
+        demand is its worst case minus everything it already maps."""
         return sum(max(0, n - len(self._owned.get(r, ())))
                    for r, n in self._reserved.items())
 
@@ -82,7 +98,8 @@ class PageAllocator:
 
     def reserve(self, rid: int, n: int) -> None:
         """Promise `rid` up to `n` pages total. Re-reserving keeps the larger
-        promise; pages `rid` already holds count as held."""
+        promise; pages `rid` already maps, shared prefix pages included
+        (`share` before `reserve`), count as held."""
         have = max(self._reserved.get(rid, 0), len(self._owned.get(rid, ())))
         if n > have and not self.can_reserve(n - have):
             raise RuntimeError(
@@ -109,6 +126,44 @@ class PageAllocator:
             self._refcnt[p] = 1
         self._owned.setdefault(rid, []).extend(pages)
         return pages
+
+    def share(self, rid: int, pages: list[int]) -> None:
+        """Map already-allocated `pages` into `rid` copy-on-write: each
+        page's refcount rises by one and `rid` owns it like any other page,
+        but nothing leaves the free list. The sharer must never write a
+        shared page (fork first); the engine's consumers write only past
+        the shared full-page prefix."""
+        owned = self._owned.setdefault(rid, [])
+        for p in pages:
+            p = int(p)
+            if self._refcnt.get(p, 0) < 1:
+                raise RuntimeError(
+                    f"request {rid} cannot share unallocated page {p}")
+            if p in owned:
+                raise RuntimeError(
+                    f"request {rid} already maps page {p}")
+            self._refcnt[p] += 1
+            owned.append(p)
+
+    def fork(self, rid: int, page: int) -> int:
+        """Copy-on-write fork: swap `rid`'s reference to SHARED `page` for a
+        fresh private page and return it (the caller copies the contents
+        before diverging). The fork draws from the free list outside the
+        reservation accounting, so it can fail under pressure; only a
+        divergent writer (the chaos poison) needs it."""
+        owned = self._owned.get(rid)
+        if owned is None or page not in owned:
+            raise KeyError(f"request {rid} does not map page {page}")
+        if self._refcnt.get(page, 0) < 2:
+            raise RuntimeError(
+                f"page {page} is not shared — fork would leak its twin")
+        if not self._free:
+            raise RuntimeError("page pool exhausted on fork")
+        new = self._free.pop()
+        self._refcnt[new] = 1
+        owned[owned.index(page)] = new
+        self._refcnt[page] -= 1
+        return new
 
     def can_grow(self, rid: int) -> bool:
         return rid in self._owned and \
@@ -168,9 +223,9 @@ class PageAllocator:
 
     def check(self) -> None:
         """Internal-consistency assertions: every page is either free or
-        owned by exactly one request, an owned page's refcount equals its
-        owners, none leaks, scrub marks sit only on live pages, page 0 is
-        never used."""
+        allocated, never both; an allocated page's refcount equals the
+        number of owners mapping it; none leaks; scrub marks sit only on
+        live pages; page 0 is never used."""
         owners: Counter[int] = Counter()
         for rid, pages in self._owned.items():
             assert len(set(pages)) == len(pages), \
@@ -184,7 +239,6 @@ class PageAllocator:
             assert p not in self._refcnt, f"freed page {p} keeps a refcount"
         for p, n in owners.items():
             assert 0 < p < self.num_pages, f"bad page id {p}"
-            assert n == 1, f"page {p} owned by {n} requests"
             assert self._refcnt.get(p) == n, \
                 f"page {p}: refcount {self._refcnt.get(p)} != {n} owners"
         assert set(self._refcnt) == set(owners), "refcount on unowned page"
@@ -196,3 +250,185 @@ class PageAllocator:
 
 def pages_for_tokens(num_tokens: int, page_size: int) -> int:
     return -(-num_tokens // page_size)
+
+
+class PrefixIndex:
+    """Page-aligned radix index over prompt tokens: maps prompt prefixes to
+    the PHYSICAL pages already holding their KV, plus the per-prompt prefill
+    artifacts a zero-compute admission needs.
+
+    One radix NODE per full page of prompt tokens, keyed by (parent node,
+    that page's token tuple), so walking a new prompt's leading pages gives
+    the longest page-aligned shared prefix in O(pages). Each node pins one
+    physical page through the allocator's refcounts under a synthetic owner
+    id (negative, so it never collides with a request id); donors may
+    retire freely, the node keeps the page alive.
+
+    A node is REUSED by a later deposit only when its pinned page IS the
+    depositor's page for those positions (same physical page, same bytes).
+    Same tokens on a DIFFERENT page means the two prompts prefilled those
+    positions independently, and under MoE's whole-sequence routing their
+    KV differs even though the tokens match: the depositor pins its own
+    page under a PRIVATE node (key None, unreachable from `_walk`), so its
+    full-prompt entry chains its own bytes and an exact-match hit stays
+    bit-exact.
+
+    A full-prompt ENTRY (deposited at admission, LRU-bounded by `CAPACITY`)
+    also carries what page sharing alone cannot give:
+
+      tail KV   the prompt positions past the last full page (they live in
+                the donor's private page, which its decode writes into);
+      GO rows   the expert-choice GO cache after prefill: TopKUpdate
+                history, not recomputable from the shared pages;
+      logits    the prefill logits, so the consumer's first token (greedy
+                or sampled under its own temperature and seed) needs no
+                forward.
+
+    The engine hands these in as device tensors it cloned; the index only
+    holds them. Page release flows back through the pool so scrub marks
+    are honoured: every mutating method returns the physical pages it
+    RELEASED for that reason."""
+
+    CAPACITY = 32   # full-prompt entries kept (LRU)
+
+    def __init__(self, alloc: PageAllocator, page_size: int):
+        self.alloc = alloc
+        self.page_size = page_size
+        self._ids = itertools.count()
+        self._children: dict[tuple, int] = {}   # (parent, tokens) -> node id
+        self._nodes: dict[int, dict] = {}       # id -> {page, key, uses}
+        self._entries: OrderedDict[tuple, dict] = OrderedDict()
+        self.deposits = 0
+        self.evictions = 0
+
+    @staticmethod
+    def node_rid(node_id: int) -> int:
+        """Synthetic allocator owner id of a node's page pin (negative,
+        disjoint from every request id)."""
+        return -(node_id + 1)
+
+    def __len__(self) -> int:
+        return len(self._entries)
+
+    def node_pages(self) -> list[int]:
+        """Physical pages pinned by the index (one per node); the engine's
+        audit counts them as live references."""
+        return [n["page"] for n in self._nodes.values()]
+
+    def _walk(self, prompt) -> list[int]:
+        """Node chain matching the prompt's leading FULL pages."""
+        ps = self.page_size
+        chain, parent = [], -1
+        for i in range(len(prompt) // ps):
+            key = (parent, tuple(int(t) for t in prompt[i * ps:(i + 1) * ps]))
+            nid = self._children.get(key)
+            if nid is None:
+                break
+            chain.append(nid)
+            parent = nid
+        return chain
+
+    # ----------------------------------------------------------------- lookup
+
+    def lookup_full(self, prompt) -> dict | None:
+        """Exact full-prompt entry (zero-prefill admission) or None; a hit
+        becomes the most recently used entry."""
+        key = tuple(int(t) for t in prompt)
+        entry = self._entries.get(key)
+        if entry is not None:
+            self._entries.move_to_end(key)
+        return entry
+
+    def entry_pages(self, entry: dict) -> list[int]:
+        return [self._nodes[n]["page"] for n in entry["nodes"]]
+
+    def lookup_prefix(self, prompt) -> list[int]:
+        """Physical pages backing the longest page-aligned prefix of
+        `prompt` present in the index (possibly empty)."""
+        return [self._nodes[n]["page"] for n in self._walk(prompt)]
+
+    # ---------------------------------------------------------------- deposit
+
+    def deposit(self, prompt, page_ids, *, tail_k, tail_v, go, logits,
+                sig=None, tail_ks=None, tail_vs=None,
+                go_scales=None) -> list[int]:
+        """Record an admitted prompt: pin its full pages as radix nodes
+        (sharing the donor's physical `page_ids`; no data moves) and keep
+        the tail KV, GO rows and logits under the full-prompt key. Returns
+        the pages RELEASED by a capacity eviction (the caller scrubs them)."""
+        key = tuple(int(t) for t in prompt)
+        if key in self._entries:
+            self._entries.move_to_end(key)
+            return []
+        ps = self.page_size
+        n_full = len(key) // ps
+        if len(page_ids) < n_full:
+            raise ValueError("deposit needs the prompt's full-page ids")
+        parent, chain = -1, []
+        for i in range(n_full):
+            ck = (parent, key[i * ps:(i + 1) * ps])
+            nid = self._children.get(ck)
+            if nid is not None and \
+                    self._nodes[nid]["page"] != int(page_ids[i]):
+                # same tokens, another physical page: the node pins another
+                # prompt's prefill of these positions; pin the depositor's
+                # own page under a private node instead
+                nid, ck = None, None
+            if nid is None:
+                nid = next(self._ids)
+                self.alloc.share(self.node_rid(nid), [int(page_ids[i])])
+                if ck is not None:
+                    self._children[ck] = nid
+                self._nodes[nid] = {"page": int(page_ids[i]), "key": ck,
+                                    "uses": 0}
+            chain.append(nid)
+            parent = nid
+        for nid in chain:
+            self._nodes[nid]["uses"] += 1
+        self._entries[key] = {
+            "nodes": chain, "tail_k": tail_k, "tail_v": tail_v,
+            "go": go, "logits": logits, "sig": sig, "prompt_len": len(key),
+            # int8 pools: the tail page's scales and the GO row scales
+            # (None on full-precision pages)
+            "tail_ks": tail_ks, "tail_vs": tail_vs, "go_scales": go_scales,
+        }
+        self.deposits += 1
+        released: list[int] = []
+        while len(self._entries) > self.CAPACITY:
+            released += self._evict_one()
+        return released
+
+    def _evict_one(self) -> list[int]:
+        """Drop the least recently used entry; release the pages of nodes no
+        surviving entry walks through (a chain references every ancestor,
+        so uses == 0 implies no live descendants either)."""
+        _, entry = self._entries.popitem(last=False)
+        self.evictions += 1
+        released: list[int] = []
+        for nid in reversed(entry["nodes"]):
+            node = self._nodes[nid]
+            node["uses"] -= 1
+            if node["uses"] == 0:
+                if node["key"] is not None:     # private nodes never registered
+                    del self._children[node["key"]]
+                del self._nodes[nid]
+                released += self.alloc.free(self.node_rid(nid))
+        return released
+
+    def reclaim_one(self) -> list[int]:
+        """Page-pressure hook: drop the LRU entry on demand (the engine
+        calls it when a blocked admission could use the pinned pages: cache
+        pins are opportunistic, a stalled request is not). Returns the
+        released pages for scrubbing."""
+        return self._evict_one() if self._entries else []
+
+    def flush(self) -> list[int]:
+        """Drop every entry and node, releasing all pinned pages (the engine
+        flushes on drain, so a fully retired pool holds zero pages).
+        Returns the released pages for scrubbing."""
+        released: list[int] = []
+        while self._entries:
+            released += self._evict_one()
+        assert not self._nodes and not self._children, \
+            "prefix index leaked nodes past its entries"
+        return released

@@ -3,7 +3,8 @@
 Counterpart of repro/serving/pool.py (`SlotPool`): dense and paged pools,
 int8 pages (cfg.kv_quant="int8"), admission, lazy page growth,
 retirement with the NaN scrub, preemption snapshots and their restore,
-the chaos poison and the invariant audit (no prefix-share forks, no mesh).
+admission from a prefix-index entry, the chaos poison (with the
+copy-on-write fork of a shared page) and the invariant audit (no mesh).
 
 One decode state of `num_slots` batch rows lives on the device for the
 engine's whole life; requests are admitted into free rows and retired out
@@ -36,6 +37,13 @@ CPU generator itself, which moves with it) into CPU tensors of the pool's
 own dtypes, so bf16 pages round-trip bit for bit. `restore` writes them
 into freshly allocated pages with `index_copy_` and rebuilds the slot's
 block table: a resumed stream equals one that was never evicted.
+
+PREFIX SHARING (`admit_from_prefix`): a request whose prompt equals an
+indexed one maps the donor's full pages copy-on-write, takes the tail
+positions past the last full page into its first fresh page, and restores
+the entry's GO rows; it writes only its fresh pages from then on, so no
+shared page is ever written. The one divergent writer, the chaos poison,
+forks a shared page first.
 
 Unlike the JAX pool, which threads a new state through jitted functions,
 this one writes the device tensors IN PLACE. The one exception is the
@@ -196,6 +204,57 @@ class SlotPool:
                 self._note_dequant_err(slot_state)
         else:
             write_decode_slot(self.state, slot, slot_state)
+        self._arm(slot, req, first_token, generator)
+
+    def admit_from_prefix(self, slot: int, req: Request, shared,
+                          entry: dict, first_token: int, *,
+                          generator: torch.Generator | None = None) -> None:
+        """Zero-prefill admission from a full-prompt prefix-index entry, by
+        block-table surgery as in `restore`: the prompt's full pages map the
+        donor's physical pages copy-on-write (`shared`; nothing moves), the
+        tail positions past the last full page are copied from the entry's
+        device clone into the request's FIRST fresh page (with its scales
+        on an int8 pool: the consumer grows that page under the donor's
+        scale), the GO rows (and scales) from the entry's clone, and the
+        first decode input and sampling are armed as `admit` arms them.
+        The request writes only its fresh pages from here on."""
+        if not self.paged:
+            raise ValueError("prefix sharing is paged-pool only")
+        if self.owner[slot] is not None:
+            raise RuntimeError(f"slot {slot} is occupied")
+        rid = req.request_id
+        shared = [int(p) for p in shared]
+        n_sh = len(shared)
+        self.alloc.share(rid, shared)
+        self.reserve_pages(req)
+        n0 = pages_for_tokens(req.prompt_len + 1, self.page_size)
+        fresh = self.alloc.alloc(rid, n0 - n_sh)
+        row = np.zeros(self.block_table.shape[1], np.int32)
+        row[:n_sh] = shared
+        row[n_sh:n0] = fresh
+        self.block_table[slot] = row
+        st = self.state
+        tail = req.prompt_len - n_sh * self.page_size
+        if tail:
+            pid = int(fresh[0])
+            st["k_pages"][:, pid, :tail] = entry["tail_k"]
+            st["v_pages"][:, pid, :tail] = entry["tail_v"]
+            if self.quant:
+                st["k_scales"][:, pid] = entry["tail_ks"]
+                st["v_scales"][:, pid] = entry["tail_vs"]
+        st["t"][slot] = req.prompt_len
+        if "go" in st:
+            for a, r in zip(st["go"], entry["go"]):
+                a[:, slot] = r
+        if "go_scales" in st:
+            st["go_scales"][:, slot] = entry["go_scales"]
+        self._push_block_table()
+        self._arm(slot, req, first_token, generator)
+
+    def _arm(self, slot: int, req: Request, first_token: int,
+             generator: torch.Generator | None) -> None:
+        """Give `slot` to a newly admitted request: its first decode input,
+        the tokens it still owes, its position and its sampling."""
         self.owner[slot] = req
         self.pending[slot] = first_token
         self.remaining[slot] = req.max_new_tokens - 1   # first token emitted
@@ -409,8 +468,11 @@ class SlotPool:
         decode tick gives non-finite logits for that row and only that row.
         A dense pool poisons `k[:, slot, t-1]`, a paged pool that position
         in its page, and an int8 pool (int8 holds no NaN) the page's
-        `k_scales`. A shared page would need a copy-on-write fork first;
-        pages are private until prefix sharing comes."""
+        `k_scales`. A SHARED page is forked first (K, V and, on int8
+        pages, the scales copied into a fresh page the slot's block table
+        then maps), so the donor and the other sharers keep their clean
+        state; with no page to spare beyond the reservations the injection
+        is skipped (taking a promised page would break deadlock freedom)."""
         if self.owner[slot] is None:
             raise RuntimeError(f"slot {slot} is free")
         t = max(0, int(self.t_host[slot]) - 1)
@@ -418,9 +480,19 @@ class SlotPool:
         if not self.paged:
             st["k"][:, slot, t] = float("nan")
             return
-        page = int(self.block_table[slot, t // self.page_size])
-        assert self.alloc.refcount(page) == 1, \
-            f"page {page} is shared: poisoning it needs a fork"
+        idx = t // self.page_size
+        page = int(self.block_table[slot, idx])
+        if self.alloc.refcount(page) > 1:
+            if not self.alloc.can_reserve(1):
+                return
+            new = self.alloc.fork(self.owner[slot].request_id, page)
+            names = ["k_pages", "v_pages"] + (
+                ["k_scales", "v_scales"] if self.quant else [])
+            for name in names:
+                st[name][:, new] = st[name][:, page]
+            self.block_table[slot, idx] = new
+            self._push_block_table()
+            page = new
         if self.quant:
             st["k_scales"][:, page] = float("nan")
         else:
@@ -430,9 +502,10 @@ class SlotPool:
 
     def audit(self) -> None:
         """Pool and slot invariant sweep (the engine runs it every tick
-        with `audit_every_tick`): allocator consistency, block tables as
-        contiguous prefixes equal to the allocator's ownership, host and
-        device positions in step, live metadata sane, freed slots clear;
+        with `audit_every_tick`): allocator consistency (a shared page's
+        refcount equals its owners), block tables as contiguous prefixes
+        equal to the allocator's ownership, host and device positions in
+        step, live metadata sane, freed slots clear;
         int8 pools: free pages at scale 0 and no infinite scale (NaN only
         on a live page, a poison on its way to the quarantine)."""
         if self.paged:

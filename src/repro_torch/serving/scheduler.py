@@ -1,10 +1,12 @@
 """Admission scheduling for the continuous-batching engine.
 
 A copy of the reference package's host-side scheduler
-(repro/serving/scheduler.py), cut to what the port's engine uses: the request
-record with its wall budgets, its lifecycle status, the typed submit-time
-rejections and the priority-heap FIFO scheduler with requeue (preemption),
-remove (cancel) and expire (deadlines). Host-only: numpy, no torch.
+(repro/serving/scheduler.py): the request record with its wall budgets,
+its lifecycle status and its expert signature, the typed submit-time
+rejections, the priority-heap FIFO scheduler with requeue (preemption),
+remove (cancel) and expire (deadlines), and the expert-aware scheduler
+that reorders admissions within a priority class by routing overlap.
+Host-only: numpy, no torch.
 
   max_slots   pool width: at most this many requests in flight at once
   max_tokens  pool sequence capacity: prompt + generation of every request
@@ -79,6 +81,16 @@ class Request:
     seed: int | None = None          # sampling seed (None: the request id)
     deadline_s: float | None = None  # wall budget from submission
     max_wall_s: float | None = None  # wall budget from FIRST admission
+    # bool [num_experts]: the experts this request's prompt is PREDICTED to
+    # touch (the engine's layer-0 gate probe at submit, refined from the
+    # observed GO rows at admission; None = unknown). A scheduling hint
+    # only: no compute path reads it.
+    expert_sig: object = None
+
+    # --- filled in by the scheduler ---
+    # times an ExpertAwareScheduler admitted another same-priority
+    # candidate past this one; at MAX_SKIPS it is force-admitted
+    times_skipped: int = 0
 
     # --- filled in by the engine ---
     status: RequestStatus = RequestStatus.QUEUED
@@ -213,3 +225,110 @@ class FIFOScheduler:
         """Earliest future arrival step (None when no trace-replay requests
         remain): lets an idle engine fast-forward its tick counter."""
         return self._pending[0][0] if self._pending else None
+
+
+class ExpertAwareScheduler(FIFOScheduler):
+    """Admission by a routing-overlap cost model instead of arrival order
+    alone (per-expert load EWMAs track expert popularity as it drifts).
+
+    Within the head priority class, admission picks the candidate whose
+    predicted expert signature overlaps most with the union of the ACTIVE
+    batch's signatures, brings the fewest NEW experts, and avoids hot
+    experts (EWMA load): a decode tick over requests that route to the same
+    few experts fills those experts' tiles.
+
+    Strict priority is inherited: candidates come only from the head
+    priority class. Starvation within the class is bounded by an AGING CAP:
+    each time the cost model admits past a scanned candidate, that
+    candidate's `times_skipped` rises, and one at `MAX_SKIPS` is
+    force-admitted (oldest first) regardless of score. Requests with no
+    signature score 0, so an all-None workload is exact FIFO order,
+    blocked head included.
+
+    Admission ORDER is the only output; every decode row is independent of
+    its cohabitants, so streams equal the FIFO engine's bit for bit."""
+
+    EWMA_ALPHA = 0.25    # weight of the newest admission in `load`
+    WINDOW = 8           # same-priority candidates scanned per admission
+    LOAD_WEIGHT = 0.125  # cost of a new expert's EWMA load in `score`
+    MAX_SKIPS = 16       # aging cap (module docstring)
+
+    def __init__(self, max_slots: int, max_tokens: int, max_queue: int = 0,
+                 *, num_experts: int):
+        super().__init__(max_slots, max_tokens, max_queue)
+        self.num_experts = num_experts
+        self.load = np.zeros(num_experts, np.float64)  # per-expert EWMA
+        self._active_union = np.zeros(num_experts, bool)
+        # the request the page gate rejected this tick (preemption frees
+        # pages for THIS one, not for the arrival-order head)
+        self.last_blocked: Request | None = None
+
+    def observe(self, sig) -> None:
+        """Fold one admitted request's routing into the per-expert load
+        EWMAs."""
+        if sig is None:
+            return
+        self.load *= 1.0 - self.EWMA_ALPHA
+        self.load[np.asarray(sig, bool)] += self.EWMA_ALPHA
+
+    def note_active(self, sigs) -> None:
+        """Refresh the active batch's expert union (the engine passes every
+        slot owner's signature before asking for an admission)."""
+        u = np.zeros(self.num_experts, bool)
+        for s in sigs:
+            if s is not None:
+                u |= np.asarray(s, bool)
+        self._active_union = u
+
+    def score(self, req: Request) -> float:
+        """Higher = admit sooner; 0 for an unknown signature, so unscored
+        requests neither jump nor yield within their class."""
+        if req.expert_sig is None:
+            return 0.0
+        sig = np.asarray(req.expert_sig, bool)
+        new = sig & ~self._active_union
+        overlap = int((sig & self._active_union).sum())
+        return overlap - int(new.sum()) - \
+            self.LOAD_WEIGHT * float(self.load[new].sum())
+
+    def victim_bonus(self, sig, other_sigs) -> int:
+        """Preemption cost model: how many experts does this victim touch
+        that no other active request needs? Evicting the one with the most
+        shrinks the tick's expert set the most."""
+        if sig is None:
+            return 0
+        others = np.zeros(self.num_experts, bool)
+        for s in other_sigs:
+            if s is not None:
+                others |= np.asarray(s, bool)
+        return int((np.asarray(sig, bool) & ~others).sum())
+
+    def next_admission(self, num_active: int,
+                       can_admit=None) -> Request | None:
+        """Pick the best-scoring candidate among the first `WINDOW`
+        same-priority entries at the head of the heap, unless a scanned
+        candidate was already passed over `MAX_SKIPS` times: then the
+        OLDEST such one is force-admitted. Skips count only when an
+        admission happens, so a blocked tick ages nobody. The page gate
+        applies to the CHOSEN candidate, remembered in `last_blocked` when
+        it is refused."""
+        self.last_blocked = None
+        if not self.queue or num_active >= self.max_slots:
+            return None
+        head_prio = self.queue[0][0]
+        cands = heapq.nsmallest(
+            self.WINDOW, (e for e in self.queue if e[0] == head_prio))
+        forced = [e for e in cands if e[2].times_skipped >= self.MAX_SKIPS]
+        best = min(forced) if forced else \
+            min(cands, key=lambda e: (-self.score(e[2]), e[1]))
+        req = best[2]
+        if can_admit is not None and not can_admit(req):
+            self.last_blocked = req
+            return None
+        for e in cands:
+            if e is not best:
+                e[2].times_skipped += 1
+        req.times_skipped = 0
+        self.queue.remove(best)
+        heapq.heapify(self.queue)
+        return req

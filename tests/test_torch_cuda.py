@@ -1380,3 +1380,159 @@ def test_cuda_int8_scatter_keeps_a_nan_scale(cuda_device):
     torch.testing.assert_close(card[1].cpu()[keep], cpu[1][keep],
                                rtol=0, atol=0, equal_nan=True)
     assert torch.equal(card[0].cpu()[4], cpu[0][4])
+
+
+# ------------------------------------------------------------ prefix sharing
+
+# a prompt of 20 tokens (2 full pages of 8 and a tail) sent four times:
+# a greedy donor, two sampled consumers, and a repeat after the donor
+# retired; one of 16 (whole pages) twice; a cold one of 12. Entries:
+# (prompt, temperature, seed, arrival tick)
+PREFIX_LENS = {"P": 20, "Q": 16, "D": 12}
+PREFIX_TRACE = [("P", 0.0, None, 0), ("P", 0.8, 1, 0), ("P", 0.8, 2, 2),
+                ("D", 0.0, None, 0), ("Q", 0.0, None, 4),
+                ("Q", 0.0, None, 6), ("P", 0.0, None, 14)]
+
+
+def _prefix_prompts(cfg, seed=40):
+    rng = np.random.default_rng(seed)
+    return {k: rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+            for k, n in PREFIX_LENS.items()}
+
+
+def _prefix_engine(params, cfg, device, kv_quant, share, **more):
+    from repro_torch.serving import ServingEngine
+    eng = ServingEngine(params, cfg, device=device, num_slots=3,
+                        max_tokens=48, paged=True, page_size=8,
+                        kv_quant=kv_quant, prefix_share=share, **more)
+    eng.audit_every_tick = True
+    return eng
+
+
+def _prefix_run(params, cfg, device, kv_quant, share):
+    eng = _prefix_engine(params, cfg, device, kv_quant, share)
+    prompts = _prefix_prompts(cfg)
+    rids = [eng.submit(prompts[p], 8, temperature=t, top_p=0.9, seed=sd,
+                       arrival_step=a) for p, t, sd, a in PREFIX_TRACE]
+    fin = eng.run()
+    s = eng.stats()
+    return ([fin[r].tokens for r in rids],
+            {k: s[k] for k in ("prefix_hits", "pages_shared",
+                               "prefill_tokens_skipped", "statuses",
+                               "pages_in_use")})
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype,kv_quant", [
+    ("float32", "none"), ("float32", "int8"), ("bfloat16", "none"),
+    ("bfloat16", "int8")])
+def test_cuda_prefix_share_trace_equals_cpu(cuda_device, dtype, kv_quant):
+    """The smoke prefix trace on the card (K3 over block tables whose
+    rows alias the donor's pages, K1/K2 one prefill fewer a hit): every
+    stream equals the card's run without sharing, the sampled consumers'
+    too, with 4 hits and no page left; on fp32 weights the streams and
+    counters also equal the CPU's (its plain versions)."""
+    cfg, params = _smoke_engine(dtype)
+    card = _to(params, cuda_device)
+    before = dict(PA.LAUNCHES)
+    got, stats = _prefix_run(card, cfg, "cuda", kv_quant, True)
+    k3 = "paged_attn_decode" + ("_int8" if kv_quant == "int8" else "")
+    assert PA.LAUNCHES[k3] > before[k3]
+    plain, _ = _prefix_run(card, cfg, "cuda", kv_quant, False)
+    assert got == plain
+    assert (stats["prefix_hits"], stats["pages_shared"],
+            stats["prefill_tokens_skipped"]) == (4, 3 * 2 + 2, 3 * 20 + 16)
+    assert stats["statuses"] == {"DONE": len(PREFIX_TRACE)}
+    assert stats["pages_in_use"] == 0
+    if dtype == "float32":
+        assert (got, stats) == _prefix_run(params, cfg, "cpu", kv_quant,
+                                           True)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_cuda_poison_of_a_shared_page_forks_it(cuda_device, kv_quant):
+    """On the card, a consumer of a prompt of whole pages is poisoned on
+    its cache admission, when its last written position lies in a shared
+    page: the fork copies the page's K, V and (int8) scales into a fresh
+    page and repoints the block table, the shared page keeps its bytes,
+    the consumer retires FAILED and its forked page is scrubbed (K, V and
+    scales zero), and the donor and the other consumer stream as without
+    the poison."""
+    from repro_torch.serving import Chaos
+    cfg, params = _smoke_engine()
+    params = _to(params, cuda_device)
+    q = _prefix_prompts(cfg)["Q"]
+    clean = _prefix_engine(params, cfg, "cuda", kv_quant, True)
+    cids = [clean.submit(q, 8, arrival_step=a) for a in (0, 2, 4)]
+    cfin = clean.run()
+    eng = _prefix_engine(params, cfg, "cuda", kv_quant, True,
+                         chaos=Chaos(seed=0))
+    ids = [eng.submit(q, 8, arrival_step=a) for a in (0, 2, 4)]
+    pool, log = eng.pool, {}
+    names = [k for k in ("k_pages", "v_pages", "k_scales", "v_scales")
+             if k in pool.state]
+
+    def poison():
+        slot = next((s for s, o in enumerate(pool.owner) if o is not None
+                     and o.request_id == ids[1] and len(o.tokens) == 1),
+                    None)
+        if slot is None or log:
+            return
+        page = int(pool.block_table[slot, 1])
+        log["before"] = {k: pool.state[k][:, page].clone() for k in names}
+        pool.poison_slot(slot)
+        log["page"], log["fork"] = page, int(pool.block_table[slot, 1])
+
+    eng._inject_state_faults = poison
+    checked = False
+    while eng.has_work():
+        eng.step()
+        if ids[1] in eng.finished and not checked:
+            # the tick of the quarantine: the fork is scrubbed, the
+            # donor's page untouched
+            page, fork = log["page"], log["fork"]
+            assert fork != page
+            for k in names:
+                assert bool((pool.state[k][:, fork] == 0).all()), k
+                assert torch.equal(pool.state[k][:, page],
+                                   log["before"][k]), k
+            checked = True
+    fin = eng.run()
+    assert checked
+    assert fin[ids[1]].status.value == "FAILED"
+    assert fin[ids[1]].tokens == cfin[cids[1]].tokens[:1]
+    assert [fin[ids[0]].tokens, fin[ids[2]].tokens] == \
+        [cfin[cids[0]].tokens, cfin[cids[2]].tokens]
+    assert pool.alloc.pages_in_use == 0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
+                                       (torch.bfloat16, 2e-2)])
+def test_cuda_decode_over_aliased_block_tables(cuda_device, dtype, tol):
+    """K3 over slots whose block tables map the SAME physical pages (a
+    donor and its prefix-index consumers): rows 1 and 2 alias row 0's
+    first four pages, row 1 holds a copy of row 0's fifth page on a page
+    of its own, row 2 goes on past them. Against the plain version; row 1,
+    with row 0's query and position, gives row 0's output bit for bit;
+    the shared pages are read, never written."""
+    t = np.array([39, 39, 44, 20], np.int32)
+    kp, vp, bt, hq, hd = _paged(50, 2, t + 1, cuda_device, dtype)
+    bt[1, :4] = bt[0, :4]
+    bt[2, :4] = bt[0, :4]
+    kp[bt[1, 4].long()] = kp[bt[0, 4].long()]
+    vp[bt[1, 4].long()] = vp[bt[0, 4].long()]
+    pages = (kp.clone(), vp.clone())
+    g = torch.Generator(device="cuda").manual_seed(51)
+    q = torch.randn(len(t), hq, hd, device="cuda", generator=g).to(dtype)
+    q[1] = q[0]
+    tt = torch.from_numpy(t).to(cuda_device)
+    before = PA.LAUNCHES["paged_attn_decode"]
+    out = PA.paged_attn_decode(q, kp, vp, bt, tt)
+    torch.cuda.synchronize()
+    assert PA.LAUNCHES["paged_attn_decode"] == before + 1
+    torch.testing.assert_close(out, PA.paged_attn_decode_plain(
+        q, kp, vp, bt, tt), rtol=tol, atol=tol)
+    assert torch.equal(out[1], out[0])
+    assert torch.equal(kp, pages[0]) and torch.equal(vp, pages[1])
