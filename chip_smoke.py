@@ -123,7 +123,10 @@ Phases (none catches an exception; any failure exits non-zero):
      sampled consumers among them, and once more after its donor retired;
      a prompt of whole pages sent twice; a cold one), prefix sharing and
      expert-aware admission on, fp32 and int8 pages, on the CPU and the
-     card: the same streams, statuses and sharing counters.
+     card: the same streams, statuses and sharing counters. Then
+     `--supervise` at smoke width on the card: the serve CLI as a watched
+     child, SIGKILLed at tick 6 of generation 0, restarted once,
+     generation 1 recovering from its journal: exit 0, every request DONE.
   5. full width, bf16, one set of random weights per model, first
      llama_moe_4_16, then granite-moe-3b-a800m:
      a. static generate(): 4 requests x 128 prompt tokens, 16 new tokens,
@@ -161,7 +164,24 @@ Phases (none catches an exception; any failure exits non-zero):
         page and fail that request alone; cold and cache admission ms,
         peak pages with and without sharing, peak memory, and the device
         operations of one cache admission (kernel launches and copies).
-        Then `llama_engine_sampled`: the same trace with prompt buckets,
+        Then `journal` (bf16, then `journal_int8` on int8 pages):
+        JOURNAL_TRACE on ENGINE_POOL with preemption and prefix sharing,
+        a snapshot every JOURNAL_EVERY ticks (one holds live slots, a
+        parked preempted request, a chunk job and prefix entries), run
+        unjournaled and journaled (streams equal; tok/s of both, each
+        commit's bytes and device read, pickle + write and fsync ms), then
+        stopped at tick JOURNAL_CRASH by each in-process crash class (the
+        engine abandoned, its last record torn, an uncommitted snapshot
+        written) and recovered into a fresh engine: streams and statuses
+        equal to the uninterrupted run, the replay oracle silent, K1, K2,
+        K3, K4 and K5R launched by the recovered engine (int8 bodies on
+        int8 pages), the load, restore, replay and commit ms. Then a child
+        `python -m repro_torch.launch.serve` at full width with
+        --journal-dir and --crash-step (JOURNAL_CLI) must die by SIGKILL
+        after printing its params' checksum, equal to this process's
+        copy's; its journal, recovered here, must stream what the same CLI
+        workload streams uninterrupted. Then `llama_engine_sampled`: the
+        same trace with prompt buckets,
         requests alternating greedy and sampled (temperature 0.8, top_p
         0.9, seed = the request id) and a ninth at top_p 1e-9 that must
         stream request 0's greedy tokens; a fresh
@@ -3579,6 +3599,334 @@ def profile_short(torch, cfg, name, fn):
     print(f"[profile] {cfg.name} {name}: {json.dumps(out)}", flush=True)
 
 
+# The journaled trace at full width, on ENGINE_POOL with preemption and
+# prefix sharing: (prompt, priority, arrival tick, temperature, seed), top_p
+# 0.9 where it samples, JOURNAL_GEN new tokens each. A (100 tokens: 6 full
+# pages and a 4-token tail) is sent three times, twice sampled (its first
+# repeat is a cache admission at tick 0); C (448 tokens) is a chunked
+# prefill of 4 chunks from tick 2; H (72 tokens, priority 0) arrives at
+# tick 3 on 4 busy slots and evicts B; H is sent again at tick 10. The
+# snapshot at tick JOURNAL_EVERY then holds 3 live slots, B parked, C's
+# chunk job and the index's entries of A, B and H. The in-process crash
+# classes stop the engine at tick JOURNAL_CRASH, past C's install.
+JOURNAL_GEN = 16
+JOURNAL_LENS = {"A": 100, "B": 64, "C": 448, "H": 72}
+JOURNAL_TRACE = [("A", 5, 0, 0.0, None), ("A", 5, 0, 0.8, 11),
+                 ("B", 5, 0, 0.0, None), ("C", 5, 2, 0.0, None),
+                 ("H", 0, 3, 0.0, None), ("A", 5, 6, 0.8, 12),
+                 ("H", 5, 10, 0.0, None)]
+JOURNAL_POOL = dict(ENGINE_POOL, preemption=True, prefix_share=True)
+JOURNAL_EVERY = 4
+JOURNAL_CRASH = 6
+RECOVERED_EVERY = 64
+# the CLI's workload for the child killed by SIGKILL (full width, pages of
+# 16, 4 slots; staggered arrivals, one every other tick) and the tick it
+# dies at, past its second commit
+JOURNAL_CLI = {"--requests": 6, "--slots": 4, "--prompt": 64, "--gen": 16,
+               "--page-size": 16, "--snapshot-every": 4}
+JOURNAL_CLI_CRASH = 9
+
+
+def _journal_log(torch, eng, log):
+    """Time each snapshot commit of `eng` by part (synchronised, host
+    clock): the device read and host conversion (`_snapshot_payload`), the
+    pickle + write, the fsyncs; record its bytes and what it holds."""
+    payload_fn, commit_fn = eng._snapshot_payload, eng.journal.commit_snapshot
+
+    def payload():
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        p = payload_fn()
+        log["read_ms"].append((time.perf_counter() - t0) * 1e3)
+        log["holds"].append({
+            "step": p["meta"]["step"], "slots": len(p["slots"]),
+            "preempted": len(p["preempted"]),
+            "chunk_job": p["chunk_req"] is not None,
+            "prefix_entries": len(p["prefix"]["entries"])})
+        return p
+
+    def commit(p, step):
+        seq = commit_fn(p, step)
+        for k, v in eng.journal.last_commit.items():
+            log[k].append(v)
+        return seq
+
+    eng._snapshot_payload, eng.journal.commit_snapshot = payload, commit
+
+
+def _submit_journal(eng, prompts):
+    return [eng.submit(prompts[k], JOURNAL_GEN, priority=pr, arrival_step=a,
+                       temperature=t, top_p=0.9, seed=sd)
+            for k, pr, a, t, sd in JOURNAL_TRACE]
+
+
+def _release(torch, eng):
+    """Free an engine's device pool now (an abandoned engine's too)."""
+    if eng.journal is not None:
+        eng.journal.close()
+    eng.pool.state.clear()
+    eng.prefix_index = None
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+
+
+def journal_phase(torch, cfg, params, ServingEngine, EngineJournal, counts,
+                  reset_counts, kv_quant, card):
+    """`journal` / `journal_int8`: JOURNAL_TRACE on JOURNAL_POOL (bf16 or
+    int8 pages), journaled with a snapshot every JOURNAL_EVERY ticks.
+    1. The uninterrupted run, unjournaled then journaled (the same trace,
+       this call): streams equal; at least one snapshot holds a live slot,
+       a parked preempted request, a chunk job and prefix entries; each
+       commit's bytes and ms by part; tok/s of both runs (reported only).
+    2. Each in-process crash class at tick JOURNAL_CRASH, after a commit,
+       on a copy of one run's journal: the engine abandoned; its journal's
+       last record torn (`tear_tail`); the next snapshot written without
+       its marker (`write_uncommitted_snapshot`). `recover()` into a fresh
+       engine and
+       drain it: streams and statuses equal the uninterrupted run's, the
+       replay oracle silent and empty, the events replayed as expected
+       (one fewer when torn; the older snapshot when uncommitted), K1, K2,
+       K3 (its int8 body on int8 pages), K4 and K5R launched by the
+       recovered engine, pages drained. The recovered engine commits no
+       snapshot past its post-recovery one (RECOVERED_EVERY; run 1
+       measured their cost). The abandoned engine's pool is freed before
+       the first recovery; each recovery prints the pages its restored
+       slots and index nodes map together.
+    Prints the load, restore, replay and commit ms of each recovery, the
+    journal bytes a decode tick and the peak memory, beside `card`.
+    Returns the first recovery's launches."""
+    import tempfile
+    t_phase = time.perf_counter()
+    pool = dict(JOURNAL_POOL, kv_quant=kv_quant)
+    prompts = _prefix_prompts(cfg, JOURNAL_LENS, 31)
+    tag = "" if kv_quant == "none" else "_int8"
+    decode = "paged_attn_decode" + tag
+    root = tempfile.mkdtemp(prefix="journal")
+    out = {"kv_quant": kv_quant, "card": card}
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    try:
+        # 1. the uninterrupted run, unjournaled then journaled
+        runs = {}
+        for name, jdir in (("plain", None),
+                           ("journaled", os.path.join(root, "full"))):
+            eng = ServingEngine(params, cfg, device="cuda", journal_dir=jdir,
+                                snapshot_every=JOURNAL_EVERY, **pool)
+            log = {k: [] for k in ("read_ms", "bytes", "write_ms",
+                                   "fsync_ms", "holds")}
+            if jdir is not None:
+                _journal_log(torch, eng, log)
+            rids = _submit_journal(eng, prompts)
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            while eng.has_work():
+                eng.step()
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            fin = eng.run()
+            s = eng.stats()
+            runs[name] = {
+                "streams": [fin[r].tokens for r in rids],
+                "statuses": s["statuses"], "log": log, "stats": s,
+                "tok_per_s": sum(len(fin[r].tokens) for r in rids) / wall,
+                "wall_s": wall}
+            need(_drained(eng), f"journal {kv_quant} {name}: pages left")
+            _release(torch, eng)
+        ref, jr = runs["plain"], runs["journaled"]
+        need(jr["streams"] == ref["streams"] and
+             ref["statuses"] == {"DONE": len(JOURNAL_TRACE)} and
+             jr["statuses"] == ref["statuses"],
+             f"journal {kv_quant}: the journaled run streamed other tokens "
+             "than the unjournaled one")
+        s = ref["stats"]
+        need(s["preemptions"] >= 1 and s["prefix_hits"] >= 1 and
+             s["chunk_ticks"] > 0,
+             f"journal {kv_quant}: the trace did not evict, hit the cache "
+             f"and chunk: {s}")
+        full = [h for h in jr["log"]["holds"] if h["slots"] and
+                h["preempted"] and h["chunk_job"] and h["prefix_entries"]]
+        need(full, f"journal {kv_quant}: no snapshot held a live slot, a "
+             f"parked request, a chunk job and prefix entries: "
+             f"{jr['log']['holds']}")
+        js = jr["stats"]
+        log = jr["log"]
+        out["uninterrupted"] = {
+            "full_snapshot": full[0], "holds": log["holds"],
+            "snapshots": js["snapshots"], "journal_bytes": js["journal_bytes"],
+            "decode_ticks": js["decode_ticks"],
+            "journal_bytes_per_tick": js["journal_bytes"] / js["decode_ticks"],
+            "snapshot_bytes": log["bytes"],
+            "snapshot_read_ms": log["read_ms"],
+            "snapshot_write_ms": log["write_ms"],
+            "snapshot_fsync_ms": log["fsync_ms"],
+            "journaled_tok_per_s": jr["tok_per_s"],
+            "plain_tok_per_s": ref["tok_per_s"],
+            "journaled_wall_s": jr["wall_s"], "plain_wall_s": ref["wall_s"],
+            "preemptions": s["preemptions"], "prefix_hits": s["prefix_hits"],
+            "chunk_ticks": s["chunk_ticks"]}
+
+        # 2. the in-process crash classes: one run to tick JOURNAL_CRASH,
+        # its journal copied for each class
+        jdir = os.path.join(root, "torn")
+        eng = ServingEngine(params, cfg, device="cuda", journal_dir=jdir,
+                            snapshot_every=JOURNAL_EVERY, **pool)
+        rids = _submit_journal(eng, prompts)
+        while eng.step_count < JOURNAL_CRASH:
+            eng.step()
+        committed = eng.journal._seq
+        tail = len(EngineJournal.read_tail(jdir, committed))
+        need(committed >= 1 and tail > 0,
+             f"journal {kv_quant}: no commit and tail before the crash "
+             f"(seq {committed}, {tail} events)")
+        dirs = {c: os.path.join(root, c) for c in ("abandon", "uncommitted")}
+        shutil.copytree(jdir, dirs["abandon"])
+        eng.journal.write_uncommitted_snapshot(eng._snapshot_payload())
+        shutil.copytree(jdir, dirs["uncommitted"])
+        shutil.rmtree(eng.journal._snap_dir(committed + 1))
+        eng.journal.tear_tail(eng.journal._last_record_bytes)
+        dirs["torn"] = jdir
+        _release(torch, eng)
+        del eng
+        first = None
+        for crash in ("abandon", "torn", "uncommitted"):
+            jdir = dirs[crash]
+            want = tail - (crash == "torn")
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            # the drain commits no further snapshot: the uninterrupted run
+            # measured their cost
+            rec = ServingEngine.recover(jdir, params, cfg, device="cuda",
+                                        snapshot_every=RECOVERED_EVERY)
+            torch.cuda.synchronize()
+            recover_ms = (time.perf_counter() - t0) * 1e3
+            shared = sum(n > 1 for n in rec.pool.alloc.refcounts().values())
+            fin = rec.run()
+            launches = counts()
+            info, rs = rec.recovered_info, rec.stats()
+            need([fin[r].tokens for r in rids] == ref["streams"] and
+                 rs["statuses"] == ref["statuses"],
+                 f"journal {kv_quant} {crash}: the recovered engine streamed "
+                 "other tokens than the uninterrupted run")
+            need(not rec._replay_expect and info["events"] == want and
+                 info["snapshot_seq"] == committed,
+                 f"journal {kv_quant} {crash}: replayed {info} of a tail of "
+                 f"{want} after seq {committed}; oracle left "
+                 f"{rec._replay_expect}")
+            need(all(launches[k] > 0 for k in (
+                "gmm_swiglu", "gmm_scaled", decode, "paged_attn_chunk" + tag,
+                "go_router")),
+                f"journal {kv_quant} {crash}: recovered launches {launches}")
+            need(_drained(rec), f"journal {kv_quant} {crash}: pages left")
+            out[crash] = {**info, "recover_ms": recover_ms,
+                          "shared_pages_restored": shared,
+                          "replayed_events": rs["replayed_events"],
+                          "recoveries": rs["recoveries"],
+                          "launches": launches}
+            first = first or launches
+            _release(torch, rec)
+            del rec
+            shutil.rmtree(jdir, ignore_errors=True)
+        out["max_memory_allocated_gb"] = torch.cuda.max_memory_allocated() / 1e9
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    out["phase_s"] = time.perf_counter() - t_phase
+    print(f"[journal{tag}] {cfg.name} {json.dumps(out)}", flush=True)
+    return first
+
+
+def journal_sigkill_phase(torch, cfg, params, ServingEngine, TS, card):
+    """A real SIGKILL at full width: a child `python -m
+    repro_torch.launch.serve --arch <cfg> --journal-dir <tmp> --crash-step
+    JOURNAL_CLI_CRASH` (JOURNAL_CLI, seed 0 weights, as `params` were drawn
+    here) must die with -SIGKILL after printing its params' checksum, which
+    must equal `params`' (else the comparison below is void). Its journal,
+    recovered here and drained, must stream what the same CLI workload
+    streams uninterrupted in this process, every request DONE."""
+    import signal
+    import tempfile
+    import numpy as np
+    jdir = tempfile.mkdtemp(prefix="journal_kill")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    try:
+        t0 = time.perf_counter()
+        child = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             cfg.name, "--paged", "--journal-dir", jdir, "--crash-step",
+             str(JOURNAL_CLI_CRASH),
+             *[str(a) for kv in JOURNAL_CLI.items() for a in kv]],
+            env=env, capture_output=True, text=True, timeout=600)
+        child_s = time.perf_counter() - t0
+        need(child.returncode == -signal.SIGKILL,
+             f"journal SIGKILL: the child exited {child.returncode}: "
+             f"{child.stdout[-2000:]} {child.stderr[-3000:]}")
+        m = re.search(r"params checksum (\S+)", child.stdout)
+        mine = TS.params_checksum(params)
+        need(m is not None and int(m.group(1)) == mine,
+             f"journal SIGKILL: the child's params checksum "
+             f"{m and m.group(1)} != {mine!r}: the comparison would be void")
+        args = JOURNAL_CLI
+        n, size = args["--requests"], args["--prompt"]
+        rng = np.random.default_rng(0)
+        prompts = [rng.integers(0, cfg.vocab_size, size=size, dtype=np.int32)
+                   for _ in range(n)]
+        ref = TS.serve_continuous(
+            params, cfg, prompts, args["--gen"], num_slots=args["--slots"],
+            arrival_steps=[2 * i for i in range(n)], paged=True,
+            page_size=args["--page-size"], priorities=[0] * n,
+            device="cuda")
+        ref["engine"].pool.state.clear()
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        rec = ServingEngine.recover(jdir, params, cfg, device="cuda")
+        torch.cuda.synchronize()
+        recover_ms = (time.perf_counter() - t0) * 1e3
+        fin = rec.run()
+        s = rec.stats()
+        need(s["statuses"] == {"DONE": n} and
+             all(fin[r].tokens == ref["tokens"][r].tolist()
+                 for r in ref["tokens"]),
+             f"journal SIGKILL: recovered streams differ from the "
+             f"uninterrupted run ({s['statuses']})")
+        out = {"child_rc": child.returncode, "child_s": child_s,
+               "checksum": mine, "recover_ms": recover_ms,
+               **rec.recovered_info, "card": card}
+        rec.pool.state.clear()
+    finally:
+        shutil.rmtree(jdir, ignore_errors=True)
+    print(f"[journal sigkill] {cfg.name} {json.dumps(out)}", flush=True)
+
+
+def journal_supervise_phase(arch, card):
+    """`--supervise` at smoke width on the card: the CLI re-runs itself as
+    a watched child, chaos SIGKILLs generation 0 at tick 6, the supervisor
+    restarts it once and generation 1 recovers from the journal and drains:
+    exit 0, one restart, `recovered from` printed, every request DONE."""
+    import tempfile
+    jdir = tempfile.mkdtemp(prefix="journal_sup")
+    env = dict(os.environ, PYTHONPATH=os.path.join(ROOT, "src"))
+    try:
+        t0 = time.perf_counter()
+        res = subprocess.run(
+            [sys.executable, "-m", "repro_torch.launch.serve", "--arch",
+             arch, "--smoke", "--requests", "4", "--slots", "2",
+             "--prompt", "12", "--gen", "12", "--paged", "--page-size", "8",
+             "--journal-dir", os.path.join(jdir, "j"), "--snapshot-every",
+             "4", "--crash-step", "6", "--supervise"],
+            env=env, capture_output=True, text=True, timeout=600)
+        wall = time.perf_counter() - t0
+    finally:
+        shutil.rmtree(jdir, ignore_errors=True)
+    need(res.returncode == 0 and
+         "supervised serve exited 0 after 1 restart(s)" in res.stdout and
+         "recovered from" in res.stdout and "'DONE': 4" in res.stdout,
+         f"journal supervise: rc {res.returncode}: {res.stdout[-3000:]} "
+         f"{res.stderr[-3000:]}")
+    line = [ln for ln in res.stdout.splitlines() if "supervised" in ln][0]
+    print(f"[journal supervise] {arch} smoke: {line} in {wall:.1f} s "
+          f"({card})", flush=True)
+
+
 def _tensors(tree):
     """Every tensor of a decode state (dicts and named tuples), in order."""
     import torch
@@ -3614,7 +3962,7 @@ def main():
     from repro_torch.kernels import slstm_cell as SC
     from repro_torch.launch import serve as TS
     from repro_torch.models import model as TM
-    from repro_torch.serving import Chaos, ServingEngine
+    from repro_torch.serving import Chaos, EngineJournal, ServingEngine
 
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -3701,6 +4049,7 @@ def main():
     for m in cfgs:
         prefix_smoke_phase(torch, get_config(m, smoke=True), TM,
                            ServingEngine, counts, reset_counts)
+    journal_supervise_phase(llama, card)
     xlstm = "xlstm-1.3b"
     xlstm_smoke_phase(torch, SC, get_config(xlstm, smoke=True), TM, TS)
 
@@ -3744,6 +4093,14 @@ def main():
                 by_path[f"prefix_share{tag}"] = prefix_share_phase(
                     torch, cfg, params, ServingEngine, Chaos, counts,
                     reset_counts, kvq, profile=True)
+            # slice 14: the journal's crash classes, bf16 then int8 pages,
+            # and a child process killed by SIGKILL
+            for kvq in ("none", "int8"):
+                tag = "" if kvq == "none" else "_int8"
+                by_path[f"journal{tag}"] = journal_phase(
+                    torch, cfg, params, ServingEngine, EngineJournal, counts,
+                    reset_counts, kvq, card)
+            journal_sigkill_phase(torch, cfg, params, ServingEngine, TS, card)
             # slice 11: the engine trace with prompt buckets and sampling,
             # and the static batch past K5R's 64 rows
             by_path["llama_engine_sampled"], _ = sampled_engine_phase(

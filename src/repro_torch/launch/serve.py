@@ -43,11 +43,24 @@ without a card, asking for CUDA raises.
   python -m repro_torch.launch.serve --arch llama_moe_4_16 --smoke \
       --paged --page-size 4 --num-pages 30 --preemption --chaos \
       --chaos-seed 3 --max-wall-s 30 --device cpu
+  # durability: journal the run and SIGKILL it at tick 6; the same command
+  # again finds the committed snapshot and recovers instead of starting
+  # fresh. --supervise runs the engine in a watched child process that a
+  # restart re-runs through recover().
+  j=$(mktemp -d)
+  python -m repro_torch.launch.serve --arch llama_moe_4_16 --smoke \
+      --paged --page-size 8 --journal-dir $j --crash-step 6 --device cpu
+  j=$(mktemp -d)
+  python -m repro_torch.launch.serve --arch llama_moe_4_16 --smoke \
+      --paged --page-size 8 --journal-dir $j --crash-step 6 --supervise \
+      --device cpu
 """
 from __future__ import annotations
 
 import argparse
 import math
+import os
+import sys
 import time
 
 import numpy as np
@@ -56,8 +69,11 @@ import torch
 from repro_torch.configs.registry import get_config
 from repro_torch.models.layers import resolve_device
 from repro_torch.models.model import model_init, prefill, serve_step
+from repro_torch.runtime.fault import ProcessSupervisor
 from repro_torch.serving.chaos import Chaos
-from repro_torch.serving.engine import ServingEngine, _sample_tokens
+from repro_torch.serving.engine import (ServingEngine, _sample_tokens,
+                                       params_checksum)
+from repro_torch.serving.journal import EngineJournal
 
 
 def _sync(dev: torch.device) -> None:
@@ -131,7 +147,9 @@ def serve_continuous(params, cfg, prompts: list, gen_tokens: int, *,
                      deadline_s: float | None = None,
                      max_wall_s: float | None = None,
                      prefix_share: bool = False, expert_aware: bool = False,
-                     device=None) -> dict:
+                     journal_dir: str | None = None, snapshot_every: int = 0,
+                     heartbeat_file: str | None = None,
+                     restart_count: int = 0, device=None) -> dict:
     """Run a list of prompts through the continuous-batching engine.
     `paged` swaps the dense slot rows for the block-table page pool
     (`page_size`, `num_pages`: None keeps the dense token capacity);
@@ -148,8 +166,13 @@ def serve_continuous(params, cfg, prompts: list, gen_tokens: int, *,
     prompt from the prefix index: its full pages map the donor's
     copy-on-write and it skips its prefill (paged pools); `expert_aware`
     orders admissions by routing overlap with the active batch (MoE
-    configs). `max_tokens` 0 derives the pool's capacity from the longest
-    prompt, rounded up to a multiple of the page size and the chunk.
+    configs). `journal_dir` journals every request's lifecycle and commits
+    an atomic engine snapshot every `snapshot_every` ticks (paged pools;
+    serving/journal.py): a crashed run resumes through
+    `ServingEngine.recover(journal_dir, ...)`; `heartbeat_file` and
+    `restart_count` come from a process supervisor. `max_tokens` 0
+    derives the pool's capacity from the longest prompt, rounded up to a
+    multiple of the page size and the chunk.
     Returns the token stream of every request by id (a request that ends
     in another status than DONE keeps its partial stream), the wall time
     and the engine's stats."""
@@ -165,7 +188,10 @@ def serve_continuous(params, cfg, prompts: list, gen_tokens: int, *,
                         prompt_buckets=prompt_buckets,
                         preemption=preemption, chaos=chaos,
                         prefix_share=prefix_share, expert_aware=expert_aware,
-                        device=device)
+                        journal_dir=journal_dir,
+                        snapshot_every=snapshot_every,
+                        heartbeat_file=heartbeat_file,
+                        restart_count=restart_count, device=device)
     ids = [eng.submit(p, gen_tokens,
                       arrival_step=arrival_steps[i] if arrival_steps else 0,
                       priority=priorities[i] if priorities else 0,
@@ -249,6 +275,32 @@ def main(argv=None):
                     help="expert-aware admission: order admissions by "
                          "routing overlap with the active batch (MoE "
                          "configs)")
+    ap.add_argument("--journal-dir", default="",
+                    help="durable request journal and atomic engine "
+                         "snapshots in this directory (needs --paged). If it "
+                         "already holds a committed snapshot, the run "
+                         "RECOVERS from it (replaying the journal's tail, "
+                         "resuming every live stream bit for bit) instead "
+                         "of starting fresh")
+    ap.add_argument("--snapshot-every", type=int, default=8,
+                    help="engine ticks between snapshots (with "
+                         "--journal-dir)")
+    ap.add_argument("--supervise", action="store_true",
+                    help="run the engine in a supervised child process "
+                         "(file-mtime heartbeats, SIGKILL on a stale one, "
+                         "restart with exponential backoff; a restarted "
+                         "generation recovers from the journal; needs "
+                         "--journal-dir)")
+    ap.add_argument("--crash-step", type=int, default=-1,
+                    help="SIGKILL the engine's process at this engine tick "
+                         "of a fresh run in generation 0 (a restarted or "
+                         "recovering run passes it; needs --journal-dir)")
+    ap.add_argument("--heartbeat", default="",
+                    help="a file the engine touches once a tick (the "
+                         "supervisor passes it to its child)")
+    ap.add_argument("--generation", type=int, default=0,
+                    help="the supervisor's restart generation of this "
+                         "process (0 = the first launch)")
     ap.add_argument("--device", default="cuda")
     ap.add_argument("--seed", type=int, default=0)
     args = ap.parse_args(argv)
@@ -257,11 +309,17 @@ def main(argv=None):
                  "path decodes greedily (drop --static)")
     engine_only = (args.preemption or args.chaos or args.deadline_s
                    or args.max_wall_s or args.prefix_share
-                   or args.expert_aware)
+                   or args.expert_aware or args.journal_dir)
     if args.static and engine_only:
         ap.error("--preemption, --chaos, --deadline-s, --max-wall-s, "
-                 "--prefix-share and --expert-aware drive the engine (drop "
-                 "--static)")
+                 "--prefix-share, --expert-aware and --journal-dir drive "
+                 "the engine (drop --static)")
+    if args.journal_dir and not args.paged:
+        ap.error("--journal-dir needs --paged (engine snapshots are "
+                 "SlotPool.snapshot block-table surgery)")
+    if (args.supervise or args.crash_step >= 0) and not args.journal_dir:
+        ap.error("--supervise/--crash-step need --journal-dir (restarted "
+                 "generations resume through recover())")
     if args.prefix_share and not args.paged:
         ap.error("--prefix-share needs --paged (copy-on-write block-table "
                  "surgery)")
@@ -271,10 +329,30 @@ def main(argv=None):
     if args.kv_quant != "none" and not args.paged:
         ap.error("--kv-quant int8 needs --paged (scale granularity is page "
                  "granularity)")
+    if args.supervise:
+        # the parent: run this CLI (without --supervise) as a watched
+        # child; a restarted generation finds the committed snapshot in
+        # --journal-dir and recovers instead of starting fresh
+        os.makedirs(args.journal_dir, exist_ok=True)
+        child = [sys.executable, "-m", "repro_torch.launch.serve"] + [
+            a for a in (sys.argv[1:] if argv is None else argv)
+            if a != "--supervise"]
+        sup = ProcessSupervisor(
+            child, heartbeat_file=os.path.join(args.journal_dir, "heartbeat"))
+        code = sup.run()
+        print(f"supervised serve exited {code} after "
+              f"{sup.stats.restarts} restart(s), "
+              f"{sup.stats.heartbeat_kills} heartbeat kill(s) "
+              f"(exit codes {sup.stats.exit_codes})", flush=True)
+        return sup
+
     cfg = get_config(args.arch, smoke=args.smoke)
     dev = resolve_device(args.device)
     gen = torch.Generator(device=dev).manual_seed(args.seed)
     params = model_init(cfg, gen, dev)
+    if args.journal_dir:
+        # recover() refuses a journal written under other weights
+        print(f"params checksum {params_checksum(params)}", flush=True)
     if args.static:
         prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt),
                                 generator=gen, device=dev)
@@ -289,6 +367,34 @@ def main(argv=None):
     if args.chaos:
         chaos = Chaos(seed=args.chaos_seed, tick_fail=0.05, pressure=0.05,
                       preempt=0.05)
+    recover = bool(args.journal_dir) and \
+        EngineJournal.recoverable(args.journal_dir)
+    if args.crash_step >= 0 and args.generation == 0 and not recover:
+        # armed in the FIRST generation's fresh run only: a restarted or
+        # recovering run must pass the same tick to show that recovery ends
+        chaos = chaos or Chaos(seed=args.chaos_seed)
+        chaos.crash_step = args.crash_step
+    if recover:
+        t0 = time.perf_counter()
+        eng = ServingEngine.recover(
+            args.journal_dir, params, cfg, device=dev, chaos=chaos,
+            snapshot_every=args.snapshot_every,
+            heartbeat_file=args.heartbeat or None,
+            restart_count=args.generation)
+        fin = eng.run()
+        dt = time.perf_counter() - t0
+        info, s = eng.recovered_info, eng.stats()
+        print(f"recovered from {args.journal_dir} (snapshot seq "
+              f"{info['snapshot_seq']}, {info['events']} replayed events, "
+              f"{info['wall_ms']:.1f} ms): drained to {s['finished']} "
+              f"finished requests in {dt:.2f}s", flush=True)
+        print(f"statuses: {s['statuses']}  recoveries: {s['recoveries']}  "
+              f"restart generation: {s['restart_count']}", flush=True)
+        if fin:
+            print("sample:", fin[min(fin)].tokens[:16], flush=True)
+        return {"engine": eng, "stats": s,
+                "tokens": {rid: np.asarray(r.tokens, np.int32)
+                           for rid, r in fin.items()}}
     rng = np.random.default_rng(args.seed)
     prompts = [rng.integers(0, cfg.vocab_size, size=args.prompt,
                             dtype=np.int32) for _ in range(args.requests)]
@@ -307,7 +413,11 @@ def main(argv=None):
                            deadline_s=args.deadline_s or None,
                            max_wall_s=args.max_wall_s or None,
                            prefix_share=args.prefix_share,
-                           expert_aware=args.expert_aware, device=dev)
+                           expert_aware=args.expert_aware,
+                           journal_dir=args.journal_dir or None,
+                           snapshot_every=args.snapshot_every,
+                           heartbeat_file=args.heartbeat or None,
+                           restart_count=args.generation, device=dev)
     s = res["stats"]
     print(f"{cfg.name} on {dev}: served {s['finished']} requests over "
           f"{s['steps']} ticks on {args.slots} slots in "
@@ -326,7 +436,9 @@ def main(argv=None):
              f"{s['pages_shared']} prefill skipped "
              f"{s['prefill_tokens_skipped']} tok]"
              if s["prefix_share"] else "")
-          + (" [expert-aware]" if s["expert_aware"] else ""))
+          + (" [expert-aware]" if s["expert_aware"] else "")
+          + (f" [journal {s['journal_bytes']} B, {s['snapshots']} "
+             f"snapshots]" if args.journal_dir else ""))
     print(f"statuses: {s['statuses']}  preemptions: {s['preemptions']} "
           f"(resumes {s['resumes']})  tick retries: {s['tick_retries']}"
           + (f"  chaos: {s['chaos']} ({chaos.describe()})" if chaos

@@ -17,10 +17,16 @@ repro/serving, the engine's core):
              domain (deadlines, cancel, preemption and resume, NaN
              quarantine, the tick supervisor); the gate probe
              (expert_signature)
+  journal    the durable request journal and atomic engine snapshots
+             (EngineJournal, JournalError, the record format);
+             ServingEngine.recover replays them after a crash
   chaos      seeded fault injector (no environment lane)
 """
 from repro_torch.serving.chaos import Chaos, ChaosError
 from repro_torch.serving.engine import ServingEngine, expert_signature
+from repro_torch.serving.journal import (EngineJournal, JournalError,
+                                         append_record, read_records,
+                                         request_from_record, request_record)
 from repro_torch.serving.paging import PageAllocator, PrefixIndex
 from repro_torch.serving.pool import SlotPool
 from repro_torch.serving.scheduler import (TERMINAL_STATUSES,
@@ -32,4 +38,5 @@ __all__ = ["ServingEngine", "SlotPool", "FIFOScheduler",
            "ExpertAwareScheduler", "PageAllocator", "PrefixIndex",
            "expert_signature", "Request", "RequestStatus",
            "TERMINAL_STATUSES", "QueueFull", "RequestTooLarge", "Chaos",
-           "ChaosError"]
+           "ChaosError", "EngineJournal", "JournalError", "append_record",
+           "read_records", "request_record", "request_from_record"]

@@ -12,9 +12,11 @@ It forces the faults the engine's fault domain claims to survive:
 transient tick failures (the supervisor retries), admission pressure
 (admissions wait a tick, never reorder), forced preemptions (snapshot and
 restore must stay bit-identical) and poisoned decode state (the NaN
-quarantine fails ONE slot). The crash fields are copied too; like the
-reference's, they fire only in a journaled engine, which the port does not
-have yet (ROADMAP.md Queue 1 item 7), so no port engine calls them.
+quarantine fails ONE slot). The crash fields (`crash`, `crash_step`,
+`crash_class`) fire, as the reference's do, only in a journaled engine,
+whose `_maybe_crash` SIGKILLs its own process after the tick (after
+tearing the journal's last record for "torn", after writing an
+uncommitted snapshot for "snap").
 """
 from __future__ import annotations
 

@@ -97,7 +97,9 @@ one score can insert it twice. So the supervised region retries only a
 fault raised before the tick's first write (chaos's `maybe_tick_fault`,
 called first as in the reference); any exception from inside the decode
 step or the sampler surfaces at once as `RestartRequired`, its cause
-chained, with no retry.
+chained, with no retry. A journaled engine makes that recoverable: the
+process exits, and `recover()` resumes from the last committed snapshot,
+taken at a tick boundary.
 
 PREFIX SHARING (`prefix_share=True`, paged pools): every one-shot
 admission deposits its prompt into a `PrefixIndex` (serving/paging.py):
@@ -127,11 +129,47 @@ overlap with the active batch's experts, and preemption picks, within a
 priority class, the victim with the most experts no other stream needs.
 Admission order is the only thing it changes.
 
-Not in the port yet (ROADMAP.md Queue 1 item 7): the journal with its
-crash classes (and the prefix index's snapshot), and the mesh.
+DURABILITY (`journal_dir=`, paged pools; serving/journal.py): the engine
+journals every request's lifecycle (`submit`, the `install` of its first
+token, one `tick` record of each decode tick's tokens, `terminal`), fsync'd
+record by record, and every `snapshot_every` ticks commits an atomic
+snapshot of the whole engine at the tick boundary, after the tick's one
+host read (the tick writes pages, scales, GO rows and the K5R cache in
+place, so a snapshot taken anywhere else would catch it half written):
+the pages several holders map (copy-on-write prefix pages), once each,
+each live slot's `SlotPool.snapshot` of its other pages, the parked
+preemption snapshots, the scheduler's heaps and load EWMAs, the prefix
+index, the counters, and the config's name and the params' checksum
+(`params_checksum`), all in the journal's numpy form
+(serving/pool.py `to_host_payload`: bf16 as its bits, a generator as its
+state). A chunk job is recorded as its request only and restarts its
+chunked prefill under its original submit order. `ServingEngine.recover`
+rebuilds an engine from the latest committed snapshot, for the same config
+and weights only: the shared pages come back into fresh pages first, the
+slots by block-table surgery that maps them copy-on-write again (slots that
+fit the pool only by sharing fit after recovery too), the prefix index's
+nodes pin them, requests journaled after the snapshot are queued again,
+and the tokens the dead process journaled become a replay oracle the
+recovered streams must re-emit bit for bit. Greedy and sampled streams
+equal the uninterrupted run's: a live or parked request resumes its
+generator's saved state, a request admitted later draws from its seed.
+Chaos's crash classes (`crash_step`, `crash`) kill a journaled engine's
+process at a tick: straight away, after tearing the journal's last
+record, or after writing the next snapshot without its COMMITTED marker.
+The process supervisor (runtime/fault.py `ProcessSupervisor`) restarts a
+dead or silent serving process; the engine touches `heartbeat_file` once
+a tick and reports the supervisor's `restart_count`. No environment
+variable is read: `journal_dir`, `heartbeat_file` and `restart_count` are
+kwargs.
+
+Not in the port yet: the mesh (ROADMAP.md Queue 1 item 11).
 """
 from __future__ import annotations
 
+import heapq
+import itertools
+import os
+import signal
 import time
 from collections import Counter
 from dataclasses import dataclass
@@ -146,8 +184,11 @@ from repro_torch.models.model import (init_decode_state, paged_supported,
                                       prefill, prefill_chunk, serve_step)
 from repro_torch.runtime.fault import RestartRequired, StepSupervisor
 from repro_torch.serving.chaos import Chaos
+from repro_torch.serving.journal import (EngineJournal, JournalError,
+                                         request_from_record, request_record)
 from repro_torch.serving.paging import PrefixIndex
-from repro_torch.serving.pool import SlotPool
+from repro_torch.serving.pool import (SlotPool, from_host_payload,
+                                      to_host_payload)
 from repro_torch.serving.scheduler import (ExpertAwareScheduler,
                                            FIFOScheduler, QueueFull, Request,
                                            RequestStatus, RequestTooLarge)
@@ -176,6 +217,31 @@ def expert_signature(params, prompt, cfg) -> np.ndarray:
                       device=embed.device)
     sig[idx[:valid].reshape(-1)] = True                       # pad rows out
     return sig.cpu().numpy()
+
+
+_INT_OF_WIDTH = {1: torch.int8, 2: torch.int16, 4: torch.int32,
+                 8: torch.int64}
+_CHECKSUM_MOD = (1 << 61) - 1
+
+
+def params_checksum(params) -> int:
+    """An exact fingerprint of the weights: each tensor's bit patterns
+    summed as integers (exact in any order, so the CPU and the card agree),
+    folded in the tree's order. The journal stores it; recovery refuses
+    weights that give another."""
+    if isinstance(params, dict):
+        leaves = [params_checksum(params[k]) for k in sorted(params)]
+    elif isinstance(params, (list, tuple)):
+        leaves = [params_checksum(p) for p in params]
+    else:
+        bits = params.detach().reshape(-1).view(
+            _INT_OF_WIDTH[params.element_size()])
+        return sum(int(part.sum(dtype=torch.int64))
+                   for part in bits.split(1 << 26))
+    h = 0
+    for v in leaves:
+        h = (h * 1_000_003 + v) % _CHECKSUM_MOD
+    return h
 
 
 def _sample_tokens(logits: torch.Tensor, u: torch.Tensor,
@@ -236,6 +302,8 @@ class ServingEngine:
                  kv_quant: str | None = None, prompt_buckets: bool = False,
                  preemption: bool = False, chaos: Chaos | None = None,
                  prefix_share: bool = False, expert_aware: bool = False,
+                 journal_dir: str | None = None, snapshot_every: int = 0,
+                 heartbeat_file: str | None = None, restart_count: int = 0,
                  device=None):
         if cfg.block != "attn":
             raise NotImplementedError(
@@ -313,6 +381,25 @@ class ServingEngine:
         self.preempted_total = 0
         self.resumed_total = 0
         self.audit_every_tick = False
+        # --- durability (serving/journal.py) ---
+        self.journal: EngineJournal | None = None
+        self.recoveries = 0
+        self.replayed_events = 0
+        self.recovered_info: dict | None = None
+        self.restart_count = int(restart_count)   # the supervisor's generation
+        self._replay_expect: dict[int, list[int]] = {}
+        self._tick_toks: dict[int, int] = {}
+        self._heartbeat = heartbeat_file
+        self._checksum: int | None = None
+        self._engine_kw = dict(
+            num_slots=num_slots, max_tokens=self.pool.max_tokens,
+            max_queue=max_queue, paged=self.pool.paged,
+            page_size=self.pool.page_size, num_pages=self.pool.num_pages,
+            prefill_chunk=self.prefill_chunk, kv_quant=self.cfg.kv_quant,
+            prompt_buckets=self.prompt_buckets, preemption=self.preemption,
+            prefix_share=self.prefix_share, expert_aware=self.expert_aware)
+        if journal_dir is not None:
+            self._attach_journal(journal_dir, snapshot_every)
 
     # ------------------------------------------------------------- submission
 
@@ -369,6 +456,10 @@ class ServingEngine:
         except RequestTooLarge:
             self.rejected_oversized += 1
             raise
+        if self.journal is not None:
+            # after the scheduler's acceptance: a rejected request has no
+            # lifecycle to recover
+            self.journal.append("submit", req=request_record(req))
         return rid
 
     def cancel(self, rid: int) -> bool:
@@ -407,8 +498,11 @@ class ServingEngine:
         free slots (evicting lower-priority streams under pressure when
         preemption is on; chaos pressure skips the admissions of a tick),
         inject chaos's state faults, then advance every occupied slot one
-        token under the tick supervisor, quarantining non-finite rows.
-        Returns the requests finished on this tick."""
+        token under the tick supervisor, quarantining non-finite rows. A
+        journaled engine then writes the tick's record, commits a snapshot
+        every `snapshot_every` ticks, touches its heartbeat file and lets
+        chaos crash the process. Returns the requests finished on this
+        tick."""
         done: list[Request] = []
         self._expire(time.monotonic(), done)
 
@@ -473,6 +567,7 @@ class ServingEngine:
                                       reason="non-finite logits")
                     continue
                 req.tokens.append(tok)
+                self._journal_token(req, tok)
                 self.pool.pending[slot] = tok
                 self.pool.remaining[slot] -= 1
                 if self.pool.remaining[slot] <= 0 or \
@@ -485,6 +580,23 @@ class ServingEngine:
             nxt = self.scheduler.next_arrival_step()
             self.step_count = max(self.step_count + 1,
                                   nxt if nxt is not None else 0)
+
+        if self.journal is not None:
+            if self._tick_toks:
+                # ONE durable record a decode tick: the token watermark
+                # every recovered stream is held to
+                self.journal.append("tick", step=self.step_count,
+                                    toks=dict(self._tick_toks))
+                self._tick_toks.clear()
+            if self.step_count - self.journal.last_snapshot_step >= \
+                    self.journal.snapshot_every:
+                self.journal.commit_snapshot(self._snapshot_payload(),
+                                             self.step_count)
+        if self._heartbeat:
+            # liveness for the process supervisor (mtime staleness)
+            with open(self._heartbeat, "a"):
+                os.utime(self._heartbeat, None)
+        self._maybe_crash()
 
         if self.audit_every_tick:
             self._audit()
@@ -514,7 +626,9 @@ class ServingEngine:
         """The decode tick under the StepSupervisor. Only chaos's injected
         tick fault, raised before the tick's first write, is retried; the
         tick writes the pool in place, so a failure inside it surfaces as
-        RestartRequired (cause chained) with no retry (module docstring)."""
+        RestartRequired (cause chained) with no retry (module docstring).
+        On a journaled engine the caller exits and `recover()` resumes from
+        the last committed snapshot, taken between ticks."""
         def tick():
             if self.chaos is not None:
                 self.chaos.maybe_tick_fault(self.step_count)
@@ -760,6 +874,7 @@ class ServingEngine:
         req.admit_time = time.monotonic()
         req.status = RequestStatus.ACTIVE
         req.tokens.append(first)
+        self._journal_token(req, first, install=True)
         self.pool.admit(slot, req, slot_state, first, page_row=page_row,
                         generator=gen)
         if self.expert_aware:
@@ -818,6 +933,7 @@ class ServingEngine:
         req.admit_time = time.monotonic()
         req.status = RequestStatus.ACTIVE
         req.tokens.append(first)
+        self._journal_token(req, first, install=True)
         self.pool.admit_from_prefix(slot, req, shared, entry, first,
                                     generator=gen)
         if req.expert_sig is None and entry["sig"] is not None:
@@ -944,6 +1060,311 @@ class ServingEngine:
         req.finish_time = time.monotonic()
         self.finished[req.request_id] = req
         done.append(req)
+        if self.journal is not None:
+            self.journal.append("terminal", rid=req.request_id,
+                                status=status.value, reason=reason)
+
+    # -------------------------------------------------------------- durability
+
+    def _attach_journal(self, directory: str, snapshot_every: int = 0) -> None:
+        """Open the engine's write-ahead journal and commit the first
+        snapshot. Journaling rides on the paged pool's snapshots
+        (SlotPool.snapshot), so a dense pool refuses it."""
+        if not self.pool.paged:
+            raise ValueError("journaling needs a paged pool (engine "
+                             "snapshots are SlotPool.snapshot block-table "
+                             "surgery)")
+        self.journal = EngineJournal(directory,
+                                     snapshot_every=snapshot_every or 32)
+        self.journal.commit_snapshot(self._snapshot_payload(),
+                                     self.step_count)
+
+    def _journal_token(self, req: Request, tok: int, *,
+                       install: bool = False) -> None:
+        """Journal one emitted token and hold it to the replay oracle: the
+        tokens the CRASHED process journaled past its snapshot must be
+        re-emitted bit for bit before anything new."""
+        exp = self._replay_expect.get(req.request_id)
+        if exp:
+            want = exp.pop(0)
+            if not exp:
+                del self._replay_expect[req.request_id]
+            assert tok == want, (
+                f"recovery divergence: request {req.request_id} emitted "
+                f"token {tok} where the journal watermark says {want}")
+        if self.journal is None:
+            return
+        if install:
+            self.journal.append("install", rid=req.request_id,
+                                step=self.step_count, token=tok)
+        else:
+            self._tick_toks[req.request_id] = tok
+
+    def _maybe_crash(self) -> None:
+        """Chaos's crash classes: SIGKILL this process at this tick straight
+        away ("kill"), after tearing the journal's last record ("torn"),
+        or after writing the next snapshot WITHOUT its COMMITTED marker
+        ("snap"). Journaled engines only: recover() must undo the damage."""
+        if self.journal is None or self.chaos is None:
+            return
+        crash = self.chaos.crash_event(self.step_count)
+        if crash is None:
+            return
+        if crash == "torn":
+            self.journal.tear_tail(
+                self.chaos.torn_cut(self.journal._last_record_bytes))
+        elif crash == "snap":
+            self.journal.write_uncommitted_snapshot(self._snapshot_payload())
+        os.kill(os.getpid(), signal.SIGKILL)
+
+    def _snapshot_payload(self) -> dict:
+        """The whole engine at this tick boundary, in the journal's numpy
+        form (`to_host_payload`): the contents of every page that several
+        holders map (copy-on-write prefix pages: live slots and the prefix
+        index's node pins) saved once by physical id, every live slot's
+        SlotPool.snapshot (its private pages, its shared ones by id, GO
+        rows, cursor, generator state), the scheduler's heaps, the parked
+        preemption snapshots, the prefix index (structure and entries), the
+        load EWMAs, the counters, and the config's name and the params'
+        checksum that recovery holds the caller's to. A chunk job is
+        recorded as its REQUEST only: recovery queues it again and reruns
+        its chunked prefill, deterministic per chunking. The PageAllocator
+        is not saved: restoring re-reserves and re-allocates, under fresh
+        physical ids (ids are invisible to streams)."""
+        live = [(slot, req) for slot, req in enumerate(self.pool.owner)
+                if req is not None]
+        holders: Counter[int] = Counter()
+        for slot, _ in live:
+            r = self.pool.block_table[slot]
+            holders.update(int(p) for p in r[r != 0])
+        nodes = (self.prefix_index.node_pages()
+                 if self.prefix_index is not None else [])
+        holders.update(nodes)
+        ids = sorted({p for p, n in holders.items() if n > 1} | set(nodes))
+        pages = None
+        if ids:
+            idx = torch.tensor(ids, dtype=torch.long, device=self.device)
+            pages = {"ids": ids, **{
+                key: self.pool.state[name].index_select(1, idx)
+                for key, name in self._page_tensors()}}
+        shared = frozenset(ids)
+        slots = [(slot, request_record(req, runtime=True),
+                  self.pool.snapshot(slot, shared))
+                 for slot, req in live]
+        job = self._chunk_job
+        reqs = ([r for _, _, r in self.scheduler.queue] +
+                [r for _, _, r in self.scheduler._pending] +
+                [req for _, req in live] +
+                list(self.finished.values()) +
+                ([job.req] if job is not None else []))
+        prefix = (self.prefix_index.snapshot_state(to_host_payload)
+                  if self.prefix_index is not None else None)
+        return to_host_payload({
+            "meta": {
+                "step": self.step_count,
+                "recoveries": self.recoveries,
+                "next_id": self._next_id,
+                "seq_next": max((r.seq for r in reqs), default=-1) + 1,
+                "snapshot_every": (self.journal.snapshot_every
+                                   if self.journal is not None else 32),
+                "cfg": self.cfg.name,
+                "params_checksum": self._params_checksum(),
+            },
+            "engine_kw": dict(self._engine_kw),
+            "pages": pages,
+            "slots": slots,
+            "queued": [request_record(r, runtime=True)
+                       for _, _, r in self.scheduler.queue],
+            "pending": [request_record(r, runtime=True)
+                        for _, _, r in self.scheduler._pending],
+            "chunk_req": (request_record(job.req, runtime=True)
+                          if job is not None else None),
+            "preempted": dict(self._preempted),
+            "finished": [request_record(r, runtime=True)
+                         for r in self.finished.values()],
+            "prefix": prefix,
+            "sched_load": (self.scheduler.load.copy()
+                           if self.expert_aware else None),
+            "counters": {
+                "admitted_total": self.pool.admitted_total,
+                "preempted_total": self.preempted_total,
+                "resumed_total": self.resumed_total,
+                "rejected_full": self.rejected_full,
+                "rejected_oversized": self.rejected_oversized,
+                "peak_active": self.peak_active,
+                "chunk_ticks": self.chunk_ticks,
+                "decode_ticks": self.decode_ticks,
+                "page_waits": self.page_waits,
+                "prefix_hits": self.prefix_hits,
+                "pages_shared": self.pages_shared,
+                "prefill_tokens_skipped": self.prefill_tokens_skipped,
+            },
+        })
+
+    def _params_checksum(self) -> int:
+        if self._checksum is None:
+            self._checksum = params_checksum(self.params)
+        return self._checksum
+
+    def _page_tensors(self) -> list[tuple[str, str]]:
+        """(payload key, pool state name) of the page tensors the journal
+        saves of a shared page: K and V, and their scales on int8 pages."""
+        return [("k", "k_pages"), ("v", "v_pages")] + (
+            [("ks", "k_scales"), ("vs", "v_scales")] if self.pool.quant
+            else [])
+
+    def _restore_shared_pages(self, pages: dict | None, owner: int
+                              ) -> dict[int, int]:
+        """Write a snapshot's shared pages into fresh pages held by the
+        temporary `owner` (`index_copy_`) and return the old -> new id
+        map. The restored slots and the prefix index's nodes then map them
+        copy-on-write, and freeing `owner` leaves them held by those alone,
+        so slots that fit only by sharing still fit after recovery."""
+        if pages is None:
+            return {}
+        ids = [int(p) for p in pages["ids"]]
+        self.pool.alloc.reserve(owner, len(ids))
+        fresh = self.pool.alloc.alloc(owner, len(ids))
+        idx = torch.tensor(fresh, dtype=torch.long, device=self.device)
+        for key, name in self._page_tensors():
+            self.pool.state[name].index_copy_(
+                1, idx, from_host_payload(pages[key], self.device))
+        return dict(zip(ids, fresh))
+
+    @classmethod
+    def recover(cls, journal_dir: str, params, cfg, *, device=None,
+                chaos: Chaos | None = None, snapshot_every: int = 0,
+                **overrides) -> "ServingEngine":
+        """Rebuild a crashed engine from its journal directory: restore the
+        latest COMMITTED snapshot (uncommitted crash artifacts are skipped),
+        replay the journal's tail and commit a fresh snapshot. Raises
+        JournalError if the snapshot was written for another config name or
+        other weights (`params_checksum`).
+
+        The snapshot's shared pages are written into fresh pages first
+        (`_restore_shared_pages`); slots live at the snapshot resume
+        through SlotPool.restore, mapping those copy-on-write, and the
+        prefix index's nodes pin them again (beyond the reference, which
+        gives every restored slot private pages and the index pages of its
+        own, so a pool that fit only by sharing could not be restored); decode
+        is deterministic given the restored pages, GO rows, cursor and
+        generator state, so greedy AND sampled streams continue as in the
+        uninterrupted run. Requests submitted after the snapshot, and a
+        chunk job's request, are queued again and prefilled anew
+        (deterministic too). Tokens the dead process journaled past the
+        snapshot become the replay oracle (`_journal_token`). Of the
+        terminal events only CANCELLED replays (an outside decision); DONE,
+        TIMEOUT and FAILED are recomputed by running, wall budgets
+        re-anchored at recovery. `overrides` replace the saved engine
+        kwargs (and pass `heartbeat_file`, `restart_count`).
+        `recovered_info` gives the snapshot's seq, the events replayed and
+        the ms of the load, the restore, the replay and the fresh commit."""
+        t0 = time.perf_counter()
+        latest = EngineJournal.latest_committed(journal_dir)
+        if latest is None:
+            raise JournalError(
+                f"no committed snapshot under {journal_dir!r}: nothing to "
+                "recover from")
+        seq, payload = latest
+        t_load = time.perf_counter()
+        meta = payload["meta"]
+        checksum = params_checksum(params)
+        if (meta["cfg"], meta["params_checksum"]) != (cfg.name, checksum):
+            raise JournalError(
+                f"the journal under {journal_dir!r} was written by "
+                f"{meta['cfg']} with params checksum "
+                f"{meta['params_checksum']}; recovery was given {cfg.name} "
+                f"with {checksum}: its streams would go on under another "
+                "model")
+        kw = dict(payload["engine_kw"])
+        kw.update(overrides)
+        eng = cls(params, cfg, device=device, chaos=chaos, **kw)
+        eng._checksum = checksum
+        eng.step_count = meta["step"]
+        eng.recoveries = meta["recoveries"] + 1
+        eng._next_id = meta["next_id"]
+        seq_next = meta["seq_next"]
+        for rec in payload["finished"]:
+            req = request_from_record(rec)
+            eng.finished[req.request_id] = req
+        for rec in payload["queued"]:
+            req = request_from_record(rec)
+            heapq.heappush(eng.scheduler.queue,
+                           (req.priority, req.seq, req))
+        for rec in payload["pending"]:
+            req = request_from_record(rec)
+            heapq.heappush(eng.scheduler._pending,
+                           (req.arrival_step, req.seq, req))
+        if payload["chunk_req"] is not None:
+            # the interrupted chunk run prefills again from its first chunk;
+            # its original seq keeps its place in the admission order
+            req = request_from_record(payload["chunk_req"])
+            req.status = RequestStatus.QUEUED
+            heapq.heappush(eng.scheduler.queue,
+                           (req.priority, req.seq, req))
+        # parked snapshots stay on the host until their resume, as CPU
+        # tensors and a generator (what SlotPool.snapshot gives)
+        eng._preempted = {rid: from_host_payload(snap)
+                          for rid, snap in payload["preempted"].items()}
+        tmp = -(10 ** 9)        # disjoint from request ids and node owners
+        page_map = eng._restore_shared_pages(payload["pages"], tmp)
+        for slot, rec, snap in payload["slots"]:
+            eng.pool.restore(slot, request_from_record(rec),
+                             from_host_payload(snap), page_map)
+        if eng.prefix_index is not None and payload["prefix"] is not None:
+            eng.prefix_index.restore_state(
+                payload["prefix"], page_map,
+                lambda e: from_host_payload(e, eng.device))
+        # the slots' and the nodes' references keep every page alive
+        eng.pool.release_pages(tmp)
+        if eng.expert_aware and payload["sched_load"] is not None:
+            eng.scheduler.load[:] = payload["sched_load"]
+        for name, val in payload["counters"].items():
+            if name == "admitted_total":
+                eng.pool.admitted_total = val   # pool.restore counted too
+            else:
+                setattr(eng, name, val)
+        t_restore = time.perf_counter()
+        # --- replay the journal's tail (a torn tail is already dropped) ---
+        events = EngineJournal.read_tail(journal_dir, seq)
+        cancelled: list[int] = []
+        for kind, p in events:
+            if kind == "submit":
+                req = request_from_record(p["req"])
+                heap, key = ((eng.scheduler._pending, req.arrival_step)
+                             if req.arrival_step > eng.step_count
+                             else (eng.scheduler.queue, req.priority))
+                heapq.heappush(heap, (key, req.seq, req))
+                eng._next_id = max(eng._next_id, req.request_id + 1)
+                seq_next = max(seq_next, req.seq + 1)
+            elif kind == "install":
+                eng._replay_expect.setdefault(p["rid"], []).append(p["token"])
+            elif kind == "tick":
+                for rid, tok in p["toks"].items():
+                    eng._replay_expect.setdefault(rid, []).append(tok)
+            elif kind == "terminal" and \
+                    p["status"] == RequestStatus.CANCELLED.value:
+                cancelled.append(p["rid"])
+        eng.scheduler._seq = itertools.count(seq_next)
+        eng.replayed_events = len(events)
+        t_replay = time.perf_counter()
+        # a fresh snapshot collapses the replayed tail: a second crash
+        # re-runs from HERE, never from the torn log
+        eng._attach_journal(journal_dir,
+                            snapshot_every or meta["snapshot_every"])
+        for rid in cancelled:
+            eng.cancel(rid)
+        t_end = time.perf_counter()
+        eng.recovered_info = {
+            "snapshot_seq": seq,
+            "events": len(events),
+            "load_ms": (t_load - t0) * 1e3,
+            "restore_ms": (t_restore - t_load) * 1e3,
+            "replay_ms": (t_replay - t_restore) * 1e3,
+            "commit_ms": (t_end - t_replay) * 1e3,
+            "wall_ms": (t_end - t0) * 1e3,
+        }
+        return eng
 
     def _audit(self) -> None:
         """The invariant sweep of `audit_every_tick`: the pool's
@@ -1021,4 +1442,15 @@ class ServingEngine:
             "tick_retries": self.supervisor.stats.retries,
             "chaos": (dict(self.chaos.injected)
                       if self.chaos is not None else None),
+            # --- durability ---
+            "recoveries": self.recoveries,
+            "restart_count": self.restart_count,
+            "replayed_events": self.replayed_events,
+            "journal_bytes": (self.journal.bytes_written
+                              if self.journal is not None else 0),
+            "snapshots": (self.journal.snapshots_committed
+                          if self.journal is not None else 0),
+            "snapshot_age_ticks": (
+                self.step_count - self.journal.last_snapshot_step
+                if self.journal is not None else None),
         }

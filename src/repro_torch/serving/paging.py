@@ -8,7 +8,9 @@ and the page-aligned radix index over prompts that lets a repeated prompt
 map its donor's pages. Pure host bookkeeping (no torch): the engine calls
 it at admission, growth and retirement and mirrors the resulting block
 tables into the device state. The index holds the entries' device tensors
-(tail KV, GO rows, logits) without reading them.
+(tail KV, GO rows, logits) without reading them; its journal snapshot
+(`snapshot_state`, `restore_state`) converts them through the functions
+the engine passes in.
 
 Page 0 is the reserved NULL page: it backs every unallocated block-table
 entry and absorbs the decode-step writes of retired slots, so its contents
@@ -414,6 +416,49 @@ class PrefixIndex:
                 del self._nodes[nid]
                 released += self.alloc.free(self.node_rid(nid))
         return released
+
+    # ------------------------------------------------------------ durability
+
+    def snapshot_state(self, encode) -> dict:
+        """Structural snapshot for the engine journal: the radix topology,
+        each node's page pin (the PHYSICAL id; the engine saves those
+        pages' contents, which the index never reads) and the entries in
+        LRU order, their device tensors passed through `encode` (the pool's
+        `to_host_payload`: numpy, no torch object)."""
+        return {
+            "children": [(parent, list(toks), nid)
+                         for (parent, toks), nid in self._children.items()],
+            "nodes": [(nid, n["page"], n["uses"])
+                      for nid, n in self._nodes.items()],
+            "entries": [(list(key), encode(dict(entry)))
+                        for key, entry in self._entries.items()],
+        }
+
+    def restore_state(self, snap: dict, page_map: dict[int, int],
+                      decode) -> None:
+        """Rebuild THIS (empty) index from a `snapshot_state` payload, every
+        old physical page id mapped through `page_map` (recovery writes the
+        saved contents into freshly allocated pages first, held by a
+        temporary owner) and every entry's tensors through `decode` (back
+        onto the engine's device). Each node pins its page through the
+        allocator's refcounts as `deposit` did, so once the caller frees
+        the temporary owner the node pins alone keep the pages alive, as
+        after a retired donor."""
+        if self._entries or self._nodes:
+            raise ValueError("restore_state needs an empty index")
+        max_nid = -1
+        for nid, page, uses in snap["nodes"]:
+            self.alloc.share(self.node_rid(nid), [page_map[page]])
+            self._nodes[nid] = {"page": page_map[page], "key": None,
+                                "uses": uses}
+            max_nid = max(max_nid, nid)
+        for parent, toks, nid in snap["children"]:
+            key = (parent, tuple(toks))
+            self._children[key] = nid
+            self._nodes[nid]["key"] = key
+        for key, entry in snap["entries"]:
+            self._entries[tuple(key)] = decode(entry)
+        self._ids = itertools.count(max_nid + 1)
 
     def reclaim_one(self) -> list[int]:
         """Page-pressure hook: drop the LRU entry on demand (the engine

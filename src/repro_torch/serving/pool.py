@@ -50,6 +50,14 @@ this one writes the device tensors IN PLACE. The one exception is the
 block table: the host mirror is the truth, and a dirty mirror is pushed as
 a NEW device tensor made from a copy of it, so no host buffer the card may
 still be reading is ever written.
+
+THE JOURNAL'S FORM (`to_host_payload`, `from_host_payload`): the engine's
+snapshots (live slots, parked preemption snapshots, prefix-index entries)
+go to disk as numpy arrays and Python scalars only, so a journal is
+independent of the torch build and the device. numpy has no bf16, so a
+bf16 tensor is kept as its bits (an int16 view) beside its dtype's name;
+a sampling generator as its `get_state()` bytes. Both round-trip bit for
+bit.
 """
 from __future__ import annotations
 
@@ -61,6 +69,49 @@ from repro_torch.models.model import (init_decode_slot, init_decode_state,
                                       paged_supported, write_decode_slot)
 from repro_torch.serving.paging import PageAllocator, pages_for_tokens
 from repro_torch.serving.scheduler import Request
+
+# tags of the journal's form of a tensor and of a generator
+_TENSOR = "__torch_dtype__"
+_GENERATOR = "__generator_state__"
+
+
+def to_host_payload(tree):
+    """The journal's form of a snapshot tree (dicts, lists, tuples): every
+    tensor becomes a numpy array tagged with its dtype's name (a bf16
+    tensor its int16 bits), every `torch.Generator` its state as uint8;
+    everything else passes through."""
+    if isinstance(tree, torch.Tensor):
+        t = tree.detach()
+        name = str(t.dtype).removeprefix("torch.")
+        if t.dtype == torch.bfloat16:
+            t = t.view(torch.int16)
+        return {_TENSOR: name, "data": t.cpu().numpy()}
+    if isinstance(tree, torch.Generator):
+        return {_GENERATOR: tree.get_state().numpy()}
+    if isinstance(tree, dict):
+        return {k: to_host_payload(v) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(to_host_payload(v) for v in tree)
+    return tree
+
+
+def from_host_payload(tree, device="cpu"):
+    """Inverse of `to_host_payload`: tagged arrays become tensors of their
+    dtype on `device`, generator states CPU generators."""
+    if isinstance(tree, dict):
+        if _TENSOR in tree:
+            t = torch.from_numpy(np.array(tree["data"]))
+            if tree[_TENSOR] == "bfloat16":
+                t = t.view(torch.bfloat16)
+            return t.to(device)
+        if _GENERATOR in tree:
+            gen = torch.Generator()
+            gen.set_state(torch.from_numpy(np.array(tree[_GENERATOR])))
+            return gen
+        return {k: from_host_payload(v, device) for k, v in tree.items()}
+    if isinstance(tree, (list, tuple)):
+        return type(tree)(from_host_payload(v, device) for v in tree)
+    return tree
 
 
 class SlotPool:
@@ -373,12 +424,15 @@ class SlotPool:
 
     # ------------------------------------------------------------- preemption
 
-    def snapshot(self, slot: int) -> dict:
+    def snapshot(self, slot: int, shared=frozenset()) -> dict:
         """Host-side eviction snapshot of an active PAGED slot: its live KV
         pages (and int8 scales), its GO rows (and scales), its cursor and
         its sampling state. Restoring it is bit-identical to never evicting
         (a re-prefill is not: prefill matmuls differ bitwise from decode
-        ones, and a GO cache's decode-time rows are TopKUpdate history)."""
+        ones, and a GO cache's decode-time rows are TopKUpdate history).
+        Pages in `shared` (physical ids: the journal saves the pages that
+        several holders map once, apart) are left out of the contents;
+        `snap["shared"]` maps their row positions to those ids."""
         if not self.paged:
             raise ValueError("preemption snapshots are paged-pool only")
         req = self.owner[slot]
@@ -387,7 +441,8 @@ class SlotPool:
         row = self.block_table[slot]
         n = int((row != 0).sum())
         assert (row[:n] != 0).all(), "block table is not a contiguous prefix"
-        ids = torch.from_numpy(row[:n].astype(np.int64)).to(self.device)
+        own = [i for i in range(n) if int(row[i]) not in shared]
+        ids = torch.from_numpy(row[own].astype(np.int64)).to(self.device)
         st = self.state
 
         def host(a):
@@ -401,6 +456,8 @@ class SlotPool:
             "top_p": float(self.top_ps[slot]),
             "generator": self.generators[slot],
             "n_pages": n,
+            "shared": {i: int(row[i]) for i in range(n)
+                       if int(row[i]) in shared},
             "k": host(st["k_pages"].index_select(1, ids)),
             "v": host(st["v_pages"].index_select(1, ids)),
         }
@@ -421,19 +478,27 @@ class SlotPool:
     def can_resume(self, snap: dict) -> bool:
         return self.alloc.can_reserve(self.pages_for_resume(snap))
 
-    def restore(self, slot: int, req: Request, snap: dict) -> None:
+    def restore(self, slot: int, req: Request, snap: dict,
+                page_map: dict[int, int] | None = None) -> None:
         """Re-admit a preempted request from its snapshot: reserve its
         remaining worst case, allocate fresh pages for the live prefix,
         write the snapshot into them in place, and rebuild the slot's block
-        table, GO rows and cursor (block-table surgery, no recompute)."""
+        table, GO rows and cursor (block-table surgery, no recompute).
+        The snapshot's `shared` positions map the pages `page_map` gives
+        for their old ids copy-on-write, as `admit_from_prefix` maps a
+        donor's (journal recovery restores those pages first)."""
         if not self.paged or self.owner[slot] is not None:
             raise RuntimeError(f"restore needs a free slot of a paged pool "
                                f"(slot {slot})")
         rid = req.request_id
+        shared = {i: page_map[p] for i, p in snap["shared"].items()}
+        self.alloc.share(rid, list(shared.values()))
         self.alloc.reserve(rid, self.pages_for_resume(snap))
-        ids = self.alloc.alloc(rid, snap["n_pages"])
+        own = [i for i in range(snap["n_pages"]) if i not in shared]
+        ids = self.alloc.alloc(rid, len(own))
         row = np.zeros(self.block_table.shape[1], np.int32)
-        row[:len(ids)] = ids
+        row[own] = ids
+        row[list(shared)] = list(shared.values())
         self.block_table[slot] = row
         idx = torch.tensor(ids, dtype=torch.long, device=self.device)
         st = self.state

@@ -1536,3 +1536,116 @@ def test_cuda_decode_over_aliased_block_tables(cuda_device, dtype, tol):
         q, kp, vp, bt, tt), rtol=tol, atol=tol)
     assert torch.equal(out[1], out[0])
     assert torch.equal(kp, pages[0]) and torch.equal(vp, pages[1])
+
+
+# The journal's trace (tests/test_torch_crash_recovery.py FULL_TRACE): 3
+# slots, pages of 8, chunks of 16, preemption and prefix sharing; the
+# snapshot at tick 4 holds live slots, a parked sampled request, a chunk
+# job and prefix entries; the crash comes at tick 5.
+JOURNAL_POOL = dict(num_slots=3, max_tokens=64, paged=True, page_size=8,
+                    prefill_chunk=16, preemption=True, prefix_share=True)
+JOURNAL_LENS = {"A": 12, "B": 10, "C": 56, "H": 12}
+JOURNAL_TRACE = [("A", 5, 0, 0.0, None), ("A", 5, 0, 0.8, 11),
+                 ("C", 5, 1, 0.0, None), ("H", 0, 2, 0.0, None),
+                 ("B", 5, 3, 0.0, None), ("A", 5, 5, 0.8, 12)]
+
+
+def _journal_submit(eng, cfg):
+    rng = np.random.default_rng(11)
+    prompts = {k: rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+               for k, n in JOURNAL_LENS.items()}
+    return [eng.submit(prompts[k], 8, priority=pr, arrival_step=a,
+                       temperature=t, top_p=0.9, seed=sd)
+            for k, pr, a, t, sd in JOURNAL_TRACE]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("crash", ["abandon", "torn"])
+@pytest.mark.parametrize("dtype,kv_quant", [("bfloat16", "none"),
+                                            ("float32", "int8")])
+def test_cuda_journal_crash_recovers_bit_equal(cuda_device, dtype, kv_quant,
+                                               crash, tmp_path):
+    """On the card (bf16 pages, or fp32 with int8 pages and scales): the
+    journal's trace crashed at tick 5, after the commit at tick 4 (the
+    engine abandoned, or its last record torn too), recovers into a fresh
+    engine whose streams and statuses equal the uninterrupted run's bit for
+    bit, the replay oracle drained; the recovered engine launches K1, K2,
+    K3 (its int8 body on int8 pages), K4 (the chunk job's rerun) and K5R."""
+    from repro_torch.kernels import go_topk as GT
+    from repro_torch.serving import ServingEngine
+    cfg, params = _smoke_engine(dtype)
+    params = _to(params, cuda_device)
+    plain = ServingEngine(params, cfg, device="cuda", kv_quant=kv_quant,
+                          **JOURNAL_POOL)
+    pids = _journal_submit(plain, cfg)
+    pfin = plain.run()
+    eng = ServingEngine(params, cfg, device="cuda", kv_quant=kv_quant,
+                        journal_dir=str(tmp_path), snapshot_every=2,
+                        **JOURNAL_POOL)
+    rids = _journal_submit(eng, cfg)
+    while eng.step_count < 5:
+        eng.step()
+    if crash == "torn":
+        eng.journal.tear_tail(eng.journal._last_record_bytes)
+    eng.journal.close()
+    del eng
+    tag = "" if kv_quant == "none" else "_int8"
+    names = {"gmm_swiglu": G, "gmm_scaled": G, "go_router": GT,
+             "paged_attn_decode" + tag: PA, "paged_attn_chunk" + tag: PA}
+    before = {k: m.LAUNCHES[k] for k, m in names.items()}
+    rec = ServingEngine.recover(str(tmp_path), params, cfg, device="cuda")
+    rec.audit_every_tick = True
+    fin = rec.run()
+    torch.cuda.synchronize()
+    assert [fin[r].tokens for r in rids] == [pfin[r].tokens for r in pids]
+    assert rec.stats()["statuses"] == plain.stats()["statuses"] == \
+        {"DONE": 6}
+    assert not rec._replay_expect and rec.replayed_events > 0
+    assert all(m.LAUNCHES[k] > before[k] for k, m in names.items()), \
+        {k: m.LAUNCHES[k] - before[k] for k, m in names.items()}
+    assert rec.pool.alloc.pages_in_use == 0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("dtype,kv_quant", [("bfloat16", "none"),
+                                            ("float32", "int8")])
+def test_cuda_journal_recovers_slots_that_share_pages(cuda_device, dtype,
+                                                      kv_quant, tmp_path):
+    """On the card: a page-bound pool (7 usable pages of 8 tokens) that
+    holds a 30-token prompt's donor and its sampled repeat only because
+    they share 3 pages, crashed at tick 3 after the commit at tick 2,
+    recovers with the shared pages mapped by both slots and the index
+    again, and its streams equal the uninterrupted run's bit for bit."""
+    from repro_torch.serving import ServingEngine
+    cfg, params = _smoke_engine(dtype)
+    params = _to(params, cuda_device)
+    pool = dict(num_slots=2, max_tokens=40, paged=True, page_size=8,
+                num_pages=8, prefix_share=True, kv_quant=kv_quant)
+    prompt = np.random.default_rng(8).integers(0, cfg.vocab_size, size=30,
+                                               dtype=np.int32)
+
+    def submit(eng):
+        return [eng.submit(prompt, 8),
+                eng.submit(prompt, 8, temperature=0.8, top_p=0.9, seed=5)]
+
+    plain = ServingEngine(params, cfg, device="cuda", **pool)
+    pids = submit(plain)
+    pfin = plain.run()
+    assert plain.prefix_hits == 1
+    eng = ServingEngine(params, cfg, device="cuda", journal_dir=str(tmp_path),
+                        snapshot_every=2, **pool)
+    rids = submit(eng)
+    while eng.step_count < 3:
+        eng.step()
+    eng.journal.close()
+    del eng
+    rec = ServingEngine.recover(str(tmp_path), params, cfg, device="cuda")
+    pages = rec.prefix_index.node_pages()
+    assert len(pages) == 3 and all(
+        rec.pool.alloc.refcount(p) == 3 for p in pages)
+    rec.audit_every_tick = True
+    fin = rec.run()
+    torch.cuda.synchronize()
+    assert [fin[r].tokens for r in rids] == [pfin[r].tokens for r in pids]
+    assert rec.stats()["statuses"] == {"DONE": 2}
+    assert not rec._replay_expect and rec.pool.alloc.pages_in_use == 0
