@@ -25,15 +25,17 @@ Phases (none catches an exception; any failure exits non-zero):
      tile plan and its decode on the [16*bn, 4096] selected-pair layout;
      go_wide's decode at B 72, the lane plan of K5's selection with two
      64-row tiles a lane, run two a block, some lanes with both valid;
-     granite's decode on a real token-choice dispatch plan, 4 rows top-8
-     of 40), with median times of kernel, plain version and one library
+     granite's and deepseek's decode on a real token-choice dispatch plan,
+     4 rows top-8 of 40 and top-6 of 64, with the plan's tiles and valid
+     tiles), with median times of kernel, plain version and one library
      call (`library_ms`), achieved bytes/s and share of the bound; a
      second launch must repeat every bit.
   2. K7 gmm_swiglu_fused and K8 gmm_scaled_fused (the fused lane pairs of
      the C1 group path): fp32 at small ragged shapes with straddle tiles
      (mid-tile, at a tile's last row, an empty primary lane, invalid tail
-     tiles), then bf16 at the full-width granite prefill plan (4 x 128
-     tokens, top-8 of 40, group-major lanes fused pairwise), with times;
+     tiles), then bf16 at the full-width granite and deepseek prefill
+     plans (4 x 128 tokens, top-8 of 40 and top-6 of 64, group-major lanes
+     fused pairwise), with times and tiles;
      off the straddle tiles they must equal K1/K2 bit for bit (one bf16
      body), and a second launch must repeat every bit.
   1b. K5 go_topk_update (the GO cache's TopKUpdate) against its plain
@@ -70,8 +72,9 @@ Phases (none catches an exception; any failure exits non-zero):
      fp32 and bf16 at GQA 1/3/4 and head_dim 64/128 over several splits
      (t = 0, a window that leaves the first splits empty, NaN in every
      page position past t, a second launch bit-equal); then bf16 at the
-     engine run's full-width shapes of both models (llama 32/32 heads of
-     128, granite 24/8 heads of 64) with kernel, plain and library times,
+     engine run's full-width shapes of the three MoE models (llama 32/32
+     heads of 128, granite 24/8 heads of 64, deepseek 16/16 of 128) with
+     kernel, plain and library times,
      K3's splits and CTAs.
      K4's bf16 body also at every head_dim and GQA 1/3/4/16 against its
      plain version; at both full-width chunks poisoned unreachable
@@ -101,8 +104,9 @@ Phases (none catches an exception; any failure exits non-zero):
   4. the slices end to end at smoke size, fp32, the same weights on the
      CPU (plain versions) and on the card (kernels): static generate(),
      then the continuous-batching engine on a paged pool with chunked
-     prefill; llama_moe_4_16 (expert choice, GO cache) and
-     granite-moe-3b-a800m (token choice, C1 groups: K7/K8 at prefill);
+     prefill; llama_moe_4_16 (expert choice, GO cache),
+     granite-moe-3b-a800m (token choice, C1 groups: K7/K8 at prefill) and
+     deepseek-moe-16b (the same with a shared expert);
      then xlstm-1.3b: model_forward (K9 once per sLSTM block) and
      generate(), and on the card the forward's last logits against a
      stepwise prefill plus one serve_step. llama's decode runs K5R once
@@ -128,7 +132,11 @@ Phases (none catches an exception; any failure exits non-zero):
      child, SIGKILLed at tick 6 of generation 0, restarted once,
      generation 1 recovering from its journal: exit 0, every request DONE.
   5. full width, bf16, one set of random weights per model, first
-     llama_moe_4_16, then granite-moe-3b-a800m:
+     llama_moe_4_16, then granite-moe-3b-a800m, then deepseek-moe-16b
+     (about 16.7 B parameters, 33 GB; the earlier model's weights freed
+     first; `deepseek_static`, `deepseek_engine` and, on int8 KV pages,
+     `deepseek_engine_int8`, with profiles; no expert-aware trace; its
+     shared experts' bf16 output first held against fp32, SHARED_TOL):
      a. static generate(): 4 requests x 128 prompt tokens, 16 new tokens,
         with its profile; its two repeats must give the same tokens;
      b. the continuous-batching engine on a paged pool (4 slots, pages of
@@ -206,6 +214,7 @@ Phases (none catches an exception; any failure exits non-zero):
 Then one JSON line with every kernel's numbers, the card line again, and
 the final {"ok": true, ...} line.
 """
+import gc
 import json
 import os
 import re
@@ -518,14 +527,16 @@ def kernel_phase_small(torch, G):
               "zero", flush=True)
 
 
-def kernel_phase_full(torch, G, OPS, R, GT, cfg_granite):
+def kernel_phase_full(torch, G, OPS, R, GT, token_cfgs):
     """bf16 at the main paths' full-width shapes: llama's expert-choice
     prefill plan, its GO decode layout at B 4 and at go_wide's B 72 (two
-    tiles a lane, a block a lane), and granite's token-choice
-    decode plan (4 tokens top-8 of 40 through one dispatch plan: 32 pairs
-    in 2624 rows, nearly every tile invalid). Tolerances: K1 rounds its
-    output to bf16, so rtol=atol=1e-2 (over one bf16 ulp, 2^-7 relative);
-    K2 writes fp32 sums of bf16 products, rtol=atol=1e-4."""
+    tiles a lane, a block a lane), and the token-choice decode plan of
+    each model of `token_cfgs` ({short name: config}; granite: 4 tokens
+    top-8 of 40 through one dispatch plan, 32 pairs in 2624 rows;
+    deepseek: top-6 of 64, 24 pairs in about 65 row tiles; nearly every
+    tile invalid), with the plan's tiles and valid tiles. Tolerances: K1
+    rounds its output to bf16, so rtol=atol=1e-2 (over one bf16 ulp, 2^-7
+    relative); K2 writes fp32 sums of bf16 products, rtol=atol=1e-4."""
     bn, E, K, F = G.KERNEL_BLOCK_ROWS, 16, 4096, 688
     Bq, S, k = 4, 128, 4
     cap = S * k // E                                      # 32 per sequence
@@ -625,34 +636,37 @@ def kernel_phase_full(torch, G, OPS, R, GT, cfg_granite):
               f"selected pairs, {int(tvw.all(1).sum())} lanes with both "
               f"tiles valid, {int(tvw[:, 0].sum())} with one or more")
 
-    # granite decode: 4 rows routed top-8 of 40 by a random gate, through
+    # token-choice decode: 4 rows routed top-k by a random gate, through
     # the dispatch plan token_choice_decode builds, operands gathered as
     # moe_ffn_fused gathers them; the library call multiplies each valid
     # tile's rows by its expert's weights
-    e = cfg_granite.moe
-    Eg, Kg, Fg, kg = e.num_experts, cfg_granite.d_model, e.d_expert, e.top_k
-    gran_w = bank(Eg, Kg, Fg)
-    gate = torch.randn(Kg, Eg, device="cuda", generator=g) / Kg ** 0.5
-    xt = torch.randn(Bq, Kg, device="cuda", generator=g).to(bf)
-    r = R.token_choice(xt, gate, kg)
-    plan = OPS.plan_tile_dispatch(r.expert_idx.reshape(-1), Eg, bn)
-    tok = torch.arange(Bq, device="cuda").repeat_interleave(kg)
-    rp = plan.row_pair.long()
-    x = torch.cat([xt, xt.new_zeros((1, Kg))])[
-        torch.cat([tok, tok.new_full((1,), Bq)])[rp]]
-    sc = torch.cat([r.weights.reshape(-1), r.weights.new_zeros(1)])[rp][:, None]
-    tv = plan.tile_valid
-    valid = tv.nonzero()[:, 0]
-    te = plan.tile_expert
-    rows = int(plan.row_valid.sum())
-    experts = int(torch.unique(te[tv]).numel())
-    results["granite_decode"] = dict(
-        te=te, tv=tv, x=x, sc=sc, rows=rows, experts=experts,
-        n_rows=plan.n_pad, lib_x=x.view(plan.n_tiles, bn, Kg)[valid],
-        lib_w=gran_w[3][te[valid].long()], lib_wo=gran_w[2][te[valid].long()],
-        w=gran_w, K=Kg, F=Fg,
-        shape=f"N_pad={plan.n_pad} ({plan.n_tiles} tiles, {int(tv.sum())} "
-              f"valid), {rows} pairs on {experts} experts, K={Kg} F={Fg}")
+    for short, cfg in token_cfgs.items():
+        e = cfg.moe
+        Eg, Kg, Fg, kg = e.num_experts, cfg.d_model, e.d_expert, e.top_k
+        tc_w = bank(Eg, Kg, Fg)
+        gate = torch.randn(Kg, Eg, device="cuda", generator=g) / Kg ** 0.5
+        xt = torch.randn(Bq, Kg, device="cuda", generator=g).to(bf)
+        r = R.token_choice(xt, gate, kg)
+        plan = OPS.plan_tile_dispatch(r.expert_idx.reshape(-1), Eg, bn)
+        tok = torch.arange(Bq, device="cuda").repeat_interleave(kg)
+        rp = plan.row_pair.long()
+        x = torch.cat([xt, xt.new_zeros((1, Kg))])[
+            torch.cat([tok, tok.new_full((1,), Bq)])[rp]]
+        sc = torch.cat([r.weights.reshape(-1),
+                        r.weights.new_zeros(1)])[rp][:, None]
+        tv = plan.tile_valid
+        valid = tv.nonzero()[:, 0]
+        te = plan.tile_expert
+        rows = int(plan.row_valid.sum())
+        experts = int(torch.unique(te[tv]).numel())
+        results[f"{short}_decode"] = dict(
+            te=te, tv=tv, x=x, sc=sc, rows=rows, experts=experts,
+            n_rows=plan.n_pad, lib_x=x.view(plan.n_tiles, bn, Kg)[valid],
+            lib_w=tc_w[3][te[valid].long()], lib_wo=tc_w[2][te[valid].long()],
+            w=tc_w, K=Kg, F=Fg, tiles=plan.n_tiles, valid_tiles=int(tv.sum()),
+            shape=f"N_pad={plan.n_pad} ({plan.n_tiles} tiles, "
+                  f"{int(tv.sum())} valid), {rows} pairs on {experts} "
+                  f"experts, K={Kg} F={Fg}")
 
     out = {"gmm_swiglu": {}, "gmm_scaled": {}}
     for phase, r in results.items():
@@ -700,7 +714,8 @@ def kernel_phase_full(torch, G, OPS, R, GT, cfg_granite):
                 "bound_ms": b_ms, "bound_by": b_by,
                 "tiles_per_block": G.gemm_ring(N, Kd, Fd, r["w"][0].shape[0],
                                                swiglu=swiglu)[
-                                                   "tiles_per_block"]},
+                                                   "tiles_per_block"],
+                **{k: r[k] for k in ("tiles", "valid_tiles") if k in r}},
                 bound_bytes(r["rows"], r["experts"], Kd, Fd, r["n_rows"],
                             swiglu))
             print(f"[kernels bf16 {phase}] {name} {r['shape']}: "
@@ -1292,9 +1307,10 @@ def fused_phase_small(torch, G, OPS):
     return worst
 
 
-def fused_phase_full(torch, G, OPS, MOE, R, TM, cfg):
-    """K7 and K8 in bf16 at the full-width granite prefill plan: 4 x 128
-    tokens routed top-8 of 40 by a random gate, each pair on its expert's
+def fused_phase_full(torch, G, OPS, MOE, R, TM, cfg, short="granite"):
+    """K7 and K8 in bf16 at a full-width C1 prefill plan (granite's, or
+    deepseek's with `short`): 4 x 128 tokens routed top-k by a random gate
+    (granite 8 of 40, deepseek 6 of 64), each pair on its expert's
     group-major lane, the deployment's lanes fused pairwise (g=2), operands
     gathered as moe_ffn_fused gathers them. Tolerances: K7 rounds its output
     to bf16, so 1e-2; K8 writes fp32 sums of bf16 products, 1e-4. The
@@ -1335,9 +1351,9 @@ def fused_phase_full(torch, G, OPS, MOE, R, TM, cfg):
     e1 = (h.float() - hp.float()).abs().max().item()
     e2 = (y - yp).abs().max().item()
     need(torch.allclose(h.float(), hp.float(), rtol=1e-2, atol=1e-2),
-         f"K7 bf16 granite err {e1}")
+         f"K7 bf16 {short} err {e1}")
     need(torch.allclose(y, yp, rtol=1e-4, atol=1e-4),
-         f"K8 bf16 granite err {e2}")
+         f"K8 bf16 {short} err {e2}")
     # one body: off the straddle tiles K7/K8 are K1/K2 bit for bit, and a
     # second launch repeats every bit
     off = (te2 == te).repeat_interleave(bn)
@@ -1370,6 +1386,8 @@ def fused_phase_full(torch, G, OPS, MOE, R, TM, cfg):
              f"experts, K={K} F={F}")
     out = {}
     N = plan.n_pad
+    tiles = dict(tiles=ni, valid_tiles=int(tv.sum()),
+                 straddle_tiles=int(strad.sum()))
     for name, kern, plain, lib, err, swiglu, Kd, Fd, parent in [
         ("gmm_swiglu_fused",
          lambda: G.gmm_swiglu(x, wg, wi, te, tv, bn=bn, **kw),
@@ -1393,10 +1411,10 @@ def fused_phase_full(torch, G, OPS, MOE, R, TM, cfg):
             "library_ms": time_ms(torch, lib, flush),
             "bound_ms": b_ms, "bound_by": b_by,
             "tiles_per_block": G.gemm_ring(N, Kd, Fd, E, swiglu=swiglu)[
-                "tiles_per_block"]},
+                "tiles_per_block"], **tiles},
             bound_bytes(rows, experts, Kd, Fd, plan.n_pad, swiglu))
         del flush
-        print(f"[kernels bf16 granite] {name}: {json.dumps(out[name])}",
+        print(f"[kernels bf16 {short}] {name}: {json.dumps(out[name])}",
               flush=True)
     return out
 
@@ -2572,6 +2590,41 @@ def full_phase(torch, G, PA, SC, GT, cfg, params, TM, TS):
                                       max_len=prompts.shape[1] + 17),
         "decode_step": lambda: TM.serve_step(params, state, tok, cfg)})
     return launches
+
+
+# bf16 rounding of the shared experts' output (plain products, bf16
+# operands and outputs) against the same products in fp32, relative to
+# the largest fp32 output; ~5e-3 on random bf16 weights of deepseek's
+# width
+SHARED_TOL = 2e-2
+
+
+def shared_phase(torch, MOE, TM, cfg, params):
+    """deepseek's always-on shared experts at full width, on the card:
+    layer 0's shared bank on 4 random bf16 rows (a decode tick's) against
+    the same weights and rows in fp32, within SHARED_TOL of the largest
+    output; and the token-choice decode's MoE output, routed part plus
+    shared part, is finite and repeats bit for bit."""
+    g = torch.Generator(device="cuda").manual_seed(9)
+    moe = TM.layer_params(params["layers"], 0)["moe"]
+    x = torch.randn(4, cfg.d_model, device="cuda", generator=g).to(
+        torch.bfloat16)
+    got = MOE._shared_out(moe, x)
+    ref = MOE._shared_out({"shared": {k: v.float() for k, v in
+                                      moe["shared"].items()}}, x.float())
+    err = ((got.float() - ref).abs().max() / ref.abs().max()).item()
+    need(err <= SHARED_TOL, f"{cfg.name}: the bf16 shared output is "
+         f"{err:.3e} from fp32, relative (tol {SHARED_TOL:g})")
+    y = MOE.token_choice_decode(moe, x, cfg.moe)
+    need(bool(torch.isfinite(y).all()) and
+         torch.equal(y, MOE.token_choice_decode(moe, x, cfg.moe)),
+         f"{cfg.name}: the decode's MoE output is not finite or repeats "
+         "other bits")
+    print(f"[shared] {cfg.name}: {cfg.moe.num_shared_experts} shared "
+          f"experts, bf16 vs fp32 relative err {err:.3e} (tol "
+          f"{SHARED_TOL:g}); decode MoE output finite, repeats bit for bit",
+          flush=True)
+    return err
 
 
 # The static batch past K5R's bound: rows, prompt tokens, new tokens.
@@ -4000,11 +4053,13 @@ def main():
             mod.reset_launches()
 
     llama, granite = "llama_moe_4_16", "granite-moe-3b-a800m"
-    cfgs = {m: get_config(m) for m in (llama, granite)}
+    deepseek = "deepseek-moe-16b"
+    cfgs = {m: get_config(m) for m in (llama, granite, deepseek)}
     by_path = {}
     kernel_phase_small(torch, G)
-    timings, llama_prefill = kernel_phase_full(torch, G, OPS, R, GT,
-                                               cfgs[granite])
+    timings, llama_prefill = kernel_phase_full(
+        torch, G, OPS, R, GT,
+        {"granite": cfgs[granite], "deepseek": cfgs[deepseek]})
     k5_small = go_topk_phase(torch, GT)
     timings["go_router"] = go_router_phase(torch, GT, GO, OPS)
     by_path["go_cache_step_strided"] = go_topk_path(torch, GT, GO, OPS,
@@ -4016,13 +4071,17 @@ def main():
     fused_phase_small(torch, G, OPS)
     timings.update(fused_phase_full(torch, G, OPS, MOE, R, TM,
                                     cfgs[granite]))
+    for name, entry in fused_phase_full(torch, G, OPS, MOE, R, TM,
+                                        cfgs[deepseek], "deepseek").items():
+        timings[name]["deepseek"] = entry
     paged_phase_small(torch, PA)
     decode_split_sweep(torch, PA)
     chunk_bf16_sweep(torch, PA)
     paged = {m: paged_phase_full(torch, PA, cfgs[m], ENGINE_POOL["page_size"],
                                  ENGINE_POOL["max_tokens"]) for m in cfgs}
     for name, entry in paged[llama].items():
-        timings[name] = {**entry, "granite": paged[granite][name]}
+        timings[name] = {**entry, "granite": paged[granite][name],
+                         "deepseek": paged[deepseek][name]}
     int8_small = paged_int8_phase_small(torch, PA, Q)
     paged = {m: paged_int8_phase_full(torch, PA, Q, cfgs[m],
                                       ENGINE_POOL["page_size"],
@@ -4030,6 +4089,7 @@ def main():
     for name, entry in paged[llama].items():
         body = "decode_split" if "decode" in name else "chunk_tc"
         timings[name] = {**entry, "granite": paged[granite][name],
+                         "deepseek": paged[deepseek][name],
                          "small_max_abs_err": int8_small,
                          "tol": {"fp32_q": PAGED_TOL_I8_F32,
                                  "bf16_q": PAGED_TOL_BF16},
@@ -4053,7 +4113,8 @@ def main():
     xlstm = "xlstm-1.3b"
     xlstm_smoke_phase(torch, SC, get_config(xlstm, smoke=True), TM, TS)
 
-    for m, short in ((llama, "llama"), (granite, "granite")):
+    for m, short in ((llama, "llama"), (granite, "granite"),
+                     (deepseek, "deepseek")):
         cfg = cfgs[m]
         t0 = time.perf_counter()
         params = TM.model_init(
@@ -4062,16 +4123,19 @@ def main():
         print(f"[full] {cfg.name}: {sum(t.numel() for t in _leaves(params))} "
               f"parameters initialised in {time.perf_counter() - t0:.2f} s",
               flush=True)
+        if cfg.moe.num_shared_experts:
+            shared_phase(torch, MOE, TM, cfg, params)
         by_path[f"{short}_static"] = full_phase(torch, G, PA, SC, GT, cfg,
                                                 params, TM, TS)
         by_path[f"{short}_engine"], bf16_stats = engine_phase(
             torch, G, PA, SC, GT, cfg, params, ServingEngine)
-        # slice 13: expert-aware admission on a trace it reorders
-        by_path[f"{short}_expert_aware"] = expert_aware_phase(
-            torch, cfg, params, ServingEngine, counts, reset_counts)
-        if m == llama:
-            # the same trace on int8 KV pages and GO rows (slice 8)
-            by_path["llama_engine_int8"], i8_stats = engine_phase(
+        if m != deepseek:
+            # slice 13: expert-aware admission on a trace it reorders
+            by_path[f"{short}_expert_aware"] = expert_aware_phase(
+                torch, cfg, params, ServingEngine, counts, reset_counts)
+        if m != granite:
+            # the same trace on int8 KV pages (and GO rows: slice 8)
+            by_path[f"{short}_engine_int8"], i8_stats = engine_phase(
                 torch, G, PA, SC, GT, cfg, params, ServingEngine, "int8")
             ratio = i8_stats["pool_page_bytes"] / bf16_stats["pool_page_bytes"]
             print(f"[full engine] {cfg.name}: int8 pool pages "
@@ -4081,6 +4145,7 @@ def main():
                   f"{bf16_stats['tok_per_s']:.2f}", flush=True)
             need(0.45 < ratio < 0.55, f"int8 pool pages are {ratio:.3f} of "
                  "the bf16 pool's, not about half")
+        if m == llama:
             # slice 12: the engine's fault domain, bf16 then int8 pages
             for kvq, st_ in (("none", bf16_stats), ("int8", i8_stats)):
                 tag = "" if kvq == "none" else "_int8"
@@ -4108,7 +4173,10 @@ def main():
             by_path["go_wide"], timings["go_topk_update"] = go_wide_phase(
                 torch, G, PA, SC, GT, cfg, params, TS, counts, reset_counts)
             timings["go_topk_update"]["b4"] = k5_small
+        # the engines of the phases above hold the weights in reference
+        # cycles: collect them, or the next model's peak counts these too
         del params
+        gc.collect()
         torch.cuda.empty_cache()
 
     by_path.update(xlstm_full_phase(torch, counts, reset_counts,
@@ -4151,6 +4219,23 @@ def main():
         "gmm": ("moe_gmm.cu", "src/repro/kernels/moe_gmm.py:274",
                 "llama_expert_ffn_gmm"),
     }
+    # slice 15: deepseek's paths launch K7/K8 at the C1 prefill, K1/K2 at
+    # the decode and K3/K4 (their int8 entries on int8 pages) in the
+    # engine (each path's phase checked its counts against the formulas)
+    ds = {"deepseek_static": ("gmm_swiglu_fused", "gmm_scaled_fused",
+                              "gmm_swiglu", "gmm_scaled"),
+          "deepseek_engine": ("gmm_swiglu_fused", "gmm_scaled_fused",
+                              "gmm_swiglu", "gmm_scaled", "paged_attn_decode",
+                              "paged_attn_chunk"),
+          "deepseek_engine_int8": ("gmm_swiglu_fused", "gmm_scaled_fused",
+                                   "gmm_swiglu", "gmm_scaled",
+                                   "paged_attn_decode_int8",
+                                   "paged_attn_chunk_int8")}
+    for path, names in ds.items():
+        need(all(by_path[path][n] > 0 for n in names) and
+             by_path[path]["go_router"] == 0,
+             f"{path}: a kernel of the path was not launched: "
+             f"{by_path[path]}")
     kernels = []
     for name, (src, replaces, path) in meta.items():
         need(by_path[path][name] > 0 and
@@ -4182,11 +4267,12 @@ def main():
             if k in main_t})
         if "decode" in timings[name]:
             entry["shape"] = "prefill " + main_t["shape"]
-            entry["decode"] = timings[name]["decode"]
-            entry["granite_decode"] = timings[name]["granite_decode"]
-            entry["wide_decode"] = timings[name]["wide_decode"]
-        if "granite" in timings[name]:
-            entry["granite"] = timings[name]["granite"]
+            for k in ("decode", "granite_decode", "deepseek_decode",
+                      "wide_decode"):
+                entry[k] = timings[name][k]
+        for k in ("granite", "deepseek"):
+            if k in timings[name]:
+                entry[k] = timings[name][k]
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -11,8 +11,11 @@ Counterpart of repro/core/moe.py for the paths the port serves:
   expert choice      (Zhou et al.) at prefill, whose routing output seeds
                      the GO cache.
 
-The FFN runs through kernels/ops.py:moe_ffn_fused, i.e. the hand-written
-grouped GEMMs on a card and their plain versions on the CPU.
+The routed FFN runs through kernels/ops.py:moe_ffn_fused, i.e. the
+hand-written grouped GEMMs on a card and their plain versions on the CPU.
+Always-on shared experts (deepseek-style, `params["shared"]`) add
+`_shared_out` to every path's output (`add_shared`), as plain products
+outside the grouped GEMM, where the reference adds them.
 """
 from __future__ import annotations
 
@@ -52,13 +55,24 @@ def ec_capacity(num_tokens: int, e: MoEConfig) -> int:
     return max(1, (num_tokens * e.top_k) // e.num_experts)
 
 
-def reject_shared(params: dict) -> None:
-    """Raise on always-on shared experts (deepseek-style): the served model
-    has none, and a config with them is not ported yet. Without them the
-    reference's shared output is zero, so nothing is added."""
-    if "shared" in params:
-        raise NotImplementedError(
-            "shared experts are not ported yet (ROADMAP.md Queue 1 item 4)")
+def _shared_out(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """Always-on shared experts (deepseek-style), x [T, d] -> [T, d] in
+    x's dtype: each shared expert's SwiGLU FFN, one contraction over
+    (expert, hidden), as the reference's `stf,sfd->td`. Zero without a
+    `"shared"` bank."""
+    if "shared" not in params:
+        return torch.zeros_like(x)
+    sh = params["shared"]
+    h = torch.nn.functional.silu(torch.einsum("td,sdf->stf", x, sh["wg"])) \
+        * torch.einsum("td,sdf->stf", x, sh["wi"])
+    return torch.einsum("stf,sfd->td", h, sh["wo"]).to(x.dtype)
+
+
+def add_shared(params: dict, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
+    """y + _shared_out(params, x): the MoE output with the shared experts'
+    added; y itself without a shared bank (no zeros launched for a model
+    that has none)."""
+    return y + _shared_out(params, x) if "shared" in params else y
 
 
 def _token_counts(token_idx: torch.Tensor, T: int) -> torch.Tensor:
@@ -75,7 +89,6 @@ def expert_choice_forward(params: dict, x: torch.Tensor,
     """One sequence, x [T, d] -> (y [T, d], aux): each expert gathers its
     top-C tokens; aux carries what the GO cache needs."""
     check_backend(e)
-    reject_shared(params)
     T, d = x.shape
     cap = ec_capacity(T, e)
     E = e.num_experts
@@ -94,7 +107,7 @@ def expert_choice_forward(params: dict, x: torch.Tensor,
         "weighted_outputs": contrib.to(x.dtype),                  # [E, C, d]
         "scores": r.scores,
     }
-    return y.to(x.dtype), aux
+    return add_shared(params, y.to(x.dtype), x), aux
 
 
 def expert_choice_forward_batched(params: dict, h: torch.Tensor,
@@ -106,7 +119,6 @@ def expert_choice_forward_batched(params: dict, h: torch.Tensor,
     last, right-padded prefill chunk) masks positions >= valid_len out of
     the routing, so a pad never wins an expert slot."""
     check_backend(e)
-    reject_shared(params)
     B, S, d = h.shape
     cap = ec_capacity(S, e)
     E = e.num_experts
@@ -120,7 +132,8 @@ def expert_choice_forward_batched(params: dict, h: torch.Tensor,
         params["experts"], E, B * S, bn=block_rows(e, h.device),
         max_per_token=E)
     contrib = OPS.gather_rows(y_rows, plan).reshape(B, E, cap, d)
-    y = y.reshape(B, S, d).to(h.dtype)
+    y = add_shared(params, y.to(h.dtype), h.reshape(B * S, d)).reshape(
+        B, S, d)
     counts = _token_counts(r.token_idx.reshape(B, -1), S)
     aux = {
         "counts": counts,
@@ -149,7 +162,6 @@ def dispatch_forward(params: dict, x: torch.Tensor, e: MoEConfig) -> tuple:
     branch, dropless (tile padding absorbs the worst case, so there is no
     capacity to pass)."""
     check_backend(e)
-    reject_shared(params)
     return _dispatch_forward_pallas(params, x, e)
 
 
@@ -175,7 +187,7 @@ def _dispatch_forward_pallas(params: dict, x: torch.Tensor,
                                             e.num_experts),
         "dropped": torch.zeros((), dtype=torch.int64, device=x.device),
     }
-    return y.to(x.dtype), aux
+    return add_shared(params, y.to(x.dtype), x), aux
 
 
 # share of the group's summed expert capacities that its pooled lane buffer
@@ -196,7 +208,6 @@ def group_forward(params: dict, x: torch.Tensor, e: MoEConfig,
     (models/model.py:expert_group_members); None derives it from
     `group_of_expert`."""
     check_backend(e)
-    reject_shared(params)
     T = x.shape[0]
     E, k, g = e.num_experts, e.top_k, e.group_size
     G = E // g
@@ -278,7 +289,7 @@ def _group_forward_pallas(params: dict, x: torch.Tensor, e: MoEConfig,
         "kept": keep,
         "slots": G * C_grp,
     }
-    return y.to(x.dtype), aux
+    return add_shared(params, y.to(x.dtype), x), aux
 
 
 def _members_matrix(group_of_expert: torch.Tensor, G: int,
@@ -296,10 +307,9 @@ def token_choice_decode(params: dict, x: torch.Tensor,
     """Token-choice decode, x [B, d] one token per row (free and retired
     pool rows included, as in the reference) -> y [B, d]: dispatch_forward
     without its aux outputs, which no decode step reads (the reference's
-    jit drops them)."""
+    jit drops them), shared experts included."""
     check_backend(e)
-    reject_shared(params)
-    return _dispatch_ffn(params, x, e)[0].to(x.dtype)
+    return add_shared(params, _dispatch_ffn(params, x, e)[0].to(x.dtype), x)
 
 
 def moe_forward(params: dict, x: torch.Tensor, e: MoEConfig,

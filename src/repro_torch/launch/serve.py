@@ -15,7 +15,9 @@ Counterpart of repro/launch/serve.py. Two modes:
                       The CLI's default mode.
 
 `--arch` takes llama_moe_4_16 (expert choice, GO cache),
-granite-moe-3b-a800m (token choice on the C1 group path) and, with
+granite-moe-3b-a800m (token choice on the C1 group path),
+deepseek-moe-16b (token choice on the C1 group path with two always-on
+shared experts; about 33 GB of bf16 weights at full width) and, with
 --static only, xlstm-1.3b (mLSTM/sLSTM; prefill steps serve_step over the
 prompt; the engine raises NotImplementedError for a recurrent family).
 
@@ -29,6 +31,8 @@ without a card, asking for CUDA raises.
   python -m repro_torch.launch.serve --arch llama_moe_4_16 --smoke \
       --paged --page-size 4 --chunk-prefill 8 --device cpu
   python -m repro_torch.launch.serve --arch granite-moe-3b-a800m --smoke \
+      --paged --page-size 4 --chunk-prefill 8 --device cpu
+  python -m repro_torch.launch.serve --arch deepseek-moe-16b --smoke \
       --paged --page-size 4 --chunk-prefill 8 --device cpu
   python -m repro_torch.launch.serve --arch llama_moe_4_16 --smoke \
       --paged --page-size 8 --chunk-prefill 8 --kv-quant int8 --device cpu
@@ -215,7 +219,9 @@ def serve_continuous(params, cfg, prompts: list, gen_tokens: int, *,
 
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
-    ap.add_argument("--arch", required=True)
+    ap.add_argument("--arch", required=True,
+                    help="llama_moe_4_16, granite-moe-3b-a800m, "
+                         "deepseek-moe-16b or xlstm-1.3b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--static", action="store_true",
                     help="static-batch generate() instead of the engine")

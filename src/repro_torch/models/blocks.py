@@ -66,7 +66,8 @@ def attn_block_decode(params: dict, x_t: torch.Tensor, cache_k, cache_v, t,
     pool) and the GO cache are updated in place. With a GO cache only the
     experts that select the token run (the router's lane plan through
     go_plan_ffn); without one every row routes by token choice through the
-    unfused grouped GEMM."""
+    unfused grouped GEMM. Shared experts, where the config has them, add
+    their output on both branches."""
     h = rmsnorm(params["ln1"], x_t, cfg.norm_eps)
     a = ATT.attn_decode(params["attn"], h, cache_k, cache_v, t, cfg=cfg,
                         window=window, block_table=block_table)
@@ -76,12 +77,12 @@ def attn_block_decode(params: dict, x_t: torch.Tensor, cache_k, cache_v, t,
     if go_cache is None:
         y = MOE.token_choice_decode(moe_p, h2, cfg.moe)
         return x + y[:, None, :], None
-    MOE.reject_shared(moe_p)
     res = go_cache_step(
         go_cache, h2, t, moe_p["gate"], bn=MOE.block_rows(cfg.moe, h2.device),
         contrib_fn=lambda xt, sel, g, plan: OPS.go_plan_ffn(
             xt, plan, moe_p["experts"]))
-    return x + res.y[:, None, :], {"selected": res.selected}
+    y = MOE.add_shared(moe_p, res.y, h2)
+    return x + y[:, None, :], {"selected": res.selected}
 
 
 def attn_block_chunk(params: dict, x: torch.Tensor, cache_k, cache_v,

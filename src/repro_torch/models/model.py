@@ -15,7 +15,8 @@ Counterpart of repro/models/model.py for the serving paths:
   logits_from_hidden(params, x, cfg)            -> [.., V] fp32
 
 Parameters keep the reference's nesting and its stacked layer axes
-(`layers.{attn.{wq,wk,wv,wo}, ln1, ln2, moe.{gate, experts.{wg,wi,wo}}}`;
+(`layers.{attn.{wq,wk,wv,wo}, ln1, ln2, moe.{gate, experts.{wg,wi,wo},
+shared.{wg,wi,wo}}}`, `shared` only with always-on shared experts;
 xlstm: `mlayers` [n_seg, n_m, ...] and `slayers` [n_seg, ...]), so
 `bridge.params_from_numpy` carries JAX weights across unchanged. Where
 JAX scans over layers and carries the KV and GO caches (or the recurrent
@@ -61,7 +62,7 @@ def check_served(cfg) -> None:
     """Raise on a configuration the port does not serve yet: it serves the
     xlstm family (model_forward and static generate()) and the attention
     family with an MoE sublayer, either expert choice with the GO cache or
-    token choice, and no shared experts."""
+    token choice, with or without always-on shared experts."""
     if cfg.block == "xlstm":
         return
     e = cfg.moe
@@ -73,10 +74,6 @@ def check_served(cfg) -> None:
             "(expert choice with the GO cache, or token choice) so far; "
             "dense MLPs and the other families are ROADMAP.md Queue 1 "
             "items 4, 5 and 9")
-    if e.num_shared_experts:
-        raise NotImplementedError(
-            f"{cfg.name}: shared experts are not ported yet (ROADMAP.md "
-            "Queue 1 item 4)")
     MOE.check_backend(e)
 
 
@@ -189,6 +186,11 @@ def model_init(cfg, generator: torch.Generator, device) -> dict:
                     "wg": dense(d, de, lead=(E,)),
                     "wo": dense(de, d, lead=(E,))},
     }
+    S = cfg.moe.num_shared_experts
+    if S:
+        layers["moe"]["shared"] = {"wi": dense(d, de, lead=(S,)),
+                                   "wg": dense(d, de, lead=(S,)),
+                                   "wo": dense(de, d, lead=(S,))}
     p["layers"] = layers
     return p
 

@@ -15,6 +15,12 @@ Counterpart of repro/serving/engine.py (`ServingEngine`), the engine's core:
   retire   a slot frees on EOS or length; its caches reset
            (init_decode_slot) and the row is reusable at once.
 
+MODELS: the attention family with an MoE sublayer
+(models/model.py:check_served): expert choice through the GO cache
+(llama_moe_4_16), and token choice, on the C1 group path at prefill and
+through dispatch at decode (granite-moe-3b-a800m, and deepseek-moe-16b,
+whose always-on shared experts add their output inside each MoE call).
+
 The engine reads each tick's tokens back to the host once. Greedy
 streams equal the static `launch.serve.generate()`'s for the same cache
 capacity, and a paged pool's streams equal a dense pool's (on the CPU the

@@ -305,11 +305,12 @@ def test_cuda_paged_attn_raises_instead_of_falling_back(cuda_device):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("arch", ["llama_moe_4_16", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ["llama_moe_4_16", "granite-moe-3b-a800m",
+                                  "deepseek-moe-16b"])
 def test_cuda_engine_streams_equal_cpu(cuda_device, arch):
     """The smoke engine on a paged pool with chunked prefill: the card
-    (K1-K4, and K7/K8 for granite's grouped prefill) streams what the CPU
-    (plain versions) streams."""
+    (K1-K4, and K7/K8 for granite's and deepseek's grouped prefill) streams
+    what the CPU (plain versions) streams."""
     from repro_torch.configs.registry import get_config
     from repro_torch.launch.serve import serve_continuous
     from repro_torch.models.model import model_init
@@ -1649,3 +1650,53 @@ def test_cuda_journal_recovers_slots_that_share_pages(cuda_device, dtype,
     assert [fin[r].tokens for r in rids] == [pfin[r].tokens for r in pids]
     assert rec.stats()["statuses"] == {"DONE": 2}
     assert not rec._replay_expect and rec.pool.alloc.pages_in_use == 0
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_cuda_deepseek_smoke_equals_cpu(cuda_device, kv_quant):
+    """The smoke deepseek-moe-16b (token choice on the C1 group path plus a
+    shared expert) on the card against the CPU: static generate()'s tokens
+    equal and its logits within 1e-5 (fp32), with K7/K8 once per layer at
+    the prefill and K1/K2 once per layer and decode step; then the engine's
+    staggered trace on a paged pool (fp32 or int8 pages, chunked prefill),
+    the same streams, with K3/K4 (their int8 entries on int8 pages) once per
+    layer and tick."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import paged_attn as PA
+    from repro_torch.launch.serve import generate, serve_continuous
+    from repro_torch.models.model import model_init
+    cfg = get_config("deepseek-moe-16b", smoke=True)
+    params = model_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    assert "shared" in params["layers"]["moe"]
+    gpu_params = _to(params, cuda_device)
+    L = cfg.num_layers
+    prompts = torch.randint(0, cfg.vocab_size, (4, 24),
+                            generator=torch.Generator().manual_seed(1))
+    cpu = generate(params, cfg, prompts, 6, device="cpu")
+    G.reset_launches()
+    gpu = generate(gpu_params, cfg, prompts.to(cuda_device), 6,
+                   device="cuda")
+    assert torch.equal(gpu["tokens"].cpu(), cpu["tokens"])
+    torch.testing.assert_close(gpu["logits"].cpu(), cpu["logits"],
+                               rtol=1e-5, atol=1e-5)
+    assert (G.LAUNCHES["gmm_swiglu_fused"], G.LAUNCHES["gmm_scaled_fused"],
+            G.LAUNCHES["gmm_swiglu"], G.LAUNCHES["gmm_scaled"]) == \
+        (L, L, 6 * L, 6 * L)
+    rng = np.random.default_rng(0)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+               for n in (5, 20, 8, 11, 3)]
+    kw = dict(num_slots=2, max_tokens=32, arrival_steps=[0, 0, 1, 4, 6],
+              paged=True, page_size=8 if kv_quant == "int8" else 4,
+              num_pages=6 if kv_quant == "int8" else 10, prefill_chunk=8,
+              kv_quant=kv_quant)
+    cpu = serve_continuous(params, cfg, prompts, 7, device="cpu", **kw)
+    PA.reset_launches()
+    gpu = serve_continuous(gpu_params, cfg, prompts, 7, device="cuda", **kw)
+    for rid, toks in cpu["tokens"].items():
+        np.testing.assert_array_equal(gpu["tokens"][rid], toks)
+    s = gpu["stats"]
+    tag = "_int8" if kv_quant == "int8" else ""
+    assert (PA.LAUNCHES[f"paged_attn_decode{tag}"],
+            PA.LAUNCHES[f"paged_attn_chunk{tag}"]) == \
+        (L * s["decode_ticks"], L * s["chunk_ticks"])

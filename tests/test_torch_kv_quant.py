@@ -6,8 +6,9 @@ the continuous-batching engine, on the smoke configs, fp32, on the CPU
 Against the JAX package (same weights through `bridge.params_from_numpy`;
 the JAX side runs backend="pallas" in interpret mode): the greedy streams
 of a staggered trace on an int8 paged pool with chunked prefill are EQUAL
-to the JAX int8 engine's, for llama_moe_4_16 (expert choice, GO cache)
-and granite-moe-3b-a800m (token choice, no GO cache).
+to the JAX int8 engine's, for llama_moe_4_16 (expert choice, GO cache),
+granite-moe-3b-a800m (token choice, no GO cache) and deepseek-moe-16b
+(token choice with a shared expert).
 
 Port against port, the reference's contracts (tests/test_kv_quant.py):
 pooled int8 streams equal solo int8 streams and a rerun repeats streams,
@@ -100,7 +101,8 @@ def _state_without_null_page(state):
 
 # --------------------------------------------------- against the JAX package
 
-@pytest.mark.parametrize("arch", ["llama_moe_4_16", "granite-moe-3b-a800m"])
+@pytest.mark.parametrize("arch", ["llama_moe_4_16", "granite-moe-3b-a800m",
+                                  "deepseek-moe-16b"])
 def test_int8_engine_streams_equal_jax_engine(arch):
     jcfg, tcfg, p, tp, prompts = _bridged(arch)
     ref = jax_serve(p, jcfg, prompts, GEN, arrival_steps=ARRIVALS, **POOL)

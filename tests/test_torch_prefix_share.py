@@ -1,9 +1,9 @@
 """Prefix page sharing and expert-aware admission in the port's engine
 (serving/paging.py `PrefixIndex`, serving/scheduler.py
 `ExpertAwareScheduler`, serving/pool.py `admit_from_prefix` and the
-poison's fork, serving/engine.py), on the smoke llama_moe_4_16 and
-granite-moe-3b-a800m, fp32, on the CPU (the paged attention runs its plain
-version). Mirrors tests/test_prefix_share.py.
+poison's fork, serving/engine.py), on the smoke llama_moe_4_16,
+granite-moe-3b-a800m and deepseek-moe-16b, fp32, on the CPU (the paged
+attention runs its plain version). Mirrors tests/test_prefix_share.py.
 
 Port against port: every trace runs through a plain FIFO paged engine and
 a sharing and/or expert-aware one, and every stream must be equal bit for
@@ -14,9 +14,8 @@ Pallas path in interpret mode): the full-match trace's streams, admit
 steps and counters, the expert-aware engine's admit steps and streams,
 and the gate probe's signatures.
 
-The reference's `deepseek-moe-16b` case waits for shared experts
-(ROADMAP.md Queue 1 item 4) and its dense prefix extension on
-`starcoder2-3b` for the dense family (item 9): the port serves neither.
+The reference's dense prefix extension on `starcoder2-3b` waits for the
+dense family (ROADMAP.md Queue 1 item 9): the port does not serve it yet.
 """
 import numpy as np
 import pytest
@@ -36,7 +35,7 @@ from repro_torch.serving.scheduler import Request  # noqa: E402
 from torch_bridged import smoke_pair  # noqa: E402
 
 torch.set_float32_matmul_precision("highest")
-ARCHS = ["llama_moe_4_16", "granite-moe-3b-a800m"]
+ARCHS = ["llama_moe_4_16", "granite-moe-3b-a800m", "deepseek-moe-16b"]
 # the reference's full-match trace: six requests with one prompt
 FULL = dict(num_slots=3, max_tokens=48, paged=True, page_size=8)
 FULL_ARRIVALS = [0, 0, 2, 4, 6, 8]
