@@ -94,7 +94,15 @@ Phases (none catches an exception; any failure exits non-zero):
      and library times (library: the gather, dequantization, then
      scaled_dot_product_attention), K3 at splits of 64 and 128 keys and
      K4 at 1, 2 and 4 warps per CTA (each against the plain version and
-     its own repeat).
+     its own repeat). Then K3 and K4, bf16 q on bf16 and int8 pages, at
+     starcoder2-3b's GQA 24/2 x 128 with its 4096-token window binding
+     (K3 at t 4639 and 159 over 320 pages, K4 at 512 queries from 4096):
+     against the plain versions at SC2_PAGED_TOL, which must sit below a
+     planted fault's error (64 keys inside the window left out: one of
+     K3's splits, one of K4's key tiles), a pool with +-1e4 (int8: +-127
+     and NaN scales) at every key outside the windows giving the same
+     bits, with kernel, plain and library times and the bound of the
+     pages inside the windows (paged_phase_starcoder2).
      K9 slstm_seq against its plain version: fp32 at the JAX test's three
      shapes, then xlstm-1.3b's full-width sLSTM (B 4, S 128, H 4, hd 512,
      fp32 u, bf16 r) on its cluster body (16 CTAs a head, r resident in
@@ -131,6 +139,9 @@ Phases (none catches an exception; any failure exits non-zero):
      `--supervise` at smoke width on the card: the serve CLI as a watched
      child, SIGKILLed at tick 6 of generation 0, restarted once,
      generation 1 recovering from its journal: exit 0, every request DONE.
+     Then starcoder2-3b's smoke config (dense MLP, window 32): static,
+     and the engine on fp32 and int8 pages (with the 66-slot and sampled
+     engines).
   5. full width, bf16, one set of random weights per model, first
      llama_moe_4_16, then granite-moe-3b-a800m, then deepseek-moe-16b
      (about 16.7 B parameters, 33 GB; the earlier model's weights freed
@@ -141,16 +152,17 @@ Phases (none catches an exception; any failure exits non-zero):
         with its profile; its two repeats must give the same tokens;
      b. the continuous-batching engine on a paged pool (4 slots, pages of
         16, 97 pages, chunks of 128): 8 staggered requests, 32 new tokens
-        each, with its profile of one decode tick and one chunk tick; the
-        trace runs twice and both runs must stream the same tokens and
-        leave the same KV pages and GO rows, bit for bit. Then
+        each, with its profile of one decode tick and one chunk tick; on
+        llama's bf16 pool (and starcoder2's two) the trace runs twice and
+        both runs must stream the same tokens and leave the same KV pages
+        and GO rows, bit for bit. Then
         `<model>_expert_aware`: a trace of short prompts (EXPERT_LENS),
         whose signatures leave experts out, FIFO and with expert-aware
         admission: another admission order, the same streams (orders,
         admit steps and the decode ticks' median printed). llama then runs
         the same trace on int8 KV pages and GO rows (`llama_engine_int8`:
-        K3/K4 on the int8 operand): the same checks, scales included,
-        its pool's page bytes beside the bf16 pool's (about half), and
+        K3/K4 on the int8 operand): the same checks but the repeat, its
+        pool's page bytes beside the bf16 pool's (about half), and
         its own profile. Then `fault_domain` (bf16, then
         `fault_domain_int8` on int8 pages; the audit on every tick):
         FAULT_TRACE on FAULT_PAGES pages, where a high-priority arrival
@@ -199,11 +211,27 @@ Phases (none catches an exception; any failure exits non-zero):
         tokens, 8 new), past K5R's 64 rows: K5 once per layer and decode
         step, K5R never, a second run's tokens equal; K5 timed alone at
         (72, 16, 4).
+     Then starcoder2-3b (4,161,985,536 weights; dense SwiGLU MLP, GQA
+     24/2, window 4096): `starcoder2_static` and `starcoder2_engine` as
+     a. and b., the engine's bf16 streams held against static
+     generate()'s path for each prompt (static_agreement, teacher-forced:
+     equal, or within STATIC_GAP_ULPS bf16 steps of its top logit),
+     `starcoder2_engine_int8`; `starcoder2_window` (SC2_WINDOW_LENS on a
+     5120-token pool, chunks of 512: every decode tick of the long
+     request attends past the window; streams against static generate()'s
+     path; the prefill without the window must give other last logits;
+     a second run on a fresh engine repeats streams and pages);
+     `starcoder2_prefix_ext` (eight requests on one shared context,
+     without and with sharing, in SC2_EXT_CASES: a 1024-token context and
+     a 1040-token one (off a chunk boundary) with chunks of 512, equal
+     streams; the 1024-token one without chunking, streams equal or
+     parted at bf16 near-ties only; 7 hits, 448 pages shared, 7168 tokens
+     skipped in each; extension and cold admission ms). K3/K4 only.
      Then xlstm-1.3b (48 layers: 6 segments of 7 mLSTM + 1 sLSTM):
      c. `xlstm_forward`: model_forward on 4 x 128 tokens, three runs, K9
         launched 6 times per call, hidden states equal bit for bit;
      d. `xlstm_static`: generate() with 4 x 128 prompt tokens stepped
-        through serve_step and 16 new tokens, three runs, tokens and
+        through serve_step and 16 new tokens, two runs, tokens and
         logits equal bit for bit; profiles of the forward, 8 steps of
         the stepwise prefill and one decode step.
      Each path runs with the launch counts set to 0 just before it; K5R
@@ -2057,13 +2085,170 @@ def paged_int8_phase_full(torch, PA, Q, cfg, page_size, max_tokens):
     return out
 
 
+# K3/K4 at starcoder2's shape (bf16 q, fp32 output, up to 4096 keys a
+# query): a windowed output is a mean over ~4096 values, std ~0.026, so a
+# kernel that skipped 64 of them moves it by a few 1e-3 and PAGED_TOL_BF16
+# would pass it. paged_phase_starcoder2 requires err <= SC2_PAGED_TOL < a
+# planted fault's err: the plain version without the keys SC2_DROP, one of
+# K3's 64-key splits (of the long row) and one of K4's 64-key tiles (of
+# every query), inside every window that reaches them.
+SC2_PAGED_TOL = 2.5e-3
+SC2_DROP = (2560, 2624)
+# starcoder2's windowed shapes: the window cell's last decode tick (its
+# 4608-token request at t = 4608 + 31 beside its 128-token one) and its
+# last chunk (512 queries from 4096, kv_len 4608), on its pool of 320
+# pages of 16 (max_tokens 5120)
+SC2_DECODE_T = (4608 + 31, 128 + 31)
+SC2_CHUNK = (4096, 512, 4608)            # start, Cs, kv_len
+SC2_MAX_TOKENS = 5120
+
+
+def paged_phase_starcoder2(torch, PA, Q, cfg):
+    """K3 and K4, bf16 q on bf16 and int8 pages, at starcoder2's GQA 24/2
+    x 128 (12 query heads a kv head: K3's GB 16 body, K4's warps whose 16
+    rows straddle two queries) with its 4096-token window binding: each
+    against its plain version (SC2_PAGED_TOL, below a planted fault's
+    err: the plain version without the keys SC2_DROP) and timed beside it
+    and the library call (gather, dequantize, sdpa). Every key outside each
+    query's window (and past each row's end) holds +-1e4 (int8: +-127,
+    and NaN in the scales of pages no query may read) in a second pool,
+    which must give the same bits: the kernels read nothing outside the
+    window. bound_ms counts the pages inside the windows, read once (int8:
+    values and scales), q and the fp32 output; the FLOPs of the keys each
+    query attends."""
+    import torch.nn.functional as F
+    from repro_torch.models import attention as ATT
+    bf = torch.bfloat16
+    g = torch.Generator(device="cuda").manual_seed(31)
+    Hq, Hkv, hd, ps = cfg.num_heads, cfg.num_kv_heads, \
+        cfg.resolved_head_dim(), 16
+    W, P, S = cfg.sliding_window, SC2_MAX_TOKENS // ps, SC2_MAX_TOKENS
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    kpos = torch.arange(S, device="cuda")
+    out = {}
+
+    def pools(B, seen):
+        """bf16 and int8 pools (clean, dirty) whose rows see the keys
+        `seen` [B, S]; page ids shuffled, the null page behind each row's
+        end."""
+        live = [int(seen[b].nonzero().max()) + 1 for b in range(B)]
+        kp, vp, bt = _pools(torch, g, B, P, ps, Hkv, hd, torch.float32,
+                            live)
+        readable = torch.zeros(kp.shape[:2], dtype=torch.bool, device="cuda")
+        for b in range(B):
+            p = kpos[seen[b]]
+            readable[bt[b, p // ps].long(), p % ps] = True
+        sel, used = readable[:, :, None, None], readable.any(dim=1)[:, None]
+        kc, vc = (torch.where(sel, a, 0.0) for a in (kp, vp))
+        bf16 = (dict(k_pages=kc.to(bf), v_pages=vc.to(bf)),
+                dict(k_pages=torch.where(sel, kp, 1e4).to(bf),
+                     v_pages=torch.where(sel, vp, -1e4).to(bf)))
+        (k8, ks), (v8, vs) = Q.quantize_pages(kc), Q.quantize_pages(vc)
+        i8 = torch.int8
+        int8 = (dict(k_pages=k8, v_pages=v8, k_scales=ks, v_scales=vs),
+                dict(k_pages=torch.where(sel, k8, 127).to(i8),
+                     v_pages=torch.where(sel, v8, -127).to(i8),
+                     k_scales=torch.where(used, ks, float("nan")),
+                     v_scales=torch.where(used, vs, float("nan"))))
+        return bt, {"": bf16, "_int8": int8}, int(used.sum())
+
+    def call(fn, q, pool, bt, *args):
+        sc = {k: pool[k] for k in ("k_scales", "v_scales") if k in pool}
+        return fn(q, pool["k_pages"], pool["v_pages"], bt, *args, window=W,
+                  **sc)
+
+    def gathered(pool, bt, B):
+        bt = bt.long()
+        k, v = pool["k_pages"][bt].float(), pool["v_pages"][bt].float()
+        if "k_scales" in pool:
+            k = k * pool["k_scales"][bt][:, :, None, :, None]
+            v = v * pool["v_scales"][bt][:, :, None, :, None]
+        return (k.to(bf).reshape(B, S, Hkv, hd).transpose(1, 2),
+                v.to(bf).reshape(B, S, Hkv, hd).transpose(1, 2))
+
+    keep = (kpos < SC2_DROP[0]) | (kpos >= SC2_DROP[1])
+
+    def dropped(kind, q, pool, bt, mask, args):
+        """The plain version without the keys SC2_DROP (a planted fault)."""
+        k, v = (PA._gather(pool[f"{x}_pages"], bt, pool.get(f"{x}_scales"))
+                for x in "kv")
+        if kind == "decode":
+            return ATT._decode_sdpa(q[:, None], k, v,
+                                    mask[:, 0, 0] & keep)[:, 0]
+        start, kv_len = args
+        q_pos = start + torch.arange(q.shape[1], device="cuda")
+        return ATT.sdpa_chunked_f32(q, k, v, q_pos,
+                                    torch.where(keep, kpos, 2 ** 30), W,
+                                    kv_len)
+
+    def entries(kind, q, bt, by_pages, n_pages, keys, mask, args, lib_q,
+                n_out):
+        for tag, (clean, dirty) in by_pages.items():
+            pcfg = cfg.with_overrides(kv_quant="int8" if tag else "none")
+            fn = getattr(PA, f"paged_attn_{kind}")
+            plain = getattr(PA, f"paged_attn_{kind}_plain")
+            B = bt.shape[0]
+
+            def lib(clean=clean):
+                k, v = gathered(clean, bt, B)
+                return F.scaled_dot_product_attention(
+                    lib_q, k, v, attn_mask=mask, enable_gqa=True)
+
+            entry = _paged_entry(
+                torch, flush, lambda: call(fn, q, clean, bt, *args),
+                lambda: call(plain, q, clean, bt, *args), lib,
+                n_pages * PA.page_bytes(pcfg, ps) + n_out * Hq * hd * (2 + 4),
+                4 * Hq * hd * keys,
+                f"{'int8' if tag else 'bf16'} pages, GQA {Hq}/{Hkv} x {hd}, "
+                f"window {W}, {args}, {n_pages} pages inside the window(s)",
+                tol=SC2_PAGED_TOL,
+                fault=lambda clean=clean: dropped(kind, q, clean, bt, mask,
+                                                  args))
+            got = call(fn, q, clean, bt, *args)
+            need(torch.equal(got, call(fn, q, dirty, bt, *args)),
+                 f"K{3 if kind == 'decode' else 4}{tag} {cfg.name}: keys "
+                 "outside the window moved an output bit")
+            entry["window_pages"] = n_pages
+            out[f"paged_attn_{kind}{tag}"] = entry
+
+    t = torch.tensor(SC2_DECODE_T, dtype=torch.int32, device="cuda")
+    B = len(SC2_DECODE_T)
+    seen = (kpos[None] <= t[:, None]) & (kpos[None] > t[:, None] - W)
+    bt, by_pages, n_pages = pools(B, seen)
+    q = torch.randn(B, Hq, hd, device="cuda", generator=g).to(bf)
+    entries("decode", q, bt, by_pages, n_pages, int(seen.sum()),
+            seen[:, None, None], (t,), q[:, :, None], B)
+    start, Cs, kv_len = SC2_CHUNK
+    qpos = torch.arange(start, start + Cs, device="cuda")
+    cmask = (kpos[None] < kv_len) & (kpos[None] <= qpos[:, None]) & \
+        (kpos[None] > qpos[:, None] - W)
+    bt, by_pages, n_pages = pools(1, cmask.any(dim=0)[None])
+    qc = torch.randn(1, Cs, Hq, hd, device="cuda", generator=g).to(bf)
+    entries("chunk", qc, bt, by_pages, n_pages, int(cmask.sum()),
+            cmask[None, None], (start, kv_len), qc.transpose(1, 2), Cs)
+    print(f"[paged starcoder2] K3/K4 bf16 and int8 at GQA {Hq}/{Hkv} x {hd}, "
+          f"window {W}: within {SC2_PAGED_TOL} of the plain versions, below "
+          f"the planted faults' errors (keys {SC2_DROP} left out: "
+          f"{[round(e['planted_fault_err'], 6) for e in out.values()]}); "
+          "keys outside the window move no bit", flush=True)
+    return out
+
+
 def _paged_entry(torch, flush, kern, plain, lib, nbytes, flops, shape,
-                 parent=None):
+                 parent=None, tol=None, fault=None):
+    """A paged kernel against its plain version, timed beside it and the
+    library call. By default within PAGED_TOL_BF16 (rtol and atol); with
+    `tol` and `fault` (the plain version of a planted fault), err <= tol <
+    the fault's err, checked after the entry is printed."""
     got, ref = kern(), plain()
     torch.cuda.synchronize()
     err = (got - ref).abs().max().item()
-    need(torch.allclose(got, ref, rtol=PAGED_TOL_BF16, atol=PAGED_TOL_BF16),
-         f"paged attention bf16 err {err} ({shape})")
+    if fault is None:
+        need(torch.allclose(got, ref, rtol=PAGED_TOL_BF16,
+                            atol=PAGED_TOL_BF16),
+             f"paged attention bf16 err {err} ({shape})")
+    else:
+        fault_err = (fault() - ref).abs().max().item()
     need(torch.equal(got, kern()), f"paged attention bf16: a second launch "
          f"gave other bits ({shape})")
     t_b, t_f = nbytes / HBM_BPS * 1e3, flops / BF16_FLOPS * 1e3
@@ -2074,7 +2259,12 @@ def _paged_entry(torch, flush, kern, plain, lib, nbytes, flops, shape,
                    "bound_ms": max(t_b, t_f),
                    "bound_by": "bytes" if t_b >= t_f else "operations"},
                   nbytes)
+    if fault is not None:
+        entry.update(tol=tol, planted_fault_err=fault_err)
     print(f"[paged bf16] {json.dumps(entry)}", flush=True)
+    if fault is not None:
+        need(err <= tol < fault_err, f"paged attention err {err}, tol {tol}, "
+             f"planted fault {fault_err} ({shape})")
     return entry
 
 
@@ -2156,8 +2346,12 @@ def slstm_phase(torch, SC):
 def gmm_launches(cfg, prefills, decodes):
     """The grouped-GEMM launches of `prefills` prefill passes (one-shot or
     chunk) and `decodes` decode steps: one K1 and one K2 per layer and pass,
-    except that token choice with C1 groups prefills through K7/K8."""
+    except that token choice with C1 groups prefills through K7/K8; none
+    for a dense MLP."""
     L = cfg.num_layers
+    if cfg.moe is None:
+        return {"gmm_swiglu": 0, "gmm_scaled": 0, "gmm_swiglu_fused": 0,
+                "gmm_scaled_fused": 0, "gmm": 0}
     grouped = cfg.moe.routing == "token_choice" and cfg.moe.group_size > 1 \
         and cfg.moe.use_grouped_gemm
     unfused = L * (decodes + (0 if grouped else prefills))
@@ -2283,7 +2477,8 @@ def engine_smoke_phase(torch, G, PA, GT, cfg_smoke, TM, TS, kv_quant="none"):
              f"{cfg_smoke.name} int8 engine: a second card run gave other "
              "streams, pages, scales or GO rows")
         extra = "; a second run repeats streams, pages, scales and GO rows"
-        if cfg_smoke.moe.routing == "expert_choice":
+        if cfg_smoke.moe is not None and \
+                cfg_smoke.moe.routing == "expert_choice":
             solo = dict(kw, num_slots=1, arrival_steps=None)
             for rid, p in enumerate(prompts):
                 one = TS.serve_continuous(params_cuda, cfg_smoke, [p], 7,
@@ -2437,7 +2632,7 @@ def xlstm_full_phase(torch, counts, reset_counts, cfg, TM, TS):
     warm-up, then three runs (the first counted): K9 launched once per
     sLSTM block and no other kernel of the port, hidden states bit-equal.
     `xlstm_static`: generate() with the same 4 x 128 prompts stepped
-    through serve_step and 16 new tokens, a warm-up, then three runs
+    through serve_step and 16 new tokens, a warm-up, then two runs
     (the first counted): no kernel of the port launched, tokens and the
     logits that chose them bit-equal. Then the profiles (the prefill's over
     its first 8 steps)."""
@@ -2493,8 +2688,7 @@ def xlstm_full_phase(torch, counts, reset_counts, cfg, TM, TS):
     reset_counts()
     res = TS.generate(params, cfg, tokens, GEN, device="cuda")
     static_launches = counts()
-    reps = [res] + [TS.generate(params, cfg, tokens, GEN, device="cuda")
-                    for _ in range(2)]
+    reps = [res, TS.generate(params, cfg, tokens, GEN, device="cuda")]
     need(static_launches == zero, f"xlstm_static launches {static_launches}"
          ": the stepwise path runs no kernel of the port")
     need(res["tokens"].shape == (Bq, GEN) and
@@ -2516,7 +2710,7 @@ def xlstm_full_phase(torch, counts, reset_counts, cfg, TM, TS):
           f"gen={GEN}: {json.dumps(stats)}", flush=True)
     print(f"[full xlstm_static] sample tokens {res['tokens'][0].tolist()}",
           flush=True)
-    need(repeat_equal, "xlstm_static: three runs gave other tokens or "
+    need(repeat_equal, "xlstm_static: two runs gave other tokens or "
          "logits")
     state = res["state"]
     tok = torch.zeros(Bq, dtype=torch.long, device="cuda")
@@ -2695,14 +2889,15 @@ ENGINE_POOL = dict(num_slots=4, max_tokens=512, paged=True, page_size=16,
 
 
 def engine_phase(torch, G, PA, SC, GT, cfg, params, ServingEngine,
-                 kv_quant="none"):
+                 kv_quant="none", repeat=True):
     """Full width, bf16, through the continuous-batching engine on a paged
     pool: 8 staggered requests of ENGINE_LENS prompt tokens, 32 new tokens
     each, greedy. A warm-up engine first (one one-shot and one chunked
     admission, 4 tokens each), then the counted, timed run, one
     synchronised step at a time, then the same trace once more on a fresh
     engine, which must stream the same tokens and leave the same pool
-    state. kv_quant="int8" runs the pool on int8 KV pages and GO rows
+    state (`repeat=False` leaves the repeat out, to hold the script's
+    time). kv_quant="int8" runs the pool on int8 KV pages and GO rows
     (K3/K4 on the int8 operand) and records the pool's page bytes and the
     admissions' dequant_max_abs_err; its repeat covers the scales too."""
     import numpy as np
@@ -2765,18 +2960,21 @@ def engine_phase(torch, G, PA, SC, GT, cfg, params, ServingEngine,
     need(launches == expect, f"engine launches {launches}, expected "
          f"{expect} ({decode_ticks} decode ticks, {chunk_ticks} chunk ticks, "
          f"{one_shot} one-shot prefills)")
-    again = ServingEngine(params, cfg, device="cuda", **pool)
-    rids2 = [again.submit(p, ENGINE_GEN, arrival_step=a)
-             for p, a in zip(prompts, ENGINE_ARRIVALS)]
-    fin2 = again.run()
-    # the streams' argmaxes can hide a changed sum; the drained pools'
-    # pages (every layer's K/V of every token, which the MoE outputs of the
-    # layers below feed), their scales and the GO rows must repeat bit for
-    # bit as well (page 0, the null page, left out: _pool_state)
-    repeat_state_equal = _same(torch, _pool_state(st),
-                               _pool_state(again.pool.state))
-    repeat_equal = all(fin2[r2].tokens == fin[r].tokens
-                       for r, r2 in zip(rids, rids2))
+    repeat_equal = repeat_state_equal = None
+    if repeat:
+        again = ServingEngine(params, cfg, device="cuda", **pool)
+        rids2 = [again.submit(p, ENGINE_GEN, arrival_step=a)
+                 for p, a in zip(prompts, ENGINE_ARRIVALS)]
+        fin2 = again.run()
+        # the streams' argmaxes can hide a changed sum; the drained pools'
+        # pages (every layer's K/V of every token, which the MoE outputs of
+        # the layers below feed), their scales and the GO rows must repeat
+        # bit for bit as well (page 0, the null page, left out: _pool_state)
+        repeat_state_equal = _same(torch, _pool_state(st),
+                                   _pool_state(again.pool.state))
+        repeat_equal = all(fin2[r2].tokens == fin[r].tokens
+                           for r, r2 in zip(rids, rids2))
+        del again
     pure_decode = sorted(ms for ms, dd, dc, da in ticks
                          if dd and not dc and not da)
     chunk_ms = sorted(ms for ms, dd, dc, da in ticks if dc)
@@ -2808,12 +3006,13 @@ def engine_phase(torch, G, PA, SC, GT, cfg, params, ServingEngine,
           f"{ENGINE_LENS}, arrivals {ENGINE_ARRIVALS}, gen {ENGINE_GEN}: "
           f"{json.dumps(stats)}", flush=True)
     print(f"[full engine] sample tokens {fin[rids[1]].tokens}", flush=True)
-    need(repeat_equal, f"{cfg.name}: the engine trace streamed other tokens "
-         "when run again")
-    need(repeat_state_equal, f"{cfg.name}: the engine trace left other KV "
-         "pages, scales or GO rows when run again")
+    need(repeat_equal is not False, f"{cfg.name}: the engine trace streamed "
+         "other tokens when run again")
+    need(repeat_state_equal is not False, f"{cfg.name}: the engine trace "
+         "left other KV pages, scales or GO rows when run again")
     engine_profile_phase(torch, cfg, params, prompts, ServingEngine, pool)
     stats["streams"] = [fin[r].tokens for r in rids]   # fault_domain's oracle
+    stats["prompts"] = prompts
     return launches, stats
 
 
@@ -3245,20 +3444,25 @@ def _prefix_counters(s):
                               "prefill_tokens_skipped")}
 
 
+def _timed(torch, fn, times):
+    """`fn`, each call synchronised and its host ms appended to `times`."""
+    def run(*a):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        out = fn(*a)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+        return out
+    return run
+
+
 def _timed_admissions(torch, eng, log):
     """Time each cold one-shot admission (`_admit`: the prefill, the install
     and, with sharing, the deposit's clones) and each cache admission
     (`_admit_from_cache`), synchronised, on the host clock."""
-    def wrap(fn, key):
-        def run(*a):
-            torch.cuda.synchronize()
-            t0 = time.perf_counter()
-            fn(*a)
-            torch.cuda.synchronize()
-            log[key].append((time.perf_counter() - t0) * 1e3)
-        return run
-    eng._admit = wrap(eng._admit, "cold_ms")
-    eng._admit_from_cache = wrap(eng._admit_from_cache, "cache_ms")
+    eng._admit = _timed(torch, eng._admit, log["cold_ms"])
+    eng._admit_from_cache = _timed(torch, eng._admit_from_cache,
+                                   log["cache_ms"])
 
 
 def _poison_at_cache_admission(torch, eng, rid, log):
@@ -3589,7 +3793,9 @@ def _kind(name):
                 (False, True): "K8 gmm_scaled_fused"}[(swiglu, fused)]
     if "slstm_seq_kernel" in name or "slstm_cluster_kernel" in name:
         return "K9 slstm_seq"
-    if "gemm" in name.lower() or "xmma" in name or "cutlass" in name:
+    # cuBLAS's own GEMM kernels: "nvjet_*" names carry no "gemm"
+    if "gemm" in name.lower() or "xmma" in name or "cutlass" in name or \
+            name.startswith("nvjet"):
         return "cuBLAS gemm"
     return "other"
 
@@ -3601,8 +3807,9 @@ def profile_phase(torch, cfg, regions):
     from torch.profiler import ProfilerActivity, profile
     for name, fn in regions.items():
         torch.cuda.synchronize()
-        with profile(activities=[ProfilerActivity.CPU,
-                                 ProfilerActivity.CUDA]) as prof:
+        # the device's activity only: the host ops' events would cost ~1 s
+        # of post-processing per 3000 kernels and slow the region itself
+        with profile(activities=[ProfilerActivity.CUDA]) as prof:
             t0 = time.perf_counter()
             fn()
             torch.cuda.synchronize()
@@ -3615,17 +3822,23 @@ def profile_phase(torch, cfg, regions):
             if b > end:
                 busy += b - max(a, end)
                 end = b
-        by_kind = {}
+        by_kind, other = {}, Counter()
         for e in dev:
-            t = by_kind.setdefault(_kind(e.name), [0, 0.0])
+            kind = _kind(e.name)
+            t = by_kind.setdefault(kind, [0, 0.0])
             t[0] += 1
             t[1] += (e.time_range.end - e.time_range.start) / 1e3
+            if kind == "other":
+                other[e.name] += (e.time_range.end - e.time_range.start) / 1e3
         out = {"wall_ms": wall_ms, "device_busy_ms": busy / 1e3,
                "idle_share": 1 - busy / 1e3 / wall_ms if dev else None,
                "device_events": len(dev),
                "device_events_per_layer": len(dev) / cfg.num_layers,
                "by_kind_ms": {k: round(v[1], 4) for k, v in by_kind.items()},
                "by_kind_count": {k: v[0] for k, v in by_kind.items()}}
+        # the five largest kernels left under "other"
+        out["other_top5_ms"] = {n[:160]: round(ms, 4)
+                                for n, ms in other.most_common(5)}
         print(f"[profile] {cfg.name} {name}: {json.dumps(out)}", flush=True)
 
 
@@ -3980,6 +4193,286 @@ def journal_supervise_phase(arch, card):
           f"({card})", flush=True)
 
 
+# ---------------------------------------------------------- starcoder2-3b
+
+# Engine against static generate() at full width, bf16: the engine's decode
+# reads pages through K3 and its long prompts prefill through K4, static
+# generate() attends through the plain dense path, so their bf16 sums
+# round in other places, and a greedy stream may part from static's where
+# two logits (bf16 values) lie within a few bf16 steps of each other. So
+# static generate()'s path is teacher-forced with the engine's stream:
+# at every step the engine's token must be static's argmax, or lie within
+# STATIC_GAP_ULPS bf16 steps (of the top logit's magnitude) of its top
+# logit; the steps where it is not the argmax are reported.
+STATIC_GAP_ULPS = 4
+# the windowed cell: the prompt lengths (the first binds the 4096-token
+# window from its last chunk on), new tokens, the pool (320 pages of 16)
+SC2_WINDOW_LENS = (4608, 128)
+SC2_WINDOW_GEN = 64
+SC2_WINDOW_POOL = dict(num_slots=2, max_tokens=SC2_MAX_TOKENS, paged=True,
+                       page_size=16, prefill_chunk=512)
+# the prefix-extension cell: a repository context that eight requests
+# share, each with its own tail, at these ticks. With chunks of 512 the
+# first prefills through the chunk lane (0, 512, 1024) and deposits, and
+# each other shares the context's pages up to the start of its own last
+# chunk (1024: all 64 pages of a 1024-token context, 64 of a 1040-token
+# one's 65) and prefills that chunk only; without chunking every prompt
+# prefills one-shot and the others share the context's 64 pages. Each case
+# (name, context tokens, pool) gives 7 hits, 448 pages shared and 7168
+# tokens skipped.
+SC2_EXT_TAILS = (64, 256, 96, 224, 128, 192, 160, 80)
+SC2_EXT_ARRIVALS = (0, 1, 1, 2, 2, 3, 3, 4)
+SC2_EXT_GEN = 32
+SC2_EXT_POOL = dict(num_slots=4, max_tokens=1536, paged=True, page_size=16,
+                    prefill_chunk=512)
+SC2_EXT_CASES = (("chunk_boundary", 1024, SC2_EXT_POOL),
+                 ("off_boundary", 1040, SC2_EXT_POOL),
+                 ("unchunked", 1024, dict(SC2_EXT_POOL, prefill_chunk=0)))
+SC2_EXT_SHARED = 1024
+
+
+def _bf16_ulp(x):
+    import math
+    return 2.0 ** (math.floor(math.log2(max(abs(x), 1e-30))) - 7)
+
+
+def static_agreement(torch, TM, cfg, params, prompt, stream, max_len):
+    """static generate()'s path (prefill, then serve_step on a dense cache
+    of the pool's capacity) for `prompt` alone, teacher-forced with an
+    engine stream: {"equal": the engine's token is static's argmax at
+    every step, "parts": the steps where it is not, "max_gap": the largest
+    gap between static's top logit and its logit of the engine's token,
+    "tol"}; a gap over STATIC_GAP_ULPS bf16 steps fails."""
+    tokens = torch.as_tensor(prompt, dtype=torch.long, device="cuda")[None]
+    state, logits = TM.prefill(params, tokens, cfg, max_len=max_len)
+    parts, max_gap, tol = [], 0.0, 0.0
+    for i, tok in enumerate(stream):
+        lg = logits[0]
+        top = int(torch.argmax(lg))
+        if top != tok:
+            gap = float(lg[top] - lg[tok])
+            step_tol = STATIC_GAP_ULPS * _bf16_ulp(float(lg[top]))
+            need(gap <= step_tol, f"{cfg.name}: at step {i} the engine's "
+                 f"token {tok} lies {gap} below static's top logit (tol "
+                 f"{step_tol}): not a bf16 near-tie")
+            parts.append(i)
+            max_gap, tol = max(max_gap, gap), max(tol, step_tol)
+        if i + 1 < len(stream):
+            logits, state = TM.serve_step(
+                params, state, torch.tensor([tok], device="cuda"), cfg)
+    return {"equal": not parts, "parts": parts, "max_gap": max_gap,
+            "tol": tol}
+
+
+def starcoder2_engine_vs_static(torch, TM, cfg, params, stats):
+    """The engine trace's bf16 streams (engine_phase's stats) against
+    static generate()'s path for each prompt alone (static_agreement)."""
+    agree = [static_agreement(torch, TM, cfg, params, p, st,
+                              ENGINE_POOL["max_tokens"])
+             for p, st in zip(stats["prompts"], stats["streams"])]
+    print(f"[full engine] {cfg.name}: against static generate() "
+          f"{sum(a['equal'] for a in agree)} of {len(agree)} streams equal; "
+          f"{json.dumps(agree)}", flush=True)
+    return agree
+
+
+def starcoder2_window_phase(torch, cfg, params, ServingEngine, TM, counts,
+                            reset_counts):
+    """`starcoder2_window`: a 4608-token prompt (chunks of 512, the last
+    from 4096) and a 128-token one, SC2_WINDOW_GEN new tokens each, on a
+    pool of 5120 tokens: every decode tick of the first attends past the
+    window (K3 with window 4096), its last chunk too (K4). The counted run
+    launches K3/K4 once per layer and tick and nothing else of the port;
+    each stream against static generate()'s path (static_agreement); the
+    same prompt's prefill without the window gives other last-position
+    logits, so the window binds; a second run on a fresh engine streams
+    the same tokens and leaves the same pages. One decode tick of both
+    rows is profiled."""
+    import numpy as np
+    rng = np.random.default_rng(5)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+               for n in SC2_WINDOW_LENS]
+    eng = ServingEngine(params, cfg, device="cuda", **SC2_WINDOW_POOL)
+    rids = [eng.submit(p, SC2_WINDOW_GEN) for p in prompts]
+    reset_counts()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    profiled = False
+    while eng.has_work():
+        if not profiled and eng.pool.num_active() == 2 and \
+                eng._chunk_job is None:
+            # one tick of the run under the profiler (its wall time counts)
+            profile_phase(torch, cfg, {"window_decode_tick_2_active":
+                                       eng.step})
+            profiled = True
+        else:
+            eng.step()
+    torch.cuda.synchronize()
+    wall_s = time.perf_counter() - t0
+    launches = counts()
+    s = eng.stats()
+    need(profiled, "window cell: no tick with both rows decoding")
+    fin = eng.finished
+    streams = [fin[r].tokens for r in rids]
+    need(all(fin[r].status.value == "DONE" and
+             len(fin[r].tokens) == SC2_WINDOW_GEN for r in rids),
+         f"window cell: {[(fin[r].status, len(fin[r].tokens)) for r in rids]}")
+    expect = {**gmm_launches(cfg, 0, 0), **go_topk_launches(cfg, 0),
+              **paged_launches(cfg, s["decode_ticks"], s["chunk_ticks"]),
+              "slstm_seq": 0}
+    need(launches == expect and s["chunk_ticks"] == 9,
+         f"window cell launches {launches}, expected {expect}; stats {s}")
+    again = ServingEngine(params, cfg, device="cuda", **SC2_WINDOW_POOL)
+    rids2 = [again.submit(p, SC2_WINDOW_GEN) for p in prompts]
+    fin2 = again.run()
+    repeat_equal = [fin2[r].tokens for r in rids2] == streams
+    repeat_state_equal = _same(torch, _pool_state(eng.pool.state),
+                               _pool_state(again.pool.state))
+    need(repeat_equal and repeat_state_equal, "window cell: a second run on "
+         f"a fresh engine: streams equal {repeat_equal}, pages equal "
+         f"{repeat_state_equal}")
+    del again
+    agree = [static_agreement(torch, TM, cfg, params, p, st,
+                              SC2_WINDOW_POOL["max_tokens"])
+             for p, st in zip(prompts, streams)]
+    long_prompt = torch.as_tensor(prompts[0], dtype=torch.long,
+                                  device="cuda")[None]
+    _, lg = TM.prefill(params, long_prompt, cfg,
+                       max_len=SC2_WINDOW_POOL["max_tokens"])
+    _, lg0 = TM.prefill(params, long_prompt,
+                        cfg.with_overrides(sliding_window=0),
+                        max_len=SC2_WINDOW_POOL["max_tokens"])
+    binds = (lg - lg0).abs().max().item()
+    need(binds > 1e-2, f"window cell: the prefill without the window gives "
+         f"the same last logits ({binds})")
+    out = {"wall_s": wall_s, "tokens": sum(map(len, streams)),
+           "tok_per_s": sum(map(len, streams)) / wall_s,
+           "decode_ticks": s["decode_ticks"], "chunk_ticks": s["chunk_ticks"],
+           "launches": launches, "static": agree,
+           "repeat_streams_equal": repeat_equal,
+           "repeat_pool_state_equal": repeat_state_equal,
+           "window_off_last_logit_max_abs_diff": binds,
+           "max_memory_allocated_gb":
+               torch.cuda.max_memory_allocated() / 1e9}
+    print(f"[starcoder2_window] {SC2_WINDOW_POOL}, prompts "
+          f"{SC2_WINDOW_LENS}, gen {SC2_WINDOW_GEN}: {json.dumps(out)}",
+          flush=True)
+    return launches
+
+
+def starcoder2_prefix_ext_phase(torch, cfg, params, ServingEngine, TM,
+                                counts, reset_counts):
+    """`starcoder2_prefix_ext`: eight requests share a repository context,
+    each with its own tail (code completion over one repository), without
+    and with prefix sharing, in each of SC2_EXT_CASES. The consumers map
+    the context's first 64 pages and prefill only the rest (one K4 launch
+    a layer each, over the shared pages); the counters are 7 hits, 7 x 64
+    pages shared, 7 x 1024 tokens skipped. With chunked prefill the
+    streams equal the run without sharing bit for bit. Without chunking a
+    consumer's remainder is prefilled in a shape the one-shot cold prefill
+    does not share, so in bf16 its streams may part: each stream that does
+    must be static generate()'s path up to bf16 near-ties
+    (static_agreement). The first case's run with sharing runs again on a
+    fresh engine: the same streams and pages. Extension and cold
+    admissions' ms side by side. Returns the launches of the first case's
+    run with sharing."""
+    import numpy as np
+    L, n = cfg.num_layers, len(SC2_EXT_TAILS) - 1
+    out, first = {}, None
+    for case, prefix_len, pool in SC2_EXT_CASES:
+        rng = np.random.default_rng(6)
+        prefix = rng.integers(0, cfg.vocab_size, size=prefix_len,
+                              dtype=np.int32)
+        prompts = [np.concatenate([prefix, rng.integers(
+            0, cfg.vocab_size, size=k, dtype=np.int32)])
+            for k in SC2_EXT_TAILS]
+        runs, pages = {}, {}
+        modes = ("without", "with") + (("repeat",) if first is None else ())
+        for mode in modes:
+            share = mode != "without"
+            eng = ServingEngine(params, cfg, device="cuda",
+                                prefix_share=share, **pool)
+            eng.audit_every_tick = True
+            log = {"ext_ms": [], "chunk_ms": [], "one_shot_ms": []}
+            eng._admit_prefix_ext = _timed(torch, eng._admit_prefix_ext,
+                                           log["ext_ms"])
+            eng._advance_chunk_job_once = _timed(
+                torch, eng._advance_chunk_job_once, log["chunk_ms"])
+            eng._admit = _timed(torch, eng._admit, log["one_shot_ms"])
+            rids = [eng.submit(p, SC2_EXT_GEN, arrival_step=a)
+                    for p, a in zip(prompts, SC2_EXT_ARRIVALS)]
+            reset_counts()
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            while eng.has_work():
+                eng.step()
+            torch.cuda.synchronize()
+            wall_s = time.perf_counter() - t0
+            launches = counts()
+            s = eng.stats()
+            fin = eng.finished
+            need(all(fin[r].status.value == "DONE" for r in rids),
+                 f"prefix_ext {case} share={share}: {s['statuses']}")
+            chunk_ms = log.pop("chunk_ms")
+            runs[mode] = {
+                "streams": [fin[r].tokens for r in rids], "wall_s": wall_s,
+                "launches": launches, "counters": _prefix_counters(s),
+                "chunk_ticks": s["chunk_ticks"],
+                "decode_ticks": s["decode_ticks"], **log,
+                # a cold chunked admission: its three chunks' prefill
+                "cold_chunked_ms": [sum(chunk_ms[i:i + 3])
+                                    for i in range(0, len(chunk_ms), 3)],
+                "pages_held_before_flush": eng.pool.alloc.pages_in_use}
+            eng.run()                                   # flush the index
+            need(eng.pool.alloc.pages_in_use == 0,
+                 f"prefix_ext {case}: pages leaked")
+            pages[mode] = _pool_state(eng.pool.state)
+            del eng
+        base, shared = runs["without"], runs["with"]
+        repeat = {}
+        if "repeat" in runs:
+            repeat = {"repeat_streams_equal":
+                      runs.pop("repeat")["streams"] == shared["streams"],
+                      "repeat_pool_state_equal":
+                      _same(torch, pages["with"], pages["repeat"])}
+            need(all(repeat.values()), f"prefix_ext {case}: a second run "
+                 f"with sharing on a fresh engine: {repeat}")
+        chunks = 3 if pool["prefill_chunk"] else 0
+        need(shared["counters"] == {
+            "prefix_hits": n, "pages_shared": n * SC2_EXT_SHARED // 16,
+            "prefill_tokens_skipped": n * SC2_EXT_SHARED}
+             and base["counters"]["prefix_hits"] == 0,
+             f"prefix_ext {case} counters {shared['counters']}")
+        need(shared["chunk_ticks"] == chunks and
+             base["chunk_ticks"] == chunks * len(prompts) and
+             shared["launches"]["paged_attn_chunk"] == L * (chunks + n) and
+             base["launches"]["paged_attn_chunk"] == L * chunks * len(
+                 prompts), f"prefix_ext {case} chunk ticks / K4 launches: "
+             f"{shared}, {base}")
+        parted = [i for i, (a, b) in enumerate(zip(shared["streams"],
+                                                   base["streams"]))
+                  if a != b]
+        agree = {}
+        if chunks:
+            need(not parted, f"prefix_ext {case}: streams {parted} with "
+                 "sharing differ from the run without it")
+        else:
+            agree = {i: static_agreement(
+                torch, TM, cfg, params, prompts[i], shared["streams"][i],
+                pool["max_tokens"]) for i in parted}
+        out[case] = {"prefix": prefix_len, "streams_equal": len(prompts) - len(
+            parted), "parted": parted, "static": agree, **repeat, **{
+            k: {kk: v for kk, v in r.items() if kk != "streams"}
+            for k, r in (("without_sharing", base),
+                         ("with_sharing", shared))}}
+        print(f"[starcoder2_prefix_ext] {case} {pool}, prefix {prefix_len}, "
+              f"tails {SC2_EXT_TAILS}, gen {SC2_EXT_GEN}: "
+              f"{json.dumps(out[case])}", flush=True)
+        if first is None:
+            first = shared["launches"]
+    return first
+
+
 def _tensors(tree):
     """Every tensor of a decode state (dicts and named tuples), in order."""
     import torch
@@ -4054,6 +4547,7 @@ def main():
 
     llama, granite = "llama_moe_4_16", "granite-moe-3b-a800m"
     deepseek = "deepseek-moe-16b"
+    sc2 = "starcoder2-3b"
     cfgs = {m: get_config(m) for m in (llama, granite, deepseek)}
     by_path = {}
     kernel_phase_small(torch, G)
@@ -4097,6 +4591,10 @@ def main():
                                          if body in k}
                                   for side, by_kernel in sass.items()}}
     del paged
+    # K3/K4 at starcoder2's GQA 24/2 x 128 with its window
+    for name, entry in paged_phase_starcoder2(torch, PA, Q,
+                                              get_config(sc2)).items():
+        timings[name]["starcoder2"] = entry
     timings["slstm_seq"] = slstm_phase(torch, SC)
     torch.cuda.empty_cache()
     for m in cfgs:
@@ -4110,6 +4608,11 @@ def main():
         prefix_smoke_phase(torch, get_config(m, smoke=True), TM,
                            ServingEngine, counts, reset_counts)
     journal_supervise_phase(llama, card)
+    # starcoder2-3b's smoke config (dense MLP, window 32)
+    sc2_smoke = get_config(sc2, smoke=True)
+    smoke_phase(torch, G, GT, sc2_smoke, TM, TS)
+    for kv_quant in ("none", "int8"):
+        engine_smoke_phase(torch, G, PA, GT, sc2_smoke, TM, TS, kv_quant)
     xlstm = "xlstm-1.3b"
     xlstm_smoke_phase(torch, SC, get_config(xlstm, smoke=True), TM, TS)
 
@@ -4127,8 +4630,11 @@ def main():
             shared_phase(torch, MOE, TM, cfg, params)
         by_path[f"{short}_static"] = full_phase(torch, G, PA, SC, GT, cfg,
                                                 params, TM, TS)
+        # the engine trace's repeat: llama's bf16 pool (and starcoder2's
+        # two) only, to hold the script's time
         by_path[f"{short}_engine"], bf16_stats = engine_phase(
-            torch, G, PA, SC, GT, cfg, params, ServingEngine)
+            torch, G, PA, SC, GT, cfg, params, ServingEngine,
+            repeat=m == llama)
         if m != deepseek:
             # slice 13: expert-aware admission on a trace it reorders
             by_path[f"{short}_expert_aware"] = expert_aware_phase(
@@ -4136,7 +4642,8 @@ def main():
         if m != granite:
             # the same trace on int8 KV pages (and GO rows: slice 8)
             by_path[f"{short}_engine_int8"], i8_stats = engine_phase(
-                torch, G, PA, SC, GT, cfg, params, ServingEngine, "int8")
+                torch, G, PA, SC, GT, cfg, params, ServingEngine, "int8",
+                repeat=False)
             ratio = i8_stats["pool_page_bytes"] / bf16_stats["pool_page_bytes"]
             print(f"[full engine] {cfg.name}: int8 pool pages "
                   f"{i8_stats['pool_page_bytes']} B, bf16 "
@@ -4178,6 +4685,47 @@ def main():
         del params
         gc.collect()
         torch.cuda.empty_cache()
+
+    # starcoder2-3b at full width (dense MLP, GQA 24/2, window
+    # 4096): static, the engine trace on bf16 and int8 pages (bf16 streams
+    # against static generate()), the windowed cell, the prefix extension
+    cfg = get_config(sc2)
+    t0 = time.perf_counter()
+    params = TM.model_init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[full] {cfg.name}: {n_params} parameters initialised in "
+          f"{time.perf_counter() - t0:.2f} s", flush=True)
+    need(n_params == 4_161_985_536, f"{cfg.name}: {n_params} parameters")
+    by_path["starcoder2_static"] = full_phase(torch, G, PA, SC, GT, cfg,
+                                              params, TM, TS)
+    by_path["starcoder2_engine"], sc2_stats = engine_phase(
+        torch, G, PA, SC, GT, cfg, params, ServingEngine)
+    starcoder2_engine_vs_static(torch, TM, cfg, params, sc2_stats)
+    by_path["starcoder2_engine_int8"], sc2_i8 = engine_phase(
+        torch, G, PA, SC, GT, cfg, params, ServingEngine, "int8")
+    ratio = sc2_i8["pool_page_bytes"] / sc2_stats["pool_page_bytes"]
+    need(0.45 < ratio < 0.55, f"{cfg.name}: int8 pool pages are {ratio:.3f} "
+         "of the bf16 pool's, not about half")
+    by_path["starcoder2_window"] = starcoder2_window_phase(
+        torch, cfg, params, ServingEngine, TM, counts, reset_counts)
+    by_path["starcoder2_prefix_ext"] = starcoder2_prefix_ext_phase(
+        torch, cfg, params, ServingEngine, TM, counts, reset_counts)
+    for path, (k3, k4) in {
+            "starcoder2_engine": ("paged_attn_decode", "paged_attn_chunk"),
+            "starcoder2_engine_int8": ("paged_attn_decode_int8",
+                                       "paged_attn_chunk_int8"),
+            "starcoder2_window": ("paged_attn_decode", "paged_attn_chunk"),
+            "starcoder2_prefix_ext": ("paged_attn_decode",
+                                      "paged_attn_chunk")}.items():
+        got = by_path[path]
+        need(got[k3] > 0 and got[k4] > 0 and
+             all(got[k] == 0 for k in got if k not in (k3, k4)),
+             f"{path}: K3/K4 not launched, or another kernel was: {got}")
+    del params
+    gc.collect()
+    torch.cuda.empty_cache()
 
     by_path.update(xlstm_full_phase(torch, counts, reset_counts,
                                     get_config(xlstm), TM, TS))
@@ -4270,9 +4818,14 @@ def main():
             for k in ("decode", "granite_decode", "deepseek_decode",
                       "wide_decode"):
                 entry[k] = timings[name][k]
-        for k in ("granite", "deepseek"):
+        for k in ("granite", "deepseek", "starcoder2"):
             if k in timings[name]:
                 entry[k] = timings[name][k]
+        if "starcoder2" in entry:
+            # launches on starcoder2's engine trace (bf16 or int8 pages)
+            path = "starcoder2_engine" + ("_int8" if "int8" in name else "")
+            entry["starcoder2"] = {**entry["starcoder2"], "path": path,
+                                   "launches": by_path[path][name]}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

@@ -12,6 +12,7 @@ _MODULES = {
     "llama_moe_4_16": "llama_moe_4_16",
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "deepseek-moe-16b": "deepseek_moe_16b",
+    "starcoder2-3b": "starcoder2_3b",
     "xlstm-1.3b": "xlstm_1_3b",
 }
 

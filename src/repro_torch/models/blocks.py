@@ -1,7 +1,8 @@
 """Residual blocks. Counterpart of repro/models/blocks.py (`_ffn_apply`,
 `attn_block`, `attn_block_decode`, `attn_block_chunk`) for the attention
-family with MoE: expert choice with the GO cache, and token choice
-(dispatch, or C1 group multiplexing) without one; the xlstm family's
+family: with an MoE sublayer (expert choice with the GO cache, and token
+choice, dispatch or C1 group multiplexing, without one) or with the dense
+SwiGLU MLP (`params["mlp"]`, models/layers.py `mlp`); the xlstm family's
 blocks are re-exported from models/xlstm.py, as the reference does.
 models/model.py:check_served rejects the rest.
 """
@@ -14,19 +15,22 @@ from repro_torch.core.go_cache import (GOCache, go_cache_merge,
                                        go_cache_prefill, go_cache_step)
 from repro_torch.kernels import ops as OPS
 from repro_torch.models import attention as ATT
-from repro_torch.models.layers import rmsnorm
+from repro_torch.models.layers import mlp, rmsnorm
 from repro_torch.models.xlstm import (mlstm_block, mlstm_block_init,  # noqa: F401
                                       slstm_block, slstm_block_init)
 
 
 def _ffn_apply(params: dict, x: torch.Tensor, cfg, group_of_expert=None,
                group_members=None, valid_len=None) -> tuple:
-    """Post-attention MoE sublayer, x [B, S, d] -> (x + y, aux). Expert
+    """Post-attention FFN sublayer, x [B, S, d] -> (x + y, aux). The dense
+    MLP gives aux None, as the reference's dense branch does. Expert
     choice routes per sequence (pads at >= valid_len masked out) but plans
     the whole batch's pairs as one grouped GEMM. Token choice flattens
     B*S into one plan, pads included (their outputs land on pad rows only),
     as the reference's pallas backend does."""
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
+    if "mlp" in params:
+        return x + mlp(params["mlp"], h), None
     B, S, d = h.shape
     if cfg.moe.routing == "expert_choice":
         y, aux = MOE.expert_choice_forward_batched(params["moe"], h, cfg.moe,
@@ -67,11 +71,14 @@ def attn_block_decode(params: dict, x_t: torch.Tensor, cache_k, cache_v, t,
     experts that select the token run (the router's lane plan through
     go_plan_ffn); without one every row routes by token choice through the
     unfused grouped GEMM. Shared experts, where the config has them, add
-    their output on both branches."""
+    their output on both branches. A dense block runs its MLP (aux None)."""
     h = rmsnorm(params["ln1"], x_t, cfg.norm_eps)
     a = ATT.attn_decode(params["attn"], h, cache_k, cache_v, t, cfg=cfg,
                         window=window, block_table=block_table)
     x = x_t + a
+    if "mlp" in params:
+        return x + mlp(params["mlp"], rmsnorm(params["ln2"], x,
+                                              cfg.norm_eps)), None
     h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)[:, 0]            # [B, d]
     moe_p = params["moe"]
     if go_cache is None:
@@ -92,7 +99,7 @@ def attn_block_chunk(params: dict, x: torch.Tensor, cache_k, cache_v,
                      block_table: torch.Tensor | None = None):
     """Chunked-prefill block: append one prompt chunk (x [B, Cs, d] at
     positions start..start+Cs-1) to the KV cache (dense, or the layer's
-    page pool with `block_table`), then run the MoE over the chunk. With a
+    page pool with `block_table`), then run the FFN over the chunk. With a
     GO cache, the chunk's expert-choice routing (capacity from the CHUNK
     length, pads at >= valid_len masked out) builds a per-chunk GO cache
     that merges into `go_cache` in place. Token choice pools its capacity

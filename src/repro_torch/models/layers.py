@@ -1,4 +1,5 @@
-"""Shared building blocks: device and dtype resolution, inits, RMSNorm, RoPE.
+"""Shared building blocks: device and dtype resolution, inits, RMSNorm, RoPE,
+the dense SwiGLU MLP.
 
 Counterpart of repro/models/layers.py. Compute convention: activations in
 cfg.dtype, normalization and RoPE in fp32.
@@ -44,6 +45,14 @@ def embed_init(gen: torch.Generator, vocab: int, d: int, dtype,
     return (w * 0.02).to(dtype)
 
 
+def mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype,
+             device) -> dict:
+    """The dense SwiGLU MLP's weights (layers.py:109's wi, wg, wo)."""
+    return {"wi": dense_init(gen, d, d_ff, dtype, device),
+            "wg": dense_init(gen, d, d_ff, dtype, device),
+            "wo": dense_init(gen, d_ff, d, dtype, device)}
+
+
 # ------------------------------------------------------------------- RMSNorm
 
 def rmsnorm(params: dict, x: torch.Tensor, eps: float = 1e-6) -> torch.Tensor:
@@ -70,3 +79,13 @@ def apply_rope(x: torch.Tensor, cos: torch.Tensor,
     x1, x2 = x.float().chunk(2, dim=-1)
     out = torch.cat([x1 * cos - x2 * sin, x2 * cos + x1 * sin], dim=-1)
     return out.to(x.dtype)
+
+
+# --------------------------------------------------------------------- SwiGLU
+
+def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """silu(x Wg) * (x Wi), then Wo, in x's dtype. The reference computes
+    these products in plain jnp, outside any Pallas kernel, so they stay
+    torch.matmul here."""
+    h = torch.nn.functional.silu(x @ params["wg"]) * (x @ params["wi"])
+    return h @ params["wo"]

@@ -1,4 +1,5 @@
-"""Language-model assembly: the attention family with MoE, and xlstm.
+"""Language-model assembly: the attention family, with MoE or the dense
+SwiGLU MLP, and xlstm.
 
 Counterpart of repro/models/model.py for the serving paths:
 
@@ -16,7 +17,8 @@ Counterpart of repro/models/model.py for the serving paths:
 
 Parameters keep the reference's nesting and its stacked layer axes
 (`layers.{attn.{wq,wk,wv,wo}, ln1, ln2, moe.{gate, experts.{wg,wi,wo},
-shared.{wg,wi,wo}}}`, `shared` only with always-on shared experts;
+shared.{wg,wi,wo}}}`, `shared` only with always-on shared experts; a
+dense block holds `mlp.{wi,wg,wo}` in place of `moe`;
 xlstm: `mlayers` [n_seg, n_m, ...] and `slayers` [n_seg, ...]), so
 `bridge.params_from_numpy` carries JAX weights across unchanged. Where
 JAX scans over layers and carries the KV and GO caches (or the recurrent
@@ -50,7 +52,7 @@ from repro_torch.core.go_cache import (GOCache, go_cache_init,
 from repro_torch.models import blocks as B
 from repro_torch.models import xlstm as X
 from repro_torch.models.layers import (dense_init, dtype_of, embed_init,
-                                       rmsnorm)
+                                       mlp_init, rmsnorm)
 
 
 def layer_windows(cfg) -> list[int]:
@@ -61,19 +63,22 @@ def layer_windows(cfg) -> list[int]:
 def check_served(cfg) -> None:
     """Raise on a configuration the port does not serve yet: it serves the
     xlstm family (model_forward and static generate()) and the attention
-    family with an MoE sublayer, either expert choice with the GO cache or
-    token choice, with or without always-on shared experts."""
+    family with the dense SwiGLU MLP (no MoE, d_ff > 0) or with an MoE
+    sublayer, either expert choice with the GO cache or token choice, with
+    or without always-on shared experts."""
     if cfg.block == "xlstm":
         return
     e = cfg.moe
+    if cfg.block == "attn" and e is None and cfg.d_ff > 0:
+        return
     if cfg.block != "attn" or e is None or e.routing not in (
             "expert_choice", "token_choice") or (
             e.routing == "expert_choice" and not e.go_cache):
         raise NotImplementedError(
-            f"{cfg.name}: the port serves attention blocks with MoE "
-            "(expert choice with the GO cache, or token choice) so far; "
-            "dense MLPs and the other families are ROADMAP.md Queue 1 "
-            "items 4, 5 and 9")
+            f"{cfg.name}: the port serves attention blocks with the dense "
+            "SwiGLU MLP or with MoE (expert choice with the GO cache, or "
+            "token choice) so far; expert choice without the GO cache and "
+            "the other families are ROADMAP.md Queue 1 items 4 and 9")
     MOE.check_backend(e)
 
 
@@ -105,8 +110,8 @@ def expert_group_members(cfg, device) -> torch.Tensor:
 
 def _groups(cfg, device) -> dict:
     """The group map and members a block's token-choice MoE reads (none for
-    expert choice)."""
-    if cfg.moe.routing == "expert_choice":
+    expert choice or a dense MLP)."""
+    if cfg.moe is None or cfg.moe.routing == "expert_choice":
         return {}
     return {"group_of_expert": expert_groups(cfg, device),
             "group_members": expert_group_members(cfg, device)}
@@ -179,6 +184,11 @@ def model_init(cfg, generator: torch.Generator, device) -> dict:
         "attn": {"wq": dense(d, nq * hd), "wk": dense(d, nkv * hd),
                  "wv": dense(d, nkv * hd), "wo": dense(nq * hd, d)},
     }
+    if cfg.moe is None:
+        layers["mlp"] = _stacked(L, lambda: mlp_init(g, d, cfg.d_ff, dt,
+                                                     device))
+        p["layers"] = layers
+        return p
     E, de = cfg.moe.num_experts, cfg.moe.d_expert
     layers["moe"] = {
         "gate": dense(d, E, torch.float32),
@@ -247,7 +257,8 @@ def init_decode_state(cfg, batch: int, max_len: int, device, *,
                       per_slot_t: bool = False,
                       paged: tuple[int, int] | None = None) -> dict:
     """Zero decode state: the per-layer GO caches [L, B, E, k, (d)] (expert
-    choice with the GO cache only) and the position `t`, an int (the static batch moves in lock step) or, with
+    choice with the GO cache only; a dense MLP keeps none) and the
+    position `t`, an int (the static batch moves in lock step) or, with
     per_slot_t, an int32 tensor [B] (every pool slot at its own offset).
 
     The KV is dense rows [L, B, max_len, Hkv, hd], or, with
@@ -301,7 +312,7 @@ def init_decode_state(cfg, batch: int, max_len: int, device, *,
         shp = (L, batch, max_len, cfg.num_kv_heads, hd)
         st["k"] = torch.zeros(shp, dtype=dt, device=device)
         st["v"] = torch.zeros(shp, dtype=dt, device=device)
-    if e.routing == "expert_choice" and e.go_cache:
+    if e is not None and e.routing == "expert_choice" and e.go_cache:
         st["go"] = go_cache_init(batch, e.num_experts, e.top_k, cfg.d_model,
                                  torch.int8 if quant else dt, device,
                                  lead=(L,))

@@ -15,11 +15,12 @@ Counterpart of repro/serving/engine.py (`ServingEngine`), the engine's core:
   retire   a slot frees on EOS or length; its caches reset
            (init_decode_slot) and the row is reusable at once.
 
-MODELS: the attention family with an MoE sublayer
-(models/model.py:check_served): expert choice through the GO cache
-(llama_moe_4_16), and token choice, on the C1 group path at prefill and
-through dispatch at decode (granite-moe-3b-a800m, and deepseek-moe-16b,
-whose always-on shared experts add their output inside each MoE call).
+MODELS: the attention family (models/model.py:check_served) with an MoE
+sublayer, expert choice through the GO cache (llama_moe_4_16) or token
+choice, on the C1 group path at prefill and through dispatch at decode
+(granite-moe-3b-a800m, and deepseek-moe-16b, whose always-on shared
+experts add their output inside each MoE call), or with the dense SwiGLU
+MLP (starcoder2-3b, GQA 24/2 with a 4096-token sliding window).
 
 The engine reads each tick's tokens back to the host once. Greedy
 streams equal the static `launch.serve.generate()`'s for the same cache
@@ -118,13 +119,27 @@ the entry without a prefill: its full pages map the donor's copy-on-write,
 the tail and GO rows are copied in, and its first token comes from the
 cached logits under its own temperature and generator, so its stream is
 the cold admission's bit for bit. It reserves only its non-shared pages.
-A chunked prefill deposits nothing (its expert-choice routing ran at
-chunk capacities). Under page pressure the index gives up its LRU
-entries before an admission waits; `run()` flushes it on drain. Only the
-exact full-prompt match is served: an MoE prefill routes with
-whole-sequence competition, so a shared prefix's KV under a longer prompt
-is not that prompt's; the dense prefix extension waits for a dense family
-(ROADMAP.md Queue 1 item 9).
+An MoE chunked prefill deposits nothing (its routing ran at chunk
+capacities); a dense one deposits as a one-shot admission does, unlike
+the reference's, which deposits no chunk run: a dense chunk run's pages
+hold the KV any prompt with that prefix writes under the same chunking,
+and without it a prompt longer than the chunk could never donate. Under
+page pressure the index gives up its LRU entries before an admission
+waits; `run()` flushes it on drain. An MoE config is served the exact
+full-prompt match only: an MoE prefill routes with whole-sequence
+competition, so a shared prefix's KV under a longer prompt is not that
+prompt's. A dense config also takes the PREFIX
+EXTENSION (`_ext_hit`, `_admit_prefix_ext`): a prompt whose page-aligned
+prefix is in the index maps those pages copy-on-write and prefills only
+the remainder, in one paged prefill_chunk from the shared boundary (K4
+over the shared pages on a card). With chunked prefill it shares only up
+to the start of the prompt's last chunk, so the remainder is the chunk a
+cold run prefills there, and its streams are the cold run's bit for bit
+on a card too; without chunking the remainder's products differ in shape
+from a one-shot prefill's, so on a card in bf16 they may round otherwise.
+The shared pages are discounted from its admission gate, and it counts
+one prefix hit, its shared pages and the prefix's tokens as skipped. Code
+completion over a shared repository context is this traffic.
 
 EXPERT-AWARE ADMISSION (`expert_aware=True`, MoE configs): submit
 fingerprints each prompt with `expert_signature` (the layer-0 gate over
@@ -543,10 +558,11 @@ class ServingEngine:
                     self._resume(free[0], req)
                 elif self.prefill_chunk and \
                         req.prompt_len > self.prefill_chunk and \
-                        self._full_hit(req) is None:
+                        self._full_hit(req) is None and \
+                        self._ext_hit(req) is None:
                     # a long prompt with no cached prefix: chunked prefill
-                    # (a hit skips the prefill, so it does not wait for the
-                    # chunk lane)
+                    # (a hit skips (part of) the prefill, so it does not
+                    # wait for the chunk lane)
                     self._start_chunk_job(free[0], req)
                 else:
                     self._admit_any(free[0], req, done)
@@ -694,9 +710,10 @@ class ServingEngine:
     def _can_admit_now(self, req: Request) -> bool | None:
         """One evaluation of the gate: a paged pool must be able to reserve
         the request's worst-case pages, less the pages a prefix-index hit
-        shares (a copy-on-write reference takes nothing from the free
-        list); a to-be-chunked prompt without a hit waits for the single
-        chunk lane (None: blocked by the lane, not by pages). A PREEMPTED
+        (full prompt, or a dense prefix extension) shares (a copy-on-write
+        reference takes nothing from the free list); a to-be-chunked
+        prompt without a hit waits for the single chunk lane (None:
+        blocked by the lane, not by pages). A PREEMPTED
         head resumes from its snapshot: it needs only its remaining worst
         case and never re-prefills. A blocked head blocks the queue (no
         overtaking, so no starvation)."""
@@ -708,6 +725,10 @@ class ServingEngine:
             if entry is not None:
                 return self.pool.alloc.can_reserve(
                     self.pool.pages_needed(req) - len(entry["nodes"]))
+            shared = self._ext_hit(req)
+            if shared is not None:
+                return self.pool.alloc.can_reserve(
+                    self.pool.pages_needed(req) - len(shared))
         if self.prefill_chunk and req.prompt_len > self.prefill_chunk \
                 and self._chunk_job is not None:
             return None
@@ -731,6 +752,7 @@ class ServingEngine:
         if head.request_id not in self._preempted and self.prefill_chunk \
                 and head.prompt_len > self.prefill_chunk \
                 and self._full_hit(head) is None \
+                and self._ext_hit(head) is None \
                 and self._chunk_job is not None:
             return False     # blocked on the chunk LANE: eviction can't help
         victims = [(owner.priority, self._victim_rank(slot),
@@ -865,9 +887,9 @@ class ServingEngine:
         quarantine the request to FAILED before it occupies the slot (a
         chunk run's claimed pages are scrubbed and freed). An expert-aware
         engine refines the signature and feeds the load EWMAs; with prefix
-        sharing the prompt deposits its artifacts (`deposit=False` for a
-        chunk run: its routing ran at chunk capacities, so its GO rows and
-        logits are not the one-shot ones an entry promises)."""
+        sharing the prompt deposits its artifacts (`deposit=False` for an
+        MoE chunk run: its routing ran at chunk capacities, so its GO rows
+        and logits are not the one-shot ones an entry promises)."""
         first, gen = self._first_token(req, logits)
         if first < 0:
             if page_row is not None:
@@ -915,13 +937,46 @@ class ServingEngine:
             return None
         return self.prefix_index.lookup_full(req.prompt)
 
+    def _ext_hit(self, req: Request):
+        """The shared page chain of a page-aligned PREFIX of `req`'s prompt,
+        or None. Dense archs only: an MoE prefill routes with whole-sequence
+        competition (expert-choice capacity, token choice's pooled ranks),
+        so a prefix's KV under a longer prompt is not the KV this prompt's
+        prefill would write; a dense prefix's KV is position-local, and
+        prefilling the remainder over it is the chunked prefill. A chain
+        that covers the whole prompt gives back its last page (the
+        admission needs prefill logits to emit from). With chunked prefill
+        the chain is cut back to the start of the last chunk a cold
+        chunked prefill of this prompt runs, so the remainder is that very
+        chunk, at its position and width: its products round as the cold
+        run's do (a GEMM's kernel, and so its bits, may change with the
+        row count and the chunk's offset). A chain that does not reach
+        that chunk goes to the chunk lane or a one-shot prefill."""
+        if self.prefix_index is None or self.cfg.moe is not None:
+            return None
+        shared = self.prefix_index.lookup_prefix(req.prompt)
+        ps, Cs = self.pool.page_size, self.prefill_chunk
+        while shared and len(shared) * ps >= req.prompt_len:
+            shared.pop()
+        if Cs:
+            last = (req.prompt_len - 1) // Cs * Cs
+            if len(shared) * ps < last:
+                return None
+            del shared[last // ps:]
+        return shared or None
+
     def _admit_any(self, slot: int, req: Request,
                    done: list[Request]) -> None:
-        """Admission dispatch: a full-prompt cache hit (no prefill), or a
-        cold one-shot prefill."""
+        """Admission dispatch: a full-prompt cache hit (no prefill), a dense
+        prefix-extension hit (prefill of the remainder only), or a cold
+        one-shot prefill."""
         entry = self._full_hit(req)
         if entry is not None:
             self._admit_from_cache(slot, req, entry, done)
+            return
+        shared = self._ext_hit(req)
+        if shared is not None:
+            self._admit_prefix_ext(slot, req, shared, done)
             return
         self._admit(slot, req, done)
 
@@ -953,6 +1008,31 @@ class ServingEngine:
         if self.pool.remaining[slot] <= 0 or \
                 (req.eos_id is not None and first == req.eos_id):
             self._retire_slot(slot, RequestStatus.DONE, done)
+
+    def _admit_prefix_ext(self, slot: int, req: Request, shared,
+                          done: list[Request]) -> None:
+        """Dense prefix-extension admission: map the cached prefix's pages
+        copy-on-write (SlotPool.claim_prefix_ext_pages) and prefill ONLY
+        the remainder, right-padded to a whole chunk (with chunked prefill:
+        the cold run's last chunk, `_ext_hit`) or else to whole pages, in
+        one paged prefill_chunk from the shared boundary over the shared
+        pages: the chunk lane's machinery
+        (`_paged_skeleton`, `_prefill_lent`) minus the chunks the cache
+        holds. The chunk writes only the request's fresh pages, in place;
+        the admission then installs as a chunk run does and deposits its
+        prompt."""
+        ps, Cs = self.pool.page_size, self.prefill_chunk
+        start = len(shared) * ps
+        row = self.pool.claim_prefix_ext_pages(req, shared)
+        rem = req.prompt_len - start
+        width = Cs or -(-rem // ps) * ps
+        state, logits = self._prefill_lent(
+            self._paged_skeleton(row),
+            np.pad(req.prompt[start:], (0, width - rem)), start, rem)
+        self.prefix_hits += 1
+        self.pages_shared += len(shared)
+        self.prefill_tokens_skipped += start
+        self._install(slot, req, state, logits, done, page_row=row)
 
     def _deposit(self, slot: int, req: Request, logits) -> None:
         """Record a freshly admitted prompt in the prefix index: pin its
@@ -1002,17 +1082,7 @@ class ServingEngine:
         page_row = None
         if self.pool.paged:
             page_row = self.pool.claim_chunk_pages(req)
-            # an int8 pool's skeleton stays full precision: its GO rows
-            # accumulate across chunks (go_cache_merge) and quantize once,
-            # at the install; only the pool's pages and scales are lent
-            skel_cfg = (self.cfg.with_overrides(kv_quant="none")
-                        if self.pool.quant else self.cfg)
-            state = init_decode_state(skel_cfg, 1, self.pool.max_tokens,
-                                      self.device,
-                                      paged=(1, self.pool.page_size))
-            del state["k_pages"], state["v_pages"]
-            state["block_table"] = torch.from_numpy(
-                page_row[None, :].copy()).to(self.device)
+            state = self._paged_skeleton(page_row)
         else:
             state = init_decode_state(self.cfg, 1, self.pool.max_tokens,
                                       self.device)
@@ -1027,28 +1097,51 @@ class ServingEngine:
         if job is not None and job.pos >= len(job.prompt):
             self._chunk_job = None
             self._install(job.slot, job.req, job.state, job.logits, done,
-                          page_row=job.page_row, deposit=False)
+                          page_row=job.page_row,
+                          deposit=self.cfg.moe is None)
 
     def _advance_chunk_job_once(self) -> None:
-        """Prefill the job's next chunk. A paged job lends the pool's page
-        tensors to the chunk, which writes only the job's claimed pages
-        (disjoint from every active slot's), in place."""
+        """Prefill the job's next chunk (a paged job's writes only its
+        claimed pages, disjoint from every active slot's, in place)."""
         job = self._chunk_job
         Cs = self.prefill_chunk
-        chunk = torch.from_numpy(job.prompt[job.pos:job.pos + Cs].copy())
-        valid = min(Cs, job.req.prompt_len - job.pos)
-        paged = job.page_row is not None
-        lent = [k for k in ("k_pages", "v_pages", "k_scales", "v_scales")
-                if paged and k in self.pool.state]
-        for k in lent:
-            job.state[k] = self.pool.state[k]
-        job.state, job.logits = prefill_chunk(
-            self.params, job.state, chunk.to(self.device)[None, :], self.cfg,
-            job.pos, valid)
-        for k in lent:
-            del job.state[k]
+        job.state, job.logits = self._prefill_lent(
+            job.state, job.prompt[job.pos:job.pos + Cs], job.pos,
+            min(Cs, job.req.prompt_len - job.pos))
         job.pos += Cs
         self.chunk_ticks += 1
+
+    def _paged_skeleton(self, page_row: np.ndarray) -> dict:
+        """A batch-1 paged decode state for a chunked prefill into a paged
+        pool: position, GO rows and the request's block-table row, but no
+        page tensors (`_prefill_lent` lends the pool's). An int8 pool's
+        skeleton stays full precision: its GO rows accumulate across chunks
+        (go_cache_merge) and quantize once, at the install."""
+        skel_cfg = (self.cfg.with_overrides(kv_quant="none")
+                    if self.pool.quant else self.cfg)
+        state = init_decode_state(skel_cfg, 1, self.pool.max_tokens,
+                                  self.device, paged=(1, self.pool.page_size))
+        del state["k_pages"], state["v_pages"]
+        state["block_table"] = torch.from_numpy(
+            page_row[None, :].copy()).to(self.device)
+        return state
+
+    def _prefill_lent(self, state: dict, tokens: np.ndarray, start: int,
+                      valid: int):
+        """prefill_chunk of `tokens` (one chunk, right-padded) at `start`
+        into a batch-1 state; a paged skeleton borrows the pool's page
+        tensors (and scales) for the call. Returns (state, logits)."""
+        lent = [k for k in ("k_pages", "v_pages", "k_scales", "v_scales")
+                if "block_table" in state and k in self.pool.state]
+        for k in lent:
+            state[k] = self.pool.state[k]
+        tokens = torch.from_numpy(np.ascontiguousarray(tokens))
+        state, logits = prefill_chunk(self.params, state,
+                                      tokens.to(self.device)[None, :],
+                                      self.cfg, start, valid)
+        for k in lent:
+            del state[k]
+        return state, logits
 
     def _retire_slot(self, slot: int, status: RequestStatus,
                      done: list[Request], reason: str | None = None) -> None:

@@ -257,6 +257,26 @@ class SlotPool:
             write_decode_slot(self.state, slot, slot_state)
         self._arm(slot, req, first_token, generator)
 
+    def claim_prefix_ext_pages(self, req: Request, shared) -> np.ndarray:
+        """Prefix-extension page claim (dense archs): map the cached
+        prefix's physical pages copy-on-write as the request's leading
+        block-table entries, reserve its worst case, and allocate fresh
+        pages for the rest of the prompt and the first decode write.
+        Returns the request's block-table row. The caller prefills ONLY the
+        remainder (prefill_chunk from len(shared) * page_size) into the
+        fresh pages: no write lands on a shared page."""
+        if not self.paged:
+            raise ValueError("prefix sharing is paged-pool only")
+        rid = req.request_id
+        shared = [int(p) for p in shared]
+        self.alloc.share(rid, shared)
+        self.reserve_pages(req)
+        n0 = pages_for_tokens(req.prompt_len + 1, self.page_size)
+        row = np.zeros(self.block_table.shape[1], np.int32)
+        row[:len(shared)] = shared
+        row[len(shared):n0] = self.alloc.alloc(rid, n0 - len(shared))
+        return row
+
     def admit_from_prefix(self, slot: int, req: Request, shared,
                           entry: dict, first_token: int, *,
                           generator: torch.Generator | None = None) -> None:

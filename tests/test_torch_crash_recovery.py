@@ -1,7 +1,8 @@
 """Kill, recover, resume: the port engine's crash-tolerance contract
 (serving/engine.py `recover`, serving/journal.py, runtime/fault.py
 `ProcessSupervisor`, the serve CLI's --journal-dir / --crash-step /
---supervise) on the smoke llama_moe_4_16, fp32, on the CPU.
+--supervise) on the smoke llama_moe_4_16, fp32, on the CPU, and a dense
+prefix extension on the smoke starcoder2-3b.
 
 Port against port, the reference's contracts (tests/test_crash_recovery.py):
 a journaled engine abandoned mid-run (everything durable is fsync'd, as
@@ -380,6 +381,49 @@ def test_recover_slots_that_fit_only_by_sharing(tmp_path):
     fin = rec.run()
     assert [fin[r].tokens for r in rids] == [pfin[r].tokens for r in pids]
     assert rec.stats()["statuses"] == {"DONE": 2}
+    assert not rec._replay_expect and rec.pool.alloc.pages_in_use == 0
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_recover_dense_prefix_extension(tmp_path, kv_quant):
+    """The smoke starcoder2-3b (dense, window 32), journaled with prefix
+    sharing: a donor of 36 tokens deposits its four full pages, and two
+    consumers of the same 32-token prefix and their own 6-token tails
+    admit through the dense prefix extension, decoding past the window.
+    The snapshot at tick 6 holds the shared prefix pages, once, and the
+    consumers' slots mapping them; the engine abandoned at tick 7 and
+    recovered finishes every stream as the uninterrupted run does."""
+    _, cfg, _, params = smoke_pair("starcoder2-3b")
+    rng = np.random.default_rng(12)
+    prefix = rng.integers(0, cfg.vocab_size, size=32, dtype=np.int32)
+    prompts = [np.concatenate([prefix, rng.integers(
+        0, cfg.vocab_size, size=n, dtype=np.int32)]) for n in (4, 6, 6)]
+    pool = dict(num_slots=3, max_tokens=64, paged=True, page_size=8,
+                prefix_share=True, kv_quant=kv_quant)
+
+    def submit(eng):
+        return [eng.submit(p, 16, arrival_step=a)
+                for p, a in zip(prompts, (0, 2, 3))]
+
+    plain = ServingEngine(params, cfg, device="cpu", **pool)
+    pids = submit(plain)
+    pfin = plain.run()
+    assert plain.prefix_hits == 2 and plain.prefill_tokens_skipped == 64
+    eng = ServingEngine(params, cfg, device="cpu", journal_dir=str(tmp_path),
+                        snapshot_every=6, **pool)
+    rids = submit(eng)
+    while eng.step_count < 7:
+        eng.step()
+    payload = EngineJournal.latest_committed(str(tmp_path))[1]
+    assert payload["meta"]["step"] == 6 and len(payload["slots"]) == 3
+    assert payload["counters"]["prefix_hits"] == 2
+    assert len(payload["pages"]["ids"]) == 4
+
+    rec = _recover(tmp_path, params, cfg)
+    rec.audit_every_tick = True
+    fin = rec.run()
+    assert [fin[r].tokens for r in rids] == [pfin[r].tokens for r in pids]
+    assert rec.stats()["statuses"] == {"DONE": 3}
     assert not rec._replay_expect and rec.pool.alloc.pages_in_use == 0
 
 

@@ -1700,3 +1700,178 @@ def test_cuda_deepseek_smoke_equals_cpu(cuda_device, kv_quant):
     assert (PA.LAUNCHES[f"paged_attn_decode{tag}"],
             PA.LAUNCHES[f"paged_attn_chunk{tag}"]) == \
         (L * s["decode_ticks"], L * s["chunk_ticks"])
+
+
+# ------------------------------------- starcoder2-3b: GQA 12, a binding window
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("qdtype,pages,tol", [
+    (torch.float32, "fp32", 2e-5), (torch.bfloat16, "bf16", 2e-2),
+    (torch.float32, "int8", 2e-5), (torch.bfloat16, "int8", 2e-2)])
+def test_cuda_paged_attn_gqa12_window(cuda_device, qdtype, pages, tol):
+    """K3 and K4 at starcoder2's grouping (24 query heads on 2 kv heads of
+    128: K3's GB 16 body, K4's fp32 body at one query a block, K4's bf16
+    body with warps whose 16 rows straddle two queries) under a window of
+    100 that binds, on fp32, bf16 and int8 pages, against their plain
+    versions (the tolerances of the other paged tests). +-1e4 (int8: +-127
+    and NaN scales) at every position before the window of every query,
+    and past each row's end, moves no output bit: nothing outside the
+    window is read."""
+    hq, nkv, hd, ps, P, window = 24, 2, 128, 16, 20, 100
+    t = np.array([0, 99, 100, 150, 319], np.int32)
+    start, Cs, kv_len = 200, 40, 240
+    B = len(t)
+    rng = np.random.default_rng(60)
+    NP = B * P + 1
+    kp = torch.from_numpy(rng.standard_normal((NP, ps, nkv, hd)).astype(
+        np.float32)).to(cuda_device)
+    vp = torch.from_numpy(rng.standard_normal((NP, ps, nkv, hd)).astype(
+        np.float32)).to(cuda_device)
+    bt = torch.from_numpy(rng.permutation(np.arange(1, NP)).reshape(
+        B, P).astype(np.int32)).to(cuda_device)
+    g = torch.Generator(device="cuda").manual_seed(61)
+    q = torch.randn(B, hq, hd, device="cuda", generator=g).to(qdtype)
+    qc = torch.randn(B, Cs, hq, hd, device="cuda", generator=g).to(qdtype)
+    # readable: decode row b keys (t - window, t]; the chunk's keys
+    # (start - window, kv_len)
+    pos = torch.arange(P * ps, device=cuda_device)
+    dec_ok = (pos[None] <= torch.from_numpy(t).to(cuda_device)[:, None]) & \
+        (pos[None] > torch.from_numpy(t).to(cuda_device)[:, None] - window)
+    chk_ok = ((pos < kv_len) & (pos > start - window))[None].expand(B, -1)
+
+    def pool(ok, fill):
+        sel = torch.zeros(NP, ps, dtype=torch.bool, device=cuda_device)
+        for b in range(B):
+            p = pos[ok[b]]
+            sel[bt[b, p // ps].long(), p % ps] = True
+        sel = sel[:, :, None, None]
+        k, v = (torch.where(sel, a, fill) for a in (kp, vp))
+        if pages != "int8":
+            return (k.to(qdtype), v.to(qdtype)), {}
+        (k8, ks), (v8, vs) = Q.quantize_pages(torch.where(sel, kp, 0.0)), \
+            Q.quantize_pages(torch.where(sel, vp, 0.0))
+        live_page = sel[:, :, 0, 0].any(dim=1)[:, None].expand(-1, nkv)
+        if fill != 0.0:
+            k8 = torch.where(sel, k8, 127).to(torch.int8)
+            v8 = torch.where(sel, v8, -127).to(torch.int8)
+            ks = torch.where(live_page, ks, float("nan"))
+            vs = torch.where(live_page, vs, float("nan"))
+        return (k8, v8), dict(k_scales=ks, v_scales=vs)
+
+    tt = torch.from_numpy(t).to(cuda_device)
+    tag = "_int8" if pages == "int8" else ""
+    before = dict(PA.LAUNCHES)
+    (k, v), sc = pool(dec_ok, 0.0)
+    (kd, vd), scd = pool(dec_ok, 1e4)
+    out = PA.paged_attn_decode(q, k, v, bt, tt, window=window, **sc)
+    torch.testing.assert_close(out, PA.paged_attn_decode_plain(
+        q, k, v, bt, tt, window=window, **sc), rtol=tol, atol=tol)
+    assert torch.equal(out, PA.paged_attn_decode(q, kd, vd, bt, tt,
+                                                 window=window, **scd))
+    assert (out - PA.paged_attn_decode(q, k, v, bt, tt, **sc)).abs().max() \
+        > 1e-2                                 # the window binds
+    (k, v), sc = pool(chk_ok, 0.0)
+    (kd, vd), scd = pool(chk_ok, 1e4)
+    out = PA.paged_attn_chunk(qc, k, v, bt, start, kv_len, window=window,
+                              **sc)
+    torch.testing.assert_close(out, PA.paged_attn_chunk_plain(
+        qc, k, v, bt, start, kv_len, window=window, **sc), rtol=tol,
+        atol=tol)
+    assert torch.equal(out, PA.paged_attn_chunk(qc, kd, vd, bt, start, kv_len,
+                                                window=window, **scd))
+    torch.cuda.synchronize()
+    assert PA.LAUNCHES[f"paged_attn_decode{tag}"] == \
+        before[f"paged_attn_decode{tag}"] + 3
+    assert PA.LAUNCHES[f"paged_attn_chunk{tag}"] == \
+        before[f"paged_attn_chunk{tag}"] + 2
+
+
+def _starcoder2_smoke():
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import model_init
+    cfg = get_config("starcoder2-3b", smoke=True)
+    return cfg, model_init(cfg, torch.Generator().manual_seed(0), "cpu")
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_cuda_starcoder2_smoke_equals_cpu(cuda_device, kv_quant):
+    """The smoke starcoder2-3b (dense SwiGLU MLP, GQA 4/2, window 32) on the
+    card against the CPU: static generate() on 40-token prompts (the
+    window binds), tokens equal and logits within 1e-5 (fp32); then the
+    engine's staggered trace on fp32 or int8 pages with chunks of 16 (one
+    starting at 32), the same streams, K3/K4 once per layer and tick, and
+    no grouped GEMM or GO router launched."""
+    from repro_torch.launch.serve import generate, serve_continuous
+    cfg, params = _starcoder2_smoke()
+    assert "mlp" in params["layers"] and "moe" not in params["layers"]
+    gpu_params = _to(params, cuda_device)
+    L = cfg.num_layers
+    prompts = torch.randint(0, cfg.vocab_size, (4, 40),
+                            generator=torch.Generator().manual_seed(1))
+    cpu = generate(params, cfg, prompts, 6, device="cpu")
+    G.reset_launches()
+    GT.reset_launches()
+    gpu = generate(gpu_params, cfg, prompts.to(cuda_device), 6,
+                   device="cuda")
+    assert torch.equal(gpu["tokens"].cpu(), cpu["tokens"])
+    torch.testing.assert_close(gpu["logits"].cpu(), cpu["logits"],
+                               rtol=1e-5, atol=1e-5)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+               for n in (40, 9, 21)]
+    kw = dict(num_slots=2, max_tokens=48, arrival_steps=[0, 1, 3],
+              paged=True, page_size=8, prefill_chunk=16, kv_quant=kv_quant)
+    cpu = serve_continuous(params, cfg, prompts, 7, device="cpu", **kw)
+    PA.reset_launches()
+    gpu = serve_continuous(gpu_params, cfg, prompts, 7, device="cuda", **kw)
+    for rid, toks in cpu["tokens"].items():
+        np.testing.assert_array_equal(gpu["tokens"][rid], toks)
+    s = gpu["stats"]
+    tag = "_int8" if kv_quant == "int8" else ""
+    assert s["chunk_ticks"] == 5
+    assert (PA.LAUNCHES[f"paged_attn_decode{tag}"],
+            PA.LAUNCHES[f"paged_attn_chunk{tag}"]) == \
+        (L * s["decode_ticks"], L * s["chunk_ticks"])
+    assert all(n == 0 for n in G.LAUNCHES.values())
+    assert all(n == 0 for n in GT.LAUNCHES.values())
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_cuda_dense_prefix_extension_equals_run_without_sharing(cuda_device,
+                                                                kv_quant):
+    """The dense prefix extension on the card: five requests share a
+    16-token prefix and differ in a 6-token tail; four admit by mapping the
+    prefix's two pages and prefilling their tails through K4 over the
+    shared pages (one K4 launch a layer each). Streams equal the card's run
+    without sharing and, on fp32 pages, the CPU's."""
+    from repro_torch.serving import ServingEngine
+    cfg, params = _starcoder2_smoke()
+    card = _to(params, cuda_device)
+    rng = np.random.default_rng(7)
+    prefix = rng.integers(0, cfg.vocab_size, size=16, dtype=np.int32)
+    prompts = [np.concatenate([prefix, rng.integers(
+        0, cfg.vocab_size, size=6, dtype=np.int32)]) for _ in range(5)]
+
+    def run(p, device, share):
+        eng = ServingEngine(p, cfg, device=device, num_slots=2,
+                            max_tokens=48, paged=True, page_size=8,
+                            kv_quant=kv_quant, prefix_share=share)
+        eng.audit_every_tick = True
+        rids = [eng.submit(x, 6, arrival_step=2 * i)
+                for i, x in enumerate(prompts)]
+        fin = eng.run()
+        s = eng.stats()
+        return [fin[r].tokens for r in rids], (
+            s["prefix_hits"], s["prefill_tokens_skipped"], s["pages_shared"],
+            s["pages_in_use"])
+
+    tag = "_int8" if kv_quant == "int8" else ""
+    PA.reset_launches()
+    got, counters = run(card, "cuda", True)
+    assert PA.LAUNCHES[f"paged_attn_chunk{tag}"] == 4 * cfg.num_layers
+    assert counters == (4, 64, 8, 0)
+    assert got == run(card, "cuda", False)[0]
+    if kv_quant == "none":
+        assert got == run(params, "cpu", True)[0]

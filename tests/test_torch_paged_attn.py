@@ -11,7 +11,8 @@ realization), which are held against
 
 Cases: ragged positions on and around page boundaries, shuffled physical
 page ids, null pages behind short rows, GQA ratios 4/2/1 and the window and
-softcap cases of tests/test_paged_attn.py; the same on int8 pages with
+softcap cases of tests/test_paged_attn.py, and starcoder2's GQA 12 (24/2)
+under a binding window; the same on int8 pages with
 k_scales/v_scales (the JAX kernel's quantized operand, pages quantized by
 repro.core.quant), and K3's and K4's CUDA algorithms on int8 pages
 emulated on the CPU against the JAX kernel. The CUDA kernels themselves are
@@ -362,6 +363,65 @@ def test_chunk_plain_int8_matches_jax_kernel_and_gather(nkv, window,
     np.testing.assert_allclose(got, np.asarray(gath), **TOL_GATHER)
 
 
+@pytest.mark.parametrize("quant", ["none", "int8"])
+@pytest.mark.parametrize("kernel", ["decode", "chunk"])
+def test_gqa12_plain_matches_jax_kernel_and_gather(kernel, quant):
+    """starcoder2's GQA group of 12 (24 query heads on 2 kv heads) with a
+    window of 5 that binds at every row past position 4: K3's plain version
+    over the ragged rows, K4's over the right-padded chunk, on fp32 and
+    int8 pages, against the JAX kernel and the JAX gather."""
+    nkv, hq, window = 2, 24, 5
+    rng = np.random.default_rng(17)
+    if kernel == "decode":
+        B = len(RAGGED_T)
+        q = rng.standard_normal((B, hq, HD)).astype(np.float32)
+        live, t = RAGGED_T + 1, RAGGED_T.astype(np.int32)
+    else:
+        B, Cs, start, kv_len = 3, 8, 16, 21
+        q = rng.standard_normal((B, Cs, hq, HD)).astype(np.float32)
+        live = [start + Cs] * B
+    if quant == "int8":
+        k8, v8, ks, vs, bt = _int8_pools(nkv, live, seed=18)
+        kv = (k8, v8)
+        sc = dict(k_scales=_t(ks), v_scales=_t(vs))
+        jsc = dict(k_scales=jnp.asarray(ks), v_scales=jnp.asarray(vs))
+        dense = (_deq(k8, ks, bt), _deq(v8, vs, bt))
+    else:
+        kp, vp, bt = _pools(nkv, live, seed=18)
+        kv, sc, jsc = (kp, vp), {}, {}
+        dense = tuple(a[bt].reshape(B, P * PS, nkv, HD) for a in kv)
+    args = (_t(q), _t(kv[0]), _t(kv[1]), _t(bt))
+    jargs = (jnp.asarray(q), jnp.asarray(kv[0]), jnp.asarray(kv[1]),
+             jnp.asarray(bt))
+    if kernel == "decode":
+        got = PA.paged_attn_decode(*args, _t(t), window=window, **sc)
+        kern = JPA.paged_attn_decode(*jargs, jnp.asarray(t), window=window,
+                                     interpret=True, **jsc)
+        k_pos = np.arange(P * PS)
+        mask = (k_pos[None, :] <= t[:, None]) & \
+            (k_pos[None, :] > t[:, None] - window)
+        gath = JATT._decode_sdpa(jnp.asarray(q)[:, None],
+                                 *(jnp.asarray(a) for a in dense),
+                                 jnp.asarray(mask), 0.0)[:, 0]
+    else:
+        got = PA.paged_attn_chunk(*args, start, kv_len, window=window, **sc)
+        kern = JPA.paged_attn_chunk(*jargs, start, kv_len, window=window,
+                                    interpret=True, **jsc)
+        gath = JATT.sdpa_chunked(
+            jnp.asarray(q), *(jnp.asarray(a) for a in dense),
+            jnp.arange(start, start + Cs, dtype=jnp.int32),
+            jnp.arange(P * PS, dtype=jnp.int32),
+            jnp.asarray(window, jnp.int32), jnp.asarray(kv_len, jnp.int32),
+            causal=True, softcap=0.0)
+    assert got.shape == q.shape and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(kern), **TOL_KERNEL)
+    np.testing.assert_allclose(got.numpy(), np.asarray(gath), **TOL_GATHER)
+    # the window binds: without it the outputs move
+    nowin = (PA.paged_attn_decode(*args, _t(t), **sc) if kernel == "decode"
+             else PA.paged_attn_chunk(*args, start, kv_len, **sc))
+    assert (nowin - got).abs().max() > 1e-2
+
+
 def test_int8_unreachable_pages_and_nan_scales_never_leak():
     """The kernels' contract for an int8 pool, held by the plain versions
     where they can: +-127 at every unreadable position of a live page
@@ -413,7 +473,9 @@ def test_page_traffic_model_matches_reference():
 
 # (Cs, G, hd, ps, P, start, kv_len, window): llama's and granite's last
 # engine chunk, a window, kv_len inside a page with pad queries, a chunk
-# starting at 0, head_dim 256 (32-key tiles), a chunk of 16 rows (W = 1)
+# starting at 0, head_dim 256 (32-key tiles), a chunk of 16 rows (W = 1),
+# starcoder2's last chunk of its windowed cell (G 12: a warp's 16 rows
+# straddle two queries; the 4096-token window cuts the first tiles)
 TILE_CASES = {
     "llama": (128, 1, 128, 16, 32, 320, 448, 0),
     "granite": (128, 3, 64, 16, 32, 320, 448, 0),
@@ -422,6 +484,7 @@ TILE_CASES = {
     "start_0": (128, 1, 128, 16, 32, 0, 128, 0),
     "hd256_window": (24, 4, 256, 16, 5, 37, 57, 9),
     "one_warp": (16, 1, 64, 8, 6, 5, 21, 3),
+    "starcoder2_window": (512, 12, 128, 16, 320, 4096, 4608, 4096),
 }
 
 
@@ -559,6 +622,31 @@ def test_chunk_tc_algorithm_matches_jax_kernel(window, softcap):
                                **TOL_KERNEL)
 
 
+def test_chunk_tc_algorithm_gqa12_window_matches_jax_kernel():
+    """starcoder2's GQA 12 on the new body's tiling: a warp's 16 (query,
+    head) rows straddle two queries, each masked by its own causal and
+    window limit (window 20 over 3 key tiles of pages of 16), against the
+    JAX Pallas chunk kernel in interpret mode: 1e-5."""
+    rng = np.random.default_rng(41)
+    B, Cs, nkv, G_, hd, ps, Pn, start, kv_len, window = \
+        1, 10, 2, 12, 16, 16, 12, 130, 137, 20
+    q = rng.standard_normal((B, Cs, nkv * G_, hd)).astype(np.float32)
+    NP = B * Pn + 1
+    kp = rng.standard_normal((NP, ps, nkv, hd)).astype(np.float32)
+    vp = rng.standard_normal((NP, ps, nkv, hd)).astype(np.float32)
+    bt = (rng.permutation(np.arange(1, NP))[:B * Pn]
+          .reshape(B, Pn).astype(np.int32))
+    bt[:, -(-kv_len // ps):] = 0
+    got = _chunk_tc_emulated(_t(q), _t(kp), _t(vp), _t(bt), start, kv_len,
+                             window, 0.0)
+    kern = JPA.paged_attn_chunk(jnp.asarray(q), jnp.asarray(kp),
+                                jnp.asarray(vp), jnp.asarray(bt), start,
+                                kv_len, window=window, interpret=True)
+    n = kv_len - start
+    np.testing.assert_allclose(got.numpy()[:, :n], np.asarray(kern)[:, :n],
+                               **TOL_KERNEL)
+
+
 # ---------------------------------------- K3's split-KV body: launch arithmetic
 
 # (P, ps, window): the engine's pool (32 pages of 16), pages of 8 and 4
@@ -671,7 +759,7 @@ def _decode_split_emulated(q, kp, vp, bt, t, window, softcap,
 
 @pytest.mark.parametrize("G_,window,softcap", [(3, 0, 0.0), (3, 40, 0.0),
                                                (3, 0, 4.0), (1, 70, 3.0),
-                                               (4, 100, 0.0)])
+                                               (4, 100, 0.0), (12, 40, 0.0)])
 def test_decode_split_algorithm_matches_jax_kernel(G_, window, softcap):
     """K3's split-KV algorithm, emulated on the CPU at pages of 8 (8 pages,
     64 keys a split, 3 splits of 24 pages; two 32-key tiles a split, one a

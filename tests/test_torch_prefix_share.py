@@ -14,8 +14,14 @@ Pallas path in interpret mode): the full-match trace's streams, admit
 steps and counters, the expert-aware engine's admit steps and streams,
 and the gate probe's signatures.
 
-The reference's dense prefix extension on `starcoder2-3b` waits for the
-dense family (ROADMAP.md Queue 1 item 9): the port does not serve it yet.
+The dense prefix extension on the smoke `starcoder2-3b` (window 32):
+consumers map a cached page-aligned prefix and prefill only the rest,
+against the FIFO engine and the JAX engine, with a window that binds
+across the shared pages, a donor that prefilled through the chunk lane
+(the port deposits a dense chunk run; the reference deposits none),
+sharing with chunked prefill only up to the consumer's last chunk (the
+reference shares every cached page), and an admission gate that counts
+only the consumer's own pages.
 """
 import numpy as np
 import pytest
@@ -214,6 +220,145 @@ def test_index_pins_yield_to_blocked_admissions(port_params):
     assert _streams(got) == _streams(base)
 
 
+# ------------------------------------------------ the dense prefix extension
+
+DENSE = "starcoder2-3b"
+
+
+@pytest.fixture(scope="module")
+def dense_pair():
+    return smoke_pair(DENSE)
+
+
+def _ext_prompts(cfg, seed, prefix_len, tail_len, n):
+    rng = np.random.default_rng(seed)
+    prefix = _rand(cfg, rng, prefix_len)
+    return [np.concatenate([prefix, _rand(cfg, rng, tail_len)])
+            for _ in range(n)]
+
+
+@pytest.mark.parametrize("kv_quant", ["none", "int8"])
+def test_dense_prefix_extension_equals_fifo_and_jax_engine(dense_pair,
+                                                           kv_quant,
+                                                           monkeypatch):
+    """tests/test_prefix_share.py's dense case: five requests share a
+    page-aligned 16-token prefix and differ in a 6-token tail. The first
+    prefills and deposits; the four others map its two full pages and
+    prefill only their tails from position 16 (prefill_chunk over the
+    shared pages). Counters 4, 64, 8; streams equal the port's run without
+    sharing and, on fp32 pages, the JAX sharing engine's, with its counters
+    and admit steps."""
+    monkeypatch.delenv("REPRO_PREFIX_SHARE", raising=False)
+    jcfg, tcfg, jp, tp = dense_pair
+    prompts = _ext_prompts(tcfg, 7, 16, 6, 5)
+    kw = dict(num_slots=2, max_tokens=48, paged=True, page_size=8,
+              kv_quant=kv_quant)
+    arrivals = [0, 2, 4, 6, 8]
+    _, base = _serve(tp, tcfg, prompts, 6, arrivals=arrivals, **kw)
+    eng, got = _serve(tp, tcfg, prompts, 6, arrivals=arrivals,
+                      prefix_share=True, **kw)
+    s = eng.stats()
+    assert (s["prefix_hits"], s["prefill_tokens_skipped"],
+            s["pages_shared"]) == (4, 4 * 16, 4 * 2)
+    assert s["statuses"] == {"DONE": 5} and s["pages_in_use"] == 0
+    assert _streams(got) == _streams(base)
+    if kv_quant == "none":
+        jeng = JaxEngine(jp, jcfg, prefix_share=True, **kw)
+        jids = [jeng.submit(p, 6, arrival_step=a)
+                for p, a in zip(prompts, arrivals)]
+        jfin = jeng.run()
+        js = jeng.stats()
+        for key in ("prefix_hits", "pages_shared", "prefill_tokens_skipped",
+                    "statuses", "steps"):
+            assert s[key] == js[key], key
+        assert _streams(got) == [jfin[r].tokens for r in jids]
+        assert [r.admit_step for r in got] == \
+            [jfin[r].admit_step for r in jids]
+
+
+@pytest.mark.parametrize("chunk", [0, 16])
+def test_dense_prefix_extension_window_binds_across_shared_pages(dense_pair,
+                                                                 chunk):
+    """A 32-token shared prefix (four pages of 8) and an 8-token tail: the
+    window of 32 drops the first shared page from the tail's last queries
+    and from every decode step. Without chunking the donor prefills
+    one-shot; with chunks of 16 it prefills through the chunk lane (0, 16,
+    32) and deposits, and the consumers' 8-token remainders take the
+    extension path from 32. Streams equal the run without sharing."""
+    _, tcfg, _, tp = dense_pair
+    prompts = _ext_prompts(tcfg, 29, 32, 8, 4)
+    kw = dict(num_slots=2, max_tokens=64, paged=True, page_size=8,
+              prefill_chunk=chunk)
+    arrivals = [0, 4, 5, 9]
+    _, base = _serve(tp, tcfg, prompts, 12, arrivals=arrivals, **kw)
+    eng, got = _serve(tp, tcfg, prompts, 12, arrivals=arrivals,
+                      prefix_share=True, **kw)
+    s = eng.stats()
+    assert (s["prefix_hits"], s["prefill_tokens_skipped"],
+            s["pages_shared"]) == (3, 3 * 32, 3 * 4)
+    assert s["chunk_ticks"] == (3 if chunk else 0)
+    assert s["statuses"] == {"DONE": 4} and s["pages_in_use"] == 0
+    assert _streams(got) == _streams(base)
+
+
+@pytest.mark.parametrize("prefix_len,tail,expect", [
+    (24, 8, (3, 3 * 16, 3 * 2, 2)),     # 3 pages cached, 2 shared: [16, 32)
+    (8, 30, (0, 0, 0, 4 * 3)),          # 1 page cached, last chunk at 32
+])
+def test_dense_prefix_extension_shares_up_to_the_last_chunk(dense_pair,
+                                                            prefix_len, tail,
+                                                            expect):
+    """With chunks of 16 a consumer shares the cached chain only up to the
+    start of its own last chunk, and prefills that chunk as a cold chunked
+    run does (same tokens, position and width). A 24-token prefix (three
+    pages, off a chunk boundary) with 8-token tails shares two pages and
+    prefills [16, 32); an 8-token prefix with 30-token tails does not
+    reach the last chunk (from 32) and takes the chunk lane. Counters
+    (hits, tokens skipped, pages shared, chunk ticks) as derived; streams
+    equal the run without sharing."""
+    _, tcfg, _, tp = dense_pair
+    prompts = _ext_prompts(tcfg, 41, prefix_len, tail, 4)
+    kw = dict(num_slots=2, max_tokens=64, paged=True, page_size=8,
+              prefill_chunk=16)
+    arrivals = [0, 3, 4, 8]
+    _, base = _serve(tp, tcfg, prompts, 6, arrivals=arrivals, **kw)
+    eng, got = _serve(tp, tcfg, prompts, 6, arrivals=arrivals,
+                      prefix_share=True, **kw)
+    s = eng.stats()
+    assert (s["prefix_hits"], s["prefill_tokens_skipped"],
+            s["pages_shared"], s["chunk_ticks"]) == expect
+    assert s["statuses"] == {"DONE": 4} and s["pages_in_use"] == 0
+    assert _streams(got) == _streams(base)
+
+
+def test_dense_prefix_extension_gate_discounts_shared_pages(dense_pair):
+    """A pool of 8 usable pages whose index pins a retired donor's four
+    prefix pages: the consumer (40 + 8 tokens, 6 pages at worst) cannot
+    reserve cold, but its extension hit needs only 2, so it admits without
+    evicting the index and streams as on a roomy pool."""
+    _, tcfg, _, tp = dense_pair
+    donor, consumer = _ext_prompts(tcfg, 31, 32, 8, 2)
+    donor = donor[:32]
+    eng = ServingEngine(tp, tcfg, device="cpu", num_slots=2, max_tokens=48,
+                        paged=True, page_size=8, num_pages=9,
+                        prefix_share=True)
+    eng.audit_every_tick = True
+    eng.submit(donor, 8)
+    while eng.has_work():
+        eng.step()
+    rid = eng.submit(consumer, 8)
+    req = eng.scheduler.queue[0][2]
+    assert not eng.pool.can_admit(req)
+    assert eng._ext_hit(req) is not None and eng._can_admit_now(req)
+    eng.step()
+    assert eng.prefix_hits == 1 and eng.prefix_index.evictions == 0
+    fin = eng.run()
+    _, ref = _serve(tp, tcfg, [consumer], 8, num_slots=1, max_tokens=48,
+                    paged=True, page_size=8)
+    assert fin[rid].tokens == ref[0].tokens
+    assert eng.stats()["pages_in_use"] == 0
+
+
 # ---------------------------------------------------- the poison of a share
 
 @pytest.mark.parametrize("kv_quant", ["none", "int8"])
@@ -327,11 +472,15 @@ def test_gate_probe_fixed_window_equals_reference(arch):
     np.testing.assert_array_equal(sigs[-1], sigs[-2])
 
 
-def test_explicit_flags_validate_config(port_params):
+def test_explicit_flags_validate_config(port_params, dense_pair):
     """Explicit flags on a shape that cannot support them raise the
     reference's errors: prefix sharing on a dense pool, expert-aware
-    admission on a config without MoE."""
+    admission on a config without MoE (starcoder2's too)."""
     cfg, params = port_params
+    _, dcfg, _, dparams = dense_pair
+    with pytest.raises(ValueError, match="MoE"):
+        ServingEngine(dparams, dcfg, num_slots=2, max_tokens=48, paged=True,
+                      expert_aware=True, device="cpu")
     with pytest.raises(ValueError, match="paged"):
         ServingEngine(params, cfg, num_slots=2, max_tokens=48,
                       prefix_share=True, device="cpu")

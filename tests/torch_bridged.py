@@ -1,6 +1,6 @@
 """The smoke models both packages run in the port's parity tests, on the
-same weights: the JAX model (MoE on backend="pallas", in interpret mode on
-the CPU) and the port's, with the JAX weights carried across. Built once
+same weights: the JAX model (MoE, where it has one, on backend="pallas", in
+interpret mode on the CPU) and the port's, with the JAX weights carried across. Built once
 per process and architecture."""
 import dataclasses
 import functools
@@ -18,8 +18,9 @@ from repro_torch.configs.registry import get_config
 def smoke_pair(arch):
     """(JAX config, port config, JAX params, port params on the CPU)."""
     jcfg = jax_config(arch, smoke=True)
-    jcfg = jcfg.with_overrides(
-        moe=dataclasses.replace(jcfg.moe, backend="pallas"))
+    if jcfg.moe is not None:
+        jcfg = jcfg.with_overrides(
+            moe=dataclasses.replace(jcfg.moe, backend="pallas"))
     p = JM.model_init(jax.random.PRNGKey(0), jcfg)
     # the JAX model caches its expert groups per MoE config on first use;
     # made here, outside any jit, so no traced copy lands in that cache
