@@ -95,14 +95,22 @@ Phases (none catches an exception; any failure exits non-zero):
      scaled_dot_product_attention), K3 at splits of 64 and 128 keys and
      K4 at 1, 2 and 4 warps per CTA (each against the plain version and
      its own repeat). Then K3 and K4, bf16 q on bf16 and int8 pages, at
-     starcoder2-3b's GQA 24/2 x 128 with its 4096-token window binding
-     (K3 at t 4639 and 159 over 320 pages, K4 at 512 queries from 4096):
-     against the plain versions at SC2_PAGED_TOL, which must sit below a
-     planted fault's error (64 keys inside the window left out: one of
-     K3's splits, one of K4's key tiles), a pool with +-1e4 (int8: +-127
-     and NaN scales) at every key outside the windows giving the same
-     bits, with kernel, plain and library times and the bound of the
-     pages inside the windows (paged_phase_starcoder2).
+     the dense models' PAGED_SHAPES (paged_phase_windowed, each printing
+     its seconds), each derived from its cell: starcoder2-3b's GQA 24/2
+     x 128 with its 4096-token window binding (its window cell's last
+     decode tick, t 4670 and 190 over 320 pages, and last chunk, 512
+     queries from 4096); qwen2-7b's 28/4 (a group of 7) at its engine
+     trace's last decode tick (t 78, 462, 142, 334) and its 448-token
+     prompt's last chunk (128 queries from 384); gemma3-27b's 32/16 at
+     its window cell's last decode tick (t 1550 and 142 over 128 pages)
+     and last chunk (512 queries from 1024), as a local layer (window
+     1024) and as a global one: against the plain versions at
+     WINDOW_PAGED_TOL, which must sit below a planted fault's error (64
+     keys inside the window left out: one of K3's splits, one of K4's key
+     tiles), a pool with
+     +-1e4 (int8: +-127 and NaN scales) at every key outside the windows
+     giving the same bits, with kernel, plain and library times and the
+     bound of the pages inside the windows.
      K9 slstm_seq against its plain version: fp32 at the JAX test's three
      shapes, then xlstm-1.3b's full-width sLSTM (B 4, S 128, H 4, hd 512,
      fp32 u, bf16 r) on its cluster body (16 CTAs a head, r resident in
@@ -139,9 +147,11 @@ Phases (none catches an exception; any failure exits non-zero):
      `--supervise` at smoke width on the card: the serve CLI as a watched
      child, SIGKILLed at tick 6 of generation 0, restarted once,
      generation 1 recovering from its journal: exit 0, every request DONE.
-     Then starcoder2-3b's smoke config (dense MLP, window 32): static,
-     and the engine on fp32 and int8 pages (with the 66-slot and sampled
-     engines).
+     Then the dense models' smoke configs, each printing its seconds:
+     starcoder2-3b (window 32), qwen2-7b (QKV biases drawn at
+     QKV_BIAS_STD), granite-8b and gemma3-27b (local, local, global;
+     window 16): static, and the engine on fp32 and int8 pages (with the
+     66-slot and sampled engines).
   5. full width, bf16, one set of random weights per model, first
      llama_moe_4_16, then granite-moe-3b-a800m, then deepseek-moe-16b
      (about 16.7 B parameters, 33 GB; the earlier model's weights freed
@@ -163,22 +173,23 @@ Phases (none catches an exception; any failure exits non-zero):
         the same trace on int8 KV pages and GO rows (`llama_engine_int8`:
         K3/K4 on the int8 operand): the same checks but the repeat, its
         pool's page bytes beside the bf16 pool's (about half), and
-        its own profile. Then `fault_domain` (bf16, then
+        its own profile. Then, on llama's first LLAMA_SLICE_LAYERS layers
+        (the full width; 8 of 32 layers), `fault_domain` (bf16, then
         `fault_domain_int8` on int8 pages; the audit on every tick):
         FAULT_TRACE on FAULT_PAGES pages, where a high-priority arrival
         evicts a low-priority stream to a host snapshot and it resumes into
         other physical pages, every stream bit-equal to the trace on a pool
         that never evicts (snapshot pages, bytes and ms, restore ms);
         FAULT_CHAOS on the engine trace, streams bit-equal to the
-        chaos-free run above; a NaN-poisoned slot of 4 retires FAILED with
-        a prefix of its clean stream, the others equal, and a request
-        admitted next maps the scrubbed pages and streams as on a fresh
-        pool; (bf16) max_wall_s=0 retires TIMEOUT with a prefix, and a
+        chaos-free trace at that depth; a NaN-poisoned slot of 4 retires
+        FAILED with a prefix of its clean stream, the others equal, and a
+        request admitted next maps the scrubbed pages and streams as on a
+        fresh pool; (bf16) max_wall_s=0 retires TIMEOUT with a prefix, and a
         prefill cancelled after one chunk hands its pages back. Then
         `prefix_share` (bf16, then `prefix_share_int8`; the audit on every
         tick): PREFIX_TRACE without and with copy-on-write prefix sharing,
         streams bit-equal, 6 cache admissions (728 prefill tokens skipped,
-        43 pages shared), K1/K2 launched 6 x 32 times fewer, no page in
+        43 pages shared), K1/K2 launched 6 x 8 times fewer, no page in
         use after the drain; POISON_TRACE (Q three times), its first
         repeat poisoned on its cache admission, which must fork the shared
         page and fail that request alone; cold and cache admission ms,
@@ -216,7 +227,7 @@ Phases (none catches an exception; any failure exits non-zero):
      a. and b., the engine's bf16 streams held against static
      generate()'s path for each prompt (static_agreement, teacher-forced:
      equal, or within STATIC_GAP_ULPS bf16 steps of its top logit),
-     `starcoder2_engine_int8`; `starcoder2_window` (SC2_WINDOW_LENS on a
+     `starcoder2_engine_int8`; `starcoder2_window` (SC2_WINDOW on a
      5120-token pool, chunks of 512: every decode tick of the long
      request attends past the window; streams against static generate()'s
      path; the prefill without the window must give other last logits;
@@ -227,6 +238,20 @@ Phases (none catches an exception; any failure exits non-zero):
      streams; the 1024-token one without chunking, streams equal or
      parted at bf16 near-ties only; 7 hits, 448 pages shared, 7168 tokens
      skipped in each; extension and cold admission ms). K3/K4 only.
+     Then DENSE_MODELS (dense_model_phase, each printing its seconds):
+     qwen2-7b (7,070,619,136 weights, its QKV biases drawn at
+     QKV_BIAS_STD), granite-8b (8,053,362,688) and gemma3-27b
+     (27,008,319,744), each after a `need` that the card holds under
+     FREE_BEFORE_GB, with its init time and peak: `<model>_static` and
+     `<model>_engine` as a. and b. (16 new tokens a request; the repeat
+     on qwen2 and granite-8b), every bf16 stream against static
+     generate()'s path; `qwen2_engine_int8` (the same trace on int8
+     pages, with its repeat); `gemma3_window` (GEMMA3_WINDOW: 1536 + 128
+     tokens, 16 new, on a 2048-token pool with chunks of 512: the long
+     request's decodes attend 1024 keys on the 52 local layers and all
+     on the 10 global ones; as starcoder2_window, and its launches on
+     windowed layers, counted apart, must be 52 of every 62). K3/K4 only
+     on every engine path.
      Then xlstm-1.3b (48 layers: 6 segments of 7 mLSTM + 1 sLSTM):
      c. `xlstm_forward`: model_forward on 4 x 128 tokens, three runs, K9
         launched 6 times per call, hidden states equal bit for bit;
@@ -2085,44 +2110,39 @@ def paged_int8_phase_full(torch, PA, Q, cfg, page_size, max_tokens):
     return out
 
 
-# K3/K4 at starcoder2's shape (bf16 q, fp32 output, up to 4096 keys a
-# query): a windowed output is a mean over ~4096 values, std ~0.026, so a
-# kernel that skipped 64 of them moves it by a few 1e-3 and PAGED_TOL_BF16
-# would pass it. paged_phase_starcoder2 requires err <= SC2_PAGED_TOL < a
-# planted fault's err: the plain version without the keys SC2_DROP, one of
-# K3's 64-key splits (of the long row) and one of K4's 64-key tiles (of
-# every query), inside every window that reaches them.
-SC2_PAGED_TOL = 2.5e-3
-SC2_DROP = (2560, 2624)
-# starcoder2's windowed shapes: the window cell's last decode tick (its
-# 4608-token request at t = 4608 + 31 beside its 128-token one) and its
-# last chunk (512 queries from 4096, kv_len 4608), on its pool of 320
-# pages of 16 (max_tokens 5120)
-SC2_DECODE_T = (4608 + 31, 128 + 31)
-SC2_CHUNK = (4096, 512, 4608)            # start, Cs, kv_len
+# K3/K4 at a dense model's served shapes (bf16 q, fp32 output, up to 4608
+# keys a query): a windowed output is a mean over ~4096 values, std
+# ~0.026, so a kernel that skipped 64 of them moves it by a few 1e-3 and
+# PAGED_TOL_BF16 would pass it. paged_phase_windowed requires err <=
+# WINDOW_PAGED_TOL < a planted fault's err: the plain version without the
+# keys `drop`, one of K3's 64-key splits (of the long row) and one of K4's
+# 64-key tiles (of every query), inside every window that reaches them.
+WINDOW_PAGED_TOL = 2.5e-3
 SC2_MAX_TOKENS = 5120
 
 
-def paged_phase_starcoder2(torch, PA, Q, cfg):
-    """K3 and K4, bf16 q on bf16 and int8 pages, at starcoder2's GQA 24/2
-    x 128 (12 query heads a kv head: K3's GB 16 body, K4's warps whose 16
-    rows straddle two queries) with its 4096-token window binding: each
-    against its plain version (SC2_PAGED_TOL, below a planted fault's
-    err: the plain version without the keys SC2_DROP) and timed beside it
-    and the library call (gather, dequantize, sdpa). Every key outside each
-    query's window (and past each row's end) holds +-1e4 (int8: +-127,
-    and NaN in the scales of pages no query may read) in a second pool,
-    which must give the same bits: the kernels read nothing outside the
-    window. bound_ms counts the pages inside the windows, read once (int8:
-    values and scales), q and the fp32 output; the FLOPs of the keys each
-    query attends."""
+def paged_phase_windowed(torch, PA, Q, cfg, shape):
+    """K3 and K4, bf16 q on bf16 and int8 pages, at one of PAGED_SHAPES
+    (cfg's heads and head_dim: starcoder2's GQA 24/2 x 128, 12 query heads
+    a kv head, K3's GB 16 body, K4's warps whose 16 rows straddle two
+    queries; qwen2's 28/4, 7 a kv head; gemma3's 32/16) with its window
+    (0: global): each against its plain version (WINDOW_PAGED_TOL, below a
+    planted fault's err: the plain version without the keys `drop`) and
+    timed beside it and the library call (gather, dequantize, sdpa). Every
+    key outside each query's window (and past each row's end) holds +-1e4
+    (int8: +-127, and NaN in the scales of pages no query may read) in a
+    second pool, which must give the same bits: the kernels read nothing
+    outside the window. bound_ms counts the pages inside the windows, read
+    once (int8: values and scales), q and the fp32 output; the FLOPs of the
+    keys each query attends."""
     import torch.nn.functional as F
     from repro_torch.models import attention as ATT
     bf = torch.bfloat16
     g = torch.Generator(device="cuda").manual_seed(31)
     Hq, Hkv, hd, ps = cfg.num_heads, cfg.num_kv_heads, \
         cfg.resolved_head_dim(), 16
-    W, P, S = cfg.sliding_window, SC2_MAX_TOKENS // ps, SC2_MAX_TOKENS
+    W, S = shape["window"], shape["max_tokens"]
+    P = S // ps
     flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
     kpos = torch.arange(S, device="cuda")
     out = {}
@@ -2166,10 +2186,10 @@ def paged_phase_starcoder2(torch, PA, Q, cfg):
         return (k.to(bf).reshape(B, S, Hkv, hd).transpose(1, 2),
                 v.to(bf).reshape(B, S, Hkv, hd).transpose(1, 2))
 
-    keep = (kpos < SC2_DROP[0]) | (kpos >= SC2_DROP[1])
+    keep = (kpos < shape["drop"][0]) | (kpos >= shape["drop"][1])
 
     def dropped(kind, q, pool, bt, mask, args):
-        """The plain version without the keys SC2_DROP (a planted fault)."""
+        """The plain version without the keys `drop` (a planted fault)."""
         k, v = (PA._gather(pool[f"{x}_pages"], bt, pool.get(f"{x}_scales"))
                 for x in "kv")
         if kind == "decode":
@@ -2201,7 +2221,7 @@ def paged_phase_starcoder2(torch, PA, Q, cfg):
                 4 * Hq * hd * keys,
                 f"{'int8' if tag else 'bf16'} pages, GQA {Hq}/{Hkv} x {hd}, "
                 f"window {W}, {args}, {n_pages} pages inside the window(s)",
-                tol=SC2_PAGED_TOL,
+                tol=WINDOW_PAGED_TOL,
                 fault=lambda clean=clean: dropped(kind, q, clean, bt, mask,
                                                   args))
             got = call(fn, q, clean, bt, *args)
@@ -2211,24 +2231,28 @@ def paged_phase_starcoder2(torch, PA, Q, cfg):
             entry["window_pages"] = n_pages
             out[f"paged_attn_{kind}{tag}"] = entry
 
-    t = torch.tensor(SC2_DECODE_T, dtype=torch.int32, device="cuda")
-    B = len(SC2_DECODE_T)
-    seen = (kpos[None] <= t[:, None]) & (kpos[None] > t[:, None] - W)
+    t = torch.tensor(shape["t"], dtype=torch.int32, device="cuda")
+    B = len(shape["t"])
+    seen = kpos[None] <= t[:, None]
+    if W > 0:
+        seen &= kpos[None] > t[:, None] - W
     bt, by_pages, n_pages = pools(B, seen)
     q = torch.randn(B, Hq, hd, device="cuda", generator=g).to(bf)
     entries("decode", q, bt, by_pages, n_pages, int(seen.sum()),
             seen[:, None, None], (t,), q[:, :, None], B)
-    start, Cs, kv_len = SC2_CHUNK
+    start, Cs, kv_len = shape["chunk"]
     qpos = torch.arange(start, start + Cs, device="cuda")
-    cmask = (kpos[None] < kv_len) & (kpos[None] <= qpos[:, None]) & \
-        (kpos[None] > qpos[:, None] - W)
+    cmask = (kpos[None] < kv_len) & (kpos[None] <= qpos[:, None])
+    if W > 0:
+        cmask &= kpos[None] > qpos[:, None] - W
     bt, by_pages, n_pages = pools(1, cmask.any(dim=0)[None])
     qc = torch.randn(1, Cs, Hq, hd, device="cuda", generator=g).to(bf)
     entries("chunk", qc, bt, by_pages, n_pages, int(cmask.sum()),
             cmask[None, None], (start, kv_len), qc.transpose(1, 2), Cs)
-    print(f"[paged starcoder2] K3/K4 bf16 and int8 at GQA {Hq}/{Hkv} x {hd}, "
-          f"window {W}: within {SC2_PAGED_TOL} of the plain versions, below "
-          f"the planted faults' errors (keys {SC2_DROP} left out: "
+    print(f"[paged {cfg.name}] K3/K4 bf16 and int8 at GQA {Hq}/{Hkv} x "
+          f"{hd}, window {W}: within {WINDOW_PAGED_TOL} of the plain "
+          f"versions, below the planted faults' errors (keys "
+          f"{shape['drop']} left out: "
           f"{[round(e['planted_fault_err'], 6) for e in out.values()]}); "
           "keys outside the window move no bit", flush=True)
     return out
@@ -2370,12 +2394,21 @@ def go_topk_launches(cfg, decodes):
             "go_router": cfg.num_layers * decodes if go else 0}
 
 
+def _smoke_params(torch, TM, cfg_smoke):
+    """A smoke config's fp32 weights on the CPU, seed 0; QKV biases (qwen2)
+    drawn at QKV_BIAS_STD from seed 1, so their path is live."""
+    params = TM.model_init(cfg_smoke, torch.Generator().manual_seed(0), "cpu")
+    _plant_biases(torch, params, torch.Generator().manual_seed(1),
+                  QKV_BIAS_STD)
+    return params
+
+
 def smoke_phase(torch, G, GT, cfg_smoke, TM, TS):
     """Smoke-size slice on the CPU (plain versions) and on the card
     (kernels), same fp32 weights. Greedy tokens equal; logits within
     SMOKE_LOGIT_TOL; one prefill and 8 decode steps' grouped GEMMs
     launched, and K5R once per layer and decode step with a GO cache."""
-    params = TM.model_init(cfg_smoke, torch.Generator().manual_seed(0), "cpu")
+    params = _smoke_params(torch, TM, cfg_smoke)
     params_cuda = _tree_to(params, "cuda")
     prompts = torch.randint(0, cfg_smoke.vocab_size, (4, 32),
                             generator=torch.Generator().manual_seed(1))
@@ -2437,7 +2470,7 @@ def engine_smoke_phase(torch, G, PA, GT, cfg_smoke, TM, TS, kv_quant="none"):
     1-slot int8 engine on the card (token choice routes the pool's rows
     together under a capacity, so no solo oracle exists there)."""
     import numpy as np
-    params = TM.model_init(cfg_smoke, torch.Generator().manual_seed(0), "cpu")
+    params = _smoke_params(torch, TM, cfg_smoke)
     rng = np.random.default_rng(0)
     prompts = [rng.integers(0, cfg_smoke.vocab_size, size=n, dtype=np.int32)
                for n in (5, 20, 8, 11, 3)]
@@ -2731,6 +2764,31 @@ def _tree_to(tree, device):
             for k, v in tree.items()}
 
 
+def _head_layers(cfg, params, n):
+    """cfg and params cut to their first n layers: views of the stacked
+    layer weights; the width, embedding and final norm untouched."""
+    def cut(tree):
+        return {k: cut(v) if isinstance(v, dict) else v[:n]
+                for k, v in tree.items()}
+    return (cfg.with_overrides(num_layers=n),
+            {**params, "layers": cut(params["layers"])})
+
+
+def _engine_streams(cfg, params, ServingEngine, kv_quant):
+    """The engine trace's streams (engine_phase's prompts, arrivals and
+    ENGINE_GEN new tokens, greedy) on a fresh pool, bf16 or int8 pages."""
+    import numpy as np
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+               for n in ENGINE_LENS]
+    eng = ServingEngine(params, cfg, device="cuda",
+                        **dict(ENGINE_POOL, kv_quant=kv_quant))
+    rids = [eng.submit(p, ENGINE_GEN, arrival_step=a)
+            for p, a in zip(prompts, ENGINE_ARRIVALS)]
+    fin = eng.run()
+    return [fin[r].tokens for r in rids]
+
+
 def full_phase(torch, G, PA, SC, GT, cfg, params, TM, TS):
     """Full width, bf16, static generate(): 4 requests x 128 prompt tokens,
     16 new tokens. One warm-up generate(), then the counted, timed run and
@@ -2889,11 +2947,11 @@ ENGINE_POOL = dict(num_slots=4, max_tokens=512, paged=True, page_size=16,
 
 
 def engine_phase(torch, G, PA, SC, GT, cfg, params, ServingEngine,
-                 kv_quant="none", repeat=True):
+                 kv_quant="none", repeat=True, gen=ENGINE_GEN):
     """Full width, bf16, through the continuous-batching engine on a paged
-    pool: 8 staggered requests of ENGINE_LENS prompt tokens, 32 new tokens
-    each, greedy. A warm-up engine first (one one-shot and one chunked
-    admission, 4 tokens each), then the counted, timed run, one
+    pool: 8 staggered requests of ENGINE_LENS prompt tokens, `gen` new
+    tokens each, greedy. A warm-up engine first (one one-shot and one
+    chunked admission, 4 tokens each), then the counted, timed run, one
     synchronised step at a time, then the same trace once more on a fresh
     engine, which must stream the same tokens and leave the same pool
     state (`repeat=False` leaves the repeat out, to hold the script's
@@ -2914,7 +2972,7 @@ def engine_phase(torch, G, PA, SC, GT, cfg, params, ServingEngine,
     torch.cuda.reset_peak_memory_stats()
 
     eng = ServingEngine(params, cfg, device="cuda", **pool)
-    rids = [eng.submit(p, ENGINE_GEN, arrival_step=a)
+    rids = [eng.submit(p, gen, arrival_step=a)
             for p, a in zip(prompts, ENGINE_ARRIVALS)]
     G.reset_launches()
     PA.reset_launches()
@@ -2937,12 +2995,13 @@ def engine_phase(torch, G, PA, SC, GT, cfg, params, ServingEngine,
         peak_pages = max(peak_pages, eng.pool.alloc.pages_in_use)
     wall_s = time.perf_counter() - t_all
     launches = {**G.LAUNCHES, **PA.LAUNCHES, **SC.LAUNCHES, **GT.LAUNCHES}
+    launches_windowed = dict(PA.LAUNCHES_WINDOWED)
 
     L = cfg.num_layers
     fin = eng.finished
     for rid in rids:
         r = fin[rid]
-        need(r.status == "DONE" and len(r.tokens) == ENGINE_GEN and
+        need(r.status == "DONE" and len(r.tokens) == gen and
              all(0 <= x < cfg.vocab_size for x in r.tokens),
              f"request {rid}: status {r.status}, {len(r.tokens)} tokens")
     st = eng.pool.state
@@ -2963,7 +3022,7 @@ def engine_phase(torch, G, PA, SC, GT, cfg, params, ServingEngine,
     repeat_equal = repeat_state_equal = None
     if repeat:
         again = ServingEngine(params, cfg, device="cuda", **pool)
-        rids2 = [again.submit(p, ENGINE_GEN, arrival_step=a)
+        rids2 = [again.submit(p, gen, arrival_step=a)
                  for p, a in zip(prompts, ENGINE_ARRIVALS)]
         fin2 = again.run()
         # the streams' argmaxes can hide a changed sum; the drained pools'
@@ -2993,6 +3052,7 @@ def engine_phase(torch, G, PA, SC, GT, cfg, params, ServingEngine,
              "max_memory_allocated_gb":
                  torch.cuda.max_memory_allocated() / 1e9,
              "launches": launches,
+             "launches_windowed": launches_windowed,
              "kv_quant": kv_quant,
              "pool_page_bytes": eng.pool.num_pages * L * PA.page_bytes(
                  eng.cfg, ENGINE_POOL["page_size"]),
@@ -3003,7 +3063,7 @@ def engine_phase(torch, G, PA, SC, GT, cfg, params, ServingEngine,
              "admit_steps": [fin[r].admit_step for r in rids],
              "finish_steps": [fin[r].finish_step for r in rids]}
     print(f"[full engine] {cfg.name} bf16 {pool}, prompts "
-          f"{ENGINE_LENS}, arrivals {ENGINE_ARRIVALS}, gen {ENGINE_GEN}: "
+          f"{ENGINE_LENS}, arrivals {ENGINE_ARRIVALS}, gen {gen}: "
           f"{json.dumps(stats)}", flush=True)
     print(f"[full engine] sample tokens {fin[rids[1]].tokens}", flush=True)
     need(repeat_equal is not False, f"{cfg.name}: the engine trace streamed "
@@ -3035,7 +3095,8 @@ def engine_profile_phase(torch, cfg, params, prompts, ServingEngine, pool,
     need(eng.pool.num_active() == 4, "profile engine: 4 slots not active")
     profile_phase(torch, cfg,
                   {f"engine{tag}_decode_tick_4_active": eng.step})
-    eng.run()
+    # not drained: nothing reads the rest of its streams (the drain's ~14
+    # decode ticks cost up to ~2.5 s a call on a slow host)
 
 
 def sampled_engine_phase(torch, G, PA, SC, GT, cfg, params,
@@ -4205,12 +4266,18 @@ def journal_supervise_phase(arch, card):
 # STATIC_GAP_ULPS bf16 steps (of the top logit's magnitude) of its top
 # logit; the steps where it is not the argmax are reported.
 STATIC_GAP_ULPS = 4
-# the windowed cell: the prompt lengths (the first binds the 4096-token
-# window from its last chunk on), new tokens, the pool (320 pages of 16)
-SC2_WINDOW_LENS = (4608, 128)
-SC2_WINDOW_GEN = 64
-SC2_WINDOW_POOL = dict(num_slots=2, max_tokens=SC2_MAX_TOKENS, paged=True,
-                       page_size=16, prefill_chunk=512)
+# the windowed cells (window_phase): name, the prompt lengths, new tokens,
+# the pool, its chunk ticks. starcoder2: the first prompt binds the
+# 4096-token window from its last chunk on (320 pages of 16 a row, 9
+# chunks); gemma3: the first prompt (3 chunks of 512) outgrows the local
+# layers' 1024-token window from its second chunk on (128 pages a row;
+# 16 new tokens, not 64, to hold the script's time)
+SC2_WINDOW = ("starcoder2_window", (4608, 128), 64,
+              dict(num_slots=2, max_tokens=SC2_MAX_TOKENS, paged=True,
+                   page_size=16, prefill_chunk=512), 9)
+GEMMA3_WINDOW = ("gemma3_window", (1536, 128), 16,
+                 dict(num_slots=2, max_tokens=2048, paged=True,
+                      page_size=16, prefill_chunk=512), 3)
 # the prefix-extension cell: a repository context that eight requests
 # share, each with its own tail, at these ticks. With chunks of 512 the
 # first prefills through the chunk lane (0, 512, 1024) and deposits, and
@@ -4264,7 +4331,7 @@ def static_agreement(torch, TM, cfg, params, prompt, stream, max_len):
             "tol": tol}
 
 
-def starcoder2_engine_vs_static(torch, TM, cfg, params, stats):
+def engine_vs_static(torch, TM, cfg, params, stats):
     """The engine trace's bf16 streams (engine_phase's stats) against
     static generate()'s path for each prompt alone (static_agreement)."""
     agree = [static_agreement(torch, TM, cfg, params, p, st,
@@ -4276,24 +4343,31 @@ def starcoder2_engine_vs_static(torch, TM, cfg, params, stats):
     return agree
 
 
-def starcoder2_window_phase(torch, cfg, params, ServingEngine, TM, counts,
-                            reset_counts):
-    """`starcoder2_window`: a 4608-token prompt (chunks of 512, the last
-    from 4096) and a 128-token one, SC2_WINDOW_GEN new tokens each, on a
-    pool of 5120 tokens: every decode tick of the first attends past the
-    window (K3 with window 4096), its last chunk too (K4). The counted run
-    launches K3/K4 once per layer and tick and nothing else of the port;
-    each stream against static generate()'s path (static_agreement); the
-    same prompt's prefill without the window gives other last-position
-    logits, so the window binds; a second run on a fresh engine streams
-    the same tokens and leaves the same pages. One decode tick of both
-    rows is profiled."""
+def window_phase(torch, cfg, params, ServingEngine, TM, counts,
+                 reset_counts, cell):
+    """`<model>_window`, cell = (name, prompt lengths, new tokens, pool,
+    chunk ticks): a prompt past the window (in chunks) and a short one on
+    a pool of max_tokens. starcoder2 (SC2_WINDOW, chunks of 512, the
+    last from 4096): every decode tick of the first attends past its
+    4096-token window (K3 with window 4096), its last chunk too (K4);
+    gemma3 (GEMMA3_WINDOW): the 1536-token prompt's decodes attend
+    1024 keys on the local layers and all of its keys on the global ones.
+    The counted run launches K3/K4 once per layer and tick and nothing else
+    of the port, the windowed layers' share (PA.LAUNCHES_WINDOWED) once
+    per windowed layer and tick; each stream against static generate()'s
+    path (static_agreement); the same prompt's prefill without the window
+    gives other last-position logits, so the window binds; a second run on a
+    fresh engine streams the same tokens and leaves the same pages. One
+    decode tick of both rows is profiled. Returns the counted run's
+    launches and their windowed share."""
     import numpy as np
+    from repro_torch.kernels import paged_attn as PA
+    name, lens, gen, pool, n_chunks = cell
     rng = np.random.default_rng(5)
     prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
-               for n in SC2_WINDOW_LENS]
-    eng = ServingEngine(params, cfg, device="cuda", **SC2_WINDOW_POOL)
-    rids = [eng.submit(p, SC2_WINDOW_GEN) for p in prompts]
+               for n in lens]
+    eng = ServingEngine(params, cfg, device="cuda", **pool)
+    rids = [eng.submit(p, gen) for p in prompts]
     reset_counts()
     torch.cuda.synchronize()
     t0 = time.perf_counter()
@@ -4310,20 +4384,28 @@ def starcoder2_window_phase(torch, cfg, params, ServingEngine, TM, counts,
     torch.cuda.synchronize()
     wall_s = time.perf_counter() - t0
     launches = counts()
+    windowed = {k: PA.LAUNCHES_WINDOWED[k] for k in launches
+                if k in PA.LAUNCHES_WINDOWED}
     s = eng.stats()
     need(profiled, "window cell: no tick with both rows decoding")
     fin = eng.finished
     streams = [fin[r].tokens for r in rids]
     need(all(fin[r].status.value == "DONE" and
-             len(fin[r].tokens) == SC2_WINDOW_GEN for r in rids),
+             len(fin[r].tokens) == gen for r in rids),
          f"window cell: {[(fin[r].status, len(fin[r].tokens)) for r in rids]}")
     expect = {**gmm_launches(cfg, 0, 0), **go_topk_launches(cfg, 0),
               **paged_launches(cfg, s["decode_ticks"], s["chunk_ticks"]),
               "slstm_seq": 0}
-    need(launches == expect and s["chunk_ticks"] == 9,
+    need(launches == expect and s["chunk_ticks"] == n_chunks,
          f"window cell launches {launches}, expected {expect}; stats {s}")
-    again = ServingEngine(params, cfg, device="cuda", **SC2_WINDOW_POOL)
-    rids2 = [again.submit(p, SC2_WINDOW_GEN) for p in prompts]
+    # the windowed layers' share: one launch per windowed layer and tick
+    n_win = sum(w > 0 for w in TM.layer_windows(cfg))
+    expect_w = {k: n * n_win // cfg.num_layers for k, n in expect.items()
+                if k in windowed}
+    need(windowed == expect_w, f"window cell: windowed launches {windowed}, "
+         f"expected {expect_w} ({n_win} of {cfg.num_layers} layers)")
+    again = ServingEngine(params, cfg, device="cuda", **pool)
+    rids2 = [again.submit(p, gen) for p in prompts]
     fin2 = again.run()
     repeat_equal = [fin2[r].tokens for r in rids2] == streams
     repeat_state_equal = _same(torch, _pool_state(eng.pool.state),
@@ -4333,31 +4415,197 @@ def starcoder2_window_phase(torch, cfg, params, ServingEngine, TM, counts,
          f"{repeat_state_equal}")
     del again
     agree = [static_agreement(torch, TM, cfg, params, p, st,
-                              SC2_WINDOW_POOL["max_tokens"])
+                              pool["max_tokens"])
              for p, st in zip(prompts, streams)]
     long_prompt = torch.as_tensor(prompts[0], dtype=torch.long,
                                   device="cuda")[None]
     _, lg = TM.prefill(params, long_prompt, cfg,
-                       max_len=SC2_WINDOW_POOL["max_tokens"])
+                       max_len=pool["max_tokens"])
     _, lg0 = TM.prefill(params, long_prompt,
                         cfg.with_overrides(sliding_window=0),
-                        max_len=SC2_WINDOW_POOL["max_tokens"])
+                        max_len=pool["max_tokens"])
     binds = (lg - lg0).abs().max().item()
     need(binds > 1e-2, f"window cell: the prefill without the window gives "
          f"the same last logits ({binds})")
     out = {"wall_s": wall_s, "tokens": sum(map(len, streams)),
            "tok_per_s": sum(map(len, streams)) / wall_s,
            "decode_ticks": s["decode_ticks"], "chunk_ticks": s["chunk_ticks"],
-           "launches": launches, "static": agree,
-           "repeat_streams_equal": repeat_equal,
+           "launches": launches, "launches_windowed": windowed,
+           "static": agree, "repeat_streams_equal": repeat_equal,
            "repeat_pool_state_equal": repeat_state_equal,
            "window_off_last_logit_max_abs_diff": binds,
            "max_memory_allocated_gb":
                torch.cuda.max_memory_allocated() / 1e9}
-    print(f"[starcoder2_window] {SC2_WINDOW_POOL}, prompts "
-          f"{SC2_WINDOW_LENS}, gen {SC2_WINDOW_GEN}: {json.dumps(out)}",
+    print(f"[{name}] {pool}, prompts {lens}, gen {gen}: {json.dumps(out)}",
           flush=True)
-    return launches
+    return launches, windowed
+
+
+# The llama phases of slices 12-14 (the fault domain, prefix sharing and
+# the journal, each on bf16 and int8 pages) run on the first
+# LLAMA_SLICE_LAYERS of llama's 32 seeded full-width layers: each compares
+# runs of that one model with each other (the fault domain's chaos run
+# with the chaos-free trace at that depth), and at full depth they took
+# ~320 s of the script's 1218 s on an H100 with a slow host. The SIGKILL
+# child serves the full model.
+LLAMA_SLICE_LAYERS = 8
+# slice 17's dense models at full width, after starcoder2: arch, short
+# name, weight count (norm scales and qwen2's biases included), whether
+# the engine trace runs a second time on a fresh engine (`repeat`) and
+# once more on int8 pages (`int8`), and the window cell (`window`, or
+# None). Before each init every earlier model's weights, engines and
+# pools are released: the card must hold under FREE_BEFORE_GB then
+# (gemma3's bf16 weights are 54.0 GB). To hold the script's time the
+# engine traces take DENSE_ENGINE_GEN new tokens a request (half the
+# older cells' ENGINE_GEN): every bf16 stream is then held against static
+# generate()'s path, which steps each prompt alone, token by token; the
+# int8 pool runs on qwen2 only (G 7), gemma3's repeat is its window
+# cell's.
+DENSE_ENGINE_GEN = 16
+DENSE_MODELS = (
+    dict(arch="qwen2-7b", short="qwen2", n_params=7_070_619_136,
+         repeat=True, int8=True, window=None),
+    dict(arch="granite-8b", short="granite8b", n_params=8_053_362_688,
+         repeat=True, int8=False, window=None),
+    dict(arch="gemma3-27b", short="gemma3", n_params=27_008_319_744,
+         repeat=False, int8=False, window=GEMMA3_WINDOW))
+FREE_BEFORE_GB = 1.0
+
+
+def _last_tick(lens, gen):
+    """Each prompt's position at its last decode tick: its prefill emits
+    the first of `gen` tokens and each decode tick one more, so the last
+    tick's query sits at len + gen - 2."""
+    return tuple(n + gen - 2 for n in lens)
+
+
+def _last_chunk(n, chunk):
+    """(start, queries, kv_len) of an n-token prompt's last prefill chunk
+    (the prompt is right-padded to whole chunks)."""
+    return ((n - 1) // chunk * chunk, chunk, n)
+
+
+def _window_shape(arch, cell, window, drop):
+    """A window cell's K3/K4 shape: both rows' last decode tick and the
+    long prompt's last chunk, on the cell's pool."""
+    name, lens, gen, pool, _ = cell
+    return dict(arch=arch, t=_last_tick(lens, gen),
+                chunk=_last_chunk(lens[0], pool["prefill_chunk"]),
+                max_tokens=pool["max_tokens"], window=window, drop=drop,
+                path=name)
+
+
+# K3/K4 at the dense models' cells, on pools of pages of 16 (derived from
+# the cells, so a trimmed cell keeps its kernel shape): decode rows at
+# positions `t`, the chunk (start, Cs, kv_len), the pool's max_tokens, the
+# window, the keys [lo, hi) the planted fault leaves out, and the cell
+# (`path`) whose launches the kernel line reports (on int8 pages its
+# `_int8` twin, where the script runs one). starcoder2: its window cell
+# (4608 + 128 tokens, chunks of 512) on its pool of 320 pages; qwen2 (GQA
+# 28/4: 7 query heads a kv head): the engine trace's first four requests
+# and its 448-token prompt's last chunk of 128; gemma3 (32/16 x 128): its
+# window cell (1536 + 128 tokens, chunks of 512) on 128 pages, once as a
+# local layer (window 1024) and once as a global one.
+PAGED_SHAPES = {
+    "starcoder2": _window_shape("starcoder2-3b", SC2_WINDOW, 4096,
+                                (2560, 2624)),
+    "qwen2": dict(arch="qwen2-7b",
+                  t=_last_tick(ENGINE_LENS[:4], DENSE_ENGINE_GEN),
+                  chunk=_last_chunk(max(ENGINE_LENS),
+                                    ENGINE_POOL["prefill_chunk"]),
+                  max_tokens=ENGINE_POOL["max_tokens"], window=0,
+                  drop=(256, 320), path="qwen2_engine"),
+    "gemma3_local": _window_shape("gemma3-27b", GEMMA3_WINDOW, 1024,
+                                  (1024, 1088)),
+    "gemma3_global": _window_shape("gemma3-27b", GEMMA3_WINDOW, 0,
+                                   (1024, 1088)),
+}
+# qwen2's QKV biases: model_init makes them zero, as the reference does,
+# which would leave the bias path dead at full width. The script draws
+# them from the seeded generator at standard deviation QKV_BIAS_STD, half
+# that of the projections' outputs on the normed input (N(0, 1/d) weights).
+QKV_BIAS_STD = 0.5
+
+
+def _plant_biases(torch, params, g, std):
+    """Overwrite the stacked QKV biases (where the params hold them) with
+    N(0, std^2) draws from `g`, in place."""
+    for k in ("bq", "bk", "bv"):
+        b = params["layers"]["attn"].get(k)
+        if b is not None:
+            b.copy_(std * torch.randn(b.shape, generator=g, device=b.device))
+
+
+def dense_model_phase(torch, G, PA, SC, GT, TM, TS, ServingEngine, counts,
+                      reset_counts, get_config, model):
+    """One of DENSE_MODELS at full width, bf16, from seeded random weights,
+    after a `need` that the card holds under FREE_BEFORE_GB: the weight
+    count, init time and peak memory; `<short>_static` (full_phase);
+    `<short>_engine` (engine_phase with DENSE_ENGINE_GEN new tokens, its
+    repeat where the entry asks for it; the bf16 streams against static
+    generate()'s path, engine_vs_static); `<short>_engine_int8` where the
+    entry asks for it (its pool pages about half the bf16 pool's); the
+    entry's window cell (window_phase). Each engine path launches K3/K4
+    (on int8 pages their `_int8` entries) and no other kernel of the port.
+    Returns the paths' launches and the engine paths' windowed share
+    (PA.LAUNCHES_WINDOWED) of them."""
+    cfg, short = get_config(model["arch"]), model["short"]
+    gc.collect()
+    torch.cuda.empty_cache()
+    resident = torch.cuda.memory_allocated() / 1e9
+    print(f"[full] before {cfg.name}: {resident:.3f} GB allocated",
+          flush=True)
+    need(resident < FREE_BEFORE_GB, f"{resident:.3f} GB still held before "
+         f"{cfg.name}'s init (limit {FREE_BEFORE_GB} GB)")
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    g = torch.Generator(device="cuda").manual_seed(0)
+    params = TM.model_init(cfg, g, "cuda")
+    _plant_biases(torch, params, g, QKV_BIAS_STD)
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[full] {cfg.name}: {n_params} parameters initialised in "
+          f"{time.perf_counter() - t0:.2f} s, peak "
+          f"{torch.cuda.max_memory_allocated() / 1e9:.2f} GB"
+          + (f"; QKV biases N(0, {QKV_BIAS_STD}^2)" if cfg.qkv_bias else ""),
+          flush=True)
+    need(n_params == model["n_params"], f"{cfg.name}: {n_params} "
+         f"parameters, expected {model['n_params']}")
+    paths = {f"{short}_static": full_phase(torch, G, PA, SC, GT, cfg, params,
+                                           TM, TS)}
+    windowed = {}
+    path = f"{short}_engine"
+    paths[path], stats = engine_phase(
+        torch, G, PA, SC, GT, cfg, params, ServingEngine,
+        repeat=model["repeat"], gen=DENSE_ENGINE_GEN)
+    windowed[path] = stats["launches_windowed"]
+    engine_vs_static(torch, TM, cfg, params, stats)
+    if model["int8"]:
+        path = f"{short}_engine_int8"
+        paths[path], i8 = engine_phase(
+            torch, G, PA, SC, GT, cfg, params, ServingEngine, "int8",
+            repeat=model["repeat"], gen=DENSE_ENGINE_GEN)
+        windowed[path] = i8["launches_windowed"]
+        ratio = i8["pool_page_bytes"] / stats["pool_page_bytes"]
+        need(0.45 < ratio < 0.55, f"{cfg.name}: int8 pool pages are "
+             f"{ratio:.3f} of the bf16 pool's, not about half")
+    if model["window"] is not None:
+        path = model["window"][0]
+        paths[path], windowed[path] = window_phase(
+            torch, cfg, params, ServingEngine, TM, counts, reset_counts,
+            model["window"])
+    for path, got in paths.items():
+        if path.endswith("_static"):
+            continue
+        k3, k4 = (f"paged_attn_{k}{'_int8' if path.endswith('_int8') else ''}"
+                  for k in ("decode", "chunk"))
+        need(got[k3] > 0 and got[k4] > 0 and
+             all(got[k] == 0 for k in got if k not in (k3, k4)),
+             f"{path}: K3/K4 not launched, or another kernel was: {got}")
+    del params, stats
+    gc.collect()
+    torch.cuda.empty_cache()
+    return paths, windowed
 
 
 def starcoder2_prefix_ext_phase(torch, cfg, params, ServingEngine, TM,
@@ -4550,6 +4798,7 @@ def main():
     sc2 = "starcoder2-3b"
     cfgs = {m: get_config(m) for m in (llama, granite, deepseek)}
     by_path = {}
+    windowed = {}          # a path's launches made with a window (> 0)
     kernel_phase_small(torch, G)
     timings, llama_prefill = kernel_phase_full(
         torch, G, OPS, R, GT,
@@ -4591,10 +4840,15 @@ def main():
                                          if body in k}
                                   for side, by_kernel in sass.items()}}
     del paged
-    # K3/K4 at starcoder2's GQA 24/2 x 128 with its window
-    for name, entry in paged_phase_starcoder2(torch, PA, Q,
-                                              get_config(sc2)).items():
-        timings[name]["starcoder2"] = entry
+    # K3/K4 at the dense models' shapes: starcoder2's GQA 24/2 x 128 with
+    # its window, qwen2's group of 7, gemma3's local and global layers
+    for label, shape in PAGED_SHAPES.items():
+        t0 = time.perf_counter()
+        for name, entry in paged_phase_windowed(
+                torch, PA, Q, get_config(shape["arch"]), shape).items():
+            timings[name][label] = entry
+        print(f"[paged {label}] {time.perf_counter() - t0:.1f} s",
+              flush=True)
     timings["slstm_seq"] = slstm_phase(torch, SC)
     torch.cuda.empty_cache()
     for m in cfgs:
@@ -4608,11 +4862,17 @@ def main():
         prefix_smoke_phase(torch, get_config(m, smoke=True), TM,
                            ServingEngine, counts, reset_counts)
     journal_supervise_phase(llama, card)
-    # starcoder2-3b's smoke config (dense MLP, window 32)
-    sc2_smoke = get_config(sc2, smoke=True)
-    smoke_phase(torch, G, GT, sc2_smoke, TM, TS)
-    for kv_quant in ("none", "int8"):
-        engine_smoke_phase(torch, G, PA, GT, sc2_smoke, TM, TS, kv_quant)
+    # the dense models' smoke configs: starcoder2-3b (window 32), qwen2
+    # (seeded nonzero QKV biases), granite-8b, gemma3 (local, local,
+    # global; window 16)
+    for m in (sc2, *(d["arch"] for d in DENSE_MODELS)):
+        t0 = time.perf_counter()
+        smoke = get_config(m, smoke=True)
+        smoke_phase(torch, G, GT, smoke, TM, TS)
+        for kv_quant in ("none", "int8"):
+            engine_smoke_phase(torch, G, PA, GT, smoke, TM, TS, kv_quant)
+        print(f"[smoke] {smoke.name}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
     xlstm = "xlstm-1.3b"
     xlstm_smoke_phase(torch, SC, get_config(xlstm, smoke=True), TM, TS)
 
@@ -4653,25 +4913,31 @@ def main():
             need(0.45 < ratio < 0.55, f"int8 pool pages are {ratio:.3f} of "
                  "the bf16 pool's, not about half")
         if m == llama:
-            # slice 12: the engine's fault domain, bf16 then int8 pages
-            for kvq, st_ in (("none", bf16_stats), ("int8", i8_stats)):
+            # slices 12-14 on llama's first LLAMA_SLICE_LAYERS layers
+            cfg_h, params_h = _head_layers(cfg, params, LLAMA_SLICE_LAYERS)
+            # slice 12: the engine's fault domain, bf16 then int8 pages,
+            # against the chaos-free trace at that depth
+            for kvq in ("none", "int8"):
                 tag = "" if kvq == "none" else "_int8"
                 by_path[f"fault_domain{tag}"] = fault_domain_phase(
-                    torch, cfg, params, ServingEngine, Chaos, counts,
-                    reset_counts, kvq, st_["streams"])
+                    torch, cfg_h, params_h, ServingEngine, Chaos, counts,
+                    reset_counts, kvq,
+                    _engine_streams(cfg_h, params_h, ServingEngine, kvq))
             # slice 13: copy-on-write prefix sharing, bf16 then int8 pages
+            # (the admissions profiled on bf16 pages only)
             for kvq in ("none", "int8"):
                 tag = "" if kvq == "none" else "_int8"
                 by_path[f"prefix_share{tag}"] = prefix_share_phase(
-                    torch, cfg, params, ServingEngine, Chaos, counts,
-                    reset_counts, kvq, profile=True)
+                    torch, cfg_h, params_h, ServingEngine, Chaos, counts,
+                    reset_counts, kvq, profile=kvq == "none")
             # slice 14: the journal's crash classes, bf16 then int8 pages,
-            # and a child process killed by SIGKILL
+            # and a child process (the full model) killed by SIGKILL
             for kvq in ("none", "int8"):
                 tag = "" if kvq == "none" else "_int8"
                 by_path[f"journal{tag}"] = journal_phase(
-                    torch, cfg, params, ServingEngine, EngineJournal, counts,
-                    reset_counts, kvq, card)
+                    torch, cfg_h, params_h, ServingEngine, EngineJournal,
+                    counts, reset_counts, kvq, card)
+            del params_h
             journal_sigkill_phase(torch, cfg, params, ServingEngine, TS, card)
             # slice 11: the engine trace with prompt buckets and sampling,
             # and the static batch past K5R's 64 rows
@@ -4685,6 +4951,8 @@ def main():
         del params
         gc.collect()
         torch.cuda.empty_cache()
+        print(f"[full] {cfg.name}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
     # starcoder2-3b at full width (dense MLP, GQA 24/2, window
     # 4096): static, the engine trace on bf16 and int8 pages (bf16 streams
@@ -4702,14 +4970,15 @@ def main():
                                               params, TM, TS)
     by_path["starcoder2_engine"], sc2_stats = engine_phase(
         torch, G, PA, SC, GT, cfg, params, ServingEngine)
-    starcoder2_engine_vs_static(torch, TM, cfg, params, sc2_stats)
+    engine_vs_static(torch, TM, cfg, params, sc2_stats)
     by_path["starcoder2_engine_int8"], sc2_i8 = engine_phase(
         torch, G, PA, SC, GT, cfg, params, ServingEngine, "int8")
     ratio = sc2_i8["pool_page_bytes"] / sc2_stats["pool_page_bytes"]
     need(0.45 < ratio < 0.55, f"{cfg.name}: int8 pool pages are {ratio:.3f} "
          "of the bf16 pool's, not about half")
-    by_path["starcoder2_window"] = starcoder2_window_phase(
-        torch, cfg, params, ServingEngine, TM, counts, reset_counts)
+    by_path["starcoder2_window"], windowed["starcoder2_window"] = \
+        window_phase(torch, cfg, params, ServingEngine, TM, counts,
+                     reset_counts, SC2_WINDOW)
     by_path["starcoder2_prefix_ext"] = starcoder2_prefix_ext_phase(
         torch, cfg, params, ServingEngine, TM, counts, reset_counts)
     for path, (k3, k4) in {
@@ -4726,6 +4995,18 @@ def main():
     del params
     gc.collect()
     torch.cuda.empty_cache()
+    print(f"[full] {cfg.name}: {time.perf_counter() - t0:.1f} s", flush=True)
+
+    # slice 17: qwen2-7b, granite-8b, gemma3-27b
+    for model in DENSE_MODELS:
+        t0 = time.perf_counter()
+        paths, win = dense_model_phase(
+            torch, G, PA, SC, GT, TM, TS, ServingEngine, counts,
+            reset_counts, get_config, model)
+        by_path.update(paths)
+        windowed.update(win)
+        print(f"[full] {model['arch']}: {time.perf_counter() - t0:.1f} s",
+              flush=True)
 
     by_path.update(xlstm_full_phase(torch, counts, reset_counts,
                                     get_config(xlstm), TM, TS))
@@ -4818,14 +5099,25 @@ def main():
             for k in ("decode", "granite_decode", "deepseek_decode",
                       "wide_decode"):
                 entry[k] = timings[name][k]
-        for k in ("granite", "deepseek", "starcoder2"):
+        for k in ("granite", "deepseek"):
             if k in timings[name]:
                 entry[k] = timings[name][k]
-        if "starcoder2" in entry:
-            # launches on starcoder2's engine trace (bf16 or int8 pages)
-            path = "starcoder2_engine" + ("_int8" if "int8" in name else "")
-            entry["starcoder2"] = {**entry["starcoder2"], "path": path,
-                                   "launches": by_path[path][name]}
+        for label, shape in PAGED_SHAPES.items():
+            if label not in timings[name]:
+                continue
+            # launches on the cell of the shape (on int8 pages its _int8
+            # twin): a windowed shape's the windowed layers', a global
+            # one's the rest; null where the script runs no such cell
+            cell = shape["path"] + ("_int8" if name.endswith("_int8")
+                                    else "")
+            launches = None
+            if cell in by_path:
+                n, w = by_path[cell][name], windowed[cell][name]
+                launches = w if shape["window"] else n - w
+                need(launches > 0, f"{name} at {label}: no launch on {cell}")
+            entry[label] = {**timings[name][label],
+                            "path": cell if launches is not None else None,
+                            "launches": launches}
         kernels.append(entry)
     print(json.dumps({"kernels": kernels}), flush=True)
     print(card, flush=True)

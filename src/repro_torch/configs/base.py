@@ -1,8 +1,9 @@
 """Config schema: every architecture is a ModelConfig.
 
 A copy of the reference package's schema, cut to the fields the port's
-slices read (the attention family and the xlstm family, tied embeddings,
-no logit softcap, the int8 decode state).
+slices read (the attention family with its QKV bias, local/global window
+pattern and attention logit softcap; the xlstm family; tied embeddings;
+the int8 decode state).
 Plain dataclasses: no torch, no JAX.
 """
 from __future__ import annotations
@@ -48,8 +49,11 @@ class ModelConfig:
     head_dim: int = 0                 # 0 -> d_model // num_heads
     block: str = "attn"
     moe: Optional[MoEConfig] = None
+    qkv_bias: bool = False            # qwen2
     rope_theta: float = 10000.0
-    sliding_window: int = 0           # >0: every layer attends locally
+    sliding_window: int = 0           # >0 enables local attention layers
+    local_global_ratio: int = 0       # gemma3: N local layers per 1 global
+    logit_softcap: float = 0.0        # >0: scores c * tanh(s / c)
     slstm_every: int = 0              # xlstm: one sLSTM block every N layers
     conv_width: int = 4               # xlstm: mLSTM short causal conv
     dtype: str = "bfloat16"

@@ -13,6 +13,9 @@ _MODULES = {
     "granite-moe-3b-a800m": "granite_moe_3b_a800m",
     "deepseek-moe-16b": "deepseek_moe_16b",
     "starcoder2-3b": "starcoder2_3b",
+    "qwen2-7b": "qwen2_7b",
+    "granite-8b": "granite_8b",
+    "gemma3-27b": "gemma3_27b",
     "xlstm-1.3b": "xlstm_1_3b",
 }
 

@@ -41,13 +41,17 @@ KERNEL_MAX_GROUP = 16           # query heads per kv head the kernel holds
 # counts under the `_int8` name only.
 LAUNCHES = {"paged_attn_decode": 0, "paged_attn_chunk": 0,
             "paged_attn_decode_int8": 0, "paged_attn_chunk_int8": 0}
+# The launches of LAUNCHES made with a window (> 0), by the same names: on
+# a model whose layers mix windowed and global attention, the windowed
+# layers' share.
+LAUNCHES_WINDOWED = dict.fromkeys(LAUNCHES, 0)
 
 _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 
 def reset_launches() -> None:
     for k in LAUNCHES:
-        LAUNCHES[k] = 0
+        LAUNCHES[k] = LAUNCHES_WINDOWED[k] = 0
 
 
 def _gather(pages: torch.Tensor, block_table: torch.Tensor,
@@ -222,6 +226,7 @@ def paged_attn_decode(q: torch.Tensor, k_pages: torch.Tensor,
         float(softcap), stream)
     build.check(rc, name)
     LAUNCHES[name] += 1
+    LAUNCHES_WINDOWED[name] += window > 0
     return out
 
 
@@ -258,6 +263,7 @@ def paged_attn_chunk(q: torch.Tensor, k_pages: torch.Tensor,
         int(kv_len), int(window), float(softcap), *warps, stream)
     build.check(rc, name)
     LAUNCHES[name] += 1
+    LAUNCHES_WINDOWED[name] += window > 0
     return out
 
 

@@ -17,7 +17,9 @@ Counterpart of repro/launch/serve.py. Two modes:
 `--arch` takes llama_moe_4_16 (expert choice, GO cache),
 granite-moe-3b-a800m (token choice on the C1 group path),
 deepseek-moe-16b (token choice on the C1 group path with two always-on
-shared experts; about 33 GB of bf16 weights at full width) and, with
+shared experts; about 33 GB of bf16 weights at full width), the dense
+starcoder2-3b, qwen2-7b (QKV bias), granite-8b and gemma3-27b (5:1
+local/global windows; about 54 GB of bf16 weights at full width) and, with
 --static only, xlstm-1.3b (mLSTM/sLSTM; prefill steps serve_step over the
 prompt; the engine raises NotImplementedError for a recurrent family).
 

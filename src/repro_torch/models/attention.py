@@ -11,7 +11,8 @@ kernels/paged_attn.py (K3 at decode, K4 at a prefill chunk): the CUDA
 kernels on a card, the reference's gather realization on the CPU. An int8
 pool (cfg.kv_quant="int8") arrives as (pages, scales) tuples: the new keys
 go in through core/quant.py's rescale-on-write scatters and the scales
-ride along to K3/K4.
+ride along to K3/K4. Every path applies cfg.logit_softcap (0 = none) to
+the scores and adds the QKV bias where the params hold one (`_qkv`).
 """
 from __future__ import annotations
 
@@ -78,14 +79,18 @@ def sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
 
 
 def _qkv(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg):
-    """Projections and RoPE. x [B, S, d]; positions [S] or [B, S] ->
-    q [B, S, Hq, hd], k/v [B, S, Hkv, hd]."""
+    """Projections (plus the QKV bias where the params hold one, qwen2)
+    and RoPE. x [B, S, d]; positions [S] or [B, S] -> q [B, S, Hq, hd],
+    k/v [B, S, Hkv, hd]."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim()
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
-    q = (x @ params["wq"]).reshape(B, S, nq, hd)
-    k = (x @ params["wk"]).reshape(B, S, nkv, hd)
-    v = (x @ params["wv"]).reshape(B, S, nkv, hd)
+    q, k, v = x @ params["wq"], x @ params["wk"], x @ params["wv"]
+    if "bq" in params:
+        q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
+    q = q.reshape(B, S, nq, hd)
+    k = k.reshape(B, S, nkv, hd)
+    v = v.reshape(B, S, nkv, hd)
     cos, sin = rope_angles(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos[..., None, :], sin[..., None, :])
     k = apply_rope(k, cos[..., None, :], sin[..., None, :])
@@ -99,7 +104,8 @@ def attn_forward(params: dict, x: torch.Tensor, *, cfg,
     With return_kv also the post-RoPE (k, v) for the KV cache."""
     B, S, _ = x.shape
     q, k, v = _qkv(params, x, positions, cfg)
-    out = sdpa_chunked(q, k, v, positions, positions, window, S + 10**9)
+    out = sdpa_chunked(q, k, v, positions, positions, window, S + 10**9,
+                       softcap=cfg.logit_softcap)
     out = out.reshape(B, S, -1) @ params["wo"]
     if return_kv:
         return out, k, v
@@ -166,7 +172,8 @@ def attn_decode(params: dict, x_t: torch.Tensor, cache_k, cache_v, t, *,
             cache_k[page, tl % ps] = k[:, 0].to(cache_k.dtype)
             cache_v[page, tl % ps] = v[:, 0].to(cache_v.dtype)
         out = PAGED.paged_attn_decode(q[:, 0], cache_k, cache_v, block_table,
-                                      t_vec, window=window, softcap=0.0,
+                                      t_vec, window=window,
+                                      softcap=cfg.logit_softcap,
                                       k_scales=k_scales, v_scales=v_scales)
         return out.to(x_t.dtype).reshape(B, 1, nq * hd) @ params["wo"]
     cache_k[rows, tl] = k[:, 0].to(cache_k.dtype)
@@ -176,7 +183,7 @@ def attn_decode(params: dict, x_t: torch.Tensor, cache_k, cache_v, t, *,
     mask = k_pos[None, :] <= t_vec[:, None]                     # [B, Smax]
     if window > 0:
         mask = mask & (k_pos[None, :] > t_vec[:, None] - window)
-    out = _decode_sdpa(q, cache_k, cache_v, mask)
+    out = _decode_sdpa(q, cache_k, cache_v, mask, cfg.logit_softcap)
     return out.to(x_t.dtype).reshape(B, 1, nq * hd) @ params["wo"]
 
 
@@ -214,7 +221,8 @@ def attn_chunk(params: dict, x: torch.Tensor, cache_k, cache_v, start: int,
             cache_v[pages, offs] = v.to(cache_v.dtype)
         kvl = P * ps if kv_len is None else kv_len
         out = PAGED.paged_attn_chunk(q, cache_k, cache_v, block_table, start,
-                                     kvl, window=window, softcap=0.0,
+                                     kvl, window=window,
+                                     softcap=cfg.logit_softcap,
                                      k_scales=k_scales, v_scales=v_scales)
         return out.to(x.dtype).reshape(B, Cs, nq * hd) @ params["wo"]
     cache_k[:, start:start + Cs] = k.to(cache_k.dtype)
@@ -222,5 +230,6 @@ def attn_chunk(params: dict, x: torch.Tensor, cache_k, cache_v, start: int,
     Smax = cache_k.shape[1]
     k_pos = torch.arange(Smax, dtype=torch.int32, device=dev)
     out = sdpa_chunked(q, cache_k, cache_v, positions, k_pos, window,
-                       Smax if kv_len is None else kv_len)
+                       Smax if kv_len is None else kv_len,
+                       softcap=cfg.logit_softcap)
     return out.reshape(B, Cs, nq * hd) @ params["wo"]

@@ -17,8 +17,9 @@ Counterpart of repro/models/model.py for the serving paths:
 
 Parameters keep the reference's nesting and its stacked layer axes
 (`layers.{attn.{wq,wk,wv,wo}, ln1, ln2, moe.{gate, experts.{wg,wi,wo},
-shared.{wg,wi,wo}}}`, `shared` only with always-on shared experts; a
-dense block holds `mlp.{wi,wg,wo}` in place of `moe`;
+shared.{wg,wi,wo}}}`, `shared` only with always-on shared experts,
+`attn.{bq,bk,bv}` only with cfg.qkv_bias; a dense block holds
+`mlp.{wi,wg,wo}` in place of `moe`;
 xlstm: `mlayers` [n_seg, n_m, ...] and `slayers` [n_seg, ...]), so
 `bridge.params_from_numpy` carries JAX weights across unchanged. Where
 JAX scans over layers and carries the KV and GO caches (or the recurrent
@@ -56,7 +57,14 @@ from repro_torch.models.layers import (dense_init, dtype_of, embed_init,
 
 
 def layer_windows(cfg) -> list[int]:
-    """Per-layer sliding-window spans (0 = global attention)."""
+    """Per-layer sliding-window spans (0 = global attention). With
+    local_global_ratio r every (r + 1)-th layer is global and the others
+    attend within sliding_window (gemma3: 5 local, then 1 global); without
+    it every layer takes sliding_window."""
+    r = cfg.local_global_ratio
+    if r > 0:
+        return [0 if l % (r + 1) == r else cfg.sliding_window
+                for l in range(cfg.num_layers)]
     return [cfg.sliding_window] * cfg.num_layers
 
 
@@ -184,6 +192,12 @@ def model_init(cfg, generator: torch.Generator, device) -> dict:
         "attn": {"wq": dense(d, nq * hd), "wk": dense(d, nkv * hd),
                  "wv": dense(d, nkv * hd), "wo": dense(nq * hd, d)},
     }
+    if cfg.qkv_bias:
+        # zeros, as the reference initialises them
+        for key, width in (("bq", nq * hd), ("bk", nkv * hd),
+                           ("bv", nkv * hd)):
+            layers["attn"][key] = torch.zeros((L, width), dtype=dt,
+                                              device=device)
     if cfg.moe is None:
         layers["mlp"] = _stacked(L, lambda: mlp_init(g, d, cfg.d_ff, dt,
                                                      device))

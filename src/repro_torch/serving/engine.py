@@ -20,7 +20,11 @@ sublayer, expert choice through the GO cache (llama_moe_4_16) or token
 choice, on the C1 group path at prefill and through dispatch at decode
 (granite-moe-3b-a800m, and deepseek-moe-16b, whose always-on shared
 experts add their output inside each MoE call), or with the dense SwiGLU
-MLP (starcoder2-3b, GQA 24/2 with a 4096-token sliding window).
+MLP: starcoder2-3b (GQA 24/2, a 4096-token sliding window on every
+layer), qwen2-7b (GQA 28/4 with QKV bias), granite-8b (GQA 32/8) and
+gemma3-27b (GQA 32/16 of head_dim 128, five local layers with a
+1024-token window to one global: models/model.py:layer_windows, a
+window per layer through prefill, chunk and decode).
 
 The engine reads each tick's tokens back to the host once. Greedy
 streams equal the static `launch.serve.generate()`'s for the same cache

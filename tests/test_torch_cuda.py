@@ -731,10 +731,11 @@ def _chunk_inputs(seed, nkv, G_, hd, device, B=2, Cs=24, ps=16, P=5,
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("G_", [1, 3, 4, 16])
+@pytest.mark.parametrize("G_", [1, 3, 4, 7, 16])
 @pytest.mark.parametrize("hd", [16, 32, 64, 128, 256])
 def test_cuda_chunk_bf16_every_head_dim_and_group(cuda_device, hd, G_):
-    """K4's bf16 body at every head_dim the wrapper takes and GQA 1/3/4/16
+    """K4's bf16 body at every head_dim the wrapper takes and GQA
+    1/3/4/7/16
     (rows folded r = qi * G + g over 16-row warps, a ragged last warp),
     against its plain version on the real queries: 2e-2, as
     PAGED_TOL_BF16 (the plain path rounds q * scale to bf16, the kernel
@@ -754,7 +755,7 @@ def test_cuda_chunk_bf16_every_head_dim_and_group(cuda_device, hd, G_):
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("G_", [1, 3])
+@pytest.mark.parametrize("G_", [1, 3, 7])
 @pytest.mark.parametrize("window,softcap,start", [(9, 0.0, 37), (0, 4.0, 37),
                                                   (20, 3.0, 0)])
 def test_cuda_chunk_bf16_window_softcap(cuda_device, G_, window, softcap,
@@ -774,7 +775,7 @@ def test_cuda_chunk_bf16_window_softcap(cuda_device, G_, window, softcap,
 
 
 @pytest.mark.requires_cuda
-@pytest.mark.parametrize("G_", [1, 3])
+@pytest.mark.parametrize("G_", [1, 3, 7])
 def test_cuda_chunk_bf16_poisoned_pages_change_no_bit(cuda_device, G_):
     """K4's bf16 body reads no position past kv_len: pages holding +-1e4
     there (and on the null page) give the same output bits as clean
@@ -922,11 +923,12 @@ def test_cuda_decode_split_at_engine_shape(cuda_device, dtype, tol, hq, nkv,
 @pytest.mark.parametrize("dtype,tol", [(torch.float32, 2e-5),
                                        (torch.bfloat16, 2e-2)])
 @pytest.mark.parametrize("G_,hd,ps", [(1, 128, 8), (3, 64, 16), (4, 128, 4),
-                                      (16, 256, 32), (3, 16, 128)])
+                                      (16, 256, 32), (3, 16, 128),
+                                      (7, 128, 16)])
 @pytest.mark.parametrize("window,softcap", [(0, 0.0), (40, 0.0), (70, 3.0)])
 def test_cuda_decode_split_window_and_groups(cuda_device, dtype, tol, G_, hd,
                                              ps, window, softcap):
-    """K3's split-KV body at GQA 1/3/4/16, head_dim 16 to 256, pages of 4
+    """K3's split-KV body at GQA 1/3/4/7/16, head_dim 16 to 256, pages of 4
     to 128 (one to 16 pages a split; two tiles a warp at 128), t = 0 and
     positions on split edges, a window that leaves the first splits empty,
     a softcap; against its plain version at PAGED_TOL_F32 / _BF16."""
@@ -1043,7 +1045,8 @@ def _paged_int8(seed, nkv, live, device, ps=16, P=6, hq=4, hd=64):
 @pytest.mark.requires_cuda
 @pytest.mark.parametrize("qdtype,tol", [(torch.float32, 2e-5),
                                         (torch.bfloat16, 2e-2)])
-@pytest.mark.parametrize("nkv,hq,hd", [(2, 8, 128), (2, 6, 64), (2, 2, 64)])
+@pytest.mark.parametrize("nkv,hq,hd", [(2, 8, 128), (2, 6, 64), (2, 2, 64),
+                                       (4, 28, 128)])
 def test_cuda_paged_attn_int8_matches_plain(cuda_device, qdtype, tol, nkv,
                                             hq, hd):
     """K3 and K4 on int8 pages (q fp32: K3's split body and K4's fp32
@@ -1875,3 +1878,166 @@ def test_cuda_dense_prefix_extension_equals_run_without_sharing(cuda_device,
     assert got == run(card, "cuda", False)[0]
     if kv_quant == "none":
         assert got == run(params, "cpu", True)[0]
+
+
+# ------------------------- qwen2-7b, granite-8b, gemma3-27b: GQA 7, 5:1 local
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("qdtype,pages,tol", [
+    (torch.bfloat16, "bf16", 2e-2), (torch.bfloat16, "int8", 2e-2),
+    (torch.float32, "fp32", 2e-5)])
+def test_cuda_paged_attn_gemma3_local_and_global(cuda_device, qdtype, pages,
+                                                 tol):
+    """gemma3's attention shape (32 query heads on 16 kv heads of 128) on
+    one pool and one block table, as the engine runs a local and a global
+    layer over the same pages: K3 at t 1599 and 191, K4 at the chunk of
+    512 queries from 1024 (kv_len 1536), each launched with window 1024
+    and with 0, against their plain versions (the tolerances of the other
+    paged tests). The window binds: the two launches differ, and only the
+    windowed ones count in LAUNCHES_WINDOWED."""
+    hq, nkv, hd, ps, P = 32, 16, 128, 16, 104
+    t = np.array([1599, 191], np.int32)
+    start, Cs, kv_len = 1024, 512, 1536
+    kp, vp, bt, _, _ = _paged(70, nkv, [1600, 1536], cuda_device,
+                              torch.float32, ps=ps, P=P, hq=hq, hd=hd,
+                              poison=0.0)
+    if pages == "int8":
+        (k, ks), (v, vs) = Q.quantize_pages(kp), Q.quantize_pages(vp)
+        sc = dict(k_scales=ks, v_scales=vs)
+    else:
+        k, v, sc = kp.to(qdtype), vp.to(qdtype), {}
+    g = torch.Generator(device="cuda").manual_seed(71)
+    q = torch.randn(2, hq, hd, device="cuda", generator=g).to(qdtype)
+    qc = torch.randn(1, Cs, hq, hd, device="cuda", generator=g).to(qdtype)
+    tt = torch.from_numpy(t).to(cuda_device)
+    tag = "_int8" if pages == "int8" else ""
+    before, before_w = dict(PA.LAUNCHES), dict(PA.LAUNCHES_WINDOWED)
+    outs = {}
+    for window in (1024, 0):
+        d = PA.paged_attn_decode(q, k, v, bt, tt, window=window, **sc)
+        torch.testing.assert_close(d, PA.paged_attn_decode_plain(
+            q, k, v, bt, tt, window=window, **sc), rtol=tol, atol=tol)
+        c = PA.paged_attn_chunk(qc, k, v, bt[1:], start, kv_len,
+                                window=window, **sc)
+        torch.testing.assert_close(c, PA.paged_attn_chunk_plain(
+            qc, k, v, bt[1:], start, kv_len, window=window, **sc),
+            rtol=tol, atol=tol)
+        outs[window] = (d, c)
+    torch.cuda.synchronize()
+    assert (outs[1024][0][0] - outs[0][0][0]).abs().max() > 1e-2
+    assert (outs[1024][1] - outs[0][1]).abs().max() > 1e-2
+    # the 191-token row lies inside the window: both launches agree
+    torch.testing.assert_close(outs[1024][0][1], outs[0][0][1], rtol=tol,
+                               atol=tol)
+    assert PA.LAUNCHES[f"paged_attn_decode{tag}"] == \
+        before[f"paged_attn_decode{tag}"] + 2
+    assert PA.LAUNCHES[f"paged_attn_chunk{tag}"] == \
+        before[f"paged_attn_chunk{tag}"] + 2
+    # the windowed share counts the window-1024 launches only
+    for kind in ("decode", "chunk"):
+        name = f"paged_attn_{kind}{tag}"
+        assert PA.LAUNCHES_WINDOWED[name] == before_w[name] + 1
+
+
+def _dense_smoke(arch, softcap=0.0):
+    """A dense smoke config and its fp32 params on the CPU; qwen2's QKV
+    biases drawn from a seeded generator (model_init makes them zero)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import model_init
+    cfg = get_config(arch, smoke=True).with_overrides(logit_softcap=softcap)
+    params = model_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    g = torch.Generator().manual_seed(1)
+    for k in ("bq", "bk", "bv"):
+        if k in params["layers"]["attn"]:
+            b = params["layers"]["attn"][k]
+            b.copy_(0.5 * torch.randn(b.shape, generator=g))
+    return cfg, params
+
+
+@pytest.mark.requires_cuda
+def test_cuda_softcap_through_served_attention(cuda_device):
+    """attn_decode and attn_chunk with logit_softcap 0.5 (gemma3's smoke
+    shape) on a paged pool, through K3 and K4 on the card against the CPU
+    (plain versions): fp32 within 1e-5; the cap binds (without it the
+    outputs move)."""
+    from repro_torch.models import attention as ATT
+    from repro_torch.models.model import layer_params
+    cfg, params = _dense_smoke("gemma3-27b", softcap=0.5)
+    attn = layer_params(params["layers"], 0)["attn"]
+    hd, nkv, ps, P = cfg.resolved_head_dim(), cfg.num_kv_heads, 8, 4
+    rng = np.random.default_rng(80)
+    x = torch.from_numpy(rng.standard_normal((2, 16, cfg.d_model)).astype(
+        np.float32))
+    xt = torch.from_numpy(rng.standard_normal((2, 1, cfg.d_model)).astype(
+        np.float32))
+    bt = torch.tensor([[1, 2, 3, 4], [5, 6, 7, 8]], dtype=torch.int32)
+
+    def run(device, c):
+        c_cfg = cfg.with_overrides(logit_softcap=c)
+        kp = torch.zeros(9, ps, nkv, hd, device=device)
+        vp = torch.zeros_like(kp)
+        a = _to({"a": attn}, device)["a"]
+        out = ATT.attn_chunk(a, x.to(device), kp, vp, 0, cfg=c_cfg,
+                             window=cfg.sliding_window, kv_len=16,
+                             block_table=bt.to(device))
+        dec = ATT.attn_decode(a, xt.to(device), kp, vp,
+                              torch.tensor([16, 16], device=device),
+                              cfg=c_cfg, window=cfg.sliding_window,
+                              block_table=bt.to(device))
+        return out.cpu(), dec.cpu()
+
+    before = dict(PA.LAUNCHES)
+    card = run(cuda_device, 0.5)
+    torch.cuda.synchronize()
+    assert PA.LAUNCHES["paged_attn_chunk"] == before["paged_attn_chunk"] + 1
+    assert PA.LAUNCHES["paged_attn_decode"] == before["paged_attn_decode"] + 1
+    cpu = run("cpu", 0.5)
+    for a, b in zip(card, cpu):
+        torch.testing.assert_close(a, b, rtol=1e-5, atol=1e-5)
+    free = run("cpu", 0.0)
+    assert all((a - b).abs().max() > 1e-3 for a, b in zip(cpu, free))
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch,kv_quant", [
+    ("qwen2-7b", "none"), ("qwen2-7b", "int8"), ("gemma3-27b", "none"),
+    ("gemma3-27b", "int8"), ("granite-8b", "none")])
+def test_cuda_dense_smoke_engine_equals_cpu(cuda_device, arch, kv_quant):
+    """The smoke qwen2-7b (nonzero QKV biases), gemma3-27b (local, local,
+    global; window 16) and granite-8b on the card against the CPU: static
+    generate() on 40-token prompts, tokens equal and logits within 1e-5
+    (fp32); then a staggered engine trace on fp32 or int8 pages with
+    chunks of 16, the same streams, K3/K4 once per layer and tick and no
+    other kernel."""
+    from repro_torch.launch.serve import generate, serve_continuous
+    cfg, params = _dense_smoke(arch)
+    gpu_params = _to(params, cuda_device)
+    L = cfg.num_layers
+    prompts = torch.randint(0, cfg.vocab_size, (4, 40),
+                            generator=torch.Generator().manual_seed(1))
+    cpu = generate(params, cfg, prompts, 6, device="cpu")
+    gpu = generate(gpu_params, cfg, prompts.to(cuda_device), 6,
+                   device="cuda")
+    assert torch.equal(gpu["tokens"].cpu(), cpu["tokens"])
+    torch.testing.assert_close(gpu["logits"].cpu(), cpu["logits"],
+                               rtol=1e-5, atol=1e-5)
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+               for n in (40, 9, 21)]
+    kw = dict(num_slots=2, max_tokens=48, arrival_steps=[0, 1, 3],
+              paged=True, page_size=8, prefill_chunk=16, kv_quant=kv_quant)
+    cpu = serve_continuous(params, cfg, prompts, 7, device="cpu", **kw)
+    PA.reset_launches()
+    G.reset_launches()
+    GT.reset_launches()
+    gpu = serve_continuous(gpu_params, cfg, prompts, 7, device="cuda", **kw)
+    for rid, toks in cpu["tokens"].items():
+        np.testing.assert_array_equal(gpu["tokens"][rid], toks)
+    s = gpu["stats"]
+    tag = "_int8" if kv_quant == "int8" else ""
+    assert s["chunk_ticks"] == 5
+    assert (PA.LAUNCHES[f"paged_attn_decode{tag}"],
+            PA.LAUNCHES[f"paged_attn_chunk{tag}"]) == \
+        (L * s["decode_ticks"], L * s["chunk_ticks"])
+    assert all(n == 0 for n in G.LAUNCHES.values())
+    assert all(n == 0 for n in GT.LAUNCHES.values())

@@ -485,6 +485,13 @@ TILE_CASES = {
     "hd256_window": (24, 4, 256, 16, 5, 37, 57, 9),
     "one_warp": (16, 1, 64, 8, 6, 5, 21, 3),
     "starcoder2_window": (512, 12, 128, 16, 320, 4096, 4608, 4096),
+    # qwen2's group of 7 (16-row warps hold no whole number of queries)
+    # at the engine's chunk, and with a window; gemma3's window cell's
+    # last chunk on a local layer (window 1024) and on a global one
+    "qwen2_g7": (128, 7, 128, 16, 32, 384, 448, 0),
+    "g7_window": (20, 7, 128, 16, 5, 37, 57, 9),
+    "gemma3_local": (512, 2, 128, 16, 104, 1024, 1536, 1024),
+    "gemma3_global": (512, 2, 128, 16, 104, 1024, 1536, 0),
 }
 
 
@@ -647,6 +654,34 @@ def test_chunk_tc_algorithm_gqa12_window_matches_jax_kernel():
                                **TOL_KERNEL)
 
 
+@pytest.mark.parametrize("window,softcap", [(0, 0.0), (20, 2.0)])
+def test_chunk_tc_algorithm_gqa7_matches_jax_kernel(window, softcap):
+    """qwen2's GQA 7 on the new body's tiling: a warp's 16 (query, head)
+    rows hold two whole queries and part of a third (7 does not divide
+    16), each row masked by its own query's limits, with and without a
+    window and a softcap, against the JAX Pallas chunk kernel in
+    interpret mode: 1e-5."""
+    rng = np.random.default_rng(43 + window)
+    B, Cs, nkv, G_, hd, ps, Pn, start, kv_len = \
+        1, 11, 2, 7, 16, 16, 12, 130, 139
+    q = rng.standard_normal((B, Cs, nkv * G_, hd)).astype(np.float32)
+    NP = B * Pn + 1
+    kp = rng.standard_normal((NP, ps, nkv, hd)).astype(np.float32)
+    vp = rng.standard_normal((NP, ps, nkv, hd)).astype(np.float32)
+    bt = (rng.permutation(np.arange(1, NP))[:B * Pn]
+          .reshape(B, Pn).astype(np.int32))
+    bt[:, -(-kv_len // ps):] = 0
+    got = _chunk_tc_emulated(_t(q), _t(kp), _t(vp), _t(bt), start, kv_len,
+                             window, softcap)
+    kern = JPA.paged_attn_chunk(jnp.asarray(q), jnp.asarray(kp),
+                                jnp.asarray(vp), jnp.asarray(bt), start,
+                                kv_len, window=window, softcap=softcap,
+                                interpret=True)
+    n = kv_len - start
+    np.testing.assert_allclose(got.numpy()[:, :n], np.asarray(kern)[:, :n],
+                               **TOL_KERNEL)
+
+
 # ---------------------------------------- K3's split-KV body: launch arithmetic
 
 # (P, ps, window): the engine's pool (32 pages of 16), pages of 8 and 4
@@ -759,7 +794,8 @@ def _decode_split_emulated(q, kp, vp, bt, t, window, softcap,
 
 @pytest.mark.parametrize("G_,window,softcap", [(3, 0, 0.0), (3, 40, 0.0),
                                                (3, 0, 4.0), (1, 70, 3.0),
-                                               (4, 100, 0.0), (12, 40, 0.0)])
+                                               (4, 100, 0.0), (12, 40, 0.0),
+                                               (7, 0, 0.0), (7, 40, 3.0)])
 def test_decode_split_algorithm_matches_jax_kernel(G_, window, softcap):
     """K3's split-KV algorithm, emulated on the CPU at pages of 8 (8 pages,
     64 keys a split, 3 splits of 24 pages; two 32-key tiles a split, one a
