@@ -264,6 +264,18 @@ Phases (none catches an exception; any failure exits non-zero):
      rows and never on granite's, xlstm's or `go_wide`, where K5 runs
      instead. The profiles
      give device events per layer.
+  6. Training (after deepseek's full-width block; no kernel on the path,
+     the MoE layer on its "xla" realization, every kernel's launch count
+     0 through each run): `train_granite`, granite-moe-3b-a800m at full
+     width and depth, 6 AdamW steps of 8 x 512 tokens (warmup 1) with
+     remat: losses and grad norms finite, the held-out batch's loss
+     falling, then 2 steps again from seed 0 with bit-equal losses and
+     parameter checksum; `train_granite_restart`, its first 4 layers, a
+     checkpoint every 2 steps and RestartRequired after step 3's update:
+     bit-equal to an uninterrupted run, then one more step profiled;
+     `train_llama8`, llama's first 8 layers, 3 steps; `xla_vs_kernels`,
+     one full-width layer of each on "xla" and on the kernels: the same
+     drop set or chosen tokens, outputs within XLA_KERNEL_TOL.
 Then one JSON line with every kernel's numbers, the card line again, and
 the final {"ok": true, ...} line.
 """
@@ -4721,6 +4733,268 @@ def starcoder2_prefix_ext_phase(torch, cfg, params, ServingEngine, TM,
     return first
 
 
+# Slice 18: training (launch/train.py) at full width, on the MoE layer's
+# "xla" realization (no CUDA kernel has a backward pass). TrainConfig's
+# seq 512 and global batch 8, warmup 1 step. train_granite: 6 steps of the
+# full model, then 2 steps again from the same seed (the first two steps'
+# learning rates are equal at any total); the held-out batch is a corpus
+# step no run reaches. train_granite_restart: the first 4 layers, a
+# checkpoint every 2 steps, RestartRequired raised after step 3's
+# in-place update. train_llama8: llama's first 8 layers (its 32 need ~79
+# GB of weights, grads and moments: more than one card).
+TRAIN_TC = dict(seq_len=512, global_batch=8, warmup_steps=1, log_every=1)
+TRAIN_STEPS = 6
+TRAIN_REPEAT_STEPS = 2
+TRAIN_HELDOUT_STEP = 1_000_000
+RESTART_LAYERS = 4
+RESTART_STEPS = 5
+RESTART_AT = 3
+LLAMA_TRAIN_LAYERS = 8
+LLAMA_TRAIN_STEPS = 3
+
+# xla_vs_kernels: one full-width MoE layer on one bf16 sequence of 512
+# tokens through "xla" and through the kernels. The drop sets and the
+# chosen tokens are equal (one routing, one drop order); the outputs
+# differ by where each side rounds to bf16 (xla rounds x Wg, x Wi, h and
+# y Wo; the kernels keep fp32 until h and y): a few bf16 ulps of the
+# output's scale, so max |y_xla - y_kernels| <= XLA_KERNEL_TOL * max |y|.
+XLA_KERNEL_TOKENS = 512
+XLA_KERNEL_TOL = 3e-2
+
+
+def _checksum(torch, tree):
+    """(the int64 sum of every leaf's bit patterns, the fp64 sum of its
+    values), a layer slice at a time: equal trees give equal sums."""
+    bits, vals = 0, 0.0
+    for t in _leaves(tree):
+        t = t.detach()
+        view = {2: torch.int16, 4: torch.int32}[t.element_size()]
+        for part in (t.split(1) if t.dim() > 1 else [t]):
+            bits += int(part.view(view).to(torch.int64).sum())
+            vals += float(part.double().sum())
+    return bits, vals
+
+
+def _train_cfg(steps, ckpt_dir, ckpt_every=0):
+    from repro_torch.configs.base import TrainConfig
+    return TrainConfig(steps=steps, ckpt_dir=ckpt_dir, ckpt_every=ckpt_every,
+                       **TRAIN_TC)
+
+
+def _train_stats(torch, out, card):
+    """Per-step losses, grad norms and ms; the median step after the
+    first; tokens/s; peak GB since the last reset."""
+    tokens = TRAIN_TC["seq_len"] * TRAIN_TC["global_batch"]
+    med = statistics.median(out["step_ms"][1:] or out["step_ms"])
+    return {"steps": len(out["losses"]), "tokens_per_step": tokens,
+            "losses": out["losses"], "grad_norms": out["grad_norms"],
+            "step_ms": out["step_ms"], "median_step_ms": med,
+            "tok_per_s": tokens / med * 1e3,
+            "peak_gb": torch.cuda.max_memory_allocated() / 1e9,
+            "card": card}
+
+
+def _need_finite(out, what):
+    import math
+    need(all(map(math.isfinite, out["losses"] + out["grad_norms"])),
+         f"{what}: a loss or grad norm is not finite: {out['losses']} "
+         f"{out['grad_norms']}")
+
+
+def _free(torch):
+    gc.collect()
+    torch.cuda.empty_cache()
+
+
+def train_phase(torch, TM, TT, get_config, counts, reset_counts, card):
+    """train_granite, train_granite_restart, train_llama8; every kernel's
+    launch count must stay 0 through each run. Returns {path: counts}."""
+    import tempfile
+
+    from repro_torch.data.pipeline import DataConfig, SyntheticCorpus
+    from repro_torch.runtime.fault import RestartRequired
+    paths = {}
+    tmp = tempfile.mkdtemp(prefix="train")
+
+    def log(tag):
+        return lambda s: print(f"[train] {tag} {s}", flush=True)
+
+    def no_launch(path):
+        got = counts()
+        need(all(n == 0 for n in got.values()),
+             f"{path}: a training step launched a CUDA kernel: {got}")
+        paths[path] = got
+
+    # train_granite: full width, full depth
+    cfg = get_config("granite-moe-3b-a800m")
+    t0 = time.perf_counter()
+    gen = lambda: torch.Generator(device="cuda").manual_seed(0)  # noqa: E731
+    params = TM.model_init(cfg, gen(), "cuda")
+    n_params = sum(t.numel() for t in _leaves(params))
+    corpus = SyntheticCorpus(DataConfig(
+        vocab_size=cfg.vocab_size, seq_len=TRAIN_TC["seq_len"],
+        global_batch=TRAIN_TC["global_batch"], seed=0))
+    heldout = {k: torch.from_numpy(v).cuda()
+               for k, v in corpus.batch(TRAIN_HELDOUT_STEP).items()}
+
+    def heldout_loss(p):
+        with torch.no_grad():
+            return float(TM.loss_fn(p, heldout, cfg)[0])
+    before = heldout_loss(params)
+    marks = {}
+
+    def mark(step, phase):
+        if phase == "update" and step == TRAIN_REPEAT_STEPS - 1:
+            marks["checksum"] = _checksum(torch, params)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = TT.run(cfg, _train_cfg(TRAIN_STEPS, tmp), resume=False,
+                 device="cuda", params=params, fault=mark,
+                 log=log("granite"))
+    no_launch("train_granite")
+    stats = _train_stats(torch, out, card)
+    _need_finite(out, "train_granite")
+    after = heldout_loss(params)
+    need(after < before, f"train_granite: held-out loss {before} -> {after}")
+    stats.update(params=n_params, heldout_before=before,
+                 heldout_after=after)
+    del out, params
+    _free(torch)
+    params = TM.model_init(cfg, gen(), "cuda")
+    rep = TT.run(cfg, _train_cfg(TRAIN_REPEAT_STEPS, tmp), resume=False,
+                 device="cuda", params=params, log=log("granite repeat"))
+    need(rep["losses"] == stats["losses"][:TRAIN_REPEAT_STEPS] and
+         _checksum(torch, params) == marks["checksum"],
+         f"train_granite: the repeat gave {rep['losses']} "
+         f"{_checksum(torch, params)}, first run {stats['losses']} "
+         f"{marks['checksum']}")
+    stats["repeat"] = {"losses": rep["losses"],
+                       "checksum": list(marks["checksum"])}
+    del rep, params
+    _free(torch)
+    stats["s"] = time.perf_counter() - t0
+    print(f"[train] train_granite {json.dumps(stats)}", flush=True)
+
+    # train_granite_restart: the first RESTART_LAYERS layers
+    t0 = time.perf_counter()
+    cfg_r = cfg.with_overrides(num_layers=RESTART_LAYERS)
+    fired = []
+
+    def fault(step, phase):
+        if step == RESTART_AT and phase == "update" and not fired:
+            fired.append(time.perf_counter())
+            raise RestartRequired(f"injected after step {step}'s update")
+    reset_counts()
+    ck = os.path.join(tmp, "restart")
+    a = TT.run(cfg_r, _train_cfg(RESTART_STEPS, ck, ckpt_every=2),
+               resume=False, device="cuda", fault=fault,
+               log=log("granite_restart"))
+    no_launch("train_granite_restart")
+    restored_s = time.perf_counter() - fired[0]
+    sum_a = _checksum(torch, a["params"])
+    ck_bytes = sum(f.stat().st_size for f in Path(ck).rglob("*.npy"))
+    losses_a = a["losses"]
+    del a
+    _free(torch)
+    tc_b = _train_cfg(RESTART_STEPS, tmp)
+    b = TT.run(cfg_r, tc_b, resume=False, device="cuda",
+               log=log("granite_uninterrupted"))
+    want = b["losses"][:RESTART_AT] + b["losses"][RESTART_AT - 1:]
+    need(losses_a == want and _checksum(torch, b["params"]) == sum_a,
+         f"train_granite_restart: {losses_a} vs {want}")
+    # where a training step's time goes: one more step of this model
+    batch = {k: torch.from_numpy(v).cuda() for k, v in corpus.batch(
+        RESTART_STEPS).items()}
+    step = TT.make_step(cfg_r, tc_b)
+    profile_phase(torch, cfg_r, {"train_step": lambda: step(
+        b["params"], b["opt_state"], batch, RESTART_STEPS)})
+    stats = {k: v for k, v in _train_stats(torch, b, card).items()
+             if k in ("step_ms", "median_step_ms", "tok_per_s")}
+    stats.update(layers=RESTART_LAYERS, losses=losses_a,
+                 uninterrupted=b["losses"], checksum=list(sum_a),
+                 ckpt_bytes_on_disk=ck_bytes, restart_to_end_s=restored_s,
+                 s=time.perf_counter() - t0, card=card)
+    print(f"[train] train_granite_restart {json.dumps(stats)}", flush=True)
+    del b
+    _free(torch)
+
+    # train_llama8: llama's first LLAMA_TRAIN_LAYERS layers
+    t0 = time.perf_counter()
+    cfg_l = get_config("llama_moe_4_16").with_overrides(
+        num_layers=LLAMA_TRAIN_LAYERS)
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    out = TT.run(cfg_l, _train_cfg(LLAMA_TRAIN_STEPS, tmp), resume=False,
+                 device="cuda", log=log("llama8"))
+    no_launch("train_llama8")
+    _need_finite(out, "train_llama8")
+    stats = _train_stats(torch, out, card)
+    stats.update(layers=LLAMA_TRAIN_LAYERS, params=sum(
+        t.numel() for t in _leaves(out["params"])),
+        s=time.perf_counter() - t0)
+    print(f"[train] train_llama8 {json.dumps(stats)}", flush=True)
+    del out
+    _free(torch)
+    shutil.rmtree(tmp, ignore_errors=True)
+    return paths
+
+
+def xla_vs_kernels_phase(torch, TM, MOE, get_config, counts, reset_counts,
+                         card):
+    """granite's group_forward and llama's expert_choice_forward at full
+    width, one layer, one bf16 sequence: "xla" (no launch) against the
+    kernels (K7/K8, K1/K2): the same drop set or chosen tokens, outputs
+    within XLA_KERNEL_TOL of the output's scale; both timed."""
+    import dataclasses
+    flush = torch.empty(256 * 2 ** 20, dtype=torch.uint8, device="cuda")
+    out = {}
+    for arch in ("granite-moe-3b-a800m", "llama_moe_4_16"):
+        cfg = get_config(arch).with_overrides(num_layers=1)
+        g = torch.Generator(device="cuda").manual_seed(1)
+        moe = TM.layer_params(TM.model_init(cfg, g, "cuda")["layers"],
+                              0)["moe"]
+        x = torch.randn((XLA_KERNEL_TOKENS, cfg.d_model), generator=g,
+                        device="cuda").to(torch.bfloat16)
+        ex = dataclasses.replace(cfg.moe, backend="xla")
+        if cfg.moe.routing == "token_choice":
+            goe, mem = (TM.expert_groups(cfg, "cuda"),
+                        TM.expert_group_members(cfg, "cuda"))
+            run = lambda e: MOE.group_forward(moe, x, e, goe, mem)  # noqa
+            key = "kept"
+        else:
+            run = lambda e: MOE.expert_choice_forward(moe, x, e)  # noqa
+            key = "chosen_tokens"
+        with torch.no_grad():
+            reset_counts()
+            yx, ax = run(ex)
+            torch.cuda.synchronize()
+            need(all(n == 0 for n in counts().values()),
+                 f"{arch}: the xla layer launched a kernel: {counts()}")
+            yk, ak = run(cfg.moe)
+            torch.cuda.synchronize()
+            launched = {k: n for k, n in counts().items() if n}
+            need(launched, f"{arch}: the kernel layer launched nothing")
+            need(torch.equal(ax[key], ak[key]),
+                 f"{arch}: xla and the kernels drop or choose other pairs")
+            err = float((yx.float() - yk.float()).abs().max())
+            scale = float(yk.float().abs().max())
+            need(err <= XLA_KERNEL_TOL * scale,
+                 f"{arch}: xla vs kernels err {err} at scale {scale}")
+            entry = {"tokens": XLA_KERNEL_TOKENS, key: int(
+                ak[key].sum() if key == "kept" else ak[key].numel()),
+                "dropped": int(ak.get("dropped", 0)),
+                "max_abs_err": err, "out_scale": scale,
+                "tol": XLA_KERNEL_TOL, "kernel_launches": launched,
+                "xla_ms": time_ms(torch, lambda: run(ex), flush, reps=5),
+                "kernels_ms": time_ms(torch, lambda: run(cfg.moe), flush,
+                                      reps=5), "card": card}
+        out[arch] = entry
+        print(f"[xla_vs_kernels] {arch} {json.dumps(entry)}", flush=True)
+        del moe, x, yx, yk, ax, ak
+        _free(torch)
+    return out
+
+
 def _tensors(tree):
     """Every tensor of a decode state (dicts and named tuples), in order."""
     import torch
@@ -4755,6 +5029,7 @@ def main():
     from repro_torch.kernels import paged_attn as PA
     from repro_torch.kernels import slstm_cell as SC
     from repro_torch.launch import serve as TS
+    from repro_torch.launch import train as TT
     from repro_torch.models import model as TM
     from repro_torch.serving import Chaos, EngineJournal, ServingEngine
 
@@ -4953,6 +5228,16 @@ def main():
         torch.cuda.empty_cache()
         print(f"[full] {cfg.name}: {time.perf_counter() - t0:.1f} s",
               flush=True)
+
+    # slice 18: training on the MoE layer's "xla" realization (granite at
+    # full width and depth, its first 4 layers through a restart, llama's
+    # first 8), then one layer of each on "xla" against the kernels
+    t0 = time.perf_counter()
+    by_path.update(train_phase(torch, TM, TT, get_config, counts,
+                               reset_counts, card))
+    xla_vs_kernels_phase(torch, TM, MOE, get_config, counts, reset_counts,
+                         card)
+    print(f"[full] training: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # starcoder2-3b at full width (dense MLP, GQA 24/2, window
     # 4096): static, the engine trace on bf16 and int8 pages (bf16 streams

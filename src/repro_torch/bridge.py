@@ -31,3 +31,16 @@ def params_from_numpy(tree, device, dtype=None):
         return {k: params_from_numpy(v, device, dtype)
                 for k, v in tree.items()}
     return _to_tensor(tree, device, dtype)
+
+
+def opt_state_from_numpy(state, device):
+    """The JAX package's `AdamWState` (step, m, v) with numpy leaves (a
+    non-float parameter's moments None) -> the port's, on `device`."""
+    from repro_torch.optim.adamw import AdamWState
+
+    def moments(tree):
+        if isinstance(tree, dict):
+            return {k: moments(v) for k, v in tree.items()}
+        return None if tree is None else _to_tensor(tree, device, None)
+    return AdamWState(_to_tensor(state.step, device, None),
+                      moments(state.m), moments(state.v))

@@ -3,7 +3,8 @@
 A copy of the reference package's schema, cut to the fields the port's
 slices read (the attention family with its QKV bias, local/global window
 pattern and attention logit softcap; the xlstm family; tied embeddings;
-the int8 decode state).
+the int8 decode state; the balance-loss coefficient, `remat` and
+`TrainConfig` for training).
 Plain dataclasses: no torch, no JAX.
 """
 from __future__ import annotations
@@ -25,10 +26,12 @@ class MoEConfig:
     group_size: int = 1               # experts per multiplexed lane (C1)
     grouping: str = "sorted"          # "uniform" | "sorted" (C2)
     capacity_factor: float = 1.25     # token-choice expert capacity
+    balance_coef: float = 0.01        # aux balance-loss coefficient (training)
     use_grouped_gemm: bool = True     # group-multiplexed execution path (C1)
     # "auto" and "pallas" both run the grouped-GEMM decomposition: the
     # hand-written kernels on a CUDA tensor, their plain versions on a CPU
-    # tensor. "xla" (the masked-einsum realization) is not ported yet.
+    # tensor. "xla" is the masked, capacity-padded einsum realization, the
+    # one autograd trains through (loss_fn pins "auto" to it).
     backend: str = "auto"             # "auto" | "xla" | "pallas"
     gmm_block_rows: int = 0           # row-tile height (0 = per device)
     go_cache: bool = True             # gate-output cache for EC decode
@@ -69,8 +72,30 @@ class ModelConfig:
     # granularity is page granularity (core/quant.py).
     kv_quant: str = "none"            # "none" | "int8"
 
+    # training: each layer (and each cross-entropy chunk) recomputes its
+    # forward in the backward pass instead of keeping its activations
+    remat: bool = True
+
     def resolved_head_dim(self) -> int:
         return self.head_dim or self.d_model // self.num_heads
 
     def with_overrides(self, **kw) -> "ModelConfig":
         return dataclasses.replace(self, **kw)
+
+
+@dataclass(frozen=True)
+class TrainConfig:
+    """End-to-end training-run knobs for launch/train.py."""
+
+    steps: int = 100
+    seq_len: int = 512
+    global_batch: int = 8
+    lr: float = 3e-4
+    warmup_steps: int = 20
+    weight_decay: float = 0.1
+    grad_clip: float = 1.0
+    seed: int = 0
+    ckpt_dir: str = "/tmp/repro_ckpt"
+    ckpt_every: int = 50
+    log_every: int = 10
+    microbatch: int = 0               # >0 enables gradient accumulation

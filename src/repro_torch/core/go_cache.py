@@ -115,13 +115,16 @@ class GOStepResult(NamedTuple):
 
 
 def go_cache_step(cache: GOCache, x_t: torch.Tensor, token_id,
-                  gate_w: torch.Tensor, *, contrib_fn,
+                  gate_w: torch.Tensor, expert_fn=None, *, contrib_fn=None,
                   bn: int | None = None) -> GOStepResult:
     """One expert-choice decode step through the GO cache (eq. 4).
 
-    x_t [B, d]; token_id an int (static batch) or [B]. `contrib_fn(x, sel,
-    g)` returns the fp32 weighted contributions [B, E, d] of the SELECTED
-    pairs, zero elsewhere (kernels/ops.py:go_selected_ffn). With `bn` (the
+    x_t [B, d]; token_id an int (static batch) or [B]. Expert compute comes
+    from exactly one of two callables: `expert_fn(x)` -> [B, E, d], all E
+    expert FFNs (the "xla" dense fallback, weighted by g and masked to the
+    selecting experts here), or `contrib_fn(x, sel, g)`, which returns the
+    fp32 weighted contributions [B, E, d] of the SELECTED pairs, zero
+    elsewhere (kernels/ops.py:go_selected_ffn). With `bn` (the
     decode tile's rows) the step also hands it the lane plan of those
     pairs at that tile, `contrib_fn(x, sel, g, plan=plan)`
     (kernels/ops.py:go_plan_ffn); without, the reference's three-argument
@@ -135,6 +138,8 @@ def go_cache_step(cache: GOCache, x_t: torch.Tensor, token_id,
     gate row and its softmax in fp32, K5 in place and `go_lane_plan`,
     which leave the cache's tensors as K5R would; a cache of strided views
     runs the same steps through K5's functional form and two copies."""
+    if (expert_fn is None) == (contrib_fn is None):
+        raise ValueError("pass exactly one of expert_fn / contrib_fn")
     B, E = x_t.shape[0], gate_w.shape[1]
     contiguous = cache.scores.is_contiguous() and \
         cache.token_ids.is_contiguous()
@@ -157,11 +162,15 @@ def go_cache_step(cache: GOCache, x_t: torch.Tensor, token_id,
             cache.token_ids.copy_(t)
         r = GORoute(g, selected, slot,
                     go_lane_plan(selected, g, bn) if bn else None)
-    if bn:
-        contrib = contrib_fn(x_t, r.selected, r.g, plan=r.plan)   # [B, E, d]
+    if expert_fn is not None:
+        contrib = r.g[..., None] * expert_fn(x_t).float()          # [B, E, d]
+        y = torch.where(r.selected[..., None], contrib, 0.0).sum(dim=1)
     else:
-        contrib = contrib_fn(x_t, r.selected, r.g)
-    y = contrib.sum(dim=1)
+        if bn:
+            contrib = contrib_fn(x_t, r.selected, r.g, plan=r.plan)
+        else:
+            contrib = contrib_fn(x_t, r.selected, r.g)
+        y = contrib.sum(dim=1)
     k = cache.scores.shape[-1]
     onehot = r.slot[..., None] == torch.arange(k, device=x_t.device)
     write = (r.selected[..., None] & onehot)[..., None]            # [B,E,k,1]

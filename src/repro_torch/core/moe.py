@@ -1,47 +1,75 @@
-"""MoE layer on the grouped-GEMM decomposition (the reference's "pallas"
-backend).
+"""MoE layer on two realizations, selected by `MoEConfig.backend`
+(`resolve_backend`).
 
-Counterpart of repro/core/moe.py for the paths the port serves:
+Counterpart of repro/core/moe.py:
 
-  dispatch_forward   token choice through one tile plan over the experts
-                     (dropless); token-choice decode runs it.
+  dispatch_forward   token choice; token-choice decode runs it.
   group_forward      C1 group multiplexing: token choice with POOLED group
-                     capacity, the group's member lanes fused pairwise in
-                     the tile plan (K7/K8 on a card).
-  expert choice      (Zhou et al.) at prefill, whose routing output seeds
-                     the GO cache.
+                     capacity.
+  expert choice      (Zhou et al.) at prefill and in training, whose routing
+                     output seeds the GO cache.
+  dense_forward      the oracle: every expert over every token, masked.
 
-The routed FFN runs through kernels/ops.py:moe_ffn_fused, i.e. the
-hand-written grouped GEMMs on a card and their plain versions on the CPU.
-Always-on shared experts (deepseek-style, `params["shared"]`) add
-`_shared_out` to every path's output (`add_shared`), as plain products
-outside the grouped GEMM, where the reference adds them.
+"auto" and "pallas" run the grouped-GEMM decomposition: kernels/ops.py's
+moe_ffn_fused, i.e. the hand-written grouped GEMMs on a card and their
+plain versions on the CPU (dropless dispatch; the group path's pooled
+overflow as zero combine weights, its member lanes fused pairwise). "xla"
+is the reference's masked, capacity-padded einsum realization: [E, C, d]
+capacity buffers for dispatch, pooled [G, C_grp, d] lanes masked over the
+g members for the group path, a gather of each expert's top-C tokens for
+expert choice. It is the one autograd trains through; its gathers and
+sums run through models/layers.py `take_rows` / `add_rows`, whose
+gradients are sums in a fixed order on every device. Both realizations
+drop pairs by the one order `_expert_positions` / `_group_sorted_positions`
+define. Always-on shared experts (deepseek-style, `params["shared"]`) add
+`_shared_out` to every path's output, as plain products outside the
+grouped GEMM, where the reference adds them.
 """
 from __future__ import annotations
 
 import functools
 import math
+from typing import NamedTuple
 
 import torch
 
 from repro_torch.configs.base import MoEConfig
 from repro_torch.core import routing as R
 from repro_torch.kernels import ops as OPS
+from repro_torch.models.layers import add_rows, take_rows
 
 
-def check_backend(e: MoEConfig) -> None:
-    """`MoEConfig.backend`: "auto" and "pallas" both mean the grouped-GEMM
-    decomposition (the JAX `pallas` backend's); whether its kernels or
-    their plain versions run follows the tensors' device, never a
-    fallback. "xla" is not ported yet."""
+def resolve_backend(e: MoEConfig, refs=None) -> str:
+    """`MoEConfig.backend` -> "xla" (the masked einsum realization) or
+    "pallas" (the grouped-GEMM decomposition, which "auto" also means:
+    whether its kernels or their plain versions run follows the tensors'
+    device, never a fallback).
+
+    Pass the layer's inputs and params (tensors, or dicts and sequences of
+    them) as `refs`: an EXPLICIT "pallas" then raises where autograd would
+    need its gradient (grad mode on and any of them requires grad), as the
+    reference fails fast under a JAX grad trace. The CUDA kernels have no
+    backward pass (their wrappers raise too)."""
     b = e.backend
-    if b in ("auto", "pallas"):
-        return
-    if b == "xla":
+    if b not in ("auto", "xla", "pallas"):
+        raise ValueError(f"unknown MoE backend: {b!r}")
+    if b == "pallas" and refs is not None and _under_autograd(refs):
         raise NotImplementedError(
-            "MoE backend 'xla' (the masked-einsum realization) is not ported "
-            "yet: ROADMAP.md Queue 1 item 4 (the MoE layer's other paths)")
-    raise ValueError(f"unknown MoE backend: {b!r}")
+            "pallas backend has no backward pass yet; use backend='auto' or "
+            "'xla' for training (loss_fn already pins 'auto' to xla — see "
+            "ROADMAP: custom VJP over gmm/gmm_swiglu)")
+    return "xla" if b == "xla" else "pallas"
+
+
+def _under_autograd(refs) -> bool:
+    """Grad mode is on and a tensor of `refs` requires grad."""
+    if not torch.is_grad_enabled():
+        return False
+    if isinstance(refs, dict):
+        return any(_under_autograd(v) for v in refs.values())
+    if isinstance(refs, (tuple, list)):
+        return any(_under_autograd(v) for v in refs)
+    return torch.is_tensor(refs) and refs.requires_grad
 
 
 def block_rows(e: MoEConfig, device) -> int:
@@ -75,24 +103,27 @@ def add_shared(params: dict, y: torch.Tensor, x: torch.Tensor) -> torch.Tensor:
     return y + _shared_out(params, x) if "shared" in params else y
 
 
-def _token_counts(token_idx: torch.Tensor, T: int) -> torch.Tensor:
-    """[B, n] chosen token ids -> [B, T] experts per token (a scatter-add:
-    bincount would read its size back to the host)."""
-    out = torch.zeros((token_idx.shape[0], T), dtype=torch.int64,
-                      device=token_idx.device)
-    return out.scatter_add_(1, token_idx.long(), torch.ones_like(
-        token_idx, dtype=torch.int64))
+def _bincount(idx: torch.Tensor, n: int) -> torch.Tensor:
+    """Occurrences of each value 0..n-1 along idx's last axis, [..., n]
+    int64 (an integer scatter-add: bincount would read its size back to
+    the host)."""
+    out = torch.zeros((*idx.shape[:-1], n), dtype=torch.int64,
+                      device=idx.device)
+    return out.scatter_add_(-1, idx.long(), torch.ones_like(
+        idx, dtype=torch.int64))
 
 
-def expert_choice_forward(params: dict, x: torch.Tensor,
-                          e: MoEConfig) -> tuple:
+def expert_choice_forward(params: dict, x: torch.Tensor, e: MoEConfig,
+                          valid_len=None) -> tuple:
     """One sequence, x [T, d] -> (y [T, d], aux): each expert gathers its
-    top-C tokens; aux carries what the GO cache needs."""
-    check_backend(e)
+    top-C tokens; aux carries what the GO cache needs. `valid_len` masks
+    positions >= valid_len out of the routing."""
+    if resolve_backend(e, (x, params)) == "xla":
+        return _expert_choice_forward_xla(params, x, e, valid_len)
     T, d = x.shape
     cap = ec_capacity(T, e)
     E = e.num_experts
-    r = R.expert_choice(x, params["gate"], cap)
+    r = R.expert_choice(x, params["gate"], cap, valid_len=valid_len)
     ef = torch.arange(E, dtype=torch.int32,
                       device=x.device).repeat_interleave(cap)
     tok = r.token_idx.reshape(-1)
@@ -101,7 +132,7 @@ def expert_choice_forward(params: dict, x: torch.Tensor,
         bn=block_rows(e, x.device), max_per_token=E)
     contrib = OPS.gather_rows(y_rows, plan).reshape(E, cap, d)     # fp32
     aux = {
-        "counts": _token_counts(r.token_idx.reshape(1, -1), T)[0],
+        "counts": _bincount(r.token_idx.reshape(-1), T),
         "chosen_tokens": r.token_idx,
         "chosen_scores": r.weights,
         "weighted_outputs": contrib.to(x.dtype),                  # [E, C, d]
@@ -117,8 +148,9 @@ def expert_choice_forward_batched(params: dict, h: torch.Tensor,
     whole batch go through ONE tile plan, so the grouped GEMM pays its
     per-expert tile padding once, not B times. `valid_len` (an int; the
     last, right-padded prefill chunk) masks positions >= valid_len out of
-    the routing, so a pad never wins an expert slot."""
-    check_backend(e)
+    the routing, so a pad never wins an expert slot. The grouped-GEMM
+    realization only: "xla" runs expert_choice_forward per sequence."""
+    resolve_backend(e, (h, params))
     B, S, d = h.shape
     cap = ec_capacity(S, e)
     E = e.num_experts
@@ -134,7 +166,7 @@ def expert_choice_forward_batched(params: dict, h: torch.Tensor,
     contrib = OPS.gather_rows(y_rows, plan).reshape(B, E, cap, d)
     y = add_shared(params, y.to(h.dtype), h.reshape(B * S, d)).reshape(
         B, S, d)
-    counts = _token_counts(r.token_idx.reshape(B, -1), S)
+    counts = _bincount(r.token_idx.reshape(B, -1), S)
     aux = {
         "counts": counts,
         "chosen_tokens": r.token_idx,
@@ -157,11 +189,14 @@ def _token_pairs(x: torch.Tensor, params: dict, e: MoEConfig):
     return r, r.expert_idx.reshape(-1), r.weights.reshape(-1), tok
 
 
-def dispatch_forward(params: dict, x: torch.Tensor, e: MoEConfig) -> tuple:
-    """Token choice, x [T, d] -> (y [T, d], aux): the reference's pallas
-    branch, dropless (tile padding absorbs the worst case, so there is no
-    capacity to pass)."""
-    check_backend(e)
+def dispatch_forward(params: dict, x: torch.Tensor, e: MoEConfig,
+                     capacity: int = 0) -> tuple:
+    """Token choice, x [T, d] -> (y [T, d], aux). The grouped GEMM is
+    dropless (tile padding absorbs the worst case); "xla" packs [E, C, d]
+    capacity buffers, C = `capacity` or ceil(T k / E * capacity_factor),
+    and drops each expert's pairs past C in the expert-stable order."""
+    if resolve_backend(e, (x, params)) == "xla":
+        return _dispatch_forward_xla(params, x, e, capacity)
     return _dispatch_forward_pallas(params, x, e)
 
 
@@ -206,8 +241,9 @@ def group_forward(params: dict, x: torch.Tensor, e: MoEConfig,
     one-shot prompt pool differently, as in the reference. `members` is
     the [G, g] expert-id matrix of the deployment
     (models/model.py:expert_group_members); None derives it from
-    `group_of_expert`."""
-    check_backend(e)
+    `group_of_expert`. Both realizations drop the same pairs: those past
+    C_grp in the (group, expert)-stable order."""
+    backend = resolve_backend(e, (x, params))
     T = x.shape[0]
     E, k, g = e.num_experts, e.top_k, e.group_size
     G = E // g
@@ -215,6 +251,9 @@ def group_forward(params: dict, x: torch.Tensor, e: MoEConfig,
     C_grp = max(1, int(math.ceil(g * C_exp * POOL_FACTOR)))
     if members is None:
         members = _members_matrix(group_of_expert, G, g)
+    if backend == "xla":
+        return _group_forward_xla(params, x, e, group_of_expert, members,
+                                  C_grp)
     return _group_forward_pallas(params, x, e, group_of_expert, members,
                                  C_grp)
 
@@ -307,8 +346,12 @@ def token_choice_decode(params: dict, x: torch.Tensor,
     """Token-choice decode, x [B, d] one token per row (free and retired
     pool rows included, as in the reference) -> y [B, d]: dispatch_forward
     without its aux outputs, which no decode step reads (the reference's
-    jit drops them), shared experts included."""
-    check_backend(e)
+    jit drops them), shared experts included. Dropless on both
+    realizations: "xla" sizes its capacity for the worst case, every row
+    picking the same expert."""
+    if resolve_backend(e, (x, params)) == "xla":
+        return _dispatch_forward_xla(params, x, e,
+                                     max(1, x.shape[0] * e.top_k))[0]
     return add_shared(params, _dispatch_ffn(params, x, e)[0].to(x.dtype), x)
 
 
@@ -321,3 +364,183 @@ def moe_forward(params: dict, x: torch.Tensor, e: MoEConfig,
         return group_forward(params, x, e, group_of_expert,
                              members=group_members)
     return dispatch_forward(params, x, e)
+
+
+# ------------------------------------------------ the "xla" realization
+
+def _expert_gemm(bank: dict, x: torch.Tensor) -> torch.Tensor:
+    """x [E, C, d] -> [E, C, d] through each expert's SwiGLU FFN."""
+    h = torch.nn.functional.silu(torch.einsum("ecd,edf->ecf", x, bank["wg"])) \
+        * torch.einsum("ecd,edf->ecf", x, bank["wi"])
+    return torch.einsum("ecf,efd->ecd", h, bank["wo"])
+
+
+def expert_ffn_all(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """All-expert outputs for a token batch, x [B, d] -> [B, E, d]: the GO
+    decode step's dense fallback on "xla", and the oracle's."""
+    b = params["experts"]
+    h = torch.nn.functional.silu(torch.einsum("td,edf->etf", x, b["wg"])) \
+        * torch.einsum("td,edf->etf", x, b["wi"])
+    return torch.einsum("etf,efd->ted", h, b["wo"])
+
+
+def dense_forward(params: dict, x: torch.Tensor, e: MoEConfig) -> torch.Tensor:
+    """Reference oracle, x [T, d] -> [T, d]: every expert over every token,
+    masked by the routing's combine weights; no capacity limits (expert
+    choice takes its exact top-C over the whole batch)."""
+    T = x.shape[0]
+    eo = expert_ffn_all(params, x)                               # [T, E, d]
+    if e.routing == "token_choice":
+        r = R.token_choice(x, params["gate"], e.top_k)
+        mask = torch.zeros((T, e.num_experts), dtype=torch.float32,
+                           device=x.device).scatter(
+            1, r.expert_idx.long(), r.weights)
+    else:
+        r = R.expert_choice(x, params["gate"], ec_capacity(T, e))
+        mask = torch.zeros((e.num_experts, T), dtype=torch.float32,
+                           device=x.device).scatter(
+            1, r.token_idx.long(), r.weights).T
+    y = torch.einsum("te,ted->td", mask, eo.float())
+    return (y + _shared_out(params, x).float()).to(x.dtype)
+
+
+class DispatchPlan(NamedTuple):
+    x_disp: torch.Tensor     # [E, C, d] dispatched tokens (zeros where empty)
+    dest: torch.Tensor       # [N] flat slot (E*C = dropped)
+    weights: torch.Tensor    # [N] combine weights
+    token: torch.Tensor      # [N] source token per pair
+    counts: torch.Tensor     # [E] tokens routed per expert (pre-capacity)
+
+
+def _expert_positions(expert_flat: torch.Tensor):
+    """Stable expert sort of the routed pairs and each pair's position
+    within its expert's run: THE capacity-eviction order. The buffer
+    eviction here and the grouped GEMM's `capacity` (its plan's `pos`, the
+    same rank) drop the same pairs."""
+    N = expert_flat.shape[0]
+    se, order = torch.sort(expert_flat, stable=True)
+    pos = torch.arange(N, device=expert_flat.device) - torch.searchsorted(
+        se, se)
+    return order, se, pos
+
+
+def _pack(x: torch.Tensor, dest: torch.Tensor, token: torch.Tensor,
+          slots: int) -> torch.Tensor:
+    """Capacity buffer [slots, d]: slot dest[j] holds x[token[j]], zeros
+    where no pair landed; dest == slots drops the pair. One gather of x's
+    rows (a zero row appended), so every row's gradient is a sum in a
+    fixed order."""
+    T = x.shape[0]
+    src = torch.full((slots + 1,), T, dtype=torch.long, device=x.device)
+    src[dest] = token.long()        # duplicates only on the dropped slot
+    xz = torch.cat([x, x.new_zeros((1, x.shape[-1]))])
+    return take_rows(xz, src[:slots])
+
+
+def _plan_dispatch(x, expert_flat, weights_flat, token_flat, E: int,
+                   C: int) -> DispatchPlan:
+    N = expert_flat.shape[0]
+    order, se, pos = _expert_positions(expert_flat)
+    dest_sorted = torch.where(pos < C, se.long() * C + pos, E * C)
+    dest = torch.empty(N, dtype=torch.long, device=x.device)
+    dest[order] = dest_sorted
+    x_disp = _pack(x, dest, token_flat, E * C).reshape(E, C, -1)
+    return DispatchPlan(x_disp, dest, weights_flat, token_flat,
+                        _bincount(expert_flat, E))
+
+
+def _combine(y_disp: torch.Tensor, plan: DispatchPlan, T: int,
+             out_dtype) -> torch.Tensor:
+    """Each pair reads its slot (a dropped one the appended zero row),
+    times its combine weight in fp32; each token's k pairs summed (the
+    pairs come k per token in token order: a reshape and one sum)."""
+    d = y_disp.shape[-1]
+    flat = torch.cat([y_disp.reshape(-1, d), y_disp.new_zeros((1, d))])
+    y_pairs = take_rows(flat, plan.dest).float() * plan.weights[:, None]
+    k = plan.dest.shape[0] // T
+    return OPS.combine_pairs(y_pairs, plan.token, T, k,
+                             token_major=True).to(out_dtype)
+
+
+def _dispatch_forward_xla(params: dict, x: torch.Tensor, e: MoEConfig,
+                          capacity: int = 0) -> tuple:
+    T = x.shape[0]
+    E, k = e.num_experts, e.top_k
+    C = capacity or max(1, int(math.ceil(T * k / E * e.capacity_factor)))
+    r, ef, wf, tok = _token_pairs(x, params, e)
+    plan = _plan_dispatch(x, ef, wf, tok, E, C)
+    y_disp = _expert_gemm(params["experts"], plan.x_disp)
+    y = add_shared(params, _combine(y_disp, plan, T, x.dtype), x)
+    aux = {
+        "counts": plan.counts,
+        "balance_loss": R.load_balance_loss(r.scores, r.expert_idx, E),
+        "dropped": (plan.dest == E * C).sum(),
+        "kept": plan.dest != E * C,
+    }
+    return y, aux
+
+
+def _group_forward_xla(params: dict, x: torch.Tensor, e: MoEConfig,
+                       group_of_expert: torch.Tensor, members: torch.Tensor,
+                       C_grp: int) -> tuple:
+    """Pairs dispatch by GROUP into pooled [G, C_grp, d] lanes, rows sorted
+    by (group, expert); each of the g members runs over its whole lane and
+    keeps its own rows (g x redundant FLOPs, the reference's masked XLA
+    realization)."""
+    T = x.shape[0]
+    E, g = e.num_experts, e.group_size
+    G = E // g
+    r, ef, wf, tok = _token_pairs(x, params, e)
+    grp = group_of_expert[ef.long()]
+    N = ef.shape[0]
+    order, sg, pos = _group_sorted_positions(grp, ef, E)
+    dest_sorted = torch.where(pos < C_grp, sg.long() * C_grp + pos,
+                              G * C_grp)
+    dest = torch.empty(N, dtype=torch.long, device=x.device)
+    dest[order] = dest_sorted
+    x_disp = _pack(x, dest, tok, G * C_grp).reshape(G, C_grp, -1)
+    row_expert = torch.full((G * C_grp + 1,), -1, dtype=torch.int32,
+                            device=x.device)
+    row_expert[dest] = ef.to(torch.int32)
+    row_expert = row_expert[:-1].reshape(G, C_grp)
+    bank = params["experts"]
+    y_disp = torch.zeros(x_disp.shape, dtype=torch.float32, device=x.device)
+    for j in range(g):
+        eid = members[:, j]                                       # [G]
+        wg, wi, wo = (take_rows(bank[n], eid) for n in ("wg", "wi", "wo"))
+        h = torch.nn.functional.silu(
+            torch.einsum("gcd,gdf->gcf", x_disp, wg)) * torch.einsum(
+            "gcd,gdf->gcf", x_disp, wi)
+        yj = torch.einsum("gcf,gfd->gcd", h, wo)
+        m = (row_expert == eid[:, None])[..., None]
+        y_disp = y_disp + torch.where(m, yj.float(), 0.0)
+    plan = DispatchPlan(x_disp, dest, wf, tok, _bincount(ef, E))
+    y = add_shared(params, _combine(y_disp.to(x.dtype), plan, T, x.dtype), x)
+    aux = {
+        "counts": plan.counts,
+        "balance_loss": R.load_balance_loss(r.scores, r.expert_idx, E),
+        "dropped": (dest == G * C_grp).sum(),
+        "kept": dest != G * C_grp,
+        "slots": G * C_grp,
+    }
+    return y, aux
+
+
+def _expert_choice_forward_xla(params: dict, x: torch.Tensor, e: MoEConfig,
+                               valid_len=None) -> tuple:
+    """Each expert gathers its top-C tokens [E, C, d], runs its FFN over
+    them, and the weighted rows sum back per token."""
+    T, d = x.shape
+    r = R.expert_choice(x, params["gate"], ec_capacity(T, e),
+                        valid_len=valid_len)
+    y_disp = _expert_gemm(params["experts"], take_rows(x, r.token_idx))
+    contrib = y_disp.float() * r.weights[..., None]               # [E, C, d]
+    out = add_rows(contrib.reshape(-1, d), r.token_idx.reshape(-1), T)
+    aux = {
+        "counts": _bincount(r.token_idx.reshape(-1), T),
+        "chosen_tokens": r.token_idx,
+        "chosen_scores": r.weights,
+        "weighted_outputs": contrib.to(x.dtype),                  # [E, C, d]
+        "scores": r.scores,
+    }
+    return add_shared(params, out.to(x.dtype), x), aux

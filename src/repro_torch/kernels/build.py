@@ -103,6 +103,21 @@ def load_path(src) -> ctypes.CDLL:
     return ctypes.CDLL(str(_lib_path(Path(src))))
 
 
+def no_autograd(name: str, *tensors) -> None:
+    """Raise where autograd would need a kernel's gradient: grad mode is on
+    and an operand requires grad. A launch writes into an output autograd
+    never sees, so it would hand back a result detached from its inputs;
+    no kernel here has a backward pass (training runs the MoE layer's
+    "xla" realization)."""
+    import torch
+    if torch.is_grad_enabled() and any(
+            torch.is_tensor(t) and t.requires_grad for t in tensors):
+        raise NotImplementedError(
+            f"{name}: the CUDA kernel has no backward pass; an operand "
+            "requires grad under grad mode (train on the MoE backend "
+            "'xla', or call under torch.no_grad())")
+
+
 def check(rc: int, what: str) -> None:
     """Raise if a C entry point reported a CUDA error (its return value is
     cudaGetLastError() right after the launch)."""

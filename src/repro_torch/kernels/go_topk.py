@@ -85,6 +85,8 @@ def _check(name: str, s_prev, tok_prev, s_new, token_id):
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no TopKUpdate path for device "
                          f"{s_prev.device}")
+    if kind == "cuda":
+        build.no_autograd(name, s_prev, tok_prev, s_new)
     return kind
 
 
@@ -283,6 +285,7 @@ def _check_router(name, x, gate_w, s_prev, tok_prev, token_id, bn):
     if kind not in ("cpu", "cuda"):
         raise ValueError(f"{name}: no router path for device {x.device}")
     if kind == "cuda":
+        build.no_autograd(name, x, gate_w, s_prev, tok_prev)
         if x.dtype not in _ROUTER_DTYPES or gate_w.dtype not in _ROUTER_DTYPES:
             raise TypeError(f"{name}: no kernel for x {x.dtype} and gate_w "
                             f"{gate_w.dtype} (float32 or bfloat16)")

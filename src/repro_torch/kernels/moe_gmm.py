@@ -217,6 +217,7 @@ _KERNEL_DTYPES = {torch.float32: "f32", torch.bfloat16: "bf16"}
 
 def _check_cuda(name: str, bn: int, x: torch.Tensor, *tensors) -> str:
     """Validate the kernel's operands; return its dtype suffix."""
+    build.no_autograd(name, x, *tensors)
     if bn != KERNEL_BLOCK_ROWS:
         raise ValueError(f"{name}: the CUDA kernel tiles {KERNEL_BLOCK_ROWS} "
                          f"rows, got bn={bn}")

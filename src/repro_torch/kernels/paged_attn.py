@@ -142,6 +142,7 @@ def _check(name: str, q, k_pages, v_pages, block_table, k_scales,
 
 def _check_cuda(name: str, q, *tensors) -> str:
     """Validate the kernel's operands; return its dtype suffix."""
+    build.no_autograd(name, q, *tensors)
     suffix = _KERNEL_DTYPES.get(q.dtype)
     if suffix is None:
         raise TypeError(f"{name}: no kernel for dtype {q.dtype}")

@@ -165,6 +165,7 @@ def slstm_seq(u: torch.Tensor, r: torch.Tensor) -> torch.Tensor:
         return slstm_seq_plain(u, r)
     if u.device.type != "cuda" or r.device != u.device:
         raise ValueError(f"slstm_seq: u on {u.device}, r on {r.device}")
+    build.no_autograd("slstm_seq", u, r)
     du, dr = _KERNEL_DTYPES.get(u.dtype), _KERNEL_DTYPES.get(r.dtype)
     if du is None or dr is None:
         raise TypeError(f"slstm_seq: no kernel for u {u.dtype}, r {r.dtype}")

@@ -1,8 +1,10 @@
 """Grouped-query attention: the full-sequence pass, single-token decode and
 chunked prefill against a dense KV cache or a paged KV pool.
 
-Counterpart of repro/models/attention.py (`attn_forward` with the numerics
-of `sdpa_chunked`/`sdpa_flash`, `attn_decode` and `attn_chunk`). The
+Counterpart of repro/models/attention.py (`attn_forward` through
+`sdpa_flash`, whose forward is `sdpa_chunked`'s arithmetic and whose
+chunk-streamed backward is the reference's custom VJP, `attn_decode` and
+`attn_chunk`). The
 reference's dense code is plain jnp, not Pallas, so the port's is plain
 torch.matmul and softmax: scores and the value product take fp32 inputs,
 which is what JAX's preferred_element_type=float32 computes. The paged
@@ -25,17 +27,32 @@ from repro_torch.models.layers import apply_rope, rope_angles
 NEG_INF = -1e30
 
 
-def sdpa_chunked_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
-                     q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
-                     kv_len: int, *, softcap: float = 0.0,
-                     ck: int = 1024) -> torch.Tensor:
-    """`sdpa_chunked` before its final cast: fp32 [B, Sq, Hq, D]."""
-    B, Sq, Hq, D = q.shape
-    Sk, Hkv = k.shape[1], k.shape[2]
-    G = Hq // Hkv
+def _chunk(Sk: int, ck: int) -> int:
+    """The KV chunk: the largest size <= ck that divides Sk."""
     ck = min(ck, Sk)
     while Sk % ck:
         ck -= 1
+    return ck
+
+
+def _chunk_mask(kpb, q_pos, kv_len: int, window: int) -> torch.Tensor:
+    """[Sq, ck] bool: causal, keys at or past kv_len out, and with a window
+    > 0 only keys within `window` of the query."""
+    mask = (kpb[None, :] < kv_len) & (kpb[None, :] <= q_pos[:, None])
+    if window > 0:
+        mask = mask & (kpb[None, :] > q_pos[:, None] - window)
+    return mask
+
+
+def _flash_fwd(q, k, v, q_pos, k_pos, window: int, kv_len: int,
+               softcap: float, ck: int):
+    """The online-softmax forward over KV chunks of ck keys: (out fp32
+    [B, Sq, Hq, D] before its final cast, lse fp32 [B, Hkv, G, Sq], the
+    row statistics the backward needs)."""
+    B, Sq, Hq, D = q.shape
+    Sk, Hkv = k.shape[1], k.shape[2]
+    G = Hq // Hkv
+    ck = _chunk(Sk, ck)
     scale = 1.0 / (D ** 0.5)
     # [B, Hkv, G, Sq, D], pre-scaled in fp32 then rounded to q's dtype
     qg = (q.float() * scale).to(q.dtype).reshape(B, Sq, Hkv, G, D)
@@ -48,22 +65,29 @@ def sdpa_chunked_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     for c0 in range(0, Sk, ck):
         kb = k[:, c0:c0 + ck].permute(0, 2, 3, 1)[:, :, None].float()
         vb = v[:, c0:c0 + ck].permute(0, 2, 1, 3)[:, :, None]  # [B,Hkv,1,ck,D]
-        kpb = k_pos[c0:c0 + ck]
         s = qg @ kb                                          # [B,Hkv,G,Sq,ck]
         if softcap > 0:
             s = softcap * torch.tanh(s / softcap)
-        mask = (kpb[None, :] < kv_len) & (kpb[None, :] <= q_pos[:, None])
-        if window > 0:
-            mask = mask & (kpb[None, :] > q_pos[:, None] - window)
-        s = torch.where(mask, s, NEG_INF)
+        s = torch.where(_chunk_mask(k_pos[c0:c0 + ck], q_pos, kv_len, window),
+                        s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
         l = l * corr + p.sum(dim=-1)
         acc = acc * corr[..., None] + p.to(vb.dtype).float() @ vb.float()
         m = m_new
-    out = acc / torch.clamp(l, min=1e-20)[..., None]
-    return out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
+    l = torch.clamp(l, min=1e-20)
+    out = acc / l[..., None]
+    return (out.permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D),
+            m + torch.log(l))
+
+
+def sdpa_chunked_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+                     q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
+                     kv_len: int, *, softcap: float = 0.0,
+                     ck: int = 1024) -> torch.Tensor:
+    """`sdpa_chunked` before its final cast: fp32 [B, Sq, Hq, D]."""
+    return _flash_fwd(q, k, v, q_pos, k_pos, window, kv_len, softcap, ck)[0]
 
 
 def sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
@@ -76,6 +100,78 @@ def sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
     c * tanh(s / c) to the scores."""
     return sdpa_chunked_f32(q, k, v, q_pos, k_pos, window, kv_len,
                             softcap=softcap, ck=ck).to(q.dtype)
+
+
+class _SdpaFlash(torch.autograd.Function):
+    """`sdpa_chunked` with the reference's chunk-streamed backward
+    (`sdpa_flash`'s custom VJP): the forward keeps only (q, k, v, out,
+    lse); the backward recomputes p per KV chunk from lse and never builds
+    the [Sq, Sk] score matrix, with the reference's casts."""
+
+    @staticmethod
+    def forward(ctx, q, k, v, q_pos, k_pos, window, kv_len, softcap, ck):
+        out, lse = _flash_fwd(q, k, v, q_pos, k_pos, window, kv_len,
+                              softcap, ck)
+        out = out.to(q.dtype)
+        ctx.save_for_backward(q, k, v, out, lse, q_pos, k_pos)
+        ctx.args = (window, kv_len, softcap, ck)
+        return out
+
+    @staticmethod
+    def backward(ctx, dout):
+        q, k, v, out, lse, q_pos, k_pos = ctx.saved_tensors
+        window, kv_len, softcap, ck = ctx.args
+        B, Sq, Hq, D = q.shape
+        Sk, Hkv = k.shape[1], k.shape[2]
+        G = Hq // Hkv
+        ck = _chunk(Sk, ck)
+        scale = 1.0 / (D ** 0.5)
+
+        def grouped(t):                                  # -> [B,Hkv,G,Sq,D]
+            return t.float().reshape(B, Sq, Hkv, G, D).permute(0, 2, 3, 1, 4)
+
+        qg = grouped(q) * scale            # fp32, unrounded (dk's operand)
+        qs = qg.to(q.dtype).float()        # the forward's rounded scores
+        dog = grouped(dout)
+        drow = (dog * grouped(out)).sum(-1)                 # [B,Hkv,G,Sq]
+        dov = dog.to(v.dtype).float()
+        dq = torch.zeros_like(qg)
+        dks, dvs = [], []
+        for c0 in range(0, Sk, ck):
+            kb = k[:, c0:c0 + ck].permute(0, 2, 1, 3)[:, :, None]  # [B,Hkv,1,ck,D]
+            vb = v[:, c0:c0 + ck].permute(0, 2, 1, 3)[:, :, None]
+            sraw = qs @ kb.float().transpose(-1, -2)       # [B,Hkv,G,Sq,ck]
+            if softcap > 0:
+                t = torch.tanh(sraw / softcap)
+                s, dsoft = softcap * t, 1.0 - t * t
+            else:
+                s, dsoft = sraw, None
+            mask = _chunk_mask(k_pos[c0:c0 + ck], q_pos, kv_len, window)
+            s = torch.where(mask, s, NEG_INF)
+            p = torch.exp(s - lse[..., None])
+            dvs.append((p.transpose(-1, -2) @ dog).sum(2))    # [B,Hkv,ck,D]
+            dp = dov @ vb.float().transpose(-1, -2)
+            ds = p * (dp - drow[..., None])
+            if dsoft is not None:
+                ds = ds * dsoft
+            ds = torch.where(mask, ds, 0.0)
+            dq = dq + ds.to(k.dtype).float() @ kb.float()
+            dks.append((ds.transpose(-1, -2) @ qg).sum(2))
+        dq = (dq * scale).permute(0, 3, 1, 2, 4).reshape(B, Sq, Hq, D)
+        dk = torch.cat(dks, dim=2).permute(0, 2, 1, 3)
+        dv = torch.cat(dvs, dim=2).permute(0, 2, 1, 3)
+        return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
+                None, None, None, None, None, None)
+
+
+def sdpa_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
+               q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
+               kv_len: int, *, softcap: float = 0.0,
+               ck: int = 1024) -> torch.Tensor:
+    """`sdpa_chunked` (the same bits forward) with the chunk-streamed flash
+    backward; differentiable in q, k and v."""
+    return _SdpaFlash.apply(q, k, v, q_pos, k_pos, window, kv_len, softcap,
+                            ck)
 
 
 def _qkv(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg):
@@ -104,8 +200,8 @@ def attn_forward(params: dict, x: torch.Tensor, *, cfg,
     With return_kv also the post-RoPE (k, v) for the KV cache."""
     B, S, _ = x.shape
     q, k, v = _qkv(params, x, positions, cfg)
-    out = sdpa_chunked(q, k, v, positions, positions, window, S + 10**9,
-                       softcap=cfg.logit_softcap)
+    out = sdpa_flash(q, k, v, positions, positions, window, S + 10**9,
+                     softcap=cfg.logit_softcap)
     out = out.reshape(B, S, -1) @ params["wo"]
     if return_kv:
         return out, k, v

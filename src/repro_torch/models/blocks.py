@@ -23,21 +23,42 @@ from repro_torch.models.xlstm import (mlstm_block, mlstm_block_init,  # noqa: F4
 def _ffn_apply(params: dict, x: torch.Tensor, cfg, group_of_expert=None,
                group_members=None, valid_len=None) -> tuple:
     """Post-attention FFN sublayer, x [B, S, d] -> (x + y, aux). The dense
-    MLP gives aux None, as the reference's dense branch does. Expert
-    choice routes per sequence (pads at >= valid_len masked out) but plans
-    the whole batch's pairs as one grouped GEMM. Token choice flattens
-    B*S into one plan, pads included (their outputs land on pad rows only),
-    as the reference's pallas backend does."""
+    MLP gives aux None, as the reference's dense branch does.
+
+    The grouped GEMM ("auto", "pallas") routes expert choice per sequence
+    (pads at >= valid_len masked out) but plans the whole batch's pairs
+    as one GEMM; token choice flattens B*S into one plan, pads included
+    (their outputs land on pad rows only), as the reference's pallas
+    backend does. "xla" runs each sequence on its own, as the reference
+    vmaps it: routing, capacity and drops per sequence. Its expert-choice
+    aux stacks the rows (what the GO cache reads); its token-choice aux
+    sums `counts` and `dropped` and averages `balance_loss` over them."""
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
     if "mlp" in params:
         return x + mlp(params["mlp"], h), None
     B, S, d = h.shape
-    if cfg.moe.routing == "expert_choice":
-        y, aux = MOE.expert_choice_forward_batched(params["moe"], h, cfg.moe,
+    moe_p, e = params["moe"], cfg.moe
+    if MOE.resolve_backend(e, (h, moe_p)) == "xla":
+        outs = [MOE.expert_choice_forward(moe_p, h[b], e, valid_len)
+                if e.routing == "expert_choice" else
+                MOE.moe_forward(moe_p, h[b], e, group_of_expert,
+                                group_members) for b in range(B)]
+        y = torch.stack([o[0] for o in outs])
+        auxes = [o[1] for o in outs]
+        if e.routing == "expert_choice":
+            return x + y, {k: torch.stack([a[k] for a in auxes])
+                           for k in auxes[0]}
+        return x + y, {
+            "counts": torch.stack([a["counts"] for a in auxes]).sum(0),
+            "balance_loss": torch.stack(
+                [a["balance_loss"] for a in auxes]).mean(),
+            "dropped": torch.stack([a["dropped"] for a in auxes]).sum()}
+    if e.routing == "expert_choice":
+        y, aux = MOE.expert_choice_forward_batched(moe_p, h, e,
                                                    valid_len=valid_len)
     else:
-        y, aux = MOE.moe_forward(params["moe"], h.reshape(B * S, d),
-                                 cfg.moe, group_of_expert, group_members)
+        y, aux = MOE.moe_forward(moe_p, h.reshape(B * S, d), e,
+                                 group_of_expert, group_members)
         y = y.reshape(B, S, d)
     return x + y, aux
 
@@ -69,8 +90,10 @@ def attn_block_decode(params: dict, x_t: torch.Tensor, cache_k, cache_v, t,
     layer's view of the decode state; with `block_table`, the layer's page
     pool) and the GO cache are updated in place. With a GO cache only the
     experts that select the token run (the router's lane plan through
-    go_plan_ffn); without one every row routes by token choice through the
-    unfused grouped GEMM. Shared experts, where the config has them, add
+    go_plan_ffn; on "xla", the reference's dense fallback: all E experts
+    over every row, masked); without one every row routes by token choice
+    through the unfused grouped GEMM (on "xla", dispatch_forward at the
+    worst-case capacity). Shared experts, where the config has them, add
     their output on both branches. A dense block runs its MLP (aux None)."""
     h = rmsnorm(params["ln1"], x_t, cfg.norm_eps)
     a = ATT.attn_decode(params["attn"], h, cache_k, cache_v, t, cfg=cfg,
@@ -84,10 +107,16 @@ def attn_block_decode(params: dict, x_t: torch.Tensor, cache_k, cache_v, t,
     if go_cache is None:
         y = MOE.token_choice_decode(moe_p, h2, cfg.moe)
         return x + y[:, None, :], None
-    res = go_cache_step(
-        go_cache, h2, t, moe_p["gate"], bn=MOE.block_rows(cfg.moe, h2.device),
-        contrib_fn=lambda xt, sel, g, plan: OPS.go_plan_ffn(
-            xt, plan, moe_p["experts"]))
+    if MOE.resolve_backend(cfg.moe, (h2, moe_p)) == "xla":
+        # the reference's dense fallback: every expert over every row
+        res = go_cache_step(go_cache, h2, t, moe_p["gate"],
+                            expert_fn=lambda xt: MOE.expert_ffn_all(moe_p, xt))
+    else:
+        res = go_cache_step(
+            go_cache, h2, t, moe_p["gate"],
+            bn=MOE.block_rows(cfg.moe, h2.device),
+            contrib_fn=lambda xt, sel, g, plan: OPS.go_plan_ffn(
+                xt, plan, moe_p["experts"]))
     y = MOE.add_shared(moe_p, res.y, h2)
     return x + y[:, None, :], {"selected": res.selected}
 

@@ -1,5 +1,6 @@
 """Shared building blocks: device and dtype resolution, inits, RMSNorm, RoPE,
-the dense SwiGLU MLP.
+the dense SwiGLU MLP, and the row gathers and row sums that training
+differentiates through.
 
 Counterpart of repro/models/layers.py. Compute convention: activations in
 cfg.dtype, normalization and RoPE in fp32.
@@ -89,3 +90,42 @@ def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
     torch.matmul here."""
     h = torch.nn.functional.silu(x @ params["wg"]) * (x @ params["wi"])
     return h @ params["wo"]
+
+
+# ------------------------------------------------- row gathers and row sums
+
+def add_rows(src: torch.Tensor, idx: torch.Tensor, n: int) -> torch.Tensor:
+    """out[i] = the sum of the rows src[j] with idx[j] == i; src [N, ...],
+    idx [N] -> [n, ...] in src's dtype. One product with a one-hot [N, n]
+    matrix: a sum in one fixed order on every device and every run, where
+    a float `index_add_` on a card sums with atomics in a different order
+    each time. Differentiable (its gradient is the matching gather)."""
+    N = src.shape[0]
+    onehot = torch.zeros((N, n), dtype=src.dtype, device=src.device)
+    onehot.scatter_(1, idx.reshape(N, 1).long(), 1)
+    return (onehot.T @ src.reshape(N, -1)).reshape(n, *src.shape[1:])
+
+
+class _TakeRows(torch.autograd.Function):
+    @staticmethod
+    def forward(ctx, x, idx):
+        ctx.save_for_backward(idx)
+        ctx.rows = x.shape[0]
+        return x[idx.long()]
+
+    @staticmethod
+    def backward(ctx, grad):
+        idx, = ctx.saved_tensors
+        g = grad.reshape(idx.numel(), *grad.shape[idx.dim():])
+        return add_rows(g, idx.reshape(-1), ctx.rows), None
+
+
+def take_rows(x: torch.Tensor, idx: torch.Tensor) -> torch.Tensor:
+    """x[idx] along x's first axis (idx of any shape). Where autograd
+    records it, the gradient of a row picked several times sums through
+    `add_rows`, not through indexing's scatter-add, so a training step
+    repeats bit for bit on a card (the embedding lookup, the MoE
+    dispatch's gathers)."""
+    if torch.is_grad_enabled() and x.requires_grad:
+        return _TakeRows.apply(x, idx)
+    return x[idx.long()]

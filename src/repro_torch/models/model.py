@@ -4,7 +4,9 @@ SwiGLU MLP, and xlstm.
 Counterpart of repro/models/model.py for the serving paths:
 
   model_init(cfg, generator, device)            -> params
-  model_forward(params, tokens, cfg)            -> (x_final, aux_loss), xlstm
+  model_forward(params, tokens, cfg)            -> (x_final, aux_loss)
+  chunked_xent(params, x, labels, cfg)          -> (sum_loss, count)
+  loss_fn(params, batch, cfg)                   -> (loss, metrics)
   init_decode_state(cfg, batch, max_len, device, per_slot_t=, paged=)
                                                 -> dense or paged state
   init_decode_slot / write_decode_slot          -> reset / fill one pool row
@@ -29,6 +31,16 @@ rows only for expert choice with the GO cache; token choice keeps none, as
 in the reference. Recurrent families prefill by stepping serve_step, as
 the reference does.
 
+Training (`loss_fn`, the attention family) differentiates through
+`model_forward`: the MoE layer on its "xla" realization (`_training_cfg`
+pins "auto" to it, as the reference does), attention through
+`sdpa_flash`'s chunk-streamed backward. With cfg.remat every layer and
+every cross-entropy chunk runs under torch.utils.checkpoint (the
+reference's jax.checkpoint): the backward recomputes its forward, which
+makes the same routing decisions, since every op on the path gives the
+same bits on every run (the gathers' gradients through
+models/layers.py `take_rows`).
+
 A paged state with cfg.kv_quant="int8" (core/quant.py) holds int8 pages
 with `k_scales`/`v_scales` [L, NP, Hkv] f32 and int8 GO outputs with
 `go_scales` [L, B, E, k] f32. Each decode layer dequantizes its GO rows to
@@ -38,10 +50,12 @@ write_decode_slot.
 """
 from __future__ import annotations
 
+import dataclasses
 import functools
 
 import numpy as np
 import torch
+from torch.utils.checkpoint import checkpoint
 
 from repro_torch.core import moe as MOE
 from repro_torch.core import quant as Q
@@ -53,7 +67,7 @@ from repro_torch.core.go_cache import (GOCache, go_cache_init,
 from repro_torch.models import blocks as B
 from repro_torch.models import xlstm as X
 from repro_torch.models.layers import (dense_init, dtype_of, embed_init,
-                                       mlp_init, rmsnorm)
+                                       mlp_init, rmsnorm, take_rows)
 
 
 def layer_windows(cfg) -> list[int]:
@@ -73,7 +87,7 @@ def check_served(cfg) -> None:
     xlstm family (model_forward and static generate()) and the attention
     family with the dense SwiGLU MLP (no MoE, d_ff > 0) or with an MoE
     sublayer, either expert choice with the GO cache or token choice, with
-    or without always-on shared experts."""
+    or without always-on shared experts, on either MoE realization."""
     if cfg.block == "xlstm":
         return
     e = cfg.moe
@@ -87,7 +101,7 @@ def check_served(cfg) -> None:
             "SwiGLU MLP or with MoE (expert choice with the GO cache, or "
             "token choice) so far; expert choice without the GO cache and "
             "the other families are ROADMAP.md Queue 1 items 4 and 9")
-    MOE.check_backend(e)
+    MOE.resolve_backend(e)
 
 
 @functools.lru_cache(maxsize=None)
@@ -228,16 +242,55 @@ def layer_params(tree: dict, l: int) -> dict:
 # -------------------------------------------------------------------- forward
 
 def model_forward(params: dict, tokens: torch.Tensor, cfg):
-    """tokens [B, S] -> (x_final [B, S, d] normalized, aux loss: a zero fp32
-    scalar, as the reference's for a family without MoE). Ported for the
-    xlstm family, where each sLSTM block runs its whole sequence in one K9
-    launch on a card."""
+    """tokens [B, S] -> (x_final [B, S, d] normalized, aux balance loss: the
+    sum over layers of each token-choice MoE layer's balance loss, a zero
+    fp32 scalar for expert choice, the dense MLP and xlstm). xlstm runs
+    each sLSTM block's whole sequence in one K9 launch on a card."""
     check_served(cfg)
-    if cfg.block != "xlstm":
-        raise NotImplementedError(
-            f"{cfg.name}: model_forward is ported for the xlstm family only; "
-            "the attention family's branch is ROADMAP.md Queue 1 item 10")
-    return _fwd_xlstm(params, params["embed"][tokens], cfg)
+    x = take_rows(params["embed"], tokens)
+    if cfg.block == "xlstm":
+        return _fwd_xlstm(params, x, cfg)
+    positions = torch.arange(tokens.shape[1], dtype=torch.int32,
+                             device=tokens.device)
+    return _fwd_attn(params, x, positions, cfg)
+
+
+def _unbind(tree, n: int) -> list:
+    """A stacked layer tree -> n per-layer trees. One unbind a leaf, so
+    the backward stacks each leaf's layer gradients once (indexing layer
+    by layer would add a zero-filled copy of the whole leaf per layer)."""
+    if isinstance(tree, dict):
+        sub = {k: _unbind(v, n) for k, v in tree.items()}
+        return [{k: sub[k][i] for k in sub} for i in range(n)]
+    return list(torch.unbind(tree))
+
+
+def _attn_layer(lp: dict, x: torch.Tensor, positions: torch.Tensor,
+                window: int, cfg, groups: dict):
+    """One attention block -> (x, the layer's balance loss or zero)."""
+    x, aux = B.attn_block(lp, x, cfg=cfg, positions=positions, window=window,
+                          **groups)
+    if aux is not None and "balance_loss" in aux:
+        return x, aux["balance_loss"].sum()
+    return x, torch.zeros((), dtype=torch.float32, device=x.device)
+
+
+def _remat(fn, cfg, *args):
+    """fn(*args), under torch.utils.checkpoint where cfg.remat asks for it
+    and autograd records (the reference's jax.checkpoint)."""
+    if cfg.remat and torch.is_grad_enabled():
+        return checkpoint(fn, *args, use_reentrant=False)
+    return fn(*args)
+
+
+def _fwd_attn(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg):
+    groups = _groups(cfg, x.device)
+    bal = torch.zeros((), dtype=torch.float32, device=x.device)
+    for lp, w in zip(_unbind(params["layers"], cfg.num_layers),
+                     layer_windows(cfg)):
+        x, b = _remat(_attn_layer, cfg, lp, x, positions, w, cfg, groups)
+        bal = bal + b
+    return rmsnorm(params["final_norm"], x, cfg.norm_eps), bal
 
 
 def _fwd_xlstm(params: dict, x: torch.Tensor, cfg):
@@ -256,6 +309,73 @@ def _fwd_xlstm(params: dict, x: torch.Tensor, cfg):
 def logits_from_hidden(params: dict, x: torch.Tensor, cfg) -> torch.Tensor:
     """Tied embeddings: x @ embed.T, returned in fp32."""
     return (x @ params["embed"].T.to(x.dtype)).float()
+
+
+def _xent_chunk(xb: torch.Tensor, lb: torch.Tensor, w: torch.Tensor):
+    """(sum of token losses, count) over one chunk; labels < 0 masked."""
+    logits = (xb @ w.to(xb.dtype)).float()
+    lse = torch.logsumexp(logits, dim=-1)
+    # one label per row: the gather's gradient lands on distinct entries
+    gold = torch.gather(logits, -1, lb.clamp(min=0)[..., None].long())[..., 0]
+    mask = (lb >= 0).float()
+    return ((lse - gold) * mask).sum(), mask.sum()
+
+
+def chunked_xent(params: dict, x: torch.Tensor, labels: torch.Tensor, cfg,
+                 chunk: int = 512):
+    """Cross-entropy without materializing [B, S, V]: over S in chunks
+    (the largest size <= `chunk` that divides S). x [B, S, d]; labels
+    [B, S] (-1 = masked). Returns (sum_loss, count), fp32 scalars."""
+    S = x.shape[1]
+    chunk = min(chunk, S)
+    while S % chunk:
+        chunk -= 1
+    w = params["embed"].T
+    loss = torch.zeros((), dtype=torch.float32, device=x.device)
+    cnt = torch.zeros((), dtype=torch.float32, device=x.device)
+    for c0 in range(0, S, chunk):
+        l, c = _remat(_xent_chunk, cfg, x[:, c0:c0 + chunk],
+                      labels[:, c0:c0 + chunk], w)
+        loss, cnt = loss + l, cnt + c
+    return loss, cnt
+
+
+def _training_cfg(cfg):
+    """Training runs the differentiable "xla" realization: the CUDA kernels
+    have no backward pass, so backend="auto" pins to "xla". An EXPLICIT
+    backend="pallas" fails fast here, with the reference's message."""
+    if cfg.moe is None:
+        return cfg
+    b = cfg.moe.backend
+    if b == "pallas":
+        raise NotImplementedError(
+            "pallas backend has no backward pass yet; use backend='auto' or "
+            "'xla' for training (see ROADMAP: custom VJP over gmm/gmm_swiglu)."
+            " For forward-only evaluation on pallas, call model_forward + "
+            "chunked_xent directly — loss_fn is the training entry point")
+    if b == "auto":
+        return cfg.with_overrides(
+            moe=dataclasses.replace(cfg.moe, backend="xla"))
+    return cfg
+
+
+def loss_fn(params: dict, batch: dict, cfg):
+    """batch: tokens [B, S], labels [B, S] -> (loss, {"ce", "balance"}):
+    the mean token cross-entropy plus balance_coef times the layers' mean
+    balance loss. The attention family only: the xlstm family's sLSTM runs
+    K9, which has no backward pass."""
+    if cfg.block != "attn":
+        raise NotImplementedError(
+            f"{cfg.name}: training is ported for the attention family; "
+            "xlstm training (a differentiable sLSTM) is the rest of "
+            "ROADMAP.md Queue 1 item 10")
+    cfg = _training_cfg(cfg)
+    x, bal = model_forward(params, batch["tokens"], cfg)
+    loss_sum, cnt = chunked_xent(params, x, batch["labels"], cfg)
+    ce = loss_sum / torch.clamp(cnt, min=1.0)
+    coef = cfg.moe.balance_coef if cfg.moe is not None else 0.0
+    total = ce + coef * bal / max(1, cfg.num_layers)
+    return total, {"ce": ce, "balance": bal}
 
 
 # --------------------------------------------------------------- decode state

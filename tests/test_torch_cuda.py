@@ -2041,3 +2041,120 @@ def test_cuda_dense_smoke_engine_equals_cpu(cuda_device, arch, kv_quant):
         (L * s["decode_ticks"], L * s["chunk_ticks"])
     assert all(n == 0 for n in G.LAUNCHES.values())
     assert all(n == 0 for n in GT.LAUNCHES.values())
+
+
+# ------------------------------------------------------------- training
+
+def _kernel_calls(device):
+    """(name, fn(requires_grad) -> launches the wrapper once) for each
+    kernel wrapper, on small inputs; the float operand named first
+    requires grad when asked."""
+    from repro_torch.kernels import go_topk as GT
+    from repro_torch.kernels import paged_attn as PA
+    from repro_torch.kernels import slstm_cell as SC
+    rng = np.random.default_rng(11)
+    f = lambda *s: torch.from_numpy(  # noqa: E731
+        rng.standard_normal(s).astype(np.float32)).to(device)
+    bn = G.KERNEL_BLOCK_ROWS
+    te = torch.zeros(1, dtype=torch.int32, device=device)
+    sel = torch.ones(bn, 1, device=device)
+    kp, vp, bt, hq, hd = _paged(3, 2, [9, 20], device, torch.float32)
+    sp, tp_, sn, tid = _topk_inputs(4, 2, 4, 2, device)
+    xr, wr, spr, tpr, tidr = _router_inputs(5, 2, 4, 2, 16, device,
+                                            torch.float32, torch.float32)
+    u, r = _slstm_inputs(1, 4, 2, 16, device, torch.float32)
+
+    def g(t, on):
+        return t.clone().requires_grad_(on)
+    return [
+        ("gmm_swiglu", lambda on: G.gmm_swiglu(
+            g(f(bn, 32), on), f(1, 32, 16), f(1, 32, 16), te, None, bn=bn)),
+        ("gmm_swiglu_fused", lambda on: G.gmm_swiglu(
+            g(f(bn, 32), on), f(1, 32, 16), f(1, 32, 16), te, None,
+            tile_expert2=te, row_sel=sel, bn=bn)),
+        ("gmm_scaled", lambda on: G.gmm_scaled(
+            f(bn, 16), g(f(1, 16, 32), on), te, None, f(bn, 1), bn=bn)),
+        ("gmm_scaled_fused", lambda on: G.gmm_scaled(
+            f(bn, 16), g(f(1, 16, 32), on), te, None, f(bn, 1),
+            tile_expert2=te, row_sel=sel, bn=bn)),
+        ("gmm", lambda on: G.gmm(g(f(bn, 16), on), f(1, 16, 32), te, None,
+                                 bn=bn)),
+        ("paged_attn_decode", lambda on: PA.paged_attn_decode(
+            g(f(2, hq, hd), on), kp, vp, bt,
+            torch.tensor([8, 19], dtype=torch.int32, device=device))),
+        ("paged_attn_chunk", lambda on: PA.paged_attn_chunk(
+            g(f(2, 4, hq, hd), on), kp, vp, bt, 0, 9)),
+        ("go_topk_update", lambda on: GT.go_topk_update(
+            sp, tp_, g(sn, on), tid)),
+        ("go_router", lambda on: GT.go_router(
+            g(xr, on), wr, spr, tpr, tidr, bn)),
+        ("slstm_seq", lambda on: SC.slstm_seq(g(u, on), r)),
+    ]
+
+
+@pytest.mark.requires_cuda
+def test_cuda_wrappers_raise_under_autograd(cuda_device):
+    """A launch writes into an output autograd never sees: with grad mode
+    on and an operand that requires grad, every wrapper raises instead of
+    returning a detached result, and launches nothing; without grad mode
+    the same call launches once."""
+    from repro_torch.kernels import go_topk as GT
+    from repro_torch.kernels import paged_attn as PA
+    from repro_torch.kernels import slstm_cell as SC
+
+    def counts():
+        return {**G.LAUNCHES, **PA.LAUNCHES, **GT.LAUNCHES, **SC.LAUNCHES}
+    for name, call in _kernel_calls(cuda_device):
+        before = counts()
+        with pytest.raises(NotImplementedError, match="no backward pass"):
+            call(True)
+        assert counts() == before, name
+        with torch.no_grad():
+            call(True)
+        call(False)
+        torch.cuda.synchronize()
+        assert counts()[name] == before[name] + 2, name
+
+
+def _train(arch, device, steps=2):
+    """`steps` smoke training steps on `device` from the CPU generator's
+    seed-0 weights (a CUDA generator draws other numbers)."""
+    import tempfile
+
+    from repro_torch.configs.base import TrainConfig
+    from repro_torch.configs.registry import get_config
+    from repro_torch.launch import train as TT
+    from repro_torch.models import model as TM
+    cfg = get_config(arch, smoke=True)
+    tc = TrainConfig(steps=steps, seq_len=32, global_batch=2,
+                     warmup_steps=1, ckpt_every=0, log_every=100,
+                     ckpt_dir=tempfile.mkdtemp())
+    params = TM.model_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    return TT.run(cfg, tc, resume=False, device=device, params=params,
+                  log=lambda s: None)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["llama_moe_4_16", "granite-moe-3b-a800m"])
+def test_cuda_training_launches_no_kernel_and_repeats_bit_for_bit(
+        cuda_device, arch):
+    """Smoke training steps on the card: the MoE layer on "xla" and the
+    flash backward launch none of the CUDA kernels; a second run from the
+    same seed gives the same losses and parameters bit for bit (no float
+    atomics on the path); the losses are the CPU's within 1e-4 (fp32,
+    TF32 off, sums in other orders)."""
+    from repro_torch.kernels import go_topk as GT
+    from repro_torch.kernels import paged_attn as PA
+    from repro_torch.kernels import slstm_cell as SC
+    from repro_torch.optim.adamw import tree_leaves
+    mods = (G, PA, GT, SC)
+    for m in mods:
+        m.reset_launches()
+    a = _train(arch, "cuda")
+    assert all(n == 0 for m in mods for n in m.LAUNCHES.values())
+    b = _train(arch, "cuda")
+    assert a["losses"] == b["losses"] and np.isfinite(a["losses"]).all()
+    assert all(torch.equal(x, y) for x, y in zip(
+        tree_leaves(a["params"]), tree_leaves(b["params"])))
+    cpu = _train(arch, "cpu")
+    np.testing.assert_allclose(a["losses"], cpu["losses"], rtol=1e-4)

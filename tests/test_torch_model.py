@@ -144,11 +144,17 @@ def test_cli_continuous_batching_is_slice_two(capsys):
 
 
 def test_xla_backend_is_not_ported(slice_setup):
+    """The "xla" realization is ported: its prefill (expert choice, no
+    drops either way) gives the grouped-GEMM path's logits (1e-5, sums in
+    another order) and the same GO cache entries."""
     _, tcfg, _, tp, prompts = slice_setup
     cfg = tcfg.with_overrides(
         moe=dataclasses.replace(tcfg.moe, backend="xla"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        TM.prefill(tp, torch.from_numpy(prompts).long(), cfg)
+    toks = torch.from_numpy(prompts).long()
+    st_x, lg_x = TM.prefill(tp, toks, cfg)
+    st_p, lg_p = TM.prefill(tp, toks, tcfg)
+    torch.testing.assert_close(lg_x, lg_p, rtol=1e-5, atol=1e-5)
+    assert torch.equal(st_x["go"].token_ids, st_p["go"].token_ids)
 
 
 # ------------------------------------------- chip_smoke's logit tolerance

@@ -271,5 +271,11 @@ def test_expert_choice_forward_matches_reference(batched):
     for k in ("chosen_scores", "weighted_outputs", "scores"):
         np.testing.assert_allclose(at[k].numpy(), np.asarray(aj[k]), **TOL)
     assert MOE.ec_capacity(20, te) == JMOE.ec_capacity(20, je) == 5
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        MOE.check_backend(dataclasses.replace(te, backend="xla"))
+    xla = dataclasses.replace(te, backend="xla")
+    assert MOE.resolve_backend(xla) == "xla"
+    yx, ax = MOE.expert_choice_forward(tp, torch.from_numpy(x[0]), xla)
+    yj, aj = JMOE.expert_choice_forward(
+        jp, jnp.asarray(x[0]), dataclasses.replace(je, backend="xla"))
+    np.testing.assert_allclose(yx.numpy(), np.asarray(yj), **TOL)
+    np.testing.assert_array_equal(ax["chosen_tokens"].numpy(),
+                                  np.asarray(aj["chosen_tokens"]))

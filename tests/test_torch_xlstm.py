@@ -292,9 +292,20 @@ def test_decode_state_nesting_matches_reference(xl):
 # ---------------------------------------------------------------- gates
 
 def test_model_forward_raises_for_the_attention_family():
+    """The attention family's model_forward is ported (item 10): its last
+    position gives prefill's logits bit for bit. What still raises with
+    item 10 is training the xlstm family (K9 has no backward pass)."""
     cfg = get_config("llama_moe_4_16", smoke=True)
+    tp = TM.model_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    toks = torch.from_numpy(np.random.default_rng(1).integers(
+        0, cfg.vocab_size, size=(2, 12)))
+    x, bal = TM.model_forward(tp, toks, cfg)
+    _, logits = TM.prefill(tp, toks, cfg)
+    assert torch.equal(TM.logits_from_hidden(tp, x[:, -1], cfg), logits)
+    assert float(bal) == 0.0                   # expert choice: no balance
     with pytest.raises(NotImplementedError, match="item 10"):
-        TM.model_forward({}, torch.zeros((1, 4), dtype=torch.long), cfg)
+        TM.loss_fn({}, {"tokens": toks, "labels": toks},
+                   get_config(ARCH, smoke=True))
 
 
 def test_engine_raises_for_a_recurrent_family(xl):
