@@ -255,10 +255,34 @@ Phases (none catches an exception; any failure exits non-zero):
      Then xlstm-1.3b (48 layers: 6 segments of 7 mLSTM + 1 sLSTM):
      c. `xlstm_forward`: model_forward on 4 x 128 tokens, three runs, K9
         launched 6 times per call, hidden states equal bit for bit;
-     d. `xlstm_static`: generate() with 4 x 128 prompt tokens stepped
+     d. `xlstm_static`: generate() with 4 x 32 prompt tokens stepped
         through serve_step and 16 new tokens, two runs, tokens and
         logits equal bit for bit; profiles of the forward, 8 steps of
         the stepwise prefill and one decode step.
+     e. `xlstm_engine`: the engine on a dense pool (RECURRENT_POOL: 4
+        slots of 256 tokens), XLSTM_ENGINE's 6 requests of 16-32 tokens,
+        16 new (recurrent_engine_phase): run twice, streams and every
+        leaf of the drained pool's state bit-equal; each stream held
+        against static generate()'s path, teacher-forced
+        (recurrent_agreement): at the pool's batch the engine's token is
+        static's argmax at every step; at batch 1 the gaps are recorded
+        (xlstm's recurrence carries the other rounding of a 1-row GEMM
+        forward, so its batch-1 path drifts past the 4-bf16-step rule).
+     Then zamba2-1.2b (38 Mamba2 layers, the shared attention + SwiGLU
+     block after every 6th: 6 applications, 2 trailing layers;
+     1,102,443,840 weights), zamba2_full_phase:
+     f. `zamba2_forward`: model_forward on 4 x 128 tokens (the chunked
+        SSD scan), a warm-up and two runs, hidden states bit-equal;
+     g. `zamba2_static`: generate() on 4 x 64 prompt tokens stepped
+        through serve_step and 16 new tokens, a warm-up and three runs,
+        tokens and logits bit-equal; weight count, peak GB; profiles of
+        the forward and one decode step;
+     h. `zamba2_engine`: as e., with ZAMBA2_ENGINE's 8 requests of 16-64
+        tokens at ticks 0-8, its batch-1 path held to STATIC_GAP_ULPS
+        bf16 steps as the dense engines' are. No kernel of the port runs
+        on e.-h.: their launch counts must read 0. Phase 4 holds zamba2's
+        smoke generate() and both recurrent smoke engines, card against
+        CPU (recurrent_smoke_phase).
      Each path runs with the launch counts set to 0 just before it; K5R
      must run once per layer and decode step on llama's paths up to 64
      rows and never on granite's, xlstm's or `go_wide`, where K5 runs
@@ -2671,16 +2695,18 @@ def xlstm_smoke_phase(torch, SC, cfg, TM, TS):
           flush=True)
 
 
-def xlstm_full_phase(torch, counts, reset_counts, cfg, TM, TS):
+def xlstm_full_phase(torch, counts, reset_counts, cfg, TM, TS,
+                     ServingEngine):
     """Full-width xlstm-1.3b, bf16, random weights from a seeded generator
     on the card. `xlstm_forward`: model_forward on 4 x 128 tokens, a
     warm-up, then three runs (the first counted): K9 launched once per
     sLSTM block and no other kernel of the port, hidden states bit-equal.
-    `xlstm_static`: generate() with the same 4 x 128 prompts stepped
-    through serve_step and 16 new tokens, a warm-up, then two runs
+    `xlstm_static`: generate() with the first XLSTM_STATIC_PROMPT tokens
+    of those prompts stepped through serve_step and 16 new tokens, a
+    warm-up, then two runs
     (the first counted): no kernel of the port launched, tokens and the
     logits that chose them bit-equal. Then the profiles (the prefill's over
-    its first 8 steps)."""
+    its first 8 steps), and `xlstm_engine` (recurrent_engine_phase)."""
     t0 = time.perf_counter()
     params = TM.model_init(cfg, torch.Generator(device="cuda").manual_seed(0),
                            "cuda")
@@ -2731,9 +2757,10 @@ def xlstm_full_phase(torch, counts, reset_counts, cfg, TM, TS):
     TS.generate(params, cfg, tokens[:, :8], 2, device="cuda")
     torch.cuda.reset_peak_memory_stats()
     reset_counts()
-    res = TS.generate(params, cfg, tokens, GEN, device="cuda")
+    prompts = tokens[:, :XLSTM_STATIC_PROMPT]
+    res = TS.generate(params, cfg, prompts, GEN, device="cuda")
     static_launches = counts()
-    reps = [res, TS.generate(params, cfg, tokens, GEN, device="cuda")]
+    reps = [res, TS.generate(params, cfg, prompts, GEN, device="cuda")]
     need(static_launches == zero, f"xlstm_static launches {static_launches}"
          ": the stepwise path runs no kernel of the port")
     need(res["tokens"].shape == (Bq, GEN) and
@@ -2742,8 +2769,8 @@ def xlstm_full_phase(torch, counts, reset_counts, cfg, TM, TS):
     repeat_equal = all(torch.equal(r["tokens"], res["tokens"]) and
                        torch.equal(r["logits"], res["logits"]) for r in reps)
     stats = {"prefill_ms_runs": [r["prefill_s"] * 1e3 for r in reps],
-             "prefill_ms_per_step_runs": [r["prefill_s"] * 1e3 / P
-                                          for r in reps],
+             "prefill_ms_per_step_runs": [
+                 r["prefill_s"] * 1e3 / XLSTM_STATIC_PROMPT for r in reps],
              "decode_ms_per_token_runs": [r["decode_s"] * 1e3 / GEN
                                           for r in reps],
              "tok_per_s_runs": [r["tok_per_s"] for r in reps],
@@ -2751,7 +2778,8 @@ def xlstm_full_phase(torch, counts, reset_counts, cfg, TM, TS):
              "max_memory_allocated_gb":
                  torch.cuda.max_memory_allocated() / 1e9,
              "launches": static_launches}
-    print(f"[full xlstm_static] {cfg.name} bf16 B={Bq} prompt={P} "
+    print(f"[full xlstm_static] {cfg.name} bf16 B={Bq} "
+          f"prompt={XLSTM_STATIC_PROMPT} "
           f"gen={GEN}: {json.dumps(stats)}", flush=True)
     print(f"[full xlstm_static] sample tokens {res['tokens'][0].tolist()}",
           flush=True)
@@ -2760,15 +2788,328 @@ def xlstm_full_phase(torch, counts, reset_counts, cfg, TM, TS):
     state = res["state"]
     tok = torch.zeros(Bq, dtype=torch.long, device="cuda")
     del reps, res
-    # the prefill's profile covers its first 8 of 128 steps: each step is
-    # one serve_step of the same work, and a trace of all 128 (~400k device
-    # events) takes minutes to read back
+    # the prefill's profile covers its first 8 steps: each step is one
+    # serve_step of the same work, and a trace of many (~3000 device
+    # events a step) takes long to read back
     profile_phase(torch, cfg, {
         "forward": lambda: TM.model_forward(params, tokens, cfg),
-        "stepwise_prefill_8_of_128_steps":
+        "stepwise_prefill_8_steps":
             lambda: TM.prefill(params, tokens[:, :8], cfg),
         "decode_step": lambda: TM.serve_step(params, state, tok, cfg)})
-    return {"xlstm_forward": fwd_launches, "xlstm_static": static_launches}
+    del state
+    engine_launches = recurrent_engine_phase(
+        torch, TM, cfg, params, ServingEngine, counts, reset_counts, "xlstm",
+        XLSTM_ENGINE, b1_rule=False)
+    return {"xlstm_forward": fwd_launches, "xlstm_static": static_launches,
+            "xlstm_engine": engine_launches}
+
+
+# The recurrent engine cells: a dense pool (a recurrent family has no
+# pages), prompt lengths and arrival ticks, RECURRENT_GEN new tokens each.
+RECURRENT_POOL = dict(num_slots=4, max_tokens=256)
+RECURRENT_GEN = 16
+ZAMBA2_ENGINE = ((48, 16, 64, 32, 56, 24, 40, 64), (0, 0, 1, 2, 4, 5, 7, 8))
+XLSTM_ENGINE = ((24, 16, 32, 20, 28, 16), (0, 0, 1, 3, 5, 6))
+# xlstm_static's prompt: 32 of the forward's 128 tokens (its stepwise
+# prefill costs ~74 ms a step on the card; 128 took ~9.5 s a run)
+XLSTM_STATIC_PROMPT = 32
+ZAMBA2_WEIGHTS = 1_102_443_840
+
+
+def recurrent_smoke_phase(torch, TM, TS, get_config, counts, reset_counts):
+    """zamba2's SMOKE generate() on the CPU and on the card, the same fp32
+    weights: tokens equal, the logits that chose them within
+    SMOKE_LOGIT_TOL; then both recurrent families' smoke engines (2 dense
+    slots, 4 staggered requests, a retired row reused) card against CPU:
+    streams equal. No kernel of the port is launched."""
+    import numpy as np
+    reset_counts()
+    cfg = get_config("zamba2-1.2b", smoke=True)
+    params = TM.model_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.randint(0, cfg.vocab_size, (4, 16),
+                           generator=torch.Generator().manual_seed(1))
+    r_cpu = TS.generate(params, cfg, tokens, 8, device="cpu")
+    r_gpu = TS.generate(_tree_to(params, "cuda"), cfg, tokens.cuda(), 8,
+                        device="cuda")
+    err = (r_gpu["logits"].cpu() - r_cpu["logits"]).abs().max().item()
+    need(torch.equal(r_gpu["tokens"].cpu(), r_cpu["tokens"]),
+         "zamba2 smoke: greedy tokens differ between cpu and cuda")
+    need(err <= SMOKE_LOGIT_TOL, f"zamba2 smoke logits differ by {err}")
+    rng = np.random.default_rng(3)
+    streams = {}
+    for arch in ("xlstm-1.3b", "zamba2-1.2b"):
+        cfg = get_config(arch, smoke=True)
+        params = TM.model_init(cfg, torch.Generator().manual_seed(0), "cpu")
+        prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+                   for n in (6, 9, 5, 7)]
+        got = [TS.serve_continuous(p, cfg, prompts, 5, num_slots=2,
+                                   max_tokens=16, arrival_steps=[0, 1, 2, 3],
+                                   device=dev)["tokens"]
+               for p, dev in ((params, "cpu"),
+                              (_tree_to(params, "cuda"), "cuda"))]
+        need(all(np.array_equal(got[0][r], got[1][r]) for r in got[0]),
+             f"{arch} smoke engine: card streams differ from the CPU's")
+        streams[arch] = got[1][1].tolist()
+    need(all(n == 0 for n in counts().values()),
+         f"recurrent smoke paths launched a kernel: {counts()}")
+    print(f"[smoke recurrent] zamba2-smoke generate() tokens equal "
+          f"{r_cpu['tokens'][0].tolist()}, logits max_abs_err {err:.3e} "
+          f"(tol {SMOKE_LOGIT_TOL:g}); engines card == cpu, request 1's "
+          f"streams {json.dumps(streams)}", flush=True)
+
+
+def recurrent_engine_phase(torch, TM, cfg, params, ServingEngine, counts,
+                           reset_counts, short, cell, b1_rule=True):
+    """`<short>_engine` at full width, bf16: the continuous-batching engine
+    on RECURRENT_POOL (dense), `cell` = (prompt lengths, arrival ticks),
+    RECURRENT_GEN new tokens, greedy. A warm-up engine first (one request,
+    8 tokens), then the counted, timed run, one synchronised step at a
+    time; then the same trace on a fresh engine: streams and every leaf of
+    the drained pool's state (the retired rows go on stepping with t
+    pinned to 0) must repeat bit for bit. No kernel of the port runs. Each
+    stream is then held against static generate()'s path, teacher-forced
+    (recurrent_agreement: a dense state of the pool's max_tokens), at
+    batch 1 and at the pool's batch; `b1_rule` says whether the batch-1
+    path must meet the STATIC_GAP_ULPS rule or is only recorded."""
+    import numpy as np
+    lens, arrivals = cell
+    rng = np.random.default_rng(2)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+               for n in lens]
+    warm = ServingEngine(params, cfg, device="cuda", **RECURRENT_POOL)
+    warm.submit(prompts[0][:8], 2)
+    warm.run()
+    del warm
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+
+    def trace():
+        eng = ServingEngine(params, cfg, device="cuda", **RECURRENT_POOL)
+        rids = [eng.submit(p, RECURRENT_GEN, arrival_step=a)
+                for p, a in zip(prompts, arrivals)]
+        return eng, rids
+
+    eng, rids = trace()
+    reset_counts()
+    ticks = []                 # (ms, decoded, prompt tokens admitted)
+    seen = set()
+    t_all = time.perf_counter()
+    while eng.has_work():
+        d0 = eng.decode_ticks
+        t0 = time.perf_counter()
+        eng.step()
+        torch.cuda.synchronize()
+        ms = (time.perf_counter() - t0) * 1e3
+        now = {o.request_id: o for o in eng.pool.owner if o is not None}
+        now.update(eng.finished)
+        admitted = sum(q.prompt_len for r, q in now.items() if r not in seen)
+        seen |= now.keys()
+        ticks.append((ms, eng.decode_ticks - d0, admitted))
+    wall_s = time.perf_counter() - t_all
+    launches = counts()
+    need(all(n == 0 for n in launches.values()),
+         f"{short}_engine launched a kernel of the port: {launches}")
+    fin = eng.finished
+    for rid in rids:
+        r = fin[rid]
+        need(r.status == "DONE" and len(r.tokens) == RECURRENT_GEN and
+             all(0 <= x < cfg.vocab_size for x in r.tokens),
+             f"{short}_engine request {rid}: status {r.status}, "
+             f"{len(r.tokens)} tokens")
+    state = _tensors(eng.pool.state)
+    need(all(bool(torch.isfinite(t).all()) for t in state
+             if t.is_floating_point()),
+         f"{short}_engine: non-finite decode state after the run")
+    peak_gb = torch.cuda.max_memory_allocated() / 1e9
+    again, rids2 = trace()
+    fin2 = again.run()
+    repeat_equal = all(fin2[r2].tokens == fin[r].tokens
+                       for r, r2 in zip(rids, rids2))
+    state_equal = _same(torch, state, _tensors(again.pool.state))
+    del again
+    pure = sorted(ms for ms, dd, na in ticks if dd and not na)
+    admit = [(ms, na) for ms, dd, na in ticks if na]
+    tokens = sum(len(fin[r].tokens) for r in rids)
+    stats = {"requests": len(rids), "tokens": tokens, "wall_s": wall_s,
+             "tok_per_s": tokens / wall_s, "ticks": len(ticks),
+             "decode_ticks": eng.decode_ticks,
+             "pure_decode_ticks": len(pure),
+             "decode_tick_ms_median": statistics.median(pure),
+             "decode_tick_ms_p95": pure[min(len(pure) - 1,
+                                            int(0.95 * len(pure)))],
+             "admission_ms_per_prompt_token": sum(m for m, _ in admit) /
+             max(1, sum(n for _, n in admit)),
+             "peak_active": eng.peak_active,
+             "max_memory_allocated_gb": peak_gb,
+             "state_bytes": sum(t.numel() * t.element_size() for t in state),
+             "launches": launches, "repeat_streams_equal": repeat_equal,
+             "repeat_state_equal": state_equal,
+             "admit_steps": [fin[r].admit_step for r in rids],
+             "finish_steps": [fin[r].finish_step for r in rids]}
+    print(f"[full {short}_engine] {cfg.name} bf16 {RECURRENT_POOL}, prompts "
+          f"{list(lens)}, arrivals {list(arrivals)}, gen {RECURRENT_GEN}: "
+          f"{json.dumps(stats)}", flush=True)
+    print(f"[full {short}_engine] sample tokens {fin[rids[1]].tokens}",
+          flush=True)
+    need(repeat_equal, f"{short}_engine: the trace streamed other tokens "
+         "when run again")
+    need(state_equal, f"{short}_engine: the trace left another decode "
+         "state when run again")
+    t0 = time.perf_counter()
+    agree = [recurrent_agreement(torch, TM, cfg, params, p, fin[r].tokens,
+                                 b1_rule) for p, r in zip(prompts, rids)]
+    print(f"[full {short}_engine] against static generate()'s path: at "
+          f"batch {RECURRENT_POOL['num_slots']} "
+          f"{sum(a['pool_batch_equal'] for a in agree)} of {len(agree)} "
+          f"streams equal; at batch 1 {sum(a['equal'] for a in agree)} "
+          f"equal ({time.perf_counter() - t0:.1f} s); {json.dumps(agree)}",
+          flush=True)
+    return launches
+
+
+def recurrent_agreement(torch, TM, cfg, params, prompt, stream, b1_rule):
+    """static generate()'s path for `prompt` (a stepwise prefill at batch 1,
+    as the engine admits it, then serve_step on a dense state of the pool's
+    max_tokens), teacher-forced with an engine stream, twice from the one
+    prefill: at batch 1, as static_agreement ("equal", "parts",
+    "max_gap", "gaps": static's top logit less its logit of the engine's
+    token at each step; a gap over STATIC_GAP_ULPS bf16 steps fails only
+    with `b1_rule`), and with the row copied into all the pool's rows
+    ("pool_batch_equal": the engine's token is the argmax, or ties it, at
+    every step: required). A recurrent state carries each step's rounding
+    forward, and a GEMM over 4 rows rounds otherwise than over 1, so the
+    batch-1 path may drift from the engine's; the pool-batch path is the
+    engine's own arithmetic for that row."""
+    rows, max_len = RECURRENT_POOL["num_slots"], RECURRENT_POOL["max_tokens"]
+    tokens = torch.as_tensor(prompt, dtype=torch.long, device="cuda")[None]
+    one, logits = TM.prefill(params, tokens, cfg, max_len=max_len)
+    pool = TM.init_decode_state(cfg, rows, max_len, "cuda", per_slot_t=True)
+    for b in range(rows):
+        TM.write_decode_slot(pool, b, one)
+    lg1 = lgn = logits
+    parts, gaps, tol = [], [], 0.0
+    for i, tok in enumerate(stream):
+        top = int(torch.argmax(lg1[0]))
+        gap = float(lg1[0, top] - lg1[0, tok])
+        gaps.append(gap)
+        if top != tok:
+            step_tol = STATIC_GAP_ULPS * _bf16_ulp(float(lg1[0, top]))
+            need(gap <= step_tol or not b1_rule, f"{cfg.name}: at step {i} "
+                 f"the engine's token {tok} lies {gap} below static's top "
+                 f"logit (tol {step_tol}): not a bf16 near-tie")
+            parts.append(i)
+            tol = max(tol, step_tol)
+        top_n = int(torch.argmax(lgn[0]))
+        need(lgn[0, top_n] == lgn[0, tok], f"{cfg.name}: at step {i} the "
+             f"engine's token {tok} is not the argmax of static's path at "
+             f"the pool's batch ({top_n})")
+        if i + 1 < len(stream):
+            lg1, one = TM.serve_step(params, one,
+                                     torch.tensor([tok], device="cuda"), cfg)
+            lgn, pool = TM.serve_step(params, pool, torch.full(
+                (rows,), tok, device="cuda"), cfg)
+    return {"equal": not parts, "parts": parts, "max_gap": max(gaps),
+            "tol": tol, "gaps": gaps, "pool_batch_equal": True}
+
+
+def zamba2_full_phase(torch, counts, reset_counts, cfg, TM, TS,
+                      ServingEngine):
+    """Full-width zamba2-1.2b, bf16, random weights from a seeded generator
+    on the card (ZAMBA2_WEIGHTS of them). `zamba2_forward`: model_forward
+    on 4 x 128 tokens, a warm-up, then two runs (the first counted),
+    hidden states bit-equal. `zamba2_static`: generate() on 4 x 64 prompt
+    tokens stepped through serve_step, 16 new, a warm-up, then three runs
+    (the first counted), tokens and logits bit-equal. `zamba2_engine`:
+    recurrent_engine_phase on ZAMBA2_ENGINE. No kernel of the port runs on
+    any of them. Then the profiles of the forward and one decode step."""
+    t0 = time.perf_counter()
+    params = TM.model_init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[full] {cfg.name}: {n_params} parameters initialised in "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated",
+          flush=True)
+    need(n_params == ZAMBA2_WEIGHTS, f"{cfg.name}: {n_params} parameters, "
+         f"not {ZAMBA2_WEIGHTS}")
+    Bq, P, PS, GEN = 4, 128, 64, 16
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (Bq, P), generator=g,
+                           device="cuda")
+    zero = {k: 0 for k in counts()}
+
+    TM.model_forward(params, tokens, cfg)                       # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs, xs = [], []
+    for i in range(2):
+        if i == 0:
+            reset_counts()
+        t0 = time.perf_counter()
+        x, aux = TM.model_forward(params, tokens, cfg)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+        xs.append(x)
+        if i == 0:
+            fwd_launches = counts()
+    need(fwd_launches == zero, f"zamba2_forward launches {fwd_launches}")
+    need(xs[0].shape == (Bq, P, cfg.d_model) and
+         bool(torch.isfinite(xs[0]).all()) and float(aux) == 0.0,
+         "zamba2_forward: hidden states not finite or of another shape")
+    fwd_equal = torch.equal(xs[0], xs[1])
+    stats = {"forward_ms_runs": runs, "repeat_hidden_equal": fwd_equal,
+             "max_memory_allocated_gb":
+                 torch.cuda.max_memory_allocated() / 1e9,
+             "launches": fwd_launches}
+    print(f"[full zamba2_forward] {cfg.name} bf16 B={Bq} S={P}: "
+          f"{json.dumps(stats)}", flush=True)
+    need(fwd_equal, "zamba2_forward: two runs gave other hidden states")
+    del xs, x
+
+    prompts = tokens[:, :PS]
+    TS.generate(params, cfg, prompts[:, :8], 2, device="cuda")  # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = TS.generate(params, cfg, prompts, GEN, device="cuda")
+    static_launches = counts()
+    reps = [res] + [TS.generate(params, cfg, prompts, GEN, device="cuda")
+                    for _ in range(2)]
+    need(static_launches == zero, f"zamba2_static launches "
+         f"{static_launches}: the stepwise path runs no kernel of the port")
+    need(res["tokens"].shape == (Bq, GEN) and
+         bool(torch.isfinite(res["logits"]).all()),
+         "zamba2_static: tokens of another shape or non-finite logits")
+    repeat_equal = all(torch.equal(r["tokens"], res["tokens"]) and
+                       torch.equal(r["logits"], res["logits"]) for r in reps)
+    stats = {"weights": n_params,
+             "prefill_ms_runs": [r["prefill_s"] * 1e3 for r in reps],
+             "prefill_ms_per_step_runs": [r["prefill_s"] * 1e3 / PS
+                                          for r in reps],
+             "decode_ms_per_token_runs": [r["decode_s"] * 1e3 / GEN
+                                          for r in reps],
+             "tok_per_s_runs": [r["tok_per_s"] for r in reps],
+             "repeat_tokens_equal": repeat_equal,
+             "max_memory_allocated_gb":
+                 torch.cuda.max_memory_allocated() / 1e9,
+             "launches": static_launches}
+    print(f"[full zamba2_static] {cfg.name} bf16 B={Bq} prompt={PS} "
+          f"gen={GEN}: {json.dumps(stats)}", flush=True)
+    print(f"[full zamba2_static] sample tokens {res['tokens'][0].tolist()}",
+          flush=True)
+    need(repeat_equal, "zamba2_static: three runs gave other tokens or "
+         "logits")
+    state = res["state"]
+    del reps, res
+    engine_launches = recurrent_engine_phase(
+        torch, TM, cfg, params, ServingEngine, counts, reset_counts, "zamba2",
+        ZAMBA2_ENGINE)
+    tok = torch.zeros(Bq, dtype=torch.long, device="cuda")
+    profile_phase(torch, cfg, {
+        "forward": lambda: TM.model_forward(params, tokens, cfg),
+        "decode_step": lambda: TM.serve_step(params, state, tok, cfg)})
+    return {"zamba2_forward": fwd_launches, "zamba2_static": static_launches,
+            "zamba2_engine": engine_launches}
 
 
 def _tree_to(tree, device):
@@ -5150,6 +5491,7 @@ def main():
               flush=True)
     xlstm = "xlstm-1.3b"
     xlstm_smoke_phase(torch, SC, get_config(xlstm, smoke=True), TM, TS)
+    recurrent_smoke_phase(torch, TM, TS, get_config, counts, reset_counts)
 
     for m, short in ((llama, "llama"), (granite, "granite"),
                      (deepseek, "deepseek")):
@@ -5294,7 +5636,16 @@ def main():
               flush=True)
 
     by_path.update(xlstm_full_phase(torch, counts, reset_counts,
-                                    get_config(xlstm), TM, TS))
+                                    get_config(xlstm), TM, TS, ServingEngine))
+    gc.collect()
+    torch.cuda.empty_cache()
+    # slice 19: zamba2-1.2b (Mamba2 with a shared attention block)
+    t0 = time.perf_counter()
+    by_path.update(zamba2_full_phase(torch, counts, reset_counts,
+                                     get_config("zamba2-1.2b"), TM, TS,
+                                     ServingEngine))
+    print(f"[full] zamba2-1.2b: {time.perf_counter() - t0:.1f} s",
+          flush=True)
 
     # launches: each kernel's count on the path it was ported for (K1/K2
     # llama's static generate() of slice 1, K3/K4 llama's engine of slice 2,

@@ -2,7 +2,8 @@
 
 A copy of the reference package's schema, cut to the fields the port's
 slices read (the attention family with its QKV bias, local/global window
-pattern and attention logit softcap; the xlstm family; tied embeddings;
+pattern and attention logit softcap; the xlstm family; the Mamba2 hybrid
+(zamba2); tied embeddings;
 the int8 decode state; the balance-loss coefficient, `remat` and
 `TrainConfig` for training).
 Plain dataclasses: no torch, no JAX.
@@ -57,8 +58,11 @@ class ModelConfig:
     sliding_window: int = 0           # >0 enables local attention layers
     local_global_ratio: int = 0       # gemma3: N local layers per 1 global
     logit_softcap: float = 0.0        # >0: scores c * tanh(s / c)
+    ssm_state: int = 0                # mamba2 state size (zamba2: 64)
+    ssm_chunk: int = 128              # SSD chunk length
+    attn_every: int = 0               # zamba2: shared attn block every N layers
     slstm_every: int = 0              # xlstm: one sLSTM block every N layers
-    conv_width: int = 4               # xlstm: mLSTM short causal conv
+    conv_width: int = 4               # mLSTM and mamba2 short causal conv
     dtype: str = "bfloat16"
     norm_eps: float = 1e-6
 

@@ -17,6 +17,7 @@ _MODULES = {
     "granite-8b": "granite_8b",
     "gemma3-27b": "gemma3_27b",
     "xlstm-1.3b": "xlstm_1_3b",
+    "zamba2-1.2b": "zamba2_1_2b",
 }
 
 

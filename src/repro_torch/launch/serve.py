@@ -19,9 +19,13 @@ granite-moe-3b-a800m (token choice on the C1 group path),
 deepseek-moe-16b (token choice on the C1 group path with two always-on
 shared experts; about 33 GB of bf16 weights at full width), the dense
 starcoder2-3b, qwen2-7b (QKV bias), granite-8b and gemma3-27b (5:1
-local/global windows; about 54 GB of bf16 weights at full width) and, with
---static only, xlstm-1.3b (mLSTM/sLSTM; prefill steps serve_step over the
-prompt; the engine raises NotImplementedError for a recurrent family).
+local/global windows; about 54 GB of bf16 weights at full width) and the
+recurrent xlstm-1.3b (mLSTM/sLSTM) and zamba2-1.2b (38 Mamba2 layers and
+one weight-shared attention block after every 6th), whose prefill steps
+serve_step over the prompt. The engine serves them on a dense pool: the
+CLI refuses --paged, --chunk-prefill, --kv-quant int8, --prefix-share,
+--preemption, --expert-aware and --journal-dir for them, and --buckets is
+off.
 
 Entry points run on the CUDA card unless the caller names another device;
 without a card, asking for CUDA raises.
@@ -40,6 +44,8 @@ without a card, asking for CUDA raises.
       --paged --page-size 8 --chunk-prefill 8 --kv-quant int8 --device cpu
   python -m repro_torch.launch.serve --arch xlstm-1.3b --smoke --static \
       --device cpu
+  python -m repro_torch.launch.serve --arch zamba2-1.2b --smoke \
+      --requests 4 --slots 2 --prompt 12 --gen 6 --device cpu
   # sampled requests (temperature, top-p; each seeded by its id) and
   # prompts padded to power-of-two buckets:
   python -m repro_torch.launch.serve --arch llama_moe_4_16 --smoke \
@@ -222,8 +228,9 @@ def serve_continuous(params, cfg, prompts: list, gen_tokens: int, *,
 def main(argv=None):
     ap = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     ap.add_argument("--arch", required=True,
-                    help="llama_moe_4_16, granite-moe-3b-a800m, "
-                         "deepseek-moe-16b or xlstm-1.3b")
+                    help="an arch of repro_torch.configs.registry, e.g. "
+                         "llama_moe_4_16, starcoder2-3b, xlstm-1.3b or "
+                         "zamba2-1.2b")
     ap.add_argument("--smoke", action="store_true")
     ap.add_argument("--static", action="store_true",
                     help="static-batch generate() instead of the engine")
@@ -337,6 +344,17 @@ def main(argv=None):
     if args.kv_quant != "none" and not args.paged:
         ap.error("--kv-quant int8 needs --paged (scale granularity is page "
                  "granularity)")
+    paged_only = {"--paged": args.paged,
+                  "--chunk-prefill": args.chunk_prefill,
+                  "--kv-quant int8": args.kv_quant != "none",
+                  "--prefix-share": args.prefix_share,
+                  "--preemption": args.preemption,
+                  "--expert-aware": args.expert_aware,
+                  "--journal-dir": args.journal_dir}
+    if get_config(args.arch).block != "attn" and any(paged_only.values()):
+        ap.error(f"{args.arch} is a recurrent family, served on a dense "
+                 "pool: drop " + ", ".join(k for k, v in paged_only.items()
+                                           if v))
     if args.supervise:
         # the parent: run this CLI (without --supervise) as a watched
         # child; a restarted generation finds the committed snapshot in

@@ -3,7 +3,9 @@
 family: with an MoE sublayer (expert choice with the GO cache, and token
 choice, dispatch or C1 group multiplexing, without one) or with the dense
 SwiGLU MLP (`params["mlp"]`, models/layers.py `mlp`); the xlstm family's
-blocks are re-exported from models/xlstm.py, as the reference does.
+blocks are re-exported from models/xlstm.py, as the reference does, and
+the Mamba2 blocks (`mamba2_block_init`, `mamba2_block`,
+`mamba2_block_decode`) wrap models/ssm.py in a pre-norm residual.
 models/model.py:check_served rejects the rest.
 """
 from __future__ import annotations
@@ -16,6 +18,7 @@ from repro_torch.core.go_cache import (GOCache, go_cache_merge,
 from repro_torch.kernels import ops as OPS
 from repro_torch.models import attention as ATT
 from repro_torch.models.layers import mlp, rmsnorm
+from repro_torch.models.ssm import mamba2_decode, mamba2_forward, mamba2_init
 from repro_torch.models.xlstm import (mlstm_block, mlstm_block_init,  # noqa: F401
                                       slstm_block, slstm_block_init)
 
@@ -147,3 +150,23 @@ def attn_block_chunk(params: dict, x: torch.Tensor, cache_k, cache_v,
         for dst, src in zip(go_cache, go_cache_merge(go_cache, chunk_go)):
             dst.copy_(src)
     return x, aux
+
+
+# ------------------------------------------------------------- mamba2 block
+
+def mamba2_block_init(g: torch.Generator, cfg, device) -> dict:
+    return {"ln": {"scale": torch.ones(cfg.d_model, device=device)},
+            "mix": mamba2_init(g, cfg, device)}
+
+
+def mamba2_block(params: dict, x: torch.Tensor, *, cfg) -> torch.Tensor:
+    h = rmsnorm(params["ln"], x, cfg.norm_eps)
+    return x + mamba2_forward(params["mix"], h, cfg=cfg)
+
+
+def mamba2_block_decode(params: dict, x_t: torch.Tensor, state: dict, *,
+                        cfg) -> tuple:
+    """x_t [B, 1, d] -> (x, the new {"ssm", "conv"} state)."""
+    h = rmsnorm(params["ln"], x_t, cfg.norm_eps)
+    y, new_state = mamba2_decode(params["mix"], h, state, cfg=cfg)
+    return x_t + y, new_state

@@ -1,5 +1,5 @@
 """Language-model assembly: the attention family, with MoE or the dense
-SwiGLU MLP, and xlstm.
+SwiGLU MLP, xlstm, and the Mamba2 hybrid (zamba2).
 
 Counterpart of repro/models/model.py for the serving paths:
 
@@ -22,14 +22,19 @@ Parameters keep the reference's nesting and its stacked layer axes
 shared.{wg,wi,wo}}}`, `shared` only with always-on shared experts,
 `attn.{bq,bk,bv}` only with cfg.qkv_bias; a dense block holds
 `mlp.{wi,wg,wo}` in place of `moe`;
-xlstm: `mlayers` [n_seg, n_m, ...] and `slayers` [n_seg, ...]), so
+xlstm: `mlayers` [n_seg, n_m, ...] and `slayers` [n_seg, ...]; zamba2:
+`layers.{ln, mix.{in_proj, conv_w, conv_b, A_log, D, dt_bias, out_proj,
+norm_scale}}` [L, ...] and ONE `shared_attn` attention block with the
+dense SwiGLU MLP, applied after every `attn_every`-th Mamba2 layer), so
 `bridge.params_from_numpy` carries JAX weights across unchanged. Where
 JAX scans over layers and carries the KV and GO caches (or the recurrent
 states) through the scan, the port loops over layers in Python and writes
 each layer's slice of the decode state in place. The decode state holds GO
 rows only for expert choice with the GO cache; token choice keeps none, as
 in the reference. Recurrent families prefill by stepping serve_step, as
-the reference does.
+the reference does, and keep dense per-row state only (no pages): the
+engine's pool admits and retires their rows through init_decode_slot and
+write_decode_slot like any other.
 
 Training (`loss_fn`, the attention family) differentiates through
 `model_forward`: the MoE layer on its "xla" realization (`_training_cfg`
@@ -65,6 +70,7 @@ from repro_torch.core.go_cache import (GOCache, go_cache_init,
                                        go_cache_init_slot, go_cache_prefill,
                                        go_cache_write_slot)
 from repro_torch.models import blocks as B
+from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as X
 from repro_torch.models.layers import (dense_init, dtype_of, embed_init,
                                        mlp_init, rmsnorm, take_rows)
@@ -84,11 +90,12 @@ def layer_windows(cfg) -> list[int]:
 
 def check_served(cfg) -> None:
     """Raise on a configuration the port does not serve yet: it serves the
-    xlstm family (model_forward and static generate()) and the attention
-    family with the dense SwiGLU MLP (no MoE, d_ff > 0) or with an MoE
-    sublayer, either expert choice with the GO cache or token choice, with
-    or without always-on shared experts, on either MoE realization."""
-    if cfg.block == "xlstm":
+    xlstm family, the Mamba2 hybrid (zamba2, whose shared attention block
+    runs the dense SwiGLU MLP) and the attention family with the dense
+    SwiGLU MLP (no MoE, d_ff > 0) or with an MoE sublayer, either expert
+    choice with the GO cache or token choice, with or without always-on
+    shared experts, on either MoE realization."""
+    if cfg.block == "xlstm" or (cfg.block == "mamba2" and cfg.moe is None):
         return
     e = cfg.moe
     if cfg.block == "attn" and e is None and cfg.d_ff > 0:
@@ -149,6 +156,24 @@ def _xlstm_segments(cfg) -> tuple[int, int]:
     return cfg.num_layers // cfg.slstm_every, cfg.slstm_every - 1
 
 
+def _zamba_segments(cfg) -> tuple[int, int]:
+    """(applications of the shared attention block, Mamba2 layers before
+    each); the num_layers - n_app * seg layers past the last application
+    run after it."""
+    if cfg.attn_every <= 0:
+        return 0, cfg.num_layers
+    return cfg.num_layers // cfg.attn_every, cfg.attn_every
+
+
+def _shared_attn_after(l: int, cfg) -> int | None:
+    """The shared attention application that follows Mamba2 layer l (its
+    index, which picks its KV rows), or None."""
+    n_app, seg = _zamba_segments(cfg)
+    if n_app and l % seg == seg - 1 and l // seg < n_app:
+        return l // seg
+    return None
+
+
 # ----------------------------------------------------------------------- init
 
 def _tree_map(fn, tree):
@@ -200,6 +225,19 @@ def model_init(cfg, generator: torch.Generator, device) -> dict:
         p["slayers"] = _stacked(
             n_seg, lambda: B.slstm_block_init(g, cfg, dt, device))
         return p
+    if cfg.block == "mamba2":
+        p["layers"] = _stacked(L, lambda: B.mamba2_block_init(g, cfg, device))
+        if cfg.attn_every > 0:
+            # one block, its weights shared by every application
+            p["shared_attn"] = {
+                "ln1": {"scale": torch.ones(d, device=device)},
+                "ln2": {"scale": torch.ones(d, device=device)},
+                "attn": {"wq": dense_init(g, d, nq * hd, dt, device),
+                         "wk": dense_init(g, d, nkv * hd, dt, device),
+                         "wv": dense_init(g, d, nkv * hd, dt, device),
+                         "wo": dense_init(g, nq * hd, d, dt, device)},
+                "mlp": mlp_init(g, d, cfg.d_ff, dt, device)}
+        return p
     layers = {
         "ln1": {"scale": torch.ones((L, d), device=device)},
         "ln2": {"scale": torch.ones((L, d), device=device)},
@@ -244,14 +282,17 @@ def layer_params(tree: dict, l: int) -> dict:
 def model_forward(params: dict, tokens: torch.Tensor, cfg):
     """tokens [B, S] -> (x_final [B, S, d] normalized, aux balance loss: the
     sum over layers of each token-choice MoE layer's balance loss, a zero
-    fp32 scalar for expert choice, the dense MLP and xlstm). xlstm runs
-    each sLSTM block's whole sequence in one K9 launch on a card."""
+    fp32 scalar for expert choice, the dense MLP and the recurrent
+    families). xlstm runs each sLSTM block's whole sequence in one K9
+    launch on a card; zamba2 runs the chunked SSD scan in plain PyTorch."""
     check_served(cfg)
     x = take_rows(params["embed"], tokens)
     if cfg.block == "xlstm":
         return _fwd_xlstm(params, x, cfg)
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=tokens.device)
+    if cfg.block == "mamba2":
+        return _fwd_zamba(params, x, positions, cfg)
     return _fwd_attn(params, x, positions, cfg)
 
 
@@ -300,6 +341,19 @@ def _fwd_xlstm(params: dict, x: torch.Tensor, cfg):
         for i in range(n_m):
             x = B.mlstm_block(layer_params(mstack, i), x, cfg=cfg)
         x = B.slstm_block(layer_params(params["slayers"], s), x, cfg=cfg)
+    return (rmsnorm(params["final_norm"], x, cfg.norm_eps),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def _fwd_zamba(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg):
+    """The Mamba2 layers in order, the shared attention block (no window)
+    after every attn_every-th of them, the remaining layers after the
+    last application."""
+    for l in range(cfg.num_layers):
+        x = B.mamba2_block(layer_params(params["layers"], l), x, cfg=cfg)
+        if _shared_attn_after(l, cfg) is not None:
+            x, _ = B.attn_block(params["shared_attn"], x, cfg=cfg,
+                                positions=positions)
     return (rmsnorm(params["final_norm"], x, cfg.norm_eps),
             torch.zeros((), dtype=torch.float32, device=x.device))
 
@@ -363,12 +417,12 @@ def loss_fn(params: dict, batch: dict, cfg):
     """batch: tokens [B, S], labels [B, S] -> (loss, {"ce", "balance"}):
     the mean token cross-entropy plus balance_coef times the layers' mean
     balance loss. The attention family only: the xlstm family's sLSTM runs
-    K9, which has no backward pass."""
+    K9, which has no backward pass, and zamba2's training is untested."""
     if cfg.block != "attn":
         raise NotImplementedError(
             f"{cfg.name}: training is ported for the attention family; "
-            "xlstm training (a differentiable sLSTM) is the rest of "
-            "ROADMAP.md Queue 1 item 10")
+            "xlstm and zamba2 training (a differentiable sLSTM and SSD "
+            "scan) are the rest of ROADMAP.md Queue 1 item 10")
     cfg = _training_cfg(cfg)
     x, bal = model_forward(params, batch["tokens"], cfg)
     loss_sum, cnt = chunked_xent(params, x, batch["labels"], cfg)
@@ -404,22 +458,36 @@ def init_decode_state(cfg, batch: int, max_len: int, device, *,
     `k_scales`/`v_scales` [L, num_pages, Hkv] and `go_scales` [L, B, E, k]
     (f32, zero = empty).
 
-    xlstm keeps the reference's nesting: `mlstm` {"mlstm": (C, n, M),
-    "conv"} with leading axes [n_seg, n_m] and `slstm` c/n/m/h with a
-    leading [n_seg] (no KV, no pages)."""
+    The recurrent families keep the reference's nesting and no pages.
+    xlstm: `mlstm` {"mlstm": (C, n, M), "conv"} with leading axes
+    [n_seg, n_m] and `slstm` c/n/m/h with a leading [n_seg]. zamba2: `ssm`
+    {"ssm" [L, B, H, P, N] fp32, "conv" [L, B, K - 1, di + 2n]} and the
+    shared attention block's dense KV rows `k`/`v` [n_app, B, max_len,
+    Hkv, hd], one pair per application."""
     check_served(cfg)
     st = {"t": (torch.zeros(batch, dtype=torch.int32, device=device)
                 if per_slot_t else 0)}
-    if cfg.block == "xlstm":
+    dt = dtype_of(cfg)
+    if cfg.block != "attn":
         if paged is not None:
             raise ValueError(f"{cfg.name}: paged decode state is "
                              "attention-family only")
-        n_seg, n_m = _xlstm_segments(cfg)
-        st["mlstm"] = X.mlstm_init_state(cfg, batch, device,
-                                         lead=(n_seg, n_m))
-        st["slstm"] = X.slstm_init_state(cfg, batch, device, lead=(n_seg,))
+        if cfg.block == "xlstm":
+            n_seg, n_m = _xlstm_segments(cfg)
+            st["mlstm"] = X.mlstm_init_state(cfg, batch, device,
+                                             lead=(n_seg, n_m))
+            st["slstm"] = X.slstm_init_state(cfg, batch, device,
+                                             lead=(n_seg,))
+            return st
+        st["ssm"] = SSM.mamba2_init_state(cfg, batch, device,
+                                          lead=(cfg.num_layers,))
+        n_app, _ = _zamba_segments(cfg)
+        if n_app:
+            shp = (n_app, batch, max_len, cfg.num_kv_heads,
+                   cfg.resolved_head_dim())
+            st["k"] = torch.zeros(shp, dtype=dt, device=device)
+            st["v"] = torch.zeros(shp, dtype=dt, device=device)
         return st
-    dt = dtype_of(cfg)
     L = cfg.num_layers
     hd = cfg.resolved_head_dim()
     e = cfg.moe
@@ -457,13 +525,39 @@ def init_decode_state(cfg, batch: int, max_len: int, device, *,
     return st
 
 
+# the batch axis of each recurrent state's leaves (the reference's
+# init_decode_slot comment): ssm and slstm after the layer axis, mlstm after
+# the segment and layer axes
+_RECURRENT_AXES = (("ssm", 1), ("mlstm", 2), ("slstm", 1))
+
+
+def _leaves(tree) -> list:
+    if isinstance(tree, dict):
+        return [a for v in tree.values() for a in _leaves(v)]
+    if isinstance(tree, tuple):
+        return [a for v in tree for a in _leaves(v)]
+    return [tree]
+
+
+def recurrent_rows(state: dict, slot: int) -> list[torch.Tensor]:
+    """Views of row `slot` of every recurrent leaf (xlstm's C, n, M and
+    conv, c, n, m, h; zamba2's ssm and conv), in a fixed order: two states
+    of one config give their leaves in the same order."""
+    return [a.select(ax, slot) for key, ax in _RECURRENT_AXES
+            if key in state for a in _leaves(state[key])]
+
+
 def init_decode_slot(state: dict, slot: int) -> None:
     """Reset pool row `slot` to the empty decode state IN PLACE. A paged
     pool resets only the row's block table (to the null page): its
     physical pages go back to the host allocator and are rewritten before
     any later occupant reads them. GO rows reset (scores to -inf, and an
-    int8 state's row scales to 0)."""
+    int8 state's row scales to 0). A recurrent row's leaves go to 0, as
+    the reference sets them (xlstm's M too, which init_decode_state starts
+    at -1e30): write_decode_slot overwrites them all at admission."""
     state["t"][slot] = 0
+    for row in recurrent_rows(state, slot):
+        row.zero_()
     if "block_table" in state:
         state["block_table"][slot] = 0
     for key in ("k", "v"):
@@ -489,8 +583,12 @@ def write_decode_slot(state: dict, slot: int, src: dict,
 
     An int8 state splat-quantizes each page against its own amax (a pure
     function of the tokens, independent of the pool's history) and each
-    full-precision GO row once."""
+    full-precision GO row once. A recurrent state's every leaf is written:
+    retired rows keep stepping, so a leaf left out would hand the row's
+    previous occupant's state to the next request."""
     state["t"][slot] = int(src["t"])
+    for dst, row in zip(recurrent_rows(state, slot), recurrent_rows(src, 0)):
+        dst.copy_(row)
     if "block_table" in state:
         if page_ids is None:
             raise ValueError("paged pool: pass the slot's page_ids")
@@ -537,7 +635,9 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, max_len: int = 0,
             valid_len: int | None = None):
     """Full-sequence forward that fills the decode state: KV caches and,
     for expert choice, each layer's GO cache from its routing; a recurrent
-    family steps serve_step over the prompt instead (max_len unused).
+    family steps serve_step over the prompt instead, on a state of
+    max_len (zamba2's shared-attention KV rows are max_len long, so the
+    engine's pool splats them; xlstm keeps none).
     tokens [B, S] -> (state, last-position logits [B, V] fp32).
 
     `valid_len` (a host int) is a BUCKETED prefill: tokens are right-padded
@@ -647,6 +747,8 @@ def serve_step(params: dict, state: dict, tokens_t: torch.Tensor, cfg):
     x = params["embed"][tokens_t][:, None, :]                     # [B, 1, d]
     if cfg.block == "xlstm":
         x = _dec_xlstm(params, x, state, cfg)
+    elif cfg.block == "mamba2":
+        x = _dec_zamba(params, x, state, cfg)
     else:
         for l, w in enumerate(layer_windows(cfg)):
             ck, cv, bt = _kv(state, l)
@@ -688,4 +790,24 @@ def _dec_xlstm(params: dict, x: torch.Tensor, state: dict, cfg):
                                cfg=cfg, decode_state=sst)
         for k, dst in sst.items():
             dst.copy_(new[k])
+    return x
+
+
+def _dec_zamba(params: dict, x: torch.Tensor, state: dict, cfg):
+    """One token through the Mamba2 layers and the shared attention block's
+    applications, each with its own KV rows (no window); every layer's new
+    SSM and conv state is written into its slice of the decode state in
+    place."""
+    ssm = state["ssm"]
+    for l in range(cfg.num_layers):
+        st = {k: v[l] for k, v in ssm.items()}
+        x, new = B.mamba2_block_decode(layer_params(params["layers"], l), x,
+                                       st, cfg=cfg)
+        for k, dst in st.items():
+            dst.copy_(new[k])
+        s = _shared_attn_after(l, cfg)
+        if s is not None:
+            x, _ = B.attn_block_decode(params["shared_attn"], x,
+                                       state["k"][s], state["v"][s],
+                                       state["t"], cfg=cfg)
     return x

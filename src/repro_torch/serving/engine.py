@@ -24,7 +24,19 @@ MLP: starcoder2-3b (GQA 24/2, a 4096-token sliding window on every
 layer), qwen2-7b (GQA 28/4 with QKV bias), granite-8b (GQA 32/8) and
 gemma3-27b (GQA 32/16 of head_dim 128, five local layers with a
 1024-token window to one global: models/model.py:layer_windows, a
-window per layer through prefill, chunk and decode).
+window per layer through prefill, chunk and decode). And the recurrent
+families on a dense pool: xlstm-1.3b (mLSTM and sLSTM states) and
+zamba2-1.2b (Mamba2 SSM and conv states, and the dense KV rows of its
+weight-shared attention block, one pair per application). Their
+admission steps serve_step over the prompt at batch 1 with the pool's
+max_tokens and splats every leaf of the row (write_decode_slot); their
+retired rows keep stepping with t pinned to 0 until a request takes the
+row. A recurrent config refuses what rides on pages or on a parallel
+prefill, with the reference's messages: `paged` (so `kv_quant="int8"`,
+`prefix_share`, `preemption` and `journal_dir`), `prefill_chunk` and
+`expert_aware`; `prompt_buckets` is off for it. Deadlines, cancel and
+the NaN quarantine (chaos poisons the attention rows of zamba2, xlstm's
+recurrent leaves) work as on a dense attention pool.
 
 The engine reads each tick's tokens back to the host once. Greedy
 streams equal the static `launch.serve.generate()`'s for the same cache
@@ -330,12 +342,6 @@ class ServingEngine:
                  journal_dir: str | None = None, snapshot_every: int = 0,
                  heartbeat_file: str | None = None, restart_count: int = 0,
                  device=None):
-        if cfg.block != "attn":
-            raise NotImplementedError(
-                f"{cfg.name}: the engine serves the attention family; a "
-                "recurrent family's pool slots (the slot ops of its decode "
-                "state) are ROADMAP.md Queue 1 item 9. Use the static "
-                "generate()")
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -378,7 +384,9 @@ class ServingEngine:
                 raise ValueError(f"prefill_chunk={prefill_chunk} must be "
                                  f"page-granular (page_size={page_size})")
         self.prefill_chunk = int(prefill_chunk)
-        self.prompt_buckets = bool(prompt_buckets)
+        # a recurrent family prefills step by step: there is no length to
+        # pad to, so buckets are off for it, as in the reference
+        self.prompt_buckets = bool(prompt_buckets) and paged_supported(cfg)
         self.prefill_lengths: set[int] = set()
         self._chunk_job: _ChunkJob | None = None
         self._next_id = 0

@@ -8,7 +8,10 @@ copy-on-write fork of a shared page) and the invariant audit (no mesh).
 
 One decode state of `num_slots` batch rows lives on the device for the
 engine's whole life; requests are admitted into free rows and retired out
-of them without reshaping anything. Per-slot positions (`state["t"]`, an
+of them without reshaping anything. A recurrent family's rows (xlstm's
+mLSTM and sLSTM states; zamba2's SSM and conv states beside its shared
+attention block's dense KV rows) live in a dense pool only: a paged pool
+for one raises, as the reference's does. Per-slot positions (`state["t"]`, an
 int32 tensor [num_slots]) let rows sit at different sequence offsets.
 Host-side metadata (which request owns which row, its next input token,
 how many tokens it still owes, its next decode position, its temperature
@@ -66,7 +69,8 @@ import torch
 
 from repro_torch.core import quant as Q
 from repro_torch.models.model import (init_decode_slot, init_decode_state,
-                                      paged_supported, write_decode_slot)
+                                      paged_supported, recurrent_rows,
+                                      write_decode_slot)
 from repro_torch.serving.paging import PageAllocator, pages_for_tokens
 from repro_torch.serving.scheduler import Request
 
@@ -551,9 +555,11 @@ class SlotPool:
         """Chaos hook: put NaN into one slot's decode state at its last
         written position (always inside the attention window), so the next
         decode tick gives non-finite logits for that row and only that row.
-        A dense pool poisons `k[:, slot, t-1]`, a paged pool that position
-        in its page, and an int8 pool (int8 holds no NaN) the page's
-        `k_scales`. A SHARED page is forked first (K, V and, on int8
+        A dense pool poisons `k[:, slot, t-1]` (zamba2: its shared attention
+        block's rows), a paged pool that position in its page, an int8 pool
+        (int8 holds no NaN) the page's `k_scales`, and a pool without KV
+        rows (xlstm) every recurrent leaf of the row, as the reference
+        does. A SHARED page is forked first (K, V and, on int8
         pages, the scales copied into a fresh page the slot's block table
         then maps), so the donor and the other sharers keep their clean
         state; with no page to spare beyond the reservations the injection
@@ -563,7 +569,11 @@ class SlotPool:
         t = max(0, int(self.t_host[slot]) - 1)
         st = self.state
         if not self.paged:
-            st["k"][:, slot, t] = float("nan")
+            if "k" in st:
+                st["k"][:, slot, t] = float("nan")
+            else:
+                for row in recurrent_rows(st, slot):
+                    row.fill_(float("nan"))
             return
         idx = t // self.page_size
         page = int(self.block_table[slot, idx])

@@ -2158,3 +2158,61 @@ def test_cuda_training_launches_no_kernel_and_repeats_bit_for_bit(
         tree_leaves(a["params"]), tree_leaves(b["params"])))
     cpu = _train(arch, "cpu")
     np.testing.assert_allclose(a["losses"], cpu["losses"], rtol=1e-4)
+
+
+# ------------------------------------------ the recurrent families served
+
+def _recurrent_trace(cfg, device, params):
+    """Four staggered requests on two dense slots through the engine."""
+    from repro_torch.launch import serve as TS
+    rng = np.random.default_rng(3)
+    prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+               for n in (6, 9, 5, 7)]
+    return TS.serve_continuous(params, cfg, prompts, 5, num_slots=2,
+                               max_tokens=16, arrival_steps=[0, 1, 2, 3],
+                               device=device)["tokens"]
+
+
+@pytest.mark.requires_cuda
+def test_cuda_zamba2_smoke_equals_cpu(cuda_device):
+    """zamba2's smoke generate() on the card against the CPU's, fp32: the
+    logits that chose each token to 1e-5, the tokens equal, and no kernel
+    of the port launched (the SSD scan and the decode step are plain
+    PyTorch)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import go_topk as GT
+    from repro_torch.kernels import paged_attn as PA
+    from repro_torch.kernels import slstm_cell as SC
+    from repro_torch.launch import serve as TS
+    from repro_torch.models.model import model_init
+    cfg = get_config("zamba2-1.2b", smoke=True)
+    params = model_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    tokens = torch.from_numpy(np.random.default_rng(0).integers(
+        0, cfg.vocab_size, size=(2, 12)))
+    mods = (G, PA, GT, SC)
+    for m in mods:
+        m.reset_launches()
+    cpu = TS.generate(params, cfg, tokens, 6, device="cpu")
+    gpu = TS.generate(_to(params, cuda_device), cfg, tokens.to(cuda_device),
+                      6, device=cuda_device)
+    assert all(n == 0 for m in mods for n in m.LAUNCHES.values())
+    assert torch.equal(gpu["tokens"].cpu(), cpu["tokens"])
+    torch.testing.assert_close(gpu["logits"].cpu(), cpu["logits"], rtol=1e-5,
+                               atol=1e-5)
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["xlstm-1.3b", "zamba2-1.2b"])
+def test_cuda_recurrent_engine_equals_cpu(cuda_device, arch):
+    """The engine on a recurrent family's smoke config, fp32: the card's
+    greedy streams are the CPU's on a staggered trace that reuses a
+    retired row."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.models.model import model_init
+    cfg = get_config(arch, smoke=True)
+    params = model_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    cpu = _recurrent_trace(cfg, "cpu", params)
+    gpu = _recurrent_trace(cfg, cuda_device, _to(params, cuda_device))
+    assert cpu.keys() == gpu.keys()
+    for rid in cpu:
+        np.testing.assert_array_equal(gpu[rid], cpu[rid])

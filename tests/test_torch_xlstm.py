@@ -309,14 +309,21 @@ def test_model_forward_raises_for_the_attention_family():
 
 
 def test_engine_raises_for_a_recurrent_family(xl):
+    """The engine serves xlstm on a dense pool (its streams against the
+    JAX engine's are in tests/test_torch_recurrent_engine.py); what rides
+    on pages raises, in the engine, the CLI and the decode state."""
     _, tcfg, _, tp, _ = xl
-    with pytest.raises(NotImplementedError, match="item 9"):
-        ServingEngine(tp, tcfg, num_slots=2, max_tokens=16, device="cpu")
-    with pytest.raises(NotImplementedError, match="item 9"):
-        TS.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+    with pytest.raises(ValueError, match="attention-family only"):
+        ServingEngine(tp, tcfg, num_slots=2, max_tokens=16, paged=True,
+                      page_size=4, device="cpu")
+    with pytest.raises(SystemExit):
+        TS.main(["--arch", ARCH, "--smoke", "--device", "cpu", "--paged",
                  "--requests", "2", "--prompt", "4", "--gen", "2"])
     with pytest.raises(ValueError, match="attention-family only"):
         TM.init_decode_state(tcfg, 1, 16, "cpu", paged=(4, 4))
+    res = TS.main(["--arch", ARCH, "--smoke", "--device", "cpu",
+                   "--requests", "2", "--prompt", "4", "--gen", "2"])
+    assert res["stats"]["statuses"] == {"DONE": 2}
 
 
 def test_static_cli_runs_xlstm_on_cpu(capsys):
