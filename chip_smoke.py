@@ -261,10 +261,11 @@ Phases (none catches an exception; any failure exits non-zero):
         the stepwise prefill and one decode step.
      e. `xlstm_engine`: the engine on a dense pool (RECURRENT_POOL: 4
         slots of 256 tokens), XLSTM_ENGINE's 6 requests of 16-32 tokens,
-        16 new (recurrent_engine_phase): run twice, streams and every
-        leaf of the drained pool's state bit-equal; each stream held
-        against static generate()'s path, teacher-forced
-        (recurrent_agreement): at the pool's batch the engine's token is
+        16 new (dense_pool_engine_phase): run twice, streams and every
+        leaf of the pool's state after the last arrival and after the
+        drain bit-equal; each stream held against static generate()'s
+        path, teacher-forced (pool_agreement): at the pool's batch the
+        engine's token is
         static's argmax at every step; at batch 1 the gaps are recorded
         (xlstm's recurrence carries the other rounding of a 1-row GEMM
         forward, so its batch-1 path drifts past the 4-bf16-step rule).
@@ -283,6 +284,28 @@ Phases (none catches an exception; any failure exits non-zero):
         on e.-h.: their launch counts must read 0. Phase 4 holds zamba2's
         smoke generate() and both recurrent smoke engines, card against
         CPU (recurrent_smoke_phase).
+     Then the cross-attention families (cross_full_phase), each request
+     and static row with its own random memory (std 1): whisper-base
+     uncut (WHISPER_WEIGHTS; 1500 audio frames) and llama-3.2-vision-90b
+     at its full width on its first VISION_LAYERS (20) of 100 layers
+     (VISION_WEIGHTS; 1600 image tokens):
+     i. `whisper_forward` / `vision20_forward`: model_forward on 4 x 128
+        tokens over random frame or image embeddings (whisper's encoder
+        over all 1500 frames), a warm-up and two runs, hidden states
+        bit-equal;
+     j. `whisper_static` / `vision20_static`: generate() on 4 x 128
+        prompt tokens and 16 new, a warm-up and three runs, tokens and
+        logits bit-equal; a decode step's weight-read bound and the cross
+        layers' K/V recompute at the bf16 peak; profiles of the forward
+        and one decode step;
+     k. `whisper_engine` / `vision20_engine`: as e. on WHISPER_POOL /
+        VISION_POOL (4 dense slots), WHISPER_ENGINE's 6 requests of
+        32-128 tokens (admitted by a stepwise prefill at batch 1) /
+        VISION_ENGINE's 8 of 64-256 (one-shot), a memory a request, the
+        pool's memory rows filled at the tick after the last arrival and
+        zero after the drain; the pool-batch path required, the batch-1
+        gaps recorded. No kernel of the port runs on i.-k. Phase 4 holds
+        both smoke configs card against CPU (cross_smoke_phase).
      Each path runs with the launch counts set to 0 just before it; K5R
      must run once per layer and decode step on llama's paths up to 64
      rows and never on granite's, xlstm's or `go_wide`, where K5 runs
@@ -2706,7 +2729,7 @@ def xlstm_full_phase(torch, counts, reset_counts, cfg, TM, TS,
     warm-up, then two runs
     (the first counted): no kernel of the port launched, tokens and the
     logits that chose them bit-equal. Then the profiles (the prefill's over
-    its first 8 steps), and `xlstm_engine` (recurrent_engine_phase)."""
+    its first 8 steps), and `xlstm_engine` (dense_pool_engine_phase)."""
     t0 = time.perf_counter()
     params = TM.model_init(cfg, torch.Generator(device="cuda").manual_seed(0),
                            "cuda")
@@ -2797,7 +2820,7 @@ def xlstm_full_phase(torch, counts, reset_counts, cfg, TM, TS,
             lambda: TM.prefill(params, tokens[:, :8], cfg),
         "decode_step": lambda: TM.serve_step(params, state, tok, cfg)})
     del state
-    engine_launches = recurrent_engine_phase(
+    engine_launches = dense_pool_engine_phase(
         torch, TM, cfg, params, ServingEngine, counts, reset_counts, "xlstm",
         XLSTM_ENGINE, b1_rule=False)
     return {"xlstm_forward": fwd_launches, "xlstm_static": static_launches,
@@ -2858,41 +2881,51 @@ def recurrent_smoke_phase(torch, TM, TS, get_config, counts, reset_counts):
           f"streams {json.dumps(streams)}", flush=True)
 
 
-def recurrent_engine_phase(torch, TM, cfg, params, ServingEngine, counts,
-                           reset_counts, short, cell, b1_rule=True):
+def dense_pool_engine_phase(torch, TM, cfg, params, ServingEngine, counts,
+                            reset_counts, short, cell, b1_rule=True,
+                            pool=RECURRENT_POOL, memories=None):
     """`<short>_engine` at full width, bf16: the continuous-batching engine
-    on RECURRENT_POOL (dense), `cell` = (prompt lengths, arrival ticks),
-    RECURRENT_GEN new tokens, greedy. A warm-up engine first (one request,
+    on a dense `pool` (the recurrent and cross-attention families), `cell`
+    = (prompt lengths, arrival ticks), RECURRENT_GEN new tokens, greedy;
+    with `memories` (one [1, M, d] tensor a request) each request brings
+    its own cross-attention memory. A warm-up engine first (one request,
     8 tokens), then the counted, timed run, one synchronised step at a
     time; then the same trace on a fresh engine: streams and every leaf of
-    the drained pool's state (the retired rows go on stepping with t
+    the pool's state (memory rows included) at the tick after the last
+    arrival and after the drain (the retired rows go on stepping with t
     pinned to 0) must repeat bit for bit. No kernel of the port runs. Each
     stream is then held against static generate()'s path, teacher-forced
-    (recurrent_agreement: a dense state of the pool's max_tokens), at
-    batch 1 and at the pool's batch; `b1_rule` says whether the batch-1
-    path must meet the STATIC_GAP_ULPS rule or is only recorded."""
+    (pool_agreement: a dense state of the pool's max_tokens), at batch 1
+    and at the pool's batch; `b1_rule` says whether the batch-1 path must
+    meet the STATIC_GAP_ULPS rule or is only recorded."""
     import numpy as np
     lens, arrivals = cell
     rng = np.random.default_rng(2)
     prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
                for n in lens]
-    warm = ServingEngine(params, cfg, device="cuda", **RECURRENT_POOL)
-    warm.submit(prompts[0][:8], 2)
+
+    def extras(i):
+        return None if memories is None else {"memory": memories[i]}
+    warm = ServingEngine(params, cfg, device="cuda", **pool)
+    warm.submit(prompts[0][:8], 2, extras=extras(0))
     warm.run()
     del warm
     torch.cuda.synchronize()
     torch.cuda.reset_peak_memory_stats()
+    mid_tick = max(arrivals) + 1
 
     def trace():
-        eng = ServingEngine(params, cfg, device="cuda", **RECURRENT_POOL)
-        rids = [eng.submit(p, RECURRENT_GEN, arrival_step=a)
-                for p, a in zip(prompts, arrivals)]
+        eng = ServingEngine(params, cfg, device="cuda", **pool)
+        rids = [eng.submit(p, RECURRENT_GEN, arrival_step=a,
+                           extras=extras(i))
+                for i, (p, a) in enumerate(zip(prompts, arrivals))]
         return eng, rids
 
     eng, rids = trace()
     reset_counts()
     ticks = []                 # (ms, decoded, prompt tokens admitted)
     seen = set()
+    mid = None
     t_all = time.perf_counter()
     while eng.has_work():
         d0 = eng.decode_ticks
@@ -2905,7 +2938,13 @@ def recurrent_engine_phase(torch, TM, cfg, params, ServingEngine, counts,
         admitted = sum(q.prompt_len for r, q in now.items() if r not in seen)
         seen |= now.keys()
         ticks.append((ms, eng.decode_ticks - d0, admitted))
+        if eng.step_count == mid_tick:
+            mid = [t.clone() for t in _tensors(eng.pool.state)]
+            filled = [bool(r.any()) for r in eng.pool.state["memory"]] \
+                if memories is not None else None
     wall_s = time.perf_counter() - t_all
+    need(mid is not None, f"{short}_engine: the trace ended before tick "
+         f"{mid_tick}")
     launches = counts()
     need(all(n == 0 for n in launches.values()),
          f"{short}_engine launched a kernel of the port: {launches}")
@@ -2917,16 +2956,26 @@ def recurrent_engine_phase(torch, TM, cfg, params, ServingEngine, counts,
              f"{short}_engine request {rid}: status {r.status}, "
              f"{len(r.tokens)} tokens")
     state = _tensors(eng.pool.state)
-    need(all(bool(torch.isfinite(t).all()) for t in state
+    need(all(bool(torch.isfinite(t).all()) for t in state + mid
              if t.is_floating_point()),
-         f"{short}_engine: non-finite decode state after the run")
+         f"{short}_engine: non-finite decode state in the run")
+    if memories is not None:
+        need(all(filled) and bool(eng.pool.state["memory"].eq(0).all()),
+             f"{short}_engine: memory rows filled at tick {mid_tick} "
+             f"{filled}, or not cleared after the drain")
     peak_gb = torch.cuda.max_memory_allocated() / 1e9
     again, rids2 = trace()
-    fin2 = again.run()
+    mid2 = None
+    while again.has_work():
+        again.step()
+        if again.step_count == mid_tick:
+            mid2 = [t.clone() for t in _tensors(again.pool.state)]
+    fin2 = again.finished
     repeat_equal = all(fin2[r2].tokens == fin[r].tokens
                        for r, r2 in zip(rids, rids2))
-    state_equal = _same(torch, state, _tensors(again.pool.state))
-    del again
+    state_equal = _same(torch, state, _tensors(again.pool.state)) and \
+        _same(torch, mid, mid2)
+    del again, mid, mid2
     pure = sorted(ms for ms, dd, na in ticks if dd and not na)
     admit = [(ms, na) for ms, dd, na in ticks if na]
     tokens = sum(len(fin[r].tokens) for r in rids)
@@ -2943,11 +2992,12 @@ def recurrent_engine_phase(torch, TM, cfg, params, ServingEngine, counts,
              "max_memory_allocated_gb": peak_gb,
              "state_bytes": sum(t.numel() * t.element_size() for t in state),
              "launches": launches, "repeat_streams_equal": repeat_equal,
-             "repeat_state_equal": state_equal,
+             "repeat_state_equal": state_equal, "state_tick": mid_tick,
              "admit_steps": [fin[r].admit_step for r in rids],
              "finish_steps": [fin[r].finish_step for r in rids]}
-    print(f"[full {short}_engine] {cfg.name} bf16 {RECURRENT_POOL}, prompts "
-          f"{list(lens)}, arrivals {list(arrivals)}, gen {RECURRENT_GEN}: "
+    print(f"[full {short}_engine] {cfg.name} bf16 {pool}, prompts "
+          f"{list(lens)}, arrivals {list(arrivals)}, gen {RECURRENT_GEN}"
+          f"{', a memory a request' if memories is not None else ''}: "
           f"{json.dumps(stats)}", flush=True)
     print(f"[full {short}_engine] sample tokens {fin[rids[1]].tokens}",
           flush=True)
@@ -2956,10 +3006,11 @@ def recurrent_engine_phase(torch, TM, cfg, params, ServingEngine, counts,
     need(state_equal, f"{short}_engine: the trace left another decode "
          "state when run again")
     t0 = time.perf_counter()
-    agree = [recurrent_agreement(torch, TM, cfg, params, p, fin[r].tokens,
-                                 b1_rule) for p, r in zip(prompts, rids)]
+    agree = [pool_agreement(torch, TM, cfg, params, p, fin[r].tokens,
+                            b1_rule, pool, extras(i))
+             for i, (p, r) in enumerate(zip(prompts, rids))]
     print(f"[full {short}_engine] against static generate()'s path: at "
-          f"batch {RECURRENT_POOL['num_slots']} "
+          f"batch {pool['num_slots']} "
           f"{sum(a['pool_batch_equal'] for a in agree)} of {len(agree)} "
           f"streams equal; at batch 1 {sum(a['equal'] for a in agree)} "
           f"equal ({time.perf_counter() - t0:.1f} s); {json.dumps(agree)}",
@@ -2967,25 +3018,28 @@ def recurrent_engine_phase(torch, TM, cfg, params, ServingEngine, counts,
     return launches
 
 
-def recurrent_agreement(torch, TM, cfg, params, prompt, stream, b1_rule):
-    """static generate()'s path for `prompt` (a stepwise prefill at batch 1,
-    as the engine admits it, then serve_step on a dense state of the pool's
-    max_tokens), teacher-forced with an engine stream, twice from the one
-    prefill: at batch 1, as static_agreement ("equal", "parts",
-    "max_gap", "gaps": static's top logit less its logit of the engine's
-    token at each step; a gap over STATIC_GAP_ULPS bf16 steps fails only
-    with `b1_rule`), and with the row copied into all the pool's rows
-    ("pool_batch_equal": the engine's token is the argmax, or ties it, at
-    every step: required). A recurrent state carries each step's rounding
-    forward, and a GEMM over 4 rows rounds otherwise than over 1, so the
-    batch-1 path may drift from the engine's; the pool-batch path is the
-    engine's own arithmetic for that row."""
-    rows, max_len = RECURRENT_POOL["num_slots"], RECURRENT_POOL["max_tokens"]
+def pool_agreement(torch, TM, cfg, params, prompt, stream, b1_rule,
+                   pool=RECURRENT_POOL, extras=None):
+    """static generate()'s path for `prompt` (its prefill at batch 1 with
+    the request's `extras`, as the engine admits it, then serve_step on a
+    dense state of the pool's max_tokens), teacher-forced with an engine
+    stream, twice from the one prefill: at batch 1, as static_agreement
+    ("equal", "parts", "max_gap", "gaps": static's top logit less its
+    logit of the engine's token at each step; a gap over STATIC_GAP_ULPS
+    bf16 steps fails only with `b1_rule`), and with the row copied into
+    all the pool's rows ("pool_batch_equal": the engine's token is the
+    argmax, or ties it, at every step: required). A recurrent state
+    carries each step's rounding forward, and a GEMM over 4 rows rounds
+    otherwise than over 1, so the batch-1 path may drift from the
+    engine's; the pool-batch path is the engine's own arithmetic for that
+    row."""
+    rows, max_len = pool["num_slots"], pool["max_tokens"]
     tokens = torch.as_tensor(prompt, dtype=torch.long, device="cuda")[None]
-    one, logits = TM.prefill(params, tokens, cfg, max_len=max_len)
-    pool = TM.init_decode_state(cfg, rows, max_len, "cuda", per_slot_t=True)
+    one, logits = TM.prefill(params, tokens, cfg, max_len=max_len,
+                             extras=extras)
+    batch = TM.init_decode_state(cfg, rows, max_len, "cuda", per_slot_t=True)
     for b in range(rows):
-        TM.write_decode_slot(pool, b, one)
+        TM.write_decode_slot(batch, b, one)
     lg1 = lgn = logits
     parts, gaps, tol = [], [], 0.0
     for i, tok in enumerate(stream):
@@ -3006,7 +3060,7 @@ def recurrent_agreement(torch, TM, cfg, params, prompt, stream, b1_rule):
         if i + 1 < len(stream):
             lg1, one = TM.serve_step(params, one,
                                      torch.tensor([tok], device="cuda"), cfg)
-            lgn, pool = TM.serve_step(params, pool, torch.full(
+            lgn, batch = TM.serve_step(params, batch, torch.full(
                 (rows,), tok, device="cuda"), cfg)
     return {"equal": not parts, "parts": parts, "max_gap": max(gaps),
             "tol": tol, "gaps": gaps, "pool_batch_equal": True}
@@ -3020,7 +3074,7 @@ def zamba2_full_phase(torch, counts, reset_counts, cfg, TM, TS,
     hidden states bit-equal. `zamba2_static`: generate() on 4 x 64 prompt
     tokens stepped through serve_step, 16 new, a warm-up, then three runs
     (the first counted), tokens and logits bit-equal. `zamba2_engine`:
-    recurrent_engine_phase on ZAMBA2_ENGINE. No kernel of the port runs on
+    dense_pool_engine_phase on ZAMBA2_ENGINE. No kernel of the port runs on
     any of them. Then the profiles of the forward and one decode step."""
     t0 = time.perf_counter()
     params = TM.model_init(cfg, torch.Generator(device="cuda").manual_seed(0),
@@ -3101,7 +3155,7 @@ def zamba2_full_phase(torch, counts, reset_counts, cfg, TM, TS,
          "logits")
     state = res["state"]
     del reps, res
-    engine_launches = recurrent_engine_phase(
+    engine_launches = dense_pool_engine_phase(
         torch, TM, cfg, params, ServingEngine, counts, reset_counts, "zamba2",
         ZAMBA2_ENGINE)
     tok = torch.zeros(Bq, dtype=torch.long, device="cuda")
@@ -3110,6 +3164,202 @@ def zamba2_full_phase(torch, counts, reset_counts, cfg, TM, TS,
         "decode_step": lambda: TM.serve_step(params, state, tok, cfg)})
     return {"zamba2_forward": fwd_launches, "zamba2_static": static_launches,
             "zamba2_engine": engine_launches}
+
+
+# The cross-attention cells: whisper-base uncut, llama-3.2-vision-90b at
+# its full width on its first VISION_LAYERS of 100 layers (4 superblocks
+# of 4 self-attention layers and a cross layer; the 100 need ~173 GB);
+# each engine's dense pool and (prompt lengths, arrival ticks),
+# RECURRENT_GEN new tokens a request, a random memory (std 1) each.
+# whisper's admission steps the prompt at batch 1, so its prompts are
+# shorter
+WHISPER_WEIGHTS = 91_582_976
+VISION_LAYERS = 20
+VISION_WEIGHTS = 18_163_769_344
+WHISPER_POOL = dict(num_slots=4, max_tokens=160)
+VISION_POOL = dict(num_slots=4, max_tokens=288)
+WHISPER_ENGINE = ((96, 32, 128, 64, 48, 112), (0, 0, 1, 3, 5, 6))
+VISION_ENGINE = ((192, 64, 256, 128, 96, 224, 160, 80),
+                 (0, 0, 1, 2, 4, 5, 7, 8))
+CROSS_ARCHS = ("whisper-base", "llama-3.2-vision-90b")
+
+
+def _memory_rows(cfg):
+    return cfg.num_audio_frames or cfg.num_image_tokens
+
+
+def cross_smoke_phase(torch, TM, TS, ServingEngine, get_config, counts,
+                      reset_counts):
+    """Both cross-attention families' SMOKE configs, the same fp32 weights
+    on the CPU and on the card: generate() over a random memory a row
+    (tokens equal, the logits that chose them within SMOKE_LOGIT_TOL),
+    then the engine (2 dense slots, 4 staggered requests with their own
+    memories, a retired row reused): streams equal. No kernel of the
+    port is launched."""
+    import numpy as np
+    reset_counts()
+    out = {}
+    for arch in CROSS_ARCHS:
+        cfg = get_config(arch, smoke=True)
+        params = TM.model_init(cfg, torch.Generator().manual_seed(0), "cpu")
+        on_card = _tree_to(params, "cuda")
+        g = torch.Generator().manual_seed(1)
+        M, d = _memory_rows(cfg), cfg.d_model
+        tokens = torch.randint(0, cfg.vocab_size, (4, 12), generator=g)
+        mem = torch.randn((4, M, d), generator=g)
+        r_cpu = TS.generate(params, cfg, tokens, 8, device="cpu",
+                            extras={"memory": mem})
+        r_gpu = TS.generate(on_card, cfg, tokens.cuda(), 8, device="cuda",
+                            extras={"memory": mem.cuda()})
+        err = (r_gpu["logits"].cpu() - r_cpu["logits"]).abs().max().item()
+        need(torch.equal(r_gpu["tokens"].cpu(), r_cpu["tokens"]),
+             f"{cfg.name}: greedy tokens differ between cpu and cuda")
+        need(err <= SMOKE_LOGIT_TOL, f"{cfg.name} logits differ by {err}")
+        rng = np.random.default_rng(3)
+        prompts = [rng.integers(0, cfg.vocab_size, size=n, dtype=np.int32)
+                   for n in (6, 9, 5, 7)]
+        mems = [torch.randn((1, M, d), generator=g) for _ in prompts]
+        got = []
+        for p, dev in ((params, "cpu"), (on_card, "cuda")):
+            eng = ServingEngine(p, cfg, num_slots=2, max_tokens=16,
+                                device=dev)
+            rids = [eng.submit(pr, 5, arrival_step=a,
+                               extras={"memory": m.to(dev)})
+                    for pr, m, a in zip(prompts, mems, range(4))]
+            fin = eng.run()
+            got.append([fin[r].tokens for r in rids])
+        need(got[0] == got[1], f"{cfg.name} smoke engine: card streams "
+             f"differ from the CPU's")
+        out[cfg.name] = {"tokens": r_cpu["tokens"][0].tolist(),
+                         "logits_max_abs_err": err, "stream_1": got[1][1]}
+    need(all(n == 0 for n in counts().values()),
+         f"cross-attention smoke paths launched a kernel: {counts()}")
+    print(f"[smoke cross] generate() card == cpu (tol {SMOKE_LOGIT_TOL:g}) "
+          f"and engines card == cpu: {json.dumps(out)}", flush=True)
+
+
+def cross_full_phase(torch, counts, reset_counts, cfg, TM, TS,
+                     ServingEngine, short, weights, cell, pool):
+    """A cross-attention family at full width, bf16, random weights from a
+    seeded generator on the card (`weights` of them). `<short>_forward`:
+    model_forward on 4 x 128 tokens over random frame or image embeddings
+    (std 1; whisper's encoder runs over all its frames), a warm-up and two
+    runs (the first counted), hidden states bit-equal. `<short>_static`:
+    generate() on 4 x 128 prompt tokens and 16 new over a random memory a
+    row, a warm-up and three runs (the first counted), tokens and logits
+    bit-equal; a decode step's weight-read bound and the cross layers'
+    K/V recompute at the card's peak. `<short>_engine`:
+    dense_pool_engine_phase on `cell` and `pool`, a random memory a
+    request, its pool-batch path required, its batch-1 path recorded. No
+    kernel of the port runs on any of them. Then the profiles of the
+    forward and one decode step at batch 4."""
+    t0 = time.perf_counter()
+    torch.cuda.reset_peak_memory_stats()
+    params = TM.model_init(cfg, torch.Generator(device="cuda").manual_seed(0),
+                           "cuda")
+    torch.cuda.synchronize()
+    n_params = sum(t.numel() for t in _leaves(params))
+    print(f"[full] {cfg.name}: {n_params} parameters initialised in "
+          f"{time.perf_counter() - t0:.2f} s, "
+          f"{torch.cuda.memory_allocated() / 1e9:.2f} GB allocated, init "
+          f"peak {torch.cuda.max_memory_allocated() / 1e9:.2f} GB",
+          flush=True)
+    need(n_params == weights, f"{cfg.name}: {n_params} parameters, not "
+         f"{weights}")
+    Bq, P, GEN = 4, 128, 16
+    M, d = _memory_rows(cfg), cfg.d_model
+    dt = params["embed"].dtype
+    g = torch.Generator(device="cuda").manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (Bq, P), generator=g,
+                           device="cuda")
+    mem = torch.randn((Bq, M, d), generator=g, device="cuda").to(dt)
+    fwd_extras = {("audio_frames" if cfg.encoder_layers else
+                   "image_embeds"): mem}
+    zero = {k: 0 for k in counts()}
+
+    TM.model_forward(params, tokens, cfg, fwd_extras)           # warm-up
+    torch.cuda.synchronize()
+    torch.cuda.reset_peak_memory_stats()
+    runs, xs = [], []
+    for i in range(2):
+        if i == 0:
+            reset_counts()
+        t0 = time.perf_counter()
+        x, aux = TM.model_forward(params, tokens, cfg, fwd_extras)
+        torch.cuda.synchronize()
+        runs.append((time.perf_counter() - t0) * 1e3)
+        xs.append(x)
+        if i == 0:
+            fwd_launches = counts()
+    need(fwd_launches == zero, f"{short}_forward launches {fwd_launches}")
+    need(xs[0].shape == (Bq, P, d) and bool(torch.isfinite(xs[0]).all())
+         and float(aux) == 0.0,
+         f"{short}_forward: hidden states not finite or of another shape")
+    fwd_equal = torch.equal(xs[0], xs[1])
+    stats = {"weights": n_params, "forward_ms_runs": runs,
+             "memory_rows": M, "repeat_hidden_equal": fwd_equal,
+             "max_memory_allocated_gb":
+                 torch.cuda.max_memory_allocated() / 1e9,
+             "launches": fwd_launches}
+    print(f"[full {short}_forward] {cfg.name} bf16 B={Bq} S={P}: "
+          f"{json.dumps(stats)}", flush=True)
+    need(fwd_equal, f"{short}_forward: two runs gave other hidden states")
+    del xs, x
+
+    extras = {"memory": mem}
+    TS.generate(params, cfg, tokens[:, :8], 2, device="cuda",
+                extras=extras)                                   # warm-up
+    torch.cuda.reset_peak_memory_stats()
+    reset_counts()
+    res = TS.generate(params, cfg, tokens, GEN, device="cuda", extras=extras)
+    static_launches = counts()
+    reps = [res] + [TS.generate(params, cfg, tokens, GEN, device="cuda",
+                                extras=extras) for _ in range(2)]
+    need(static_launches == zero, f"{short}_static launches "
+         f"{static_launches}: the path runs no kernel of the port")
+    need(res["tokens"].shape == (Bq, GEN) and
+         bool(torch.isfinite(res["logits"]).all()),
+         f"{short}_static: tokens of another shape or non-finite logits")
+    repeat_equal = all(torch.equal(r["tokens"], res["tokens"]) and
+                       torch.equal(r["logits"], res["logits"]) for r in reps)
+    # a decode step's least time: every weight read once, and each cross
+    # layer's K and V projected from the memory anew (2 products of
+    # B*M x d x Hkv*hd) at the bf16 peak
+    n_cross = cfg.num_layers if cfg.encoder_layers else \
+        cfg.num_layers // cfg.cross_attn_every
+    kv_flops = n_cross * 2 * 2 * Bq * M * d * \
+        cfg.num_kv_heads * cfg.resolved_head_dim()
+    stats = {"weights": n_params,
+             "prefill_ms_runs": [r["prefill_s"] * 1e3 for r in reps],
+             "decode_ms_per_token_runs": [r["decode_s"] * 1e3 / GEN
+                                          for r in reps],
+             "tok_per_s_runs": [r["tok_per_s"] for r in reps],
+             "weight_read_bound_ms": n_params * dt.itemsize / HBM_BPS * 1e3,
+             "cross_kv_flop_ms": kv_flops / BF16_FLOPS * 1e3,
+             "repeat_tokens_equal": repeat_equal,
+             "max_memory_allocated_gb":
+                 torch.cuda.max_memory_allocated() / 1e9,
+             "launches": static_launches}
+    print(f"[full {short}_static] {cfg.name} bf16 B={Bq} prompt={P} "
+          f"gen={GEN}: {json.dumps(stats)}", flush=True)
+    print(f"[full {short}_static] sample tokens {res['tokens'][0].tolist()}",
+          flush=True)
+    need(repeat_equal, f"{short}_static: three runs gave other tokens or "
+         "logits")
+    state = res["state"]
+    del reps, res
+    memories = [torch.randn((1, M, d), generator=g, device="cuda").to(dt)
+                for _ in cell[0]]
+    engine_launches = dense_pool_engine_phase(
+        torch, TM, cfg, params, ServingEngine, counts, reset_counts, short,
+        cell, b1_rule=False, pool=pool, memories=memories)
+    tok = torch.zeros(Bq, dtype=torch.long, device="cuda")
+    profile_phase(torch, cfg, {
+        "forward": lambda: TM.model_forward(params, tokens, cfg, fwd_extras),
+        "decode_step": lambda: TM.serve_step(params, state, tok, cfg)})
+    return {f"{short}_forward": fwd_launches,
+            f"{short}_static": static_launches,
+            f"{short}_engine": engine_launches}
 
 
 def _tree_to(tree, device):
@@ -5492,6 +5742,8 @@ def main():
     xlstm = "xlstm-1.3b"
     xlstm_smoke_phase(torch, SC, get_config(xlstm, smoke=True), TM, TS)
     recurrent_smoke_phase(torch, TM, TS, get_config, counts, reset_counts)
+    cross_smoke_phase(torch, TM, TS, ServingEngine, get_config, counts,
+                      reset_counts)
 
     for m, short in ((llama, "llama"), (granite, "granite"),
                      (deepseek, "deepseek")):
@@ -5646,6 +5898,23 @@ def main():
                                      ServingEngine))
     print(f"[full] zamba2-1.2b: {time.perf_counter() - t0:.1f} s",
           flush=True)
+    # slice 20: the cross-attention families, whisper-base uncut, then
+    # llama-3.2-vision-90b at full width on its first VISION_LAYERS layers
+    for arch, short, weights, cell, pool, depth in (
+            ("whisper-base", "whisper", WHISPER_WEIGHTS, WHISPER_ENGINE,
+             WHISPER_POOL, None),
+            ("llama-3.2-vision-90b", "vision20", VISION_WEIGHTS,
+             VISION_ENGINE, VISION_POOL, VISION_LAYERS)):
+        gc.collect()
+        torch.cuda.empty_cache()
+        t0 = time.perf_counter()
+        cfg = get_config(arch)
+        if depth:
+            cfg = cfg.with_overrides(num_layers=depth)
+        by_path.update(cross_full_phase(torch, counts, reset_counts, cfg, TM,
+                                        TS, ServingEngine, short, weights,
+                                        cell, pool))
+        print(f"[full] {arch}: {time.perf_counter() - t0:.1f} s", flush=True)
 
     # launches: each kernel's count on the path it was ported for (K1/K2
     # llama's static generate() of slice 1, K3/K4 llama's engine of slice 2,

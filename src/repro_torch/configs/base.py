@@ -3,7 +3,8 @@
 A copy of the reference package's schema, cut to the fields the port's
 slices read (the attention family with its QKV bias, local/global window
 pattern and attention logit softcap; the xlstm family; the Mamba2 hybrid
-(zamba2); tied embeddings;
+(zamba2); the cross-attention families (whisper's encoder-decoder,
+llama-vision's cross layers); tied embeddings;
 the int8 decode state; the balance-loss coefficient, `remat` and
 `TrainConfig` for training).
 Plain dataclasses: no torch, no JAX.
@@ -63,6 +64,10 @@ class ModelConfig:
     attn_every: int = 0               # zamba2: shared attn block every N layers
     slstm_every: int = 0              # xlstm: one sLSTM block every N layers
     conv_width: int = 4               # mLSTM and mamba2 short causal conv
+    cross_attn_every: int = 0         # llama-vision: cross-attn layer cadence
+    num_image_tokens: int = 0         # stub patch-embedding count
+    encoder_layers: int = 0           # whisper: >0 -> encoder-decoder
+    num_audio_frames: int = 0         # stub frame-embedding count
     dtype: str = "bfloat16"
     norm_eps: float = 1e-6
 

@@ -18,6 +18,8 @@ _MODULES = {
     "gemma3-27b": "gemma3_27b",
     "xlstm-1.3b": "xlstm_1_3b",
     "zamba2-1.2b": "zamba2_1_2b",
+    "whisper-base": "whisper_base",
+    "llama-3.2-vision-90b": "llama_3_2_vision_90b",
 }
 
 

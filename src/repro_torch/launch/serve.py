@@ -22,10 +22,17 @@ starcoder2-3b, qwen2-7b (QKV bias), granite-8b and gemma3-27b (5:1
 local/global windows; about 54 GB of bf16 weights at full width) and the
 recurrent xlstm-1.3b (mLSTM/sLSTM) and zamba2-1.2b (38 Mamba2 layers and
 one weight-shared attention block after every 6th), whose prefill steps
-serve_step over the prompt. The engine serves them on a dense pool: the
-CLI refuses --paged, --chunk-prefill, --kv-quant int8, --prefix-share,
---preemption, --expert-aware and --journal-dir for them, and --buckets is
-off.
+serve_step over the prompt, and the cross-attention whisper-base
+(encoder-decoder: the decoder's cross layers read the encoded audio; its
+prefill steps serve_step too) and llama-3.2-vision-90b (a cross layer
+over image embeds after every 4 self-attention layers; ~173 GB of bf16
+weights at its 100 layers: on one card, a num_layers override). The CLI
+gives the vision model zero image embeds and whisper zero memory, as the
+reference's does; `generate(extras=)` and `ServingEngine.submit(extras=)`
+take a real memory. The engine serves the recurrent and cross-attention
+families on a dense pool: the CLI refuses --paged, --chunk-prefill,
+--kv-quant int8, --prefix-share, --preemption, --expert-aware and
+--journal-dir for them, and --buckets is off.
 
 Entry points run on the CUDA card unless the caller names another device;
 without a card, asking for CUDA raises.
@@ -46,6 +53,10 @@ without a card, asking for CUDA raises.
       --device cpu
   python -m repro_torch.launch.serve --arch zamba2-1.2b --smoke \
       --requests 4 --slots 2 --prompt 12 --gen 6 --device cpu
+  python -m repro_torch.launch.serve --arch whisper-base --smoke \
+      --requests 4 --slots 2 --prompt 8 --gen 6 --device cpu
+  python -m repro_torch.launch.serve --arch llama-3.2-vision-90b --smoke \
+      --static --device cpu
   # sampled requests (temperature, top-p; each seeded by its id) and
   # prompts padded to power-of-two buckets:
   python -m repro_torch.launch.serve --arch llama_moe_4_16 --smoke \
@@ -80,7 +91,8 @@ import torch
 
 from repro_torch.configs.registry import get_config
 from repro_torch.models.layers import resolve_device
-from repro_torch.models.model import model_init, prefill, serve_step
+from repro_torch.models.model import (model_init, paged_supported, prefill,
+                                      serve_step)
 from repro_torch.runtime.fault import ProcessSupervisor
 from repro_torch.serving.chaos import Chaos
 from repro_torch.serving.engine import (ServingEngine, _sample_tokens,
@@ -95,7 +107,8 @@ def _sync(dev: torch.device) -> None:
 
 def generate(params, cfg, prompts, gen_tokens: int, *, device=None,
              max_len: int = 0, greedy: bool = True,
-             generator: torch.Generator | None = None) -> dict:
+             generator: torch.Generator | None = None,
+             extras: dict | None = None) -> dict:
     """Static-batch decoding. prompts [B, T] -> tokens [B, gen_tokens], plus
     the logits that chose each token ([gen_tokens, B, V] fp32) and wall
     times. `max_len` sizes the KV cache (0 -> T + gen_tokens + 1). Greedy
@@ -104,7 +117,9 @@ def generate(params, cfg, prompts, gen_tokens: int, *, device=None,
     `_sample_tokens`, from B uniforms a token drawn from `generator` (a
     CPU torch.Generator; required). At batch 1 that is the engine's
     request at temperature 1.0, top_p 1.0, whose generator was seeded the
-    same. `params` must already live on `device` (CUDA unless named)."""
+    same. `params` must already live on `device` (CUDA unless named).
+    `extras` carries whisper's and llama-vision's cross-attention memory
+    (`{"memory": [B, M, d]}`, encoded already, on `device`)."""
     dev = resolve_device(device)
     if params["embed"].device.type != dev.type:
         raise ValueError(f"params live on {params['embed'].device}, "
@@ -125,7 +140,8 @@ def generate(params, cfg, prompts, gen_tokens: int, *, device=None,
     _sync(dev)
     t0 = time.perf_counter()
     state, logits = prefill(params, prompts, cfg,
-                            max_len=max_len or (T + gen_tokens + 1))
+                            max_len=max_len or (T + gen_tokens + 1),
+                            extras=extras)
     tok = pick(logits)
     _sync(dev)
     t1 = time.perf_counter()
@@ -161,7 +177,8 @@ def serve_continuous(params, cfg, prompts: list, gen_tokens: int, *,
                      prefix_share: bool = False, expert_aware: bool = False,
                      journal_dir: str | None = None, snapshot_every: int = 0,
                      heartbeat_file: str | None = None,
-                     restart_count: int = 0, device=None) -> dict:
+                     restart_count: int = 0, extras: dict | None = None,
+                     device=None) -> dict:
     """Run a list of prompts through the continuous-batching engine.
     `paged` swaps the dense slot rows for the block-table page pool
     (`page_size`, `num_pages`: None keeps the dense token capacity);
@@ -182,7 +199,10 @@ def serve_continuous(params, cfg, prompts: list, gen_tokens: int, *,
     an atomic engine snapshot every `snapshot_every` ticks (paged pools;
     serving/journal.py): a crashed run resumes through
     `ServingEngine.recover(journal_dir, ...)`; `heartbeat_file` and
-    `restart_count` come from a process supervisor. `max_tokens` 0
+    `restart_count` come from a process supervisor. `extras` (the
+    engine's, and every request's: `{"memory": [1, M, d]}` for whisper
+    and llama-vision) carries one cross-attention memory for all the
+    prompts, as the reference's does. `max_tokens` 0
     derives the pool's capacity from the longest prompt, rounded up to a
     multiple of the page size and the chunk.
     Returns the token stream of every request by id (a request that ends
@@ -203,8 +223,9 @@ def serve_continuous(params, cfg, prompts: list, gen_tokens: int, *,
                         journal_dir=journal_dir,
                         snapshot_every=snapshot_every,
                         heartbeat_file=heartbeat_file,
-                        restart_count=restart_count, device=device)
-    ids = [eng.submit(p, gen_tokens,
+                        restart_count=restart_count, extras=extras,
+                        device=device)
+    ids = [eng.submit(p, gen_tokens, extras=extras,
                       arrival_step=arrival_steps[i] if arrival_steps else 0,
                       priority=priorities[i] if priorities else 0,
                       temperature=temperature, top_p=top_p,
@@ -351,10 +372,11 @@ def main(argv=None):
                   "--preemption": args.preemption,
                   "--expert-aware": args.expert_aware,
                   "--journal-dir": args.journal_dir}
-    if get_config(args.arch).block != "attn" and any(paged_only.values()):
-        ap.error(f"{args.arch} is a recurrent family, served on a dense "
-                 "pool: drop " + ", ".join(k for k, v in paged_only.items()
-                                           if v))
+    if not paged_supported(get_config(args.arch)) and \
+            any(paged_only.values()):
+        ap.error(f"{args.arch} is a recurrent or cross-attention family, "
+                 "served on a dense pool: drop " + ", ".join(
+                     k for k, v in paged_only.items() if v))
     if args.supervise:
         # the parent: run this CLI (without --supervise) as a watched
         # child; a restarted generation finds the committed snapshot in
@@ -379,10 +401,18 @@ def main(argv=None):
     if args.journal_dir:
         # recover() refuses a journal written under other weights
         print(f"params checksum {params_checksum(params)}", flush=True)
+    extras = {}
+    if cfg.cross_attn_every:
+        # zero image embeds, as the reference's CLI builds them (whisper
+        # gets none: its decode state's memory starts at zeros)
+        extras["image_embeds"] = extras["memory"] = torch.zeros(
+            (args.batch if args.static else 1, cfg.num_image_tokens,
+             cfg.d_model), dtype=params["embed"].dtype, device=dev)
     if args.static:
         prompts = torch.randint(0, cfg.vocab_size, (args.batch, args.prompt),
                                 generator=gen, device=dev)
-        res = generate(params, cfg, prompts, args.gen, device=dev)
+        res = generate(params, cfg, prompts, args.gen, device=dev,
+                       extras=extras or None)
         print(f"{cfg.name} on {dev}: prefill {res['prefill_s'] * 1e3:.1f} ms, "
               f"generated {tuple(res['tokens'].shape)} in "
               f"{res['decode_s']:.2f}s ({res['tok_per_s']:.1f} tok/s)")
@@ -443,7 +473,8 @@ def main(argv=None):
                            journal_dir=args.journal_dir or None,
                            snapshot_every=args.snapshot_every,
                            heartbeat_file=args.heartbeat or None,
-                           restart_count=args.generation, device=dev)
+                           restart_count=args.generation,
+                           extras=extras or None, device=dev)
     s = res["stats"]
     print(f"{cfg.name} on {dev}: served {s['finished']} requests over "
           f"{s['steps']} ticks on {args.slots} slots in "

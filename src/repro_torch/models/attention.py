@@ -3,8 +3,9 @@ chunked prefill against a dense KV cache or a paged KV pool.
 
 Counterpart of repro/models/attention.py (`attn_forward` through
 `sdpa_flash`, whose forward is `sdpa_chunked`'s arithmetic and whose
-chunk-streamed backward is the reference's custom VJP, `attn_decode` and
-`attn_chunk`). The
+chunk-streamed backward is the reference's custom VJP, causal,
+bidirectional or cross attention over a memory; `attn_decode`,
+`cross_attn_decode` and `attn_chunk`). The
 reference's dense code is plain jnp, not Pallas, so the port's is plain
 torch.matmul and softmax: scores and the value product take fp32 inputs,
 which is what JAX's preferred_element_type=float32 computes. The paged
@@ -35,17 +36,21 @@ def _chunk(Sk: int, ck: int) -> int:
     return ck
 
 
-def _chunk_mask(kpb, q_pos, kv_len: int, window: int) -> torch.Tensor:
-    """[Sq, ck] bool: causal, keys at or past kv_len out, and with a window
+def _chunk_mask(kpb, q_pos, kv_len: int, window: int,
+                causal: bool = True) -> torch.Tensor:
+    """[Sq, ck] bool ([1, ck] when neither causal nor windowed): keys at or
+    past kv_len out; if `causal`, keys past the query out; with a window
     > 0 only keys within `window` of the query."""
-    mask = (kpb[None, :] < kv_len) & (kpb[None, :] <= q_pos[:, None])
+    mask = kpb[None, :] < kv_len
+    if causal:
+        mask = mask & (kpb[None, :] <= q_pos[:, None])
     if window > 0:
         mask = mask & (kpb[None, :] > q_pos[:, None] - window)
     return mask
 
 
 def _flash_fwd(q, k, v, q_pos, k_pos, window: int, kv_len: int,
-               softcap: float, ck: int):
+               softcap: float, ck: int, causal: bool = True):
     """The online-softmax forward over KV chunks of ck keys: (out fp32
     [B, Sq, Hq, D] before its final cast, lse fp32 [B, Hkv, G, Sq], the
     row statistics the backward needs)."""
@@ -68,8 +73,8 @@ def _flash_fwd(q, k, v, q_pos, k_pos, window: int, kv_len: int,
         s = qg @ kb                                          # [B,Hkv,G,Sq,ck]
         if softcap > 0:
             s = softcap * torch.tanh(s / softcap)
-        s = torch.where(_chunk_mask(k_pos[c0:c0 + ck], q_pos, kv_len, window),
-                        s, NEG_INF)
+        s = torch.where(_chunk_mask(k_pos[c0:c0 + ck], q_pos, kv_len, window,
+                                    causal), s, NEG_INF)
         m_new = torch.maximum(m, s.amax(dim=-1))
         p = torch.exp(s - m_new[..., None])
         corr = torch.exp(m - m_new)
@@ -85,21 +90,24 @@ def _flash_fwd(q, k, v, q_pos, k_pos, window: int, kv_len: int,
 def sdpa_chunked_f32(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                      q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
                      kv_len: int, *, softcap: float = 0.0,
-                     ck: int = 1024) -> torch.Tensor:
+                     ck: int = 1024, causal: bool = True) -> torch.Tensor:
     """`sdpa_chunked` before its final cast: fp32 [B, Sq, Hq, D]."""
-    return _flash_fwd(q, k, v, q_pos, k_pos, window, kv_len, softcap, ck)[0]
+    return _flash_fwd(q, k, v, q_pos, k_pos, window, kv_len, softcap, ck,
+                      causal)[0]
 
 
 def sdpa_chunked(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                  q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
                  kv_len: int, *, softcap: float = 0.0,
-                 ck: int = 1024) -> torch.Tensor:
-    """Causal online-softmax attention over KV chunks of ck keys, in q's
-    dtype. q [B, Sq, Hq, D]; k/v [B, Sk, Hkv, D]; positions int [Sq] /
-    [Sk]; keys at k_pos >= kv_len are masked; softcap > 0 applies
+                 ck: int = 1024, causal: bool = True) -> torch.Tensor:
+    """Online-softmax attention over KV chunks of ck keys, in q's dtype,
+    causal unless `causal=False` (bidirectional or cross attention).
+    q [B, Sq, Hq, D]; k/v [B, Sk, Hkv, D]; positions int [Sq] / [Sk];
+    keys at k_pos >= kv_len are masked; softcap > 0 applies
     c * tanh(s / c) to the scores."""
     return sdpa_chunked_f32(q, k, v, q_pos, k_pos, window, kv_len,
-                            softcap=softcap, ck=ck).to(q.dtype)
+                            softcap=softcap, ck=ck,
+                            causal=causal).to(q.dtype)
 
 
 class _SdpaFlash(torch.autograd.Function):
@@ -109,18 +117,19 @@ class _SdpaFlash(torch.autograd.Function):
     the [Sq, Sk] score matrix, with the reference's casts."""
 
     @staticmethod
-    def forward(ctx, q, k, v, q_pos, k_pos, window, kv_len, softcap, ck):
+    def forward(ctx, q, k, v, q_pos, k_pos, window, kv_len, softcap, ck,
+                causal):
         out, lse = _flash_fwd(q, k, v, q_pos, k_pos, window, kv_len,
-                              softcap, ck)
+                              softcap, ck, causal)
         out = out.to(q.dtype)
         ctx.save_for_backward(q, k, v, out, lse, q_pos, k_pos)
-        ctx.args = (window, kv_len, softcap, ck)
+        ctx.args = (window, kv_len, softcap, ck, causal)
         return out
 
     @staticmethod
     def backward(ctx, dout):
         q, k, v, out, lse, q_pos, k_pos = ctx.saved_tensors
-        window, kv_len, softcap, ck = ctx.args
+        window, kv_len, softcap, ck, causal = ctx.args
         B, Sq, Hq, D = q.shape
         Sk, Hkv = k.shape[1], k.shape[2]
         G = Hq // Hkv
@@ -146,7 +155,8 @@ class _SdpaFlash(torch.autograd.Function):
                 s, dsoft = softcap * t, 1.0 - t * t
             else:
                 s, dsoft = sraw, None
-            mask = _chunk_mask(k_pos[c0:c0 + ck], q_pos, kv_len, window)
+            mask = _chunk_mask(k_pos[c0:c0 + ck], q_pos, kv_len, window,
+                               causal)
             s = torch.where(mask, s, NEG_INF)
             p = torch.exp(s - lse[..., None])
             dvs.append((p.transpose(-1, -2) @ dog).sum(2))    # [B,Hkv,ck,D]
@@ -161,32 +171,38 @@ class _SdpaFlash(torch.autograd.Function):
         dk = torch.cat(dks, dim=2).permute(0, 2, 1, 3)
         dv = torch.cat(dvs, dim=2).permute(0, 2, 1, 3)
         return (dq.to(q.dtype), dk.to(k.dtype), dv.to(v.dtype),
-                None, None, None, None, None, None)
+                None, None, None, None, None, None, None)
 
 
 def sdpa_flash(q: torch.Tensor, k: torch.Tensor, v: torch.Tensor,
                q_pos: torch.Tensor, k_pos: torch.Tensor, window: int,
                kv_len: int, *, softcap: float = 0.0,
-               ck: int = 1024) -> torch.Tensor:
+               ck: int = 1024, causal: bool = True) -> torch.Tensor:
     """`sdpa_chunked` (the same bits forward) with the chunk-streamed flash
     backward; differentiable in q, k and v."""
     return _SdpaFlash.apply(q, k, v, q_pos, k_pos, window, kv_len, softcap,
-                            ck)
+                            ck, causal)
 
 
-def _qkv(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg):
+def _qkv(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
+         kv_source: torch.Tensor | None = None, use_rope: bool = True):
     """Projections (plus the QKV bias where the params hold one, qwen2)
     and RoPE. x [B, S, d]; positions [S] or [B, S] -> q [B, S, Hq, hd],
-    k/v [B, S, Hkv, hd]."""
+    k/v [B, Sk, Hkv, hd]. K and V project `kv_source` [B, Sk, d] where
+    one is given (cross attention: the raw memory, no RoPE), else x."""
     B, S, _ = x.shape
     hd = cfg.resolved_head_dim()
     nq, nkv = cfg.num_heads, cfg.num_kv_heads
-    q, k, v = x @ params["wq"], x @ params["wk"], x @ params["wv"]
+    src = x if kv_source is None else kv_source
+    Sk = src.shape[1]
+    q, k, v = x @ params["wq"], src @ params["wk"], src @ params["wv"]
     if "bq" in params:
         q, k, v = q + params["bq"], k + params["bk"], v + params["bv"]
     q = q.reshape(B, S, nq, hd)
-    k = k.reshape(B, S, nkv, hd)
-    v = v.reshape(B, S, nkv, hd)
+    k = k.reshape(B, Sk, nkv, hd)
+    v = v.reshape(B, Sk, nkv, hd)
+    if not use_rope or kv_source is not None:
+        return q, k, v
     cos, sin = rope_angles(positions, hd, cfg.rope_theta)
     q = apply_rope(q, cos[..., None, :], sin[..., None, :])
     k = apply_rope(k, cos[..., None, :], sin[..., None, :])
@@ -195,13 +211,23 @@ def _qkv(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg):
 
 def attn_forward(params: dict, x: torch.Tensor, *, cfg,
                  positions: torch.Tensor, window: int = 0,
-                 return_kv: bool = False):
-    """Full-sequence causal self-attention. x [B, S, d]; positions [S].
-    With return_kv also the post-RoPE (k, v) for the KV cache."""
+                 causal: bool = True,
+                 kv_source: torch.Tensor | None = None,
+                 use_rope: bool = True, return_kv: bool = False):
+    """Full-sequence attention. x [B, S, d]; positions [S]. Causal
+    self-attention by default; `causal=False` is bidirectional (whisper's
+    encoder); `use_rope=False` leaves RoPE out (whisper). With `kv_source`
+    [B, Sk, d] it is cross attention over that memory: K and V project the
+    raw memory, keys sit at positions 0..Sk-1, no RoPE and no causal mask.
+    With return_kv also the (post-RoPE) (k, v) for the KV cache."""
     B, S, _ = x.shape
-    q, k, v = _qkv(params, x, positions, cfg)
-    out = sdpa_flash(q, k, v, positions, positions, window, S + 10**9,
-                     softcap=cfg.logit_softcap)
+    q, k, v = _qkv(params, x, positions, cfg, kv_source, use_rope)
+    Sk = k.shape[1]
+    k_pos = positions if kv_source is None else torch.arange(
+        Sk, dtype=torch.int32, device=x.device)
+    out = sdpa_flash(q, k, v, positions, k_pos, window, Sk + 10**9,
+                     softcap=cfg.logit_softcap,
+                     causal=causal and kv_source is None)
     out = out.reshape(B, S, -1) @ params["wo"]
     if return_kv:
         return out, k, v
@@ -234,7 +260,7 @@ def _unpack(cache_k, cache_v):
 
 
 def attn_decode(params: dict, x_t: torch.Tensor, cache_k, cache_v, t, *,
-                cfg, window: int = 0,
+                cfg, window: int = 0, use_rope: bool = True,
                 block_table: torch.Tensor | None = None):
     """Single-token decode. `t` is the position: an int (static batch) or
     [B]. The new token's K/V are written IN PLACE (JAX returns updated
@@ -244,7 +270,8 @@ def attn_decode(params: dict, x_t: torch.Tensor, cache_k, cache_v, t, *,
     page: retired rows write there). An int8 pool comes as (pages,
     scales) tuples, written through Q.scatter_token. Attention then runs
     over the dense rows, or walks the block table through K3
-    (paged_attn_decode)."""
+    (paged_attn_decode). `use_rope=False` leaves RoPE out (whisper's
+    decoder self-attention)."""
     B = x_t.shape[0]
     hd = cfg.resolved_head_dim()
     nq = cfg.num_heads
@@ -253,7 +280,7 @@ def attn_decode(params: dict, x_t: torch.Tensor, cache_k, cache_v, t, *,
         t_vec = torch.full((B,), t, dtype=torch.int32, device=dev)
     else:
         t_vec = t.to(torch.int32).reshape(-1).expand(B)
-    q, k, v = _qkv(params, x_t, t_vec[:, None], cfg)
+    q, k, v = _qkv(params, x_t, t_vec[:, None], cfg, use_rope=use_rope)
 
     rows = torch.arange(B, device=dev)
     tl = t_vec.long()
@@ -329,3 +356,18 @@ def attn_chunk(params: dict, x: torch.Tensor, cache_k, cache_v, start: int,
                        Smax if kv_len is None else kv_len,
                        softcap=cfg.logit_softcap)
     return out.reshape(B, Cs, nq * hd) @ params["wo"]
+
+
+def cross_attn_decode(params: dict, x_t: torch.Tensor, memory: torch.Tensor,
+                      *, cfg) -> torch.Tensor:
+    """Single-token cross attention over a fixed memory [B, M, d] (encoded
+    audio frames or image embeds): K and V are projected from the memory
+    at every step, as the reference does, and every key is attended (no
+    mask, no RoPE). x_t [B, 1, d] -> [B, 1, d]."""
+    B = x_t.shape[0]
+    hd = cfg.resolved_head_dim()
+    nq = cfg.num_heads
+    q, k, v = _qkv(params, x_t, None, cfg, kv_source=memory)
+    mask = torch.ones((B, k.shape[1]), dtype=torch.bool, device=x_t.device)
+    out = _decode_sdpa(q, k, v, mask, cfg.logit_softcap)
+    return out.to(x_t.dtype).reshape(B, 1, nq * hd) @ params["wo"]

@@ -1,8 +1,10 @@
 """Residual blocks. Counterpart of repro/models/blocks.py (`_ffn_apply`,
-`attn_block`, `attn_block_decode`, `attn_block_chunk`) for the attention
-family: with an MoE sublayer (expert choice with the GO cache, and token
-choice, dispatch or C1 group multiplexing, without one) or with the dense
-SwiGLU MLP (`params["mlp"]`, models/layers.py `mlp`); the xlstm family's
+`attn_block`, `attn_block_decode`, `attn_block_chunk`,
+`cross_block_decode`) for the attention family: with an MoE sublayer
+(expert choice with the GO cache, and token choice, dispatch or C1 group
+multiplexing, without one) or with a dense MLP (`params["mlp"]`:
+SwiGLU, models/layers.py `mlp`, or without `wg` the gelu MLP, whisper);
+causal, bidirectional or cross attention over a memory; the xlstm family's
 blocks are re-exported from models/xlstm.py, as the reference does, and
 the Mamba2 blocks (`mamba2_block_init`, `mamba2_block`,
 `mamba2_block_decode`) wrap models/ssm.py in a pre-norm residual.
@@ -17,10 +19,48 @@ from repro_torch.core.go_cache import (GOCache, go_cache_merge,
                                        go_cache_prefill, go_cache_step)
 from repro_torch.kernels import ops as OPS
 from repro_torch.models import attention as ATT
-from repro_torch.models.layers import mlp, rmsnorm
+from repro_torch.models.layers import (dense_init, gelu_mlp, gelu_mlp_init,
+                                       mlp, mlp_init, rmsnorm)
 from repro_torch.models.ssm import mamba2_decode, mamba2_forward, mamba2_init
 from repro_torch.models.xlstm import (mlstm_block, mlstm_block_init,  # noqa: F401
                                       slstm_block, slstm_block_init)
+
+
+def attn_init(g: torch.Generator, cfg, dt, device, *,
+              cross: bool = False) -> dict:
+    """One attention sublayer's weights (attention.py:30's attn_init): wq,
+    wk, wv, wo, and the zero QKV bias where cfg.qkv_bias asks for one,
+    except on a cross-attention layer."""
+    d, hd = cfg.d_model, cfg.resolved_head_dim()
+    nq, nkv = cfg.num_heads, cfg.num_kv_heads
+    p = {"wq": dense_init(g, d, nq * hd, dt, device),
+         "wk": dense_init(g, d, nkv * hd, dt, device),
+         "wv": dense_init(g, d, nkv * hd, dt, device),
+         "wo": dense_init(g, nq * hd, d, dt, device)}
+    if cfg.qkv_bias and not cross:
+        for key, width in (("bq", nq * hd), ("bk", nkv * hd),
+                           ("bv", nkv * hd)):
+            p[key] = torch.zeros(width, dtype=dt, device=device)
+    return p
+
+
+def attn_block_init(g: torch.Generator, cfg, dt, device, *,
+                    cross: bool = False, gelu: bool = False) -> dict:
+    """A dense attention block's weights (blocks.py:24's attn_block_init
+    without MoE): ln1, attn, ln2 and the SwiGLU MLP, or with `gelu` the
+    gelu MLP (whisper); `cross` takes no QKV bias."""
+    d = cfg.d_model
+    return {"ln1": {"scale": torch.ones(d, device=device)},
+            "attn": attn_init(g, cfg, dt, device, cross=cross),
+            "ln2": {"scale": torch.ones(d, device=device)},
+            "mlp": (gelu_mlp_init if gelu else mlp_init)(g, d, cfg.d_ff, dt,
+                                                         device)}
+
+
+def _mlp(w: dict, h: torch.Tensor) -> torch.Tensor:
+    """The dense MLP the params hold: SwiGLU, or gelu where there is no
+    `wg` (whisper)."""
+    return mlp(w, h) if "wg" in w else gelu_mlp(w, h)
 
 
 def _ffn_apply(params: dict, x: torch.Tensor, cfg, group_of_expert=None,
@@ -38,7 +78,7 @@ def _ffn_apply(params: dict, x: torch.Tensor, cfg, group_of_expert=None,
     sums `counts` and `dropped` and averages `balance_loss` over them."""
     h = rmsnorm(params["ln2"], x, cfg.norm_eps)
     if "mlp" in params:
-        return x + mlp(params["mlp"], h), None
+        return x + _mlp(params["mlp"], h), None
     B, S, d = h.shape
     moe_p, e = params["moe"], cfg.moe
     if MOE.resolve_backend(e, (h, moe_p)) == "xla":
@@ -68,14 +108,18 @@ def _ffn_apply(params: dict, x: torch.Tensor, cfg, group_of_expert=None,
 
 def attn_block(params: dict, x: torch.Tensor, *, cfg,
                positions: torch.Tensor, window: int = 0,
-               group_of_expert=None, group_members=None,
-               return_kv: bool = False, valid_len: int | None = None):
-    """Full-sequence block, x [B, S, d] -> (x, aux[, k, v]). `valid_len`
-    (a bucketed prefill's real length) masks the right pads out of
-    expert-choice routing (_ffn_apply)."""
+               causal: bool = True, group_of_expert=None,
+               group_members=None, kv_source: torch.Tensor | None = None,
+               use_rope: bool = True, return_kv: bool = False,
+               valid_len: int | None = None):
+    """Full-sequence block, x [B, S, d] -> (x, aux[, k, v]). `causal`,
+    `kv_source` (cross attention over a memory) and `use_rope` go to
+    attn_forward. `valid_len` (a bucketed prefill's real length) masks
+    the right pads out of expert-choice routing (_ffn_apply)."""
     h = rmsnorm(params["ln1"], x, cfg.norm_eps)
     a = ATT.attn_forward(params["attn"], h, cfg=cfg, positions=positions,
-                         window=window, return_kv=return_kv)
+                         window=window, causal=causal, kv_source=kv_source,
+                         use_rope=use_rope, return_kv=return_kv)
     if return_kv:
         a, k, v = a
     x, aux = _ffn_apply(params, x + a, cfg, group_of_expert, group_members,
@@ -103,8 +147,8 @@ def attn_block_decode(params: dict, x_t: torch.Tensor, cache_k, cache_v, t,
                         window=window, block_table=block_table)
     x = x_t + a
     if "mlp" in params:
-        return x + mlp(params["mlp"], rmsnorm(params["ln2"], x,
-                                              cfg.norm_eps)), None
+        return x + _mlp(params["mlp"], rmsnorm(params["ln2"], x,
+                                               cfg.norm_eps)), None
     h2 = rmsnorm(params["ln2"], x, cfg.norm_eps)[:, 0]            # [B, d]
     moe_p = params["moe"]
     if go_cache is None:
@@ -150,6 +194,15 @@ def attn_block_chunk(params: dict, x: torch.Tensor, cache_k, cache_v,
         for dst, src in zip(go_cache, go_cache_merge(go_cache, chunk_go)):
             dst.copy_(src)
     return x, aux
+
+
+def cross_block_decode(params: dict, x_t: torch.Tensor,
+                       memory: torch.Tensor, *, cfg) -> torch.Tensor:
+    """Cross-attention block decode, x_t [B, 1, d] -> x: attention over the
+    fixed memory [B, M, d] (no cache grows), then the block's MLP."""
+    h = rmsnorm(params["ln1"], x_t, cfg.norm_eps)
+    x = x_t + ATT.cross_attn_decode(params["attn"], h, memory, cfg=cfg)
+    return _ffn_apply(params, x, cfg)[0]
 
 
 # ------------------------------------------------------------- mamba2 block

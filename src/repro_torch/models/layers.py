@@ -1,5 +1,5 @@
 """Shared building blocks: device and dtype resolution, inits, RMSNorm, RoPE,
-the dense SwiGLU MLP, and the row gathers and row sums that training
+the dense SwiGLU and gelu MLPs, and the row gathers and row sums that training
 differentiates through.
 
 Counterpart of repro/models/layers.py. Compute convention: activations in
@@ -89,6 +89,21 @@ def mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
     these products in plain jnp, outside any Pallas kernel, so they stay
     torch.matmul here."""
     h = torch.nn.functional.silu(x @ params["wg"]) * (x @ params["wi"])
+    return h @ params["wo"]
+
+
+def gelu_mlp_init(gen: torch.Generator, d: int, d_ff: int, dtype,
+                  device) -> dict:
+    """The gelu MLP's weights (layers.py:123's wi, wo): whisper's blocks."""
+    return {"wi": dense_init(gen, d, d_ff, dtype, device),
+            "wo": dense_init(gen, d_ff, d, dtype, device)}
+
+
+def gelu_mlp(params: dict, x: torch.Tensor) -> torch.Tensor:
+    """gelu(x Wi) Wo in x's dtype, with the tanh approximation that
+    jax.nn.gelu takes by default (the exact erf form differs by up to
+    5e-4)."""
+    h = torch.nn.functional.gelu(x @ params["wi"], approximate="tanh")
     return h @ params["wo"]
 
 

@@ -1,16 +1,17 @@
 """Language-model assembly: the attention family, with MoE or the dense
-SwiGLU MLP, xlstm, and the Mamba2 hybrid (zamba2).
+SwiGLU MLP, xlstm, the Mamba2 hybrid (zamba2) and the cross-attention
+families (whisper's encoder-decoder, llama-vision's cross layers).
 
 Counterpart of repro/models/model.py for the serving paths:
 
   model_init(cfg, generator, device)            -> params
-  model_forward(params, tokens, cfg)            -> (x_final, aux_loss)
+  model_forward(params, tokens, cfg, extras)    -> (x_final, aux_loss)
   chunked_xent(params, x, labels, cfg)          -> (sum_loss, count)
   loss_fn(params, batch, cfg)                   -> (loss, metrics)
-  init_decode_state(cfg, batch, max_len, device, per_slot_t=, paged=)
-                                                -> dense or paged state
+  init_decode_state(cfg, batch, max_len, device, extras=, per_slot_t=,
+                    paged=)                     -> dense or paged state
   init_decode_slot / write_decode_slot          -> reset / fill one pool row
-  prefill(params, tokens, cfg, max_len, valid_len=)
+  prefill(params, tokens, cfg, max_len, valid_len=, extras=)
                                                 -> (state, last_logits)
   prefill_chunk(params, state, tokens, cfg, start, valid_len)
                                                 -> (state, chunk logits)
@@ -25,7 +26,13 @@ shared.{wg,wi,wo}}}`, `shared` only with always-on shared experts,
 xlstm: `mlayers` [n_seg, n_m, ...] and `slayers` [n_seg, ...]; zamba2:
 `layers.{ln, mix.{in_proj, conv_w, conv_b, A_log, D, dt_bias, out_proj,
 norm_scale}}` [L, ...] and ONE `shared_attn` attention block with the
-dense SwiGLU MLP, applied after every `attn_every`-th Mamba2 layer), so
+dense SwiGLU MLP, applied after every `attn_every`-th Mamba2 layer;
+whisper: `pos_embed` [40960, d], `encoder` [E, ...] of bidirectional
+blocks with the gelu MLP (`mlp.{wi,wo}`), `dec_self` [L, ...] of
+`{ln1, attn}` (no MLP), `dec_cross` [L, ...] of cross-attention blocks
+with the gelu MLP, `enc_norm`; llama-vision: `layers` [n_sup, n_self, ...]
+and `cross_layers` [n_sup, ...], a superblock of cross_attn_every - 1
+self-attention layers and one cross layer), so
 `bridge.params_from_numpy` carries JAX weights across unchanged. Where
 JAX scans over layers and carries the KV and GO caches (or the recurrent
 states) through the scan, the port loops over layers in Python and writes
@@ -35,6 +42,16 @@ in the reference. Recurrent families prefill by stepping serve_step, as
 the reference does, and keep dense per-row state only (no pages): the
 engine's pool admits and retires their rows through init_decode_slot and
 write_decode_slot like any other.
+
+The cross-attention families read a per-request memory: `model_forward`
+takes `extras["audio_frames"]` (whisper; its encoder runs there, without
+RoPE, bidirectional) or `extras["image_embeds"]` (llama-vision), while
+the decode state holds `memory` [B, M, d], memory already encoded, from
+`extras["memory"]` (zeros without one), which every decode step's cross
+layers read (their K and V are projected from it at every step, as in
+the reference). Their KV rows are dense only: whisper [L, B, max_len,
+...], llama-vision [n_sup * n_self, ...] by the flat self-layer index.
+whisper prefills by stepping serve_step, llama-vision in one pass.
 
 Training (`loss_fn`, the attention family) differentiates through
 `model_forward`: the MoE layer on its "xla" realization (`_training_cfg`
@@ -69,6 +86,7 @@ from repro_torch.core.grouping import (default_groups,
 from repro_torch.core.go_cache import (GOCache, go_cache_init,
                                        go_cache_init_slot, go_cache_prefill,
                                        go_cache_write_slot)
+from repro_torch.models import attention as ATT
 from repro_torch.models import blocks as B
 from repro_torch.models import ssm as SSM
 from repro_torch.models import xlstm as X
@@ -91,10 +109,11 @@ def layer_windows(cfg) -> list[int]:
 def check_served(cfg) -> None:
     """Raise on a configuration the port does not serve yet: it serves the
     xlstm family, the Mamba2 hybrid (zamba2, whose shared attention block
-    runs the dense SwiGLU MLP) and the attention family with the dense
-    SwiGLU MLP (no MoE, d_ff > 0) or with an MoE sublayer, either expert
-    choice with the GO cache or token choice, with or without always-on
-    shared experts, on either MoE realization."""
+    runs the dense SwiGLU MLP) and the attention family with a dense MLP
+    (no MoE, d_ff > 0: SwiGLU, or whisper's gelu MLP; the cross-attention
+    families whisper and llama-vision among them) or with an MoE sublayer,
+    either expert choice with the GO cache or token choice, with or
+    without always-on shared experts, on either MoE realization."""
     if cfg.block == "xlstm" or (cfg.block == "mamba2" and cfg.moe is None):
         return
     e = cfg.moe
@@ -154,6 +173,17 @@ def _xlstm_segments(cfg) -> tuple[int, int]:
         raise ValueError(f"{cfg.name}: num_layers={cfg.num_layers} is not a "
                          f"multiple of slstm_every={cfg.slstm_every}")
     return cfg.num_layers // cfg.slstm_every, cfg.slstm_every - 1
+
+
+def _vlm_segments(cfg) -> tuple[int, int]:
+    """(superblocks, self-attention layers in each): llama-vision's
+    num_layers is n_sup x cross_attn_every, each superblock's last layer a
+    cross layer."""
+    every = cfg.cross_attn_every
+    if cfg.num_layers % every:
+        raise ValueError(f"{cfg.name}: num_layers={cfg.num_layers} is not a "
+                         f"multiple of cross_attn_every={every}")
+    return cfg.num_layers // every, every - 1
 
 
 def _zamba_segments(cfg) -> tuple[int, int]:
@@ -218,6 +248,27 @@ def model_init(cfg, generator: torch.Generator, device) -> dict:
 
     p = {"embed": embed_init(g, cfg.vocab_size, d, dt, device),
          "final_norm": {"scale": torch.ones(d, device=device)}}
+    if cfg.block == "attn" and cfg.encoder_layers > 0:
+        # whisper; the position table is sized for the reference's
+        # decode_32k cell
+        p["pos_embed"] = (torch.randn((40960, d), generator=g, device=device,
+                                      dtype=torch.float32) * 0.02).to(dt)
+        p["encoder"] = _stacked(cfg.encoder_layers, lambda: B.attn_block_init(
+            g, cfg, dt, device, gelu=True))
+        p["dec_self"] = _stacked(L, lambda: {
+            "ln1": {"scale": torch.ones(d, device=device)},
+            "attn": B.attn_init(g, cfg, dt, device)})
+        p["dec_cross"] = _stacked(L, lambda: B.attn_block_init(
+            g, cfg, dt, device, cross=True, gelu=True))
+        p["enc_norm"] = {"scale": torch.ones(d, device=device)}
+        return p
+    if cfg.block == "attn" and cfg.cross_attn_every > 0:
+        n_sup, n_self = _vlm_segments(cfg)
+        p["layers"] = _stacked(n_sup, lambda: _stacked(
+            n_self, lambda: B.attn_block_init(g, cfg, dt, device)))
+        p["cross_layers"] = _stacked(n_sup, lambda: B.attn_block_init(
+            g, cfg, dt, device, cross=True))
+        return p
     if cfg.block == "xlstm":
         n_seg, n_m = _xlstm_segments(cfg)
         p["mlayers"] = _stacked(n_seg, lambda: _stacked(
@@ -272,27 +323,37 @@ def model_init(cfg, generator: torch.Generator, device) -> dict:
 
 
 def layer_params(tree: dict, l: int) -> dict:
-    """Layer l's parameters: views into the stacked layer axis."""
+    """Layer l's parameters: views into the stacked layer axis (the first
+    one; apply twice for two stacked axes, llama-vision's and xlstm's)."""
     return {k: layer_params(v, l) if isinstance(v, dict) else v[l]
             for k, v in tree.items()}
 
 
 # -------------------------------------------------------------------- forward
 
-def model_forward(params: dict, tokens: torch.Tensor, cfg):
+def model_forward(params: dict, tokens: torch.Tensor, cfg,
+                  extras: dict | None = None):
     """tokens [B, S] -> (x_final [B, S, d] normalized, aux balance loss: the
     sum over layers of each token-choice MoE layer's balance loss, a zero
-    fp32 scalar for expert choice, the dense MLP and the recurrent
-    families). xlstm runs each sLSTM block's whole sequence in one K9
-    launch on a card; zamba2 runs the chunked SSD scan in plain PyTorch."""
+    fp32 scalar for expert choice, the dense MLP and the recurrent and
+    cross-attention families). xlstm runs each sLSTM block's whole
+    sequence in one K9 launch on a card; zamba2 runs the chunked SSD scan
+    in plain PyTorch. whisper reads `extras["audio_frames"]` [B, F, d] and
+    llama-vision `extras["image_embeds"]` [B, I, d], tensors on the
+    tokens' device in the weights' dtype."""
     check_served(cfg)
+    extras = extras or {}
     x = take_rows(params["embed"], tokens)
     if cfg.block == "xlstm":
         return _fwd_xlstm(params, x, cfg)
+    if cfg.block == "attn" and cfg.encoder_layers > 0:
+        return _fwd_whisper(params, x, cfg, extras["audio_frames"])
     positions = torch.arange(tokens.shape[1], dtype=torch.int32,
                              device=tokens.device)
     if cfg.block == "mamba2":
         return _fwd_zamba(params, x, positions, cfg)
+    if cfg.cross_attn_every > 0:
+        return _fwd_vlm(params, x, positions, cfg, extras["image_embeds"])
     return _fwd_attn(params, x, positions, cfg)
 
 
@@ -332,6 +393,50 @@ def _fwd_attn(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg):
         x, b = _remat(_attn_layer, cfg, lp, x, positions, w, cfg, groups)
         bal = bal + b
     return rmsnorm(params["final_norm"], x, cfg.norm_eps), bal
+
+
+def _fwd_vlm(params: dict, x: torch.Tensor, positions: torch.Tensor, cfg,
+             memory: torch.Tensor):
+    """Each superblock's self-attention layers (causal, RoPE), then its
+    cross layer over the image embeds (no RoPE, no mask)."""
+    n_sup, n_self = _vlm_segments(cfg)
+    for s in range(n_sup):
+        stack = layer_params(params["layers"], s)
+        for i in range(n_self):
+            x, _ = B.attn_block(layer_params(stack, i), x, cfg=cfg,
+                                positions=positions)
+        x, _ = B.attn_block(layer_params(params["cross_layers"], s), x,
+                            cfg=cfg, positions=positions, causal=False,
+                            kv_source=memory, use_rope=False)
+    return (rmsnorm(params["final_norm"], x, cfg.norm_eps),
+            torch.zeros((), dtype=torch.float32, device=x.device))
+
+
+def _fwd_whisper(params: dict, x: torch.Tensor, cfg, frames: torch.Tensor):
+    """Encode the frames [B, F, d] (bidirectional, no RoPE, then
+    enc_norm: the memory), add the learned positions, then each decoder
+    layer: causal self-attention without RoPE (no MLP), then the cross
+    block over the memory with its gelu MLP."""
+    h = frames
+    pos = torch.arange(frames.shape[1], dtype=torch.int32,
+                       device=frames.device)
+    for l in range(cfg.encoder_layers):
+        h, _ = B.attn_block(layer_params(params["encoder"], l), h, cfg=cfg,
+                            positions=pos, causal=False, use_rope=False)
+    memory = rmsnorm(params["enc_norm"], h, cfg.norm_eps)
+    S = x.shape[1]
+    x = x + params["pos_embed"][:S]
+    pos = torch.arange(S, dtype=torch.int32, device=x.device)
+    for l in range(cfg.num_layers):
+        sp = layer_params(params["dec_self"], l)
+        h = rmsnorm(sp["ln1"], x, cfg.norm_eps)
+        x = x + ATT.attn_forward(sp["attn"], h, cfg=cfg, positions=pos,
+                                 use_rope=False)
+        x, _ = B.attn_block(layer_params(params["dec_cross"], l), x, cfg=cfg,
+                            positions=pos, causal=False, kv_source=memory,
+                            use_rope=False)
+    return (rmsnorm(params["final_norm"], x, cfg.norm_eps),
+            torch.zeros((), dtype=torch.float32, device=x.device))
 
 
 def _fwd_xlstm(params: dict, x: torch.Tensor, cfg):
@@ -416,13 +521,17 @@ def _training_cfg(cfg):
 def loss_fn(params: dict, batch: dict, cfg):
     """batch: tokens [B, S], labels [B, S] -> (loss, {"ce", "balance"}):
     the mean token cross-entropy plus balance_coef times the layers' mean
-    balance loss. The attention family only: the xlstm family's sLSTM runs
-    K9, which has no backward pass, and zamba2's training is untested."""
-    if cfg.block != "attn":
+    balance loss. The attention family without cross attention only: the
+    xlstm family's sLSTM runs K9, which has no backward pass, zamba2's
+    training is untested, and whisper's and llama-vision's are not
+    ported."""
+    if not paged_supported(cfg):
         raise NotImplementedError(
-            f"{cfg.name}: training is ported for the attention family; "
-            "xlstm and zamba2 training (a differentiable sLSTM and SSD "
-            "scan) are the rest of ROADMAP.md Queue 1 item 10")
+            f"{cfg.name}: training is ported for the attention family "
+            "without cross attention; xlstm and zamba2 training (a "
+            "differentiable sLSTM and SSD scan) and whisper and "
+            "llama-vision training are the rest of ROADMAP.md Queue 1 "
+            "item 10")
     cfg = _training_cfg(cfg)
     x, bal = model_forward(params, batch["tokens"], cfg)
     loss_sum, cnt = chunked_xent(params, x, batch["labels"], cfg)
@@ -437,12 +546,13 @@ def loss_fn(params: dict, batch: dict, cfg):
 def paged_supported(cfg) -> bool:
     """Paged KV pools cover the plain attention family: the KV cache is the
     only sequence-shaped decode state there (recurrent families keep O(1)
-    state per row)."""
-    return cfg.block == "attn"
+    state per row, whisper and llama-vision carry per-request memories)."""
+    return (cfg.block == "attn" and cfg.encoder_layers == 0
+            and cfg.cross_attn_every == 0)
 
 
 def init_decode_state(cfg, batch: int, max_len: int, device, *,
-                      per_slot_t: bool = False,
+                      extras: dict | None = None, per_slot_t: bool = False,
                       paged: tuple[int, int] | None = None) -> dict:
     """Zero decode state: the per-layer GO caches [L, B, E, k, (d)] (expert
     choice with the GO cache only; a dense MLP keeps none) and the
@@ -463,15 +573,38 @@ def init_decode_state(cfg, batch: int, max_len: int, device, *,
     [n_seg, n_m] and `slstm` c/n/m/h with a leading [n_seg]. zamba2: `ssm`
     {"ssm" [L, B, H, P, N] fp32, "conv" [L, B, K - 1, di + 2n]} and the
     shared attention block's dense KV rows `k`/`v` [n_app, B, max_len,
-    Hkv, hd], one pair per application."""
+    Hkv, hd], one pair per application.
+
+    The cross-attention families keep dense KV rows of their
+    self-attention layers (whisper [L, ...], llama-vision
+    [n_sup * n_self, ...] by the flat self-layer index) and `memory`
+    [B, M, d]: `extras["memory"]` where given (memory already encoded;
+    used as it is, not copied), else zeros of num_audio_frames or
+    num_image_tokens rows."""
     check_served(cfg)
+    extras = extras or {}
     st = {"t": (torch.zeros(batch, dtype=torch.int32, device=device)
                 if per_slot_t else 0)}
     dt = dtype_of(cfg)
+    if paged is not None and not paged_supported(cfg):
+        raise ValueError(
+            "paged decode state is attention-family only "
+            f"(block={cfg.block!r}, encoder_layers={cfg.encoder_layers}, "
+            f"cross_attn_every={cfg.cross_attn_every})")
+    if cfg.block == "attn" and not paged_supported(cfg):
+        if cfg.encoder_layers > 0:
+            n_kv, M = cfg.num_layers, cfg.num_audio_frames
+        else:
+            n_sup, n_self = _vlm_segments(cfg)
+            n_kv, M = n_sup * n_self, cfg.num_image_tokens
+        shp = (n_kv, batch, max_len, cfg.num_kv_heads,
+               cfg.resolved_head_dim())
+        st["k"] = torch.zeros(shp, dtype=dt, device=device)
+        st["v"] = torch.zeros(shp, dtype=dt, device=device)
+        st["memory"] = extras["memory"] if "memory" in extras else \
+            torch.zeros((batch, M, cfg.d_model), dtype=dt, device=device)
+        return st
     if cfg.block != "attn":
-        if paged is not None:
-            raise ValueError(f"{cfg.name}: paged decode state is "
-                             "attention-family only")
         if cfg.block == "xlstm":
             n_seg, n_m = _xlstm_segments(cfg)
             st["mlstm"] = X.mlstm_init_state(cfg, batch, device,
@@ -554,7 +687,8 @@ def init_decode_slot(state: dict, slot: int) -> None:
     any later occupant reads them. GO rows reset (scores to -inf, and an
     int8 state's row scales to 0). A recurrent row's leaves go to 0, as
     the reference sets them (xlstm's M too, which init_decode_state starts
-    at -1e30): write_decode_slot overwrites them all at admission."""
+    at -1e30): write_decode_slot overwrites them all at admission. A
+    cross-attention family's memory row goes to 0."""
     state["t"][slot] = 0
     for row in recurrent_rows(state, slot):
         row.zero_()
@@ -567,6 +701,8 @@ def init_decode_slot(state: dict, slot: int) -> None:
         go_cache_init_slot(state["go"], slot)
     if "go_scales" in state:
         state["go_scales"][:, slot] = 0
+    if "memory" in state:
+        state["memory"][slot] = 0
 
 
 def write_decode_slot(state: dict, slot: int, src: dict,
@@ -585,7 +721,8 @@ def write_decode_slot(state: dict, slot: int, src: dict,
     function of the tokens, independent of the pool's history) and each
     full-precision GO row once. A recurrent state's every leaf is written:
     retired rows keep stepping, so a leaf left out would hand the row's
-    previous occupant's state to the next request."""
+    previous occupant's state to the next request. A cross-attention
+    family's memory row is copied in the pool's dtype."""
     state["t"][slot] = int(src["t"])
     for dst, row in zip(recurrent_rows(state, slot), recurrent_rows(src, 0)):
         dst.copy_(row)
@@ -621,6 +758,8 @@ def write_decode_slot(state: dict, slot: int, src: dict,
             src_go = src_go._replace(outputs=qout)
             state["go_scales"][:, slot] = qsc[:, 0]
         go_cache_write_slot(state["go"], slot, src_go)
+    if "memory" in state:
+        state["memory"][slot] = src["memory"][0].to(state["memory"].dtype)
 
 
 def _layer_go(state: dict, l: int) -> GOCache | None:
@@ -632,12 +771,13 @@ def _layer_go(state: dict, l: int) -> GOCache | None:
 # -------------------------------------------------------------------- prefill
 
 def prefill(params: dict, tokens: torch.Tensor, cfg, max_len: int = 0,
-            valid_len: int | None = None):
+            valid_len: int | None = None, extras: dict | None = None):
     """Full-sequence forward that fills the decode state: KV caches and,
     for expert choice, each layer's GO cache from its routing; a recurrent
-    family steps serve_step over the prompt instead, on a state of
-    max_len (zamba2's shared-attention KV rows are max_len long, so the
-    engine's pool splats them; xlstm keeps none).
+    family and whisper step serve_step over the prompt instead, on a
+    state of max_len (zamba2's shared-attention KV rows are max_len long,
+    so the engine's pool splats them; xlstm keeps none). whisper and
+    llama-vision read `extras["memory"]` (init_decode_state).
     tokens [B, S] -> (state, last-position logits [B, V] fp32).
 
     `valid_len` (a host int) is a BUCKETED prefill: tokens are right-padded
@@ -647,17 +787,18 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, max_len: int = 0,
     real tokens (token choice routes the pads too; their outputs land on
     pad rows only). The logits come from position valid_len - 1 and the
     decode starts there: the pads' KV rows are overwritten by decode steps
-    before anything attends to them. Attention family only, as in the
-    reference."""
+    before anything attends to them. The plain attention family only, as
+    in the reference."""
     Bsz, S = tokens.shape
     dev = tokens.device
-    state = init_decode_state(cfg, Bsz, max_len or 2 * S, dev)
-    if cfg.block != "attn":
-        if valid_len is not None:
-            raise ValueError(
-                f"{cfg.name}: bucketed prefill (valid_len) is attention-"
-                "family only; a recurrent family prefills step by step")
-        # step-by-step prefill, exact for a recurrent family
+    state = init_decode_state(cfg, Bsz, max_len or 2 * S, dev, extras=extras)
+    if valid_len is not None and not paged_supported(cfg):
+        raise ValueError(
+            f"{cfg.name}: bucketed prefill (valid_len) is attention-family "
+            "only; recurrent and encoder-decoder families prefill step by "
+            "step, cross-attention ones have no bucketed prefill")
+    if cfg.block != "attn" or cfg.encoder_layers > 0:
+        # step-by-step prefill, exact for a recurrent family and whisper
         logits = None
         for i in range(S):
             logits, state = serve_step(params, state, tokens[:, i], cfg)
@@ -666,8 +807,23 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, max_len: int = 0,
     if not 1 <= vl <= S:
         raise ValueError(f"valid_len={valid_len} must lie in 1..{S}")
     positions = torch.arange(S, dtype=torch.int32, device=dev)
-    groups = _groups(cfg, dev)
     x = params["embed"][tokens]
+    if cfg.cross_attn_every > 0:
+        x = _prefill_vlm(params, x, positions, state, cfg)
+    else:
+        x = _prefill_layers(params, x, positions, state, cfg, valid_len)
+    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
+    logits = logits_from_hidden(params, x[:, vl - 1, :], cfg)
+    state["t"] = vl
+    return state, logits
+
+
+def _prefill_layers(params: dict, x: torch.Tensor, positions: torch.Tensor,
+                    state: dict, cfg, valid_len: int | None) -> torch.Tensor:
+    """The plain attention family's layers: each writes its KV rows and,
+    for expert choice, its GO cache from the layer's routing."""
+    S = x.shape[1]
+    groups = _groups(cfg, x.device)
     for l, w in enumerate(layer_windows(cfg)):
         x, aux, k, v = B.attn_block(layer_params(params["layers"], l), x,
                                     cfg=cfg, positions=positions, window=w,
@@ -682,10 +838,27 @@ def prefill(params: dict, tokens: torch.Tensor, cfg, max_len: int = 0,
                                   cfg.moe.top_k)
             for dst, src in zip(go_l, go):
                 dst.copy_(src)
-    x = rmsnorm(params["final_norm"], x, cfg.norm_eps)
-    logits = logits_from_hidden(params, x[:, vl - 1, :], cfg)
-    state["t"] = vl
-    return state, logits
+    return x
+
+
+def _prefill_vlm(params: dict, x: torch.Tensor, positions: torch.Tensor,
+                 state: dict, cfg) -> torch.Tensor:
+    """llama-vision's one-shot prefill: each superblock's self-attention
+    layers write their KV rows at the flat self-layer index, then its
+    cross layer reads the state's memory."""
+    n_sup, n_self = _vlm_segments(cfg)
+    S = x.shape[1]
+    for s in range(n_sup):
+        stack = layer_params(params["layers"], s)
+        for i in range(n_self):
+            x, _, k, v = B.attn_block(layer_params(stack, i), x, cfg=cfg,
+                                      positions=positions, return_kv=True)
+            state["k"][s * n_self + i, :, :S] = k
+            state["v"][s * n_self + i, :, :S] = v
+        x, _ = B.attn_block(layer_params(params["cross_layers"], s), x,
+                            cfg=cfg, positions=positions, causal=False,
+                            kv_source=state["memory"], use_rope=False)
+    return x
 
 
 # -------------------------------------------------------------- chunk prefill
@@ -749,6 +922,10 @@ def serve_step(params: dict, state: dict, tokens_t: torch.Tensor, cfg):
         x = _dec_xlstm(params, x, state, cfg)
     elif cfg.block == "mamba2":
         x = _dec_zamba(params, x, state, cfg)
+    elif cfg.encoder_layers > 0:
+        x = _dec_whisper(params, x, state, cfg)
+    elif cfg.cross_attn_every > 0:
+        x = _dec_vlm(params, x, state, cfg)
     else:
         for l, w in enumerate(layer_windows(cfg)):
             ck, cv, bt = _kv(state, l)
@@ -768,6 +945,43 @@ def serve_step(params: dict, state: dict, tokens_t: torch.Tensor, cfg):
     logits = logits_from_hidden(params, x[:, 0, :], cfg)
     state["t"] = t + 1
     return logits, state
+
+
+def _dec_vlm(params: dict, x: torch.Tensor, state: dict, cfg):
+    """One token through each superblock: its self-attention layers on
+    their KV rows (flat index), then its cross layer over the memory."""
+    n_sup, n_self = _vlm_segments(cfg)
+    t = state["t"]
+    for s in range(n_sup):
+        stack = layer_params(params["layers"], s)
+        for i in range(n_self):
+            l = s * n_self + i
+            x, _ = B.attn_block_decode(layer_params(stack, i), x,
+                                       state["k"][l], state["v"][l], t,
+                                       cfg=cfg)
+        x = B.cross_block_decode(layer_params(params["cross_layers"], s), x,
+                                 state["memory"], cfg=cfg)
+    return x
+
+
+def _dec_whisper(params: dict, x: torch.Tensor, state: dict, cfg):
+    """One token: the learned position of each row's own t, then each
+    decoder layer's self-attention (no RoPE, no MLP) and cross block."""
+    t = state["t"]
+    Bsz = x.shape[0]
+    if isinstance(t, int):
+        t_vec = torch.full((Bsz,), t, dtype=torch.long, device=x.device)
+    else:
+        t_vec = t.long().reshape(-1).expand(Bsz)
+    x = x + params["pos_embed"][t_vec][:, None, :]
+    for l in range(cfg.num_layers):
+        sp = layer_params(params["dec_self"], l)
+        h = rmsnorm(sp["ln1"], x, cfg.norm_eps)
+        x = x + ATT.attn_decode(sp["attn"], h, state["k"][l], state["v"][l],
+                                t, cfg=cfg, use_rope=False)
+        x = B.cross_block_decode(layer_params(params["dec_cross"], l), x,
+                                 state["memory"], cfg=cfg)
+    return x
 
 
 def _dec_xlstm(params: dict, x: torch.Tensor, state: dict, cfg):

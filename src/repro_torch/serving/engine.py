@@ -31,12 +31,22 @@ weight-shared attention block, one pair per application). Their
 admission steps serve_step over the prompt at batch 1 with the pool's
 max_tokens and splats every leaf of the row (write_decode_slot); their
 retired rows keep stepping with t pinned to 0 until a request takes the
-row. A recurrent config refuses what rides on pages or on a parallel
-prefill, with the reference's messages: `paged` (so `kv_quant="int8"`,
-`prefix_share`, `preemption` and `journal_dir`), `prefill_chunk` and
-`expert_aware`; `prompt_buckets` is off for it. Deadlines, cancel and
-the NaN quarantine (chaos poisons the attention rows of zamba2, xlstm's
-recurrent leaves) work as on a dense attention pool.
+row. And the cross-attention families on a dense pool: whisper-base
+(encoder-decoder; its admission steps serve_step over the prompt at
+batch 1, as a recurrent family's does) and llama-3.2-vision-90b (a
+cross layer after every 4 self-attention layers; one-shot prefill).
+Each request brings its own memory (`submit(extras={"memory": ...})`,
+encoded already, [1, M, d]); its prefill reads it and write_decode_slot
+copies it into the row's `memory`, which every decode tick's cross
+layers read (zeros where a request brings none). A request with extras
+never takes a prefix hit and deposits nothing, and a journaled engine
+rejects extras, as in the reference. These configs refuse what rides on
+pages or on a parallel prefill, with the reference's messages: `paged`
+(so `kv_quant="int8"`, `prefix_share`, `preemption` and `journal_dir`),
+`prefill_chunk` and `expert_aware`; `prompt_buckets` is off for them.
+Deadlines, cancel and the NaN quarantine (chaos poisons the attention
+rows of zamba2, whisper and llama-vision, xlstm's recurrent leaves) work
+as on a dense attention pool.
 
 The engine reads each tick's tokens back to the host once. Greedy
 streams equal the static `launch.serve.generate()`'s for the same cache
@@ -341,7 +351,7 @@ class ServingEngine:
                  prefix_share: bool = False, expert_aware: bool = False,
                  journal_dir: str | None = None, snapshot_every: int = 0,
                  heartbeat_file: str | None = None, restart_count: int = 0,
-                 device=None):
+                 extras: dict | None = None, device=None):
         self.device = resolve_device(device)
         if params["embed"].device.type != self.device.type:
             raise ValueError(f"params live on {params['embed'].device}, the "
@@ -355,12 +365,13 @@ class ServingEngine:
         if prefix_share and not paged:
             raise ValueError("prefix sharing needs a paged pool (it is "
                              "copy-on-write block-table surgery)")
-        if expert_aware and cfg.moe is None:
+        if expert_aware and (cfg.moe is None or not paged_supported(cfg)):
             raise ValueError("expert-aware admission needs a plain-attention "
                              "MoE config (it scores routing overlap)")
         self.pool = SlotPool(cfg, num_slots, max_tokens, self.device,
-                             paged=paged, page_size=page_size,
-                             num_pages=num_pages)
+                             extras=extras, paged=paged,
+                             page_size=page_size, num_pages=num_pages)
+        self._engine_extras = extras
         self.prefix_share = bool(prefix_share)
         self.expert_aware = bool(expert_aware)
         self.scheduler = (
@@ -437,7 +448,8 @@ class ServingEngine:
     # ------------------------------------------------------------- submission
 
     def submit(self, prompt, max_new_tokens: int, *, eos_id: int | None = None,
-               arrival_step: int = 0, priority: int = 0,
+               extras: dict | None = None, arrival_step: int = 0,
+               priority: int = 0,
                request_id: int | None = None, temperature: float = 0.0,
                top_p: float = 1.0, seed: int | None = None,
                deadline_s: float | None = None,
@@ -449,15 +461,23 @@ class ServingEngine:
         filtering from uniforms seeded by `seed` (None: the request id).
         `deadline_s` / `max_wall_s` bound the request's wall clock from
         submission / first admission: past either it retires TIMEOUT. An
-        expert-aware engine fingerprints the prompt here. Raises
-        RequestTooLarge for a request that could never fit the pool and
-        QueueFull at max_queue."""
+        expert-aware engine fingerprints the prompt here. `extras` carries
+        the request's cross-attention memory (`{"memory": [1, M, d]}`,
+        encoded already, on the engine's device; whisper, llama-vision),
+        read by its prefill. Raises RequestTooLarge for a request that
+        could never fit the pool and QueueFull at max_queue."""
+        if self.journal is not None and extras is not None:
+            raise ValueError(
+                "journaled engines reject per-request extras: cross-attn "
+                "memory is neither journaled nor snapshotted, so a "
+                "recovered re-prefill could not reproduce the stream")
         rid = request_id if request_id is not None else self._next_id
         self._next_id = max(self._next_id, rid + 1)
         req = Request(request_id=rid,
                       prompt=np.asarray(prompt, np.int32).reshape(-1),
                       max_new_tokens=int(max_new_tokens), eos_id=eos_id,
-                      arrival_step=arrival_step, priority=int(priority),
+                      extras=extras, arrival_step=arrival_step,
+                      priority=int(priority),
                       temperature=float(temperature), top_p=float(top_p),
                       seed=seed, deadline_s=deadline_s,
                       max_wall_s=max_wall_s)
@@ -887,7 +907,7 @@ class ServingEngine:
         tokens = torch.from_numpy(np.ascontiguousarray(prompt)).to(self.device)
         slot_state, logits = prefill(self.params, tokens[None, :], self.cfg,
                                      max_len=self.pool.max_tokens,
-                                     valid_len=valid_len)
+                                     valid_len=valid_len, extras=req.extras)
         self._install(slot, req, slot_state, logits, done)
 
     def _install(self, slot: int, req: Request, slot_state: dict, logits,
@@ -944,8 +964,10 @@ class ServingEngine:
     # --------------------------------------------------------- prefix sharing
 
     def _full_hit(self, req: Request):
-        """The exact full-prompt prefix-index entry for `req`, or None."""
-        if self.prefix_index is None:
+        """The exact full-prompt prefix-index entry for `req`, or None. A
+        request with extras (cross-attention memory) never hits: its
+        prefill state depends on more than the prompt."""
+        if self.prefix_index is None or req.extras is not None:
             return None
         return self.prefix_index.lookup_full(req.prompt)
 
@@ -963,8 +985,10 @@ class ServingEngine:
         chunk, at its position and width: its products round as the cold
         run's do (a GEMM's kernel, and so its bits, may change with the
         row count and the chunk's offset). A chain that does not reach
-        that chunk goes to the chunk lane or a one-shot prefill."""
-        if self.prefix_index is None or self.cfg.moe is not None:
+        that chunk goes to the chunk lane or a one-shot prefill. A request
+        with extras never hits."""
+        if self.prefix_index is None or req.extras is not None \
+                or self.cfg.moe is not None:
             return None
         shared = self.prefix_index.lookup_prefix(req.prompt)
         ps, Cs = self.pool.page_size, self.prefill_chunk
@@ -1054,9 +1078,10 @@ class ServingEngine:
         the GO rows (and scales) and the prefill logits. Clones, not views:
         the donor's decode rewrites its GO rows and its tail page (and
         rescales it on int8 pages), and its private pages go to other
-        requests once it retires. Device to device: no host copy."""
+        requests once it retires. Device to device: no host copy. A
+        request with extras deposits nothing."""
         idx = self.prefix_index
-        if idx is None:
+        if idx is None or req.extras is not None:
             return
         ps = self.pool.page_size
         st = self.pool.state
@@ -1185,6 +1210,9 @@ class ServingEngine:
             raise ValueError("journaling needs a paged pool (engine "
                              "snapshots are SlotPool.snapshot block-table "
                              "surgery)")
+        if self._engine_extras is not None:
+            raise ValueError("journaling rejects engine extras: cross-attn "
+                             "memory is not part of the snapshot payload")
         self.journal = EngineJournal(directory,
                                      snapshot_every=snapshot_every or 32)
         self.journal.commit_snapshot(self._snapshot_payload(),

@@ -10,9 +10,11 @@ One decode state of `num_slots` batch rows lives on the device for the
 engine's whole life; requests are admitted into free rows and retired out
 of them without reshaping anything. A recurrent family's rows (xlstm's
 mLSTM and sLSTM states; zamba2's SSM and conv states beside its shared
-attention block's dense KV rows) live in a dense pool only: a paged pool
-for one raises, as the reference's does. Per-slot positions (`state["t"]`, an
-int32 tensor [num_slots]) let rows sit at different sequence offsets.
+attention block's dense KV rows) and a cross-attention family's (its
+self-attention KV rows and its request's `memory` row) live in a dense
+pool only: a paged pool for one raises, as the reference's does.
+Per-slot positions (`state["t"]`, an int32 tensor [num_slots]) let rows
+sit at different sequence offsets.
 Host-side metadata (which request owns which row, its next input token,
 how many tokens it still owes, its next decode position, its temperature
 and top_p) stays in numpy, beside each sampling row's CPU
@@ -122,8 +124,8 @@ class SlotPool:
     """Fixed-width pool of per-request decode-cache rows."""
 
     def __init__(self, cfg, num_slots: int, max_tokens: int, device, *,
-                 paged: bool = False, page_size: int = 16,
-                 num_pages: int | None = None):
+                 extras: dict | None = None, paged: bool = False,
+                 page_size: int = 16, num_pages: int | None = None):
         self.cfg = cfg
         self.num_slots = num_slots
         self.max_tokens = max_tokens
@@ -164,8 +166,14 @@ class SlotPool:
             self.block_table = np.zeros(
                 (num_slots, max_tokens // page_size), np.int32)
             self._bt_dirty = False
+        # a request's cross-attention memory arrives at batch 1 with its
+        # prefill and write_decode_slot copies it into the row: the pool
+        # itself starts from zero memory rows
+        pool_extras = {k: v for k, v in (extras or {}).items()
+                       if k != "memory"}
         self.state = init_decode_state(
-            cfg, num_slots, max_tokens, self.device, per_slot_t=True,
+            cfg, num_slots, max_tokens, self.device, extras=pool_extras,
+            per_slot_t=True,
             paged=(num_pages, page_size) if self.paged else None)
         # host-side slot metadata
         self.owner: list[Request | None] = [None] * num_slots

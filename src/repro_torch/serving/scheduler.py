@@ -74,6 +74,7 @@ class Request:
     prompt: np.ndarray               # [T] int32 token ids
     max_new_tokens: int
     eos_id: int | None = None
+    extras: dict | None = None       # per-request cross-attn memory
     arrival_step: int = 0            # engine step at which the request arrives
     priority: int = 0                # admission class: lower = admitted first
     temperature: float = 0.0         # > 0 samples; 0 decodes greedily

@@ -2216,3 +2216,61 @@ def test_cuda_recurrent_engine_equals_cpu(cuda_device, arch):
     assert cpu.keys() == gpu.keys()
     for rid in cpu:
         np.testing.assert_array_equal(gpu[rid], cpu[rid])
+
+
+# ------------------------------------- the cross-attention families served
+
+def _cross_trace(cfg, params, device):
+    """Four staggered requests on two dense slots through the engine, each
+    with its own random memory (std 1, seeded; zero memory would zero the
+    cross layers' K and V)."""
+    from repro_torch.serving import ServingEngine
+    rng = np.random.default_rng(3)
+    g = torch.Generator().manual_seed(4)
+    M = cfg.num_audio_frames or cfg.num_image_tokens
+    eng = ServingEngine(params, cfg, num_slots=2, max_tokens=16,
+                        device=device)
+    rids = [eng.submit(rng.integers(0, cfg.vocab_size, size=n,
+                                    dtype=np.int32), 5, arrival_step=a,
+                       extras={"memory": torch.randn(
+                           (1, M, cfg.d_model), generator=g).to(device)})
+            for a, n in enumerate((6, 9, 5, 7))]
+    fin = eng.run()
+    return [fin[r].tokens for r in rids]
+
+
+@pytest.mark.requires_cuda
+@pytest.mark.parametrize("arch", ["whisper-base", "llama-3.2-vision-90b"])
+def test_cuda_cross_attention_smoke_equals_cpu(cuda_device, arch):
+    """whisper's and llama-vision's smoke configs on the card against the
+    CPU, fp32, a random memory a row: generate()'s tokens equal and the
+    logits that chose them within 1e-5, the engine's streams equal, and no
+    kernel of the port launched (the reference serves both families on a
+    dense pool: no paged attention, no MoE)."""
+    from repro_torch.configs.registry import get_config
+    from repro_torch.kernels import go_topk as GT
+    from repro_torch.kernels import paged_attn as PA
+    from repro_torch.kernels import slstm_cell as SC
+    from repro_torch.launch import serve as TS
+    from repro_torch.models.model import model_init
+    cfg = get_config(arch, smoke=True)
+    params = model_init(cfg, torch.Generator().manual_seed(0), "cpu")
+    g = torch.Generator().manual_seed(1)
+    tokens = torch.randint(0, cfg.vocab_size, (2, 12), generator=g)
+    mem = torch.randn((2, cfg.num_audio_frames or cfg.num_image_tokens,
+                       cfg.d_model), generator=g)
+    mods = (G, PA, GT, SC)
+    for m in mods:
+        m.reset_launches()
+    on_card = _to(params, cuda_device)
+    cpu = TS.generate(params, cfg, tokens, 6, device="cpu",
+                      extras={"memory": mem})
+    gpu = TS.generate(on_card, cfg, tokens.to(cuda_device), 6,
+                      device=cuda_device,
+                      extras={"memory": mem.to(cuda_device)})
+    assert torch.equal(gpu["tokens"].cpu(), cpu["tokens"])
+    torch.testing.assert_close(gpu["logits"].cpu(), cpu["logits"], rtol=1e-5,
+                               atol=1e-5)
+    assert _cross_trace(cfg, on_card, cuda_device) == \
+        _cross_trace(cfg, params, "cpu")
+    assert all(n == 0 for m in mods for n in m.LAUNCHES.values())

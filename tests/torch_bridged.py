@@ -3,7 +3,9 @@ same weights: the JAX model (MoE, where it has one, on backend="pallas", in
 interpret mode on the CPU) and the port's, with the JAX weights carried across. Built once
 per process and architecture. With them, the parity checks the dense
 models' test files share: logits through prefill and decode steps, and
-one trace through both engines."""
+one trace through both engines; for the cross-attention families
+(whisper, llama-vision), a random memory a request and one trace with
+them through both engines."""
 import dataclasses
 import functools
 
@@ -53,13 +55,21 @@ _PREFILL = jax.jit(JM.prefill, static_argnames=("cfg", "max_len"))
 _STEP = jax.jit(JM.serve_step, static_argnames="cfg")
 
 
-def logits_match(jcfg, tcfg, p, tp, tokens, steps, max_len, tol):
+def logits_match(jcfg, tcfg, p, tp, tokens, steps, max_len, tol,
+                 memory=None):
     """Prefill `tokens` [B, T] (numpy int32), then `steps` greedy decode
     steps, in both packages; every step's logits within `tol` (a dict of
-    rtol/atol). Returns the JAX prefill logits (numpy)."""
-    st, lg = _PREFILL(p, jnp.asarray(tokens), jcfg, max_len=max_len)
+    rtol/atol). `memory` [B, M, d] (numpy) is a cross-attention family's
+    decode-state memory. Returns the JAX prefill logits (numpy)."""
+    if memory is None:
+        st, lg = _PREFILL(p, jnp.asarray(tokens), jcfg, max_len=max_len)
+        extras = None
+    else:
+        st, lg = _PREFILL(p, jnp.asarray(tokens), jcfg,
+                          {"memory": jnp.asarray(memory)}, max_len=max_len)
+        extras = {"memory": torch.from_numpy(memory)}
     tst, tlg = TM.prefill(tp, torch.from_numpy(tokens).long(), tcfg,
-                          max_len=max_len)
+                          max_len=max_len, extras=extras)
     first = np.asarray(lg)
     np.testing.assert_allclose(tlg.numpy(), first, **tol)
     tok = jnp.argmax(lg, -1).astype(jnp.int32)
@@ -84,3 +94,24 @@ def engine_streams_match(jcfg, tcfg, p, tp, prompts, gen, **pool):
     assert (s["steps"], s["chunk_ticks"], s["peak_active"]) == \
         (rs["steps"], rs["chunk_ticks"], rs["peak_active"])
     return got
+
+
+def memories(cfg, n, seed):
+    """n random cross-attention memories [1, M, d] (numpy fp32, std 1; M
+    the config's audio frames or image tokens), one a request. Not zeros:
+    zero memory makes the cross layers' K and V zero, so their output
+    would be zero and a broken cross path would go unseen."""
+    M = cfg.num_audio_frames or cfg.num_image_tokens
+    rng = np.random.default_rng(seed)
+    return [rng.standard_normal((1, M, cfg.d_model)).astype(np.float32)
+            for _ in range(n)]
+
+
+def cross_streams(eng, prompts, mems, arrivals, gen, to):
+    """Submit each prompt with its own memory (`to` makes the engine's
+    array of a numpy one) at its arrival tick, run the engine dry; the
+    streams in submission order (numpy int32)."""
+    rids = [eng.submit(pr, gen, extras={"memory": to(m)}, arrival_step=a)
+            for pr, m, a in zip(prompts, mems, arrivals)]
+    fin = eng.run()
+    return [np.asarray(fin[r].tokens, np.int32) for r in rids]
